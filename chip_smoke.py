@@ -1,5 +1,6 @@
 """GPU smoke test of the PyTorch port: builds and checks its CUDA kernels,
-then drives the sorted-scan streaming path on one card.
+then drives the sorted-scan streaming path and the layer-publishing wire
+path on one card.
 
     python3 chip_smoke.py
 
@@ -8,18 +9,29 @@ Phases (any failure raises and exits non-zero, printing no result):
 1. Environment: torch and CUDA versions, the card's name and power limit,
    the kernels' build time (nvcc, from ``groundgrid_torch/csrc``).
 2. Each kernel against its plain PyTorch version on the same CUDA tensors,
-   at the main path's shapes (364^2 grid, 131072-point buffer):
+   at the main paths' shapes (364^2 grid, 131072-point buffer):
    K1 raster (7 columns of a prepared scan: counts, sums, min and max all
    bitwise, the plain version folding each run in the kernel's order), K2
    lookup (sorted point cells with 1 and 2 tables, an unsorted
    lattice-sized cell vector: bitwise), K3 spiral (a warm state:
-   confidence bitwise, heights atol 2e-5 / rtol 1e-5). CUDA-event times
-   beside the plain versions'.
+   confidence bitwise, heights atol 2e-5 / rtol 1e-5), K4 fused detect
+   (the warm raster layers of a real scan at 364^2, and random layers at
+   n = 12 and 45, one seed with low variance so that the main update
+   fires: ground and confidence bitwise). CUDA-event times beside
+   the plain versions'.
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
    synthetic scans: per-scan launch counts (K1 x1, K2 x3, K3 x1), no
    sortedness fallback, labels against the plain-version run on the card
    (>= 99.9 % agreement), a second kernel run bitwise equal to the first,
    ground-vs-truth recall/precision, ms/scan from CUDA events.
+4. The layer-publishing wire path, ``StreamingDriver(GroundGridConfig(
+   sorted_scans=True, wire_format=True, fused_detect=True), with_aux=True)``
+   over the first 16 scans: per-scan launch counts (K1 x2, K2 x3, K3 x1,
+   K4 x1), no fallback, labels against the plain-version run (>= 99.9 %)
+   with the points, points_raw, min and max layers bitwise, all 11 layers
+   finite, a second kernel run bitwise equal, a checkpoint after scan 8
+   (``save_state`` / ``load_state`` / ``restore``) whose resumed scans 9-16
+   are bitwise those of the uninterrupted run, ms/scan from CUDA events.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -27,14 +39,17 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 N_SCANS = 32
+N_LAYER_SCANS = 16
 AGREE_MIN = 0.999
 GROUND_TRUTH_IDS = (40, 72)  # synthetic road and terrain (SemanticKITTI ids)
 
@@ -79,10 +94,9 @@ def warm_driver(config, records, device, n_warm: int = 4):
     return driver
 
 
-def check_raster(config, driver, rec):
-    """K1 on the 7 columns of one prepared scan, against its plain version."""
+def prepared(config, driver, rec):
+    """A prepared scan of ``rec``, its binning and accepted points (no march)."""
     from groundgrid_torch.core import rasterize as rasterlib
-    from groundgrid_torch.ops import raster
 
     scan, _ = driver.make_scan(rec)
     binning = rasterlib.bin_points(config, scan.center, scan.center_lo, scan.px, scan.py,
@@ -90,7 +104,16 @@ def check_raster(config, driver, rec):
     cell = binning.cell
     if not bool((cell[1:] >= cell[:-1]).all()):
         raise AssertionError("prepared scan is not cell-sorted on the device")
-    accept = binning.inmap & ~binning.ignored
+    return scan, binning, binning.inmap & ~binning.ignored
+
+
+def check_raster(config, driver, rec):
+    """K1 on the 7 columns of one prepared scan, against its plain version."""
+    from groundgrid_torch.core import rasterize as rasterlib
+    from groundgrid_torch.ops import raster
+
+    scan, binning, accept = prepared(config, driver, rec)
+    cell = binning.cell
     cols, ops, _ = rasterlib.raster_columns(config, binning, scan.pz, scan.t_map_velo[:3, 3],
                                            accept, scan.center, scan.t_base_map)
     n2 = config.cell_count ** 2
@@ -164,62 +187,128 @@ def check_spiral(config, driver, rec):
     return err, ms, plain_ms
 
 
-def run_sequence(config, records, device):
-    """Labels (input order) and final layers of a fresh driver over ``records``,
-    with the CUDA-event and host-clock ms/scan of the run."""
+def check_detect(config, driver, rec):
+    """K4 on the warm raster layers of one real scan (364^2) and on random
+    layers at n = 12 and 45, against its plain version: bitwise."""
+    from groundgrid_torch.config import GroundGridConfig
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.core import grid as gridlib
+    from groundgrid_torch.core import rasterize as rasterlib
+    from groundgrid_torch.data.synthetic import detect_layers
+    from groundgrid_torch.ops import detect, raster
+
+    scan, binning, accept = prepared(config, driver, rec)
+    layers = rasterlib.rasterize_sorted(config, binning, scan.pz, scan.t_map_velo[:3, 3],
+                                        accept, scan.center, scan.t_base_map,
+                                        raster.raster_reduce)
+    moved = gridlib.move(config, driver.state, scan.t_base_map, scan.center, scan.center_lo)
+    device = scan.px.device
+    cases = [("364^2 warm scan", config, detectlib.make_tables(config, device),
+              (layers.points, layers.variance, layers.min_ground_height, moved.ground,
+               moved.groundpatch))]
+    # n = 12 (points x10: the default density passes no skip threshold) and
+    # 45; seed 3 with variance x0.01, where cells take the main update
+    for dim, res, scale in ((6.0, 0.5, 10.0), (16.65, 0.37, 1.0)):
+        cfg = GroundGridConfig(dimension=dim, resolution=res)
+        tabs = detectlib.make_tables(cfg, device)
+        for seed in range(4):
+            arrs = list(detect_layers(cfg.cell_count, seed))
+            arrs[0] = arrs[0] * np.float32(scale)
+            if seed == 3:
+                arrs[1] = arrs[1] * np.float32(0.01)
+            cases.append((f"n={cfg.cell_count} seed {seed}", cfg, tabs,
+                          tuple(torch.from_numpy(a).to(device) for a in arrs)))
+    err, changed = 0.0, []
+    for name, cfg, tabs, args in cases:
+        got = detect.detect_fused(cfg, tabs, *args)
+        want = detect.detect_fused_plain(cfg, tabs, *args)
+        for g, w, what in zip(got, want, ("ground", "confidence")):
+            if not torch.equal(g, w):
+                raise AssertionError(f"K4 ({name}) {what} differs in {int((g != w).sum())} "
+                                     f"cells, max {float((g - w).abs().max())}")
+            err = max(err, float((g - w).abs().max()))
+        changed.append(int((got[1] != args[4]).sum()))
+        if not changed[-1]:
+            raise AssertionError(f"K4 ({name}): the sweep changed no cell")
+    _, tabs, args = cases[0][1:]
+    ms = cuda_ms(lambda: detect.detect_fused(config, tabs, *args), 100)
+    plain_ms = cuda_ms(lambda: detect.detect_fused_plain(config, tabs, *args), 20)
+    log(f"K4 detect_fused: bitwise at {config.cell_count}^2 ({changed[0]} cells updated), "
+        f"n=12 and n=45 (4 seeds each); {config.cell_count}^2: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms")
+    return err, ms, plain_ms
+
+
+def run_sequence(config, records, device, with_aux=False, driver=None):
+    """Results (input order) of ``driver`` (a fresh one by default) over
+    ``records``, with the CUDA-event and host-clock ms/scan of the run."""
     from groundgrid_torch.runtime.driver import StreamingDriver
 
-    driver = StreamingDriver(config, device=device)
+    if driver is None:
+        driver = StreamingDriver(config, device, with_aux=with_aux)
     torch.cuda.synchronize(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    labels = [driver.process(rec).labels for rec in records]
+    results = [driver.process(rec) for rec in records]
     end.record()
     end.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1000.0 / len(records)
     event_ms = start.elapsed_time(end) / len(records)
-    return labels, driver, event_ms, wall_ms
+    return results, driver, event_ms, wall_ms
+
+
+def check_launches(counts, want, driver, name):
+    log(f"{name} over {want['spiral']} scans: launches {counts} (want {want}), "
+        f"fallbacks {driver.step.fallbacks}")
+    if counts != want:
+        raise AssertionError(f"{name}: launch counts {counts} != {want}")
+    if driver.step.fallbacks != 0:
+        raise AssertionError(f"{name}: {driver.step.fallbacks} sortedness fallbacks")
+
+
+def check_labels(results, records):
+    for res, rec in zip(results, records):
+        lbl = res.labels
+        if lbl.shape != (rec.points.shape[0],) or not np.isin(lbl, (0, 49, 99)).all():
+            raise AssertionError("labels of the wrong shape or values")
+
+
+def agreement(a, b, name):
+    total = sum(len(r.labels) for r in a)
+    mism = sum(int((x.labels != y.labels).sum()) for x, y in zip(a, b))
+    if 1 - mism / total < AGREE_MIN:
+        raise AssertionError(f"{name}: label agreement below {AGREE_MIN:.1%}")
+    return mism, total
 
 
 def phase_sequence(config, records, device):
-    import dataclasses
-
     from groundgrid_torch.ops import launch_counts, reset_launch_counts
 
     reset_launch_counts()
-    labels, driver, event_ms, wall_ms = run_sequence(config, records, device)
+    results, driver, event_ms, wall_ms = run_sequence(config, records, device)
     counts = launch_counts()
     n = len(records)
-    want = {"raster": n, "lookup": 3 * n, "spiral": n}
-    log(f"main path over {n} scans: launches {counts} (want {want}), "
-        f"fallbacks {driver.step.fallbacks}")
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != {want}")
-    if driver.step.fallbacks != 0:
-        raise AssertionError(f"{driver.step.fallbacks} sortedness fallbacks")
+    check_launches(counts, {"raster": n, "lookup": 3 * n, "spiral": n, "detect": 0}, driver,
+                   "main path")
     log(f"main path: {event_ms:.3f} ms/scan (CUDA events, host prep included), "
         f"{1000.0 / event_ms:.2f} scans/s; host clock {wall_ms:.3f} ms/scan")
 
-    for lbl, rec in zip(labels, records):
-        if lbl.shape != (rec.points.shape[0],) or not np.isin(lbl, (0, 49, 99)).all():
-            raise AssertionError("labels of the wrong shape or values")
+    check_labels(results, records)
     for t in (driver.state.ground, driver.state.groundpatch):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError("grid layers not finite")
 
     plain_cfg = dataclasses.replace(config, use_pallas=False)
-    plain_labels, _, plain_ms, _ = run_sequence(plain_cfg, records, device)
-    total = sum(len(lbl) for lbl in labels)
-    mism = sum(int((a != b).sum()) for a, b in zip(labels, plain_labels))
+    plain, _, plain_ms, _ = run_sequence(plain_cfg, records, device)
+    mism, total = agreement(results, plain, "main path")
     log(f"labels vs plain versions on the card: {mism} of {total} points differ "
         f"({1 - mism / total:.6%} agree; plain path {plain_ms:.3f} ms/scan)")
-    if 1 - mism / total < AGREE_MIN:
-        raise AssertionError(f"label agreement below {AGREE_MIN:.1%}")
 
     again, driver2, _, _ = run_sequence(config, records, device)
-    if not all(np.array_equal(a, b) for a, b in zip(labels, again)):
+    labels = [r.labels for r in results]
+    if not all(np.array_equal(a.labels, b) for a, b in zip(again, labels)):
         raise AssertionError("second kernel run: labels not bitwise equal")
     for a, b in ((driver.state.ground, driver2.state.ground),
                  (driver.state.groundpatch, driver2.state.groundpatch)):
@@ -239,6 +328,66 @@ def phase_sequence(config, records, device):
     return counts
 
 
+def phase_layers(config, records, device):
+    """Phase 4: the layer-publishing wire path with the fused detect stencil."""
+    from groundgrid_torch.ops import launch_counts, reset_launch_counts
+    from groundgrid_torch.runtime.checkpoint import load_state, save_state
+    from groundgrid_torch.runtime.driver import StreamingDriver
+
+    n, half = len(records), len(records) // 2
+    reset_launch_counts()
+    results, driver, event_ms, wall_ms = run_sequence(config, records, device, with_aux=True)
+    counts = launch_counts()
+    check_launches(counts, {"raster": 2 * n, "lookup": 3 * n, "spiral": n, "detect": n},
+                   driver, "layers path")
+    log(f"layers path: {event_ms:.3f} ms/scan (CUDA events, host prep included), "
+        f"{1000.0 / event_ms:.2f} scans/s; host clock {wall_ms:.3f} ms/scan")
+    check_labels(results, records)
+    cells = config.cell_count
+    for res in results:
+        if len(res.aux) != 11:
+            raise AssertionError(f"{len(res.aux)} aux layers, want 11")
+        for name, a in res.aux.items():
+            if a.shape != (cells, cells) or not np.isfinite(a).all():
+                raise AssertionError(f"aux layer {name}: shape {a.shape} or not finite")
+        if res.aux["points"].sum() != (res.labels == 99).sum():
+            raise AssertionError("aux points layer is not the non-ground count")
+
+    plain, _, plain_ms, _ = run_sequence(dataclasses.replace(config, use_pallas=False),
+                                         records, device, with_aux=True)
+    mism, total = agreement(results, plain, "layers path")
+    for a, b in zip(results, plain):
+        for name in ("points", "points_raw", "min_ground_height", "max_ground_height"):
+            if not np.array_equal(a.aux[name], b.aux[name]):
+                raise AssertionError(f"layers path: aux {name} differs from the plain run")
+    log(f"layers path vs plain versions on the card: {mism} of {total} points differ "
+        f"({1 - mism / total:.6%} agree; points, points_raw, min and max layers bitwise; "
+        f"plain path {plain_ms:.3f} ms/scan)")
+
+    def same(a, b):
+        return (np.array_equal(a.labels, b.labels)
+                and all(np.array_equal(a.aux[k], b.aux[k]) for k in a.aux))
+
+    # a second kernel run, checkpointed after scan ``half`` and resumed
+    first, second, _, _ = run_sequence(config, records[:half], device, with_aux=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/state.npz"
+        save_state(path, second.state, half, config, center64=second.center64)
+        state, nxt, extra = load_state(path, config, device)
+    rest, _, _, _ = run_sequence(config, records[half:], device, with_aux=True,
+                                 driver=second)
+    if not all(same(a, b) for a, b in zip(first + rest, results)):
+        raise AssertionError("second kernel run: labels or layers not bitwise equal")
+    resumed = StreamingDriver(config, device, with_aux=True)
+    resumed.restore(state, extra["center64"])
+    again, _, _, _ = run_sequence(config, records[nxt:], device, driver=resumed)
+    if not all(same(a, b) for a, b in zip(again, results[nxt:])):
+        raise AssertionError(f"resume after scan {nxt}: not bitwise the uninterrupted run")
+    log(f"determinism: second kernel run bitwise equal (labels and 11 layers); "
+        f"checkpoint after scan {nxt} resumed bitwise over scans {nxt + 1}-{n}")
+    return counts
+
+
 def main() -> int:
     phase_environment()
     from groundgrid_torch.config import GroundGridConfig
@@ -255,19 +404,26 @@ def main() -> int:
     k1 = check_raster(config, driver, records[4])
     k2 = check_lookup(config, driver, k1[3])
     k3 = check_spiral(config, driver, records[4])
+    k4 = check_detect(config, driver, records[4])
     torch.cuda.synchronize()
 
     counts = phase_sequence(config, records, device)
+    layer_config = dataclasses.replace(config, wire_format=True, fused_detect=True)
+    layer_counts = phase_layers(layer_config, records[:N_LAYER_SCANS], device)
     kernels = []
-    for name, route_file, replaces, key, res in (
-        ("raster_reduce", "raster.cu", "groundgrid_tpu/ops/pallas_raster.py:229", "raster", k1),
-        ("lookup", "lookup.cu", "groundgrid_tpu/ops/pallas_lookup.py:95", "lookup", k2),
+    # launches: each kernel's count in the path it serves (K4: phase 4)
+    for name, route_file, replaces, key, res, launches in (
+        ("raster_reduce", "raster.cu", "groundgrid_tpu/ops/pallas_raster.py:229", "raster", k1,
+         counts),
+        ("lookup", "lookup.cu", "groundgrid_tpu/ops/pallas_lookup.py:95", "lookup", k2, counts),
         ("spiral_interpolation", "spiral.cu", "groundgrid_tpu/ops/pallas_spiral.py:662",
-         "spiral", k3),
+         "spiral", k3, counts),
+        ("detect_ground_patches_fused", "detect.cu", "groundgrid_tpu/ops/pallas_detect.py:157",
+         "detect", k4, layer_counts),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"groundgrid_torch/csrc/{route_file}",
-            "replaces": replaces, "launches": counts[key], "max_abs_err": res[0],
+            "replaces": replaces, "launches": launches[key], "max_abs_err": res[0],
             "ms": res[1], "plain_ms": res[2],
         })
     print(json.dumps({"kernels": kernels}))

@@ -77,9 +77,9 @@ class GroundGridConfig:
     # verify sortedness on the device (and sort there if the host order was
     # wrong); kept for config parity
     sorted_fallback_check: bool = True
-    # quantized s16 wire format (not ported yet; see ROADMAP.md)
+    # quantized s16 wire format: 8 bytes per point (pipeline.WireScan)
     wire_format: bool = False
-    # fused detect stencil, K4 (not ported yet; see ROADMAP.md)
+    # fused detect stencil, K4 (ops/detect.py) instead of core/detect.py
     fused_detect: bool = False
     # degraded mode for a scan whose pose is missing/non-finite: False drops
     # the scan (GroundGridNodelet.cpp:133-136); True reuses the last good pose

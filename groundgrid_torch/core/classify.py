@@ -50,3 +50,19 @@ def classify(config: GroundGridConfig, binning: Binning, z, outlier, gh, var):
     )
     labels = torch.where(considered, labels, torch.full_like(labels, LABEL_DROPPED))
     return torch.where(outlier, torch.full_like(labels, LABEL_GROUND), labels)
+
+
+def nonground_counts(config: GroundGridConfig, binning: Binning, labels):
+    """(N, N) f32 per-cell count of non-ground points, in scatter form.
+
+    ``labels == 99`` is the reference's increment condition (considered and
+    above the tolerance, GroundSegmentation.cpp:176), published in the
+    reused "points" layer. The step takes the same count from a K1 sum over
+    the sorted cells; this form needs no order and is its reference.
+    """
+    n = config.cell_count
+    ng = labels == LABEL_NONGROUND
+    cell = torch.where(ng, binning.cell, torch.full_like(binning.cell, n * n))
+    counts = torch.zeros(n * n + 1, dtype=torch.float32, device=labels.device)
+    counts.index_add_(0, cell.to(torch.int64), ng.to(torch.float32))
+    return counts[:n * n].reshape(n, n)

@@ -10,6 +10,10 @@ The 3x3 and 5x5 box sums and min-pools are fixed-order shifted-slice adds
 and mins with SAME-style padding (zeros for sums, +inf for minima). Not
 ``F.conv2d``: on CUDA it goes through cuDNN in TF32 by default.
 
+Divisions by constants go through ``exactf32.div_const``: a CUDA division
+by a host scalar would multiply by the rounded reciprocal, an ulp off the
+reference's quotient.
+
 The distance-derived tables depend only on the config and are built once on
 the host (:func:`make_tables`), as the reference precomputes its
 ``expectedPoints`` table (``GroundSegmentation.cpp:37-48``).
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from groundgrid_torch.config import GroundGridConfig
+from groundgrid_torch.core.exactf32 import div_const
 
 
 def expected_points_table(config: GroundGridConfig) -> np.ndarray:
@@ -136,9 +141,9 @@ def detect_ground_patches(config: GroundGridConfig, tables: DetectTables, points
         & (max_var > 0)
         & (psum > ground_diff * tables.min_expected_s)
     )
-    new_c = torch.clamp_max(psum / ocpcf, 1.0)
+    new_c = torch.clamp_max(div_const(psum, ocpcf), 1.0)
     h1 = (groundlevel * new_c + groundpatch * ground * 2.0) / (new_c + groundpatch * 2.0)
-    c1 = torch.clamp_max((psum / (ocpcf * 2.0) + groundpatch) / 2.0, 1.0)
+    c1 = torch.clamp_max(div_const(div_const(psum, ocpcf * 2.0) + groundpatch, 2.0), 1.0)
 
     branch2 = localmin < ground
     take1 = process & ~guard & branch1

@@ -99,6 +99,17 @@ def _ulp_below(x):
     return x - (x.view(torch.int32) - 1).view(torch.float32)
 
 
+def div_const(x, c: float):
+    """``x / c`` for a host constant ``c``, IEEE-rounded on every device.
+
+    A CUDA division by a host scalar multiplies by the scalar's rounded
+    reciprocal, an ulp off the quotient for many ``x``; dividing by a 0-dim
+    tensor on ``x``'s device (filled there, no host sync) divides, as the CPU
+    and the CUDA kernels do.
+    """
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def div_rn(a, b):
     """Correctly-rounded f32 a / b for b > 0, a of any sign.
 

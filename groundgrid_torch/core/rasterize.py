@@ -165,13 +165,18 @@ def raster_columns(config: GroundGridConfig, binning: Binning, z, origin, accept
 
 
 def rasterize_sorted(config: GroundGridConfig, binning: Binning, z, origin, accept,
-                     center, t_base_map, reduce_fn) -> RasterLayers:
+                     center, t_base_map, reduce_fn, with_max: bool = False) -> RasterLayers:
     """Rasterization of a **cell-sorted** scan through one K1 call.
 
     ``reduce_fn``: ``ops.raster.raster_reduce`` (kernel on CUDA) or its
     plain version, over the columns of :func:`raster_columns`. The pd-spread
     flag of the exact-zero m2 gate is ``min pd < max pd`` over the accepted
     points, the JAX package's "some pd differs from the first" test.
+
+    ``with_max`` fills the aux max layer from the same max column: the max of
+    the accepted z and the reset value FLT_MIN (the reference's init quirk,
+    GroundSegmentation.cpp:73), FLT_MIN in cells without accepted points.
+    Without it the layer holds the reset value.
     """
     n2 = config.cell_count ** 2
     cols, ops, shift = raster_columns(config, binning, z, origin, accept, center, t_base_map)
@@ -182,8 +187,10 @@ def rasterize_sorted(config: GroundGridConfig, binning: Binning, z, origin, acce
     mins = torch.where((raw > 0) & (zmin < 1e30), zmin - float(np.float32(1e-4)),
                        torch.full_like(raw, FLT_MAX))
     has_spread = (zmin - o2) < (zmax - o2)
-    # the aux max layer is not on this path: its reset value (FLT_MIN quirk)
-    maxs = torch.full((n2,), FLT_TINY, dtype=torch.float32, device=z.device)
+    if with_max:  # non-accepted points carry -MIN_SENT: they never win
+        maxs = torch.where(raw > 0, torch.clamp_min(zmax, FLT_TINY), FLT_TINY)
+    else:
+        maxs = torch.full((n2,), FLT_TINY, dtype=torch.float32, device=z.device)
     return _finish_layers(
         config, points_raw=raw, count=out[1], sum_z=out[2], sum_pdc=out[3],
         sum_pdc2=out[4], min_gh=mins, max_gh=maxs, shift=shift, has_spread=has_spread,

@@ -2,10 +2,11 @@
 
 A copy of the pieces of ``groundgrid_tpu/data/synthetic.py`` that the port's
 slice, its bench and ``chip_smoke.py`` use: ``Scene``, ``make_scene``,
-``terrain_z``, ``vehicle_pose``, ``render_scan`` and ``synthetic_sequence``.
-It is carried here because importing ``groundgrid_tpu`` imports JAX;
-``tests/test_torch_shared.py`` holds the copy's output bitwise to the
-original's.
+``terrain_z``, ``vehicle_pose``, ``render_scan`` and ``synthetic_sequence``,
+and of the random detect-stage layers of ``tests/test_pallas_detect.py``
+(:func:`detect_layers`). It is carried here because importing
+``groundgrid_tpu`` imports JAX; ``tests/test_torch_shared.py`` holds the
+copy's output bitwise to the original's.
 
 The simulated sensor mimics an HDL-64E: 64 beams between +2 and -24.8 deg
 elevation, uniform azimuth sweep. The world is a gently rolling terrain (sum
@@ -206,3 +207,22 @@ def synthetic_sequence(
         T = vehicle_pose(scene, k, step_m)
         pts, lbl = render_scan(scene, T, n_beams=n_beams, n_azimuth=n_azimuth, seed=seed + k)
         yield pts, lbl, T
+
+
+def detect_layers(n: int, seed: int):
+    """Plausible detect-stage inputs on an (n, n) grid, float32 NumPy.
+
+    ``(points, variance, min_gh, ground, conf)``: sparse integer counts and
+    the rasterizer's empty-cell conventions (variance 0, min_gh FLT_MAX), as
+    ``_random_inputs`` of ``tests/test_pallas_detect.py`` makes them.
+    """
+    flt_max = np.float32(np.finfo(np.float32).max)
+    rng = np.random.default_rng(seed)
+    points = rng.poisson(1.2, (n, n)).astype(np.float32)
+    points[rng.random((n, n)) < 0.4] = 0.0
+    occupied = points > 0
+    variance = np.where(occupied, rng.gamma(2.0, 0.05, (n, n)), 0.0).astype(np.float32)
+    min_gh = np.where(occupied, rng.normal(-1.6, 0.4, (n, n)), flt_max).astype(np.float32)
+    ground = rng.normal(-1.7, 0.3, (n, n)).astype(np.float32)
+    conf = rng.random((n, n)).astype(np.float32)
+    return points, variance, min_gh, ground, conf

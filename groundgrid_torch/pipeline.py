@@ -16,18 +16,23 @@ is given in place and returns it (the JAX step donated the state's buffers,
 detect stage's fresh layers. Per scan the step reads the device twice: the
 sortedness check and the march's candidate count.
 
-Kernels: with ``config.use_pallas`` None or True, K1/K2/K3 go through their
+Kernels: with ``config.use_pallas`` None or True, K1-K4 go through their
 wrappers (``groundgrid_torch/ops``), which launch the CUDA kernels for CUDA
 tensors and take the plain versions for CPU tensors; False takes the plain
-versions on every device.
+versions on every device. ``config.fused_detect`` runs detection through
+K4 instead of ``core/detect.py``.
 
-Configurations outside this slice raise ``NotImplementedError``: unsorted
-scans, the wire format, aux layers and the fused detect stencil (see
+Options, as in the JAX package: ``with_aux`` also returns all eleven
+published grid layers (:class:`AuxLayers`; the non-ground count is a second
+K1 launch), and ``config.wire_format`` takes the 8-byte-per-point s16
+:class:`WireScan` (:func:`prepare_scan_wire`), dequantized on the device.
+Unsorted scans (``sorted_scans=False``) raise ``NotImplementedError`` (see
 ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -43,6 +48,7 @@ from groundgrid_torch.core import outliers as outlierlib
 from groundgrid_torch.core import rasterize as rasterlib
 from groundgrid_torch.core import transforms as tf
 from groundgrid_torch.core.grid import GridState
+from groundgrid_torch.ops import detect as detectops
 from groundgrid_torch.ops import lookup as lookuplib
 from groundgrid_torch.ops import raster as rasterops
 from groundgrid_torch.ops import spiral as spiralops
@@ -85,18 +91,28 @@ class StepOutput(NamedTuple):
     z: torch.Tensor
 
 
-def _validate(config: GroundGridConfig, with_aux: bool) -> None:
+class AuxLayers(NamedTuple):
+    """All published grid layers, (N, N) f32 (reference layer set, SURVEY.md 2.3)."""
+
+    points: torch.Tensor  # non-ground count after classification
+    points_raw: torch.Tensor
+    ground: torch.Tensor
+    groundpatch: torch.Tensor
+    ground_candidates: torch.Tensor
+    plane_dist: torch.Tensor
+    mean_variance: torch.Tensor
+    m2: torch.Tensor
+    min_ground_height: torch.Tensor
+    max_ground_height: torch.Tensor
+    variance: torch.Tensor
+
+
+def _validate(config: GroundGridConfig) -> None:
     config.validate()
-    todo = [name for name, on in (
-        ("sorted_scans=False", not config.sorted_scans),
-        ("wire_format", config.wire_format),
-        ("fused_detect", config.fused_detect),
-        ("with_aux", with_aux),
-    ) if on]
-    if todo:
+    if not config.sorted_scans:
         raise NotImplementedError(
-            f"groundgrid_torch runs the sorted-scan main path only; not ported yet: "
-            f"{', '.join(todo)} (see ROADMAP.md, Queue 1)"
+            "groundgrid_torch runs sorted scans only; not ported yet: sorted_scans=False "
+            "(see ROADMAP.md, Queue 1)"
         )
     if config.max_points > 1 << outlierlib.IDX_BITS:
         raise NotImplementedError(
@@ -112,25 +128,30 @@ def _validate(config: GroundGridConfig, with_aux: bool) -> None:
 
 
 class Step:
-    """``step(state, scan) -> (state, StepOutput)`` for one config.
+    """``step(state, scan) -> (state, StepOutput[, AuxLayers])`` for one config.
 
-    ``fallbacks`` counts scans whose device cell ids were not sorted (a
-    host/device binning divergence); those are sorted on the device, by a
-    stable sort of the ids, before K1.
+    ``scan`` is a :class:`Scan`, or a :class:`WireScan` under
+    ``config.wire_format``. ``fallbacks`` counts scans whose device cell ids
+    were not sorted (a host/device binning divergence); those are sorted on
+    the device, by a stable sort of the ids, before K1.
     """
 
-    def __init__(self, config: GroundGridConfig):
+    def __init__(self, config: GroundGridConfig, with_aux: bool = False):
         self.config = config
+        self.with_aux = with_aux
         self.fallbacks = 0
         self._tables: dict[torch.device, detectlib.DetectTables] = {}
         if config.use_pallas is False:
             self._reduce = rasterops.raster_reduce_plain
             self._lookup = lookuplib.lookup_plain
             self._spiral = spiralops.spiral_interpolation_plain
+            fused = detectops.detect_fused_plain
         else:
             self._reduce = rasterops.raster_reduce
             self._lookup = lookuplib.lookup
             self._spiral = spiralops.spiral_interpolation
+            fused = detectops.detect_fused
+        self._detect = fused if config.fused_detect else detectlib.detect_ground_patches
 
     def tables(self, device) -> detectlib.DetectTables:
         device = torch.device(device)
@@ -138,9 +159,11 @@ class Step:
             self._tables[device] = detectlib.make_tables(self.config, device)
         return self._tables[device]
 
-    def __call__(self, state: GridState, scan: Scan):
+    def __call__(self, state: GridState, scan):
         cfg = self.config
         n2 = cfg.cell_count ** 2
+        if cfg.wire_format:
+            scan = dequantize_scan(cfg, scan)
         x, y, z = scan.px, scan.py, scan.pz
         origin = np.asarray(scan.t_map_velo, np.float32)[:3, 3]
 
@@ -163,15 +186,17 @@ class Step:
         accept = binning.inmap & ~binning.ignored & ~outlier
         rb, rz, racc = binning, z, accept
         cell = binning.cell
+        order = None
         if cell.shape[0] > 1 and not bool((cell[1:] >= cell[:-1]).all()):
             self.fallbacks += 1
             order = torch.argsort(cell, stable=True)
             rb, rz, racc = binning.permute(order), z[order], accept[order]
         raster = rasterlib.rasterize_sorted(cfg, rb, rz, origin, racc, center,
-                                            scan.t_base_map, self._reduce)
+                                            scan.t_base_map, self._reduce,
+                                            with_max=self.with_aux)
 
         # --- ground patch detection (cpp:314-395) ---
-        ground, groundpatch = detectlib.detect_ground_patches(
+        ground, groundpatch = self._detect(
             cfg, self.tables(z.device), raster.points, raster.variance,
             raster.min_ground_height, moved.ground, moved.groundpatch,
         )
@@ -186,18 +211,45 @@ class Step:
 
         state.ground, state.groundpatch = ground, groundpatch
         state.center, state.center_lo = moved.center, moved.center_lo
-        return state, StepOutput(labels=labels, outlier=outlier.to(torch.int32), x=x, y=y, z=z)
+        out = StepOutput(labels=labels, outlier=outlier.to(torch.int32), x=x, y=y, z=z)
+        if not self.with_aux:
+            return state, out
+
+        # non-ground count per cell (cpp:176): a K1 sum over the raster's
+        # (sorted) cells, the JAX step's count kernel
+        ng = (labels == classifylib.LABEL_NONGROUND).to(torch.float32)
+        (counts,) = self._reduce(rb.cell, [ng if order is None else ng[order]], ["sum"], n2)
+        aux = AuxLayers(
+            points=counts.reshape(ground.shape), points_raw=raster.points_raw,
+            ground=ground, groundpatch=groundpatch,
+            ground_candidates=raster.ground_candidates, plane_dist=raster.plane_dist,
+            mean_variance=raster.mean_variance, m2=raster.m2,
+            min_ground_height=raster.min_ground_height,
+            max_ground_height=raster.max_ground_height, variance=raster.variance,
+        )
+        return state, out, aux
 
 
 def make_step_fn(config: GroundGridConfig, with_aux: bool = False) -> Step:
     """Build the per-scan step for ``config`` (raises for unported modes)."""
-    _validate(config, with_aux)
-    return Step(config)
+    _validate(config)
+    return Step(config, with_aux)
 
 
 def make_step(config: GroundGridConfig, with_aux: bool = False) -> Step:
-    """The per-scan step; PyTorch runs eagerly, so this is :func:`make_step_fn`."""
+    """The per-scan step; PyTorch runs eagerly, so this is :func:`make_step_fn`.
+
+    With ``config.wire_format`` the step takes a :class:`WireScan`.
+    """
     return make_step_fn(config, with_aux)
+
+
+def make_wire_step(config: GroundGridConfig, with_aux: bool = False) -> Step:
+    """The per-scan step consuming :class:`WireScan` (sorted-scan mode);
+    ``make_step`` with ``config.wire_format=True``."""
+    if not config.sorted_scans:
+        raise ValueError("the wire format requires config.sorted_scans")
+    return make_step(dataclasses.replace(config, wire_format=True), with_aux)
 
 
 def init_state(config: GroundGridConfig, t_map_velo, device) -> GridState:
@@ -265,6 +317,15 @@ def predict_cells(config: GroundGridConfig, center, x, y, valid, center_lo=None)
     return cell.numpy()
 
 
+def _to_device(buf: np.ndarray, device) -> torch.Tensor:
+    """One host -> device copy of ``buf``, from pinned memory for CUDA."""
+    host = torch.from_numpy(buf)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
 def prepare_scan(config: GroundGridConfig, points, rings, t_map_velo, center, device,
                  t_map_base=None, t_base_map=None):
     """Host-side scan preparation for the sorted-scan step.
@@ -299,12 +360,7 @@ def prepare_scan(config: GroundGridConfig, points, rings, t_map_velo, center, de
     buf[:3] = xyz[order].T
     buf[3:].view(np.int32)[0] = rng[order]
     buf[3:].view(np.int32)[1] = msk[order]
-    host = torch.from_numpy(buf)
-    device = torch.device(device)
-    if device.type == "cuda":
-        dev = host.pin_memory().to(device, non_blocking=True)
-    else:
-        dev = host.to(device)
+    dev = _to_device(buf, device)
     scan = Scan(
         px=dev[0], py=dev[1], pz=dev[2],
         rings=dev[3].view(torch.int32), valid=dev[4].view(torch.int32),
@@ -314,3 +370,119 @@ def prepare_scan(config: GroundGridConfig, points, rings, t_map_velo, center, de
         center=np.asarray(ch, np.float32), center_lo=np.asarray(cl, np.float32),
     )
     return scan, order
+
+
+def wire_scales(config: GroundGridConfig) -> tuple[np.float32, np.float32]:
+    """Per-axis s16 wire quantization steps ``(s_xy, s_z)``, powers of two.
+
+    A copy of the JAX package's ``wire_scales`` (held to it bitwise by
+    ``tests/test_torch_shared.py``). ``s_xy`` is the smallest power-of-two
+    step whose +/-32767-step span covers the grid half-span plus a 2 m guard
+    (a clamped point is still outside the map); ``s_z`` is one power finer,
+    coarsened until the z span reaches +/-16 m (a clamped z would be a wrong
+    height inside the map). Default geometry: 2**-9 m xy, 2**-10 m z.
+    """
+    need = float(config.half_length) + 2.0
+    k = 0
+    while 32767.0 * 2.0 ** -(k + 1) >= need:
+        k += 1
+    kz = k + 1
+    while 32767.0 * 2.0 ** -kz < 16.0:
+        kz -= 1
+    return np.float32(2.0 ** -k), np.float32(2.0 ** -kz)
+
+
+class WireScan(NamedTuple):
+    """One scan in the 8-byte-per-point s16 wire format, cell-sorted.
+
+    qx/qy: (P,) int16 on the step's device, ``(x - center) / s_xy``; qz:
+    ``(z - sensor z) / s_z``; rings: (P,) int16. ``count`` is the valid
+    prefix length (padding sorts behind every real point). The poses and the
+    center pair are host NumPy f32, as in :class:`Scan`.
+    """
+
+    qx: torch.Tensor
+    qy: torch.Tensor
+    qz: torch.Tensor
+    rings: torch.Tensor
+    count: int
+    t_map_velo: np.ndarray
+    t_map_base: np.ndarray
+    t_base_map: np.ndarray
+    center: np.ndarray
+    center_lo: np.ndarray
+
+
+def dequantize_scan(config: GroundGridConfig, w: WireScan) -> Scan:
+    """WireScan -> Scan on the device: ``q * s + ref`` in f32.
+
+    The steps are powers of two, so ``q * s`` is exact and only the add
+    rounds: bitwise the host's dequantized coordinates that the scan was
+    sorted by (eager PyTorch keeps the product and the add two ops).
+    """
+    sxy, sz = wire_scales(config)
+    dev = w.qx.device
+    x = w.qx.to(torch.float32) * float(sxy) + float(w.center[0])
+    y = w.qy.to(torch.float32) * float(sxy) + float(w.center[1])
+    z = w.qz.to(torch.float32) * float(sz) + float(np.float32(w.t_map_velo[2, 3]))
+    valid = (torch.arange(w.qx.shape[0], dtype=torch.int32, device=dev) < w.count)
+    return Scan(px=x, py=y, pz=z, rings=w.rings.to(torch.int32), valid=valid.to(torch.int32),
+                t_map_velo=w.t_map_velo, t_map_base=w.t_map_base, t_base_map=w.t_base_map,
+                center=w.center, center_lo=w.center_lo)
+
+
+def prepare_scan_wire(config: GroundGridConfig, points, rings, t_map_velo, center, device,
+                      t_map_base=None, t_base_map=None):
+    """Host prep for the s16 wire format; returns ``(WireScan, order)``.
+
+    Quantizes the map-frame points against the grid center (x, y) and the
+    sensor height (z), bins and stably sorts the *dequantized* f32
+    coordinates (what the device will see, so the device-side sortedness
+    holds), and ships one (4, P) int16 buffer in one pinned copy. The NumPy
+    steps are the JAX package's ``prepare_scan_wire``, bitwise.
+    """
+    p = np.asarray(points, dtype=np.float64)
+    r = np.asarray(rings, dtype=np.int32)
+    count = min(p.shape[0], config.max_points)
+    cap = config.max_points
+
+    t_map_velo = np.asarray(t_map_velo, dtype=np.float64)
+    if t_map_base is None or t_base_map is None:
+        _, t_map_base, t_base_map = tf.scan_poses(t_map_velo)
+    ch, cl = _center_ds(center)
+    origin_z = np.float32(t_map_velo[2, 3].astype(np.float32))
+
+    xyz = np.zeros((cap, 3), dtype=np.float32)
+    xyz[:count] = tf.transform_points(t_map_velo, p[:count, :3]).astype(np.float32)
+    refs = np.array([ch[0], ch[1], origin_z], np.float32)
+    sxy, sz = wire_scales(config)
+    scales = np.array([sxy, sxy, sz], np.float32)
+    # power-of-two steps: the 1/s multiply is exact; np.rint rounds half to even
+    q = np.clip(
+        np.rint((xyz - refs[None, :]) * (np.float32(1.0) / scales)[None, :]),
+        -32768, 32767,
+    ).astype(np.int16)
+    q[count:] = 0  # padding quantizes to garbage offsets; zero keeps dequant tame
+    dq = q.astype(np.float32) * scales[None, :] + refs[None, :]
+
+    msk = np.zeros((cap,), dtype=np.int32)
+    msk[:count] = 1
+    cells = predict_cells(config, ch, dq[:, 0], dq[:, 1], msk, center_lo=cl)
+    # padding sorts behind every real point: the stable sort keeps real
+    # out-of-map points, which share the overflow bin, ahead of it
+    order = np.argsort(cells, kind="stable")
+    rng = np.zeros((cap,), dtype=np.int16)
+    rng[:count] = r[:count].astype(np.int16)
+
+    buf = np.empty((4, cap), np.int16)
+    buf[:3] = q[order].T
+    buf[3] = rng[order]
+    dev = _to_device(buf, device)
+    wire = WireScan(
+        qx=dev[0], qy=dev[1], qz=dev[2], rings=dev[3], count=int(count),
+        t_map_velo=t_map_velo.astype(np.float32),
+        t_map_base=np.asarray(t_map_base, np.float32),
+        t_base_map=np.asarray(t_base_map, np.float32),
+        center=np.asarray(ch, np.float32), center_lo=np.asarray(cl, np.float32),
+    )
+    return wire, order

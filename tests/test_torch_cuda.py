@@ -9,8 +9,9 @@ alone:
 
 Small sizes, including grids below 32 cells a side: K1 bitwise on every
 column, K2 bitwise, K3 confidence bitwise and heights within atol 2e-5 /
-rtol 1e-5; plus the small-config streaming step on the card against the
-same step on the CPU.
+rtol 1e-5, K4 bitwise; plus the small-config streaming step on the card
+against the same step on the CPU, on the main path and on the fused, aux
+and wire path.
 """
 
 import dataclasses
@@ -20,7 +21,9 @@ import pytest
 import torch
 
 from groundgrid_torch.config import GroundGridConfig
-from groundgrid_torch.ops import launch_counts, lookup, raster, reset_launch_counts, spiral
+from groundgrid_torch.core.detect import make_tables
+from groundgrid_torch.data.synthetic import detect_layers
+from groundgrid_torch.ops import detect, launch_counts, lookup, raster, reset_launch_counts, spiral
 
 pytestmark = pytest.mark.gpu
 
@@ -94,6 +97,48 @@ def test_spiral_kernel_matches_plain(cuda, dimension, resolution):
         spiral.spiral_interpolation(cfg, ground.t(), conf.t(), 0.37)
 
 
+@pytest.mark.parametrize("dimension,resolution,scale", [
+    (6.0, 0.5, 10.0), (22.0, 0.5, 1.0), (16.65, 0.37, 1.0), (40.0, 0.5, 1.0), (120.0, 0.33, 1.0),
+])
+def test_detect_kernel_matches_plain(cuda, dimension, resolution, scale):
+    """n = 12 (points x10 so that cells pass the skip threshold), 44, 45, 80
+    and 364: ground and confidence bitwise."""
+    cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
+    n = cfg.cell_count
+    tables = make_tables(cfg, cuda)
+    for seed, quiet in ((0, False), (1, False), (0, True)):
+        layers = list(detect_layers(n, seed))
+        layers[0] = layers[0] * np.float32(scale)
+        if quiet:  # variance x0.01: cells take the main update
+            layers[1] = layers[1] * np.float32(0.01)
+        ts = [torch.from_numpy(a).to(cuda) for a in layers]
+        before = detect.detect_fused.launches
+        got = detect.detect_fused(cfg, tables, *ts)
+        assert detect.detect_fused.launches == before + 1
+        want = detect.detect_fused_plain(cfg, tables, *ts)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert (got[1].cpu().numpy() != layers[4]).any()
+
+
+def test_plain_detect_on_card_matches_cpu(cuda):
+    """The plain detect stage divides by constants on the card as on the CPU
+    (a CUDA division by a host scalar would multiply by its reciprocal).
+    Variance x0.01: cells take the main update, where the divisions are."""
+    from groundgrid_torch.core import detect as detectlib
+
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5)
+    n = cfg.cell_count
+    for seed in range(2):
+        layers = list(detect_layers(n, seed))
+        layers[1] = layers[1] * np.float32(0.01)
+        got = {d: detectlib.detect_ground_patches(
+            cfg, make_tables(cfg, d), *(torch.from_numpy(a).to(d) for a in layers))
+            for d in ("cpu", cuda)}
+        for a, b in zip(got["cpu"], got[cuda]):
+            assert torch.equal(a, b.cpu())
+
+
 def test_wrappers_reject_bad_input(cuda):
     cell = torch.zeros(8, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
@@ -122,7 +167,7 @@ def test_small_step_on_card_matches_cpu(cuda):
         a, b = cpu.process(rec), gpu.process(rec)
         total += a.labels.size
         mism += int((a.labels != b.labels).sum())
-    assert launch_counts() == {"raster": 3, "lookup": 9, "spiral": 3}
+    assert launch_counts() == {"raster": 3, "lookup": 9, "spiral": 3, "detect": 0}
     assert mism <= 0.001 * total
     assert gpu.step.fallbacks == 0
     np.testing.assert_array_equal(gpu.state.center.numpy(), cpu.state.center.numpy())
@@ -130,4 +175,31 @@ def test_small_step_on_card_matches_cpu(cuda):
     reset_launch_counts()
     for rec in recs:
         plain.process(rec)
-    assert launch_counts() == {"raster": 0, "lookup": 0, "spiral": 0}
+    assert launch_counts() == {"raster": 0, "lookup": 0, "spiral": 0, "detect": 0}
+
+
+def test_layers_path_step_on_card_matches_cpu(cuda):
+    """Fused detect, aux layers and wire ingest: the card against the CPU."""
+    from groundgrid_torch.data.synthetic import synthetic_sequence
+    from groundgrid_torch.runtime.driver import ScanRecord, StreamingDriver
+
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5, max_points=16384, ray_steps=40,
+                           max_outlier_candidates=1024, sorted_scans=True, wire_format=True,
+                           fused_detect=True)
+    scans = list(synthetic_sequence(3, seed=7, n_beams=24, n_azimuth=720, step_m=1.5))
+    recs = [ScanRecord(index=i, timestamp=0.1 * i, points=p, labels=l, t_map_velo=T)
+            for i, (p, l, T) in enumerate(scans)]
+    cpu = StreamingDriver(cfg, "cpu", with_aux=True)
+    gpu = StreamingDriver(cfg, cuda, with_aux=True)
+    reset_launch_counts()
+    total = mism = 0
+    for rec in recs:
+        a, b = cpu.process(rec), gpu.process(rec)
+        total += a.labels.size
+        mism += int((a.labels != b.labels).sum())
+        for name in ("points_raw", "min_ground_height", "max_ground_height"):
+            np.testing.assert_array_equal(b.aux[name], a.aux[name], err_msg=name)
+        np.testing.assert_array_equal(b.x, a.x)
+    assert launch_counts() == {"raster": 6, "lookup": 9, "spiral": 3, "detect": 3}
+    assert mism <= 0.001 * total
+    assert gpu.step.fallbacks == 0

@@ -141,14 +141,8 @@ def test_empty_overflow_and_bad_pose_scans(small_config, small_scans):
         assert (a.labels != b.labels).sum() <= (1 - AGREE) * p.shape[0]
 
 
-@pytest.mark.parametrize("change", [
-    {"sorted_scans": False}, {"wire_format": True}, {"fused_detect": True}, "with_aux",
-])
+@pytest.mark.parametrize("change", [{"sorted_scans": False}])
 def test_unported_configurations_raise(small_config, change):
     _, tcfg = _configs(small_config)
-    if change == "with_aux":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.make_step(tcfg, with_aux=True)
-        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.make_step(dataclasses.replace(tcfg, **change))

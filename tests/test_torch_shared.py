@@ -106,3 +106,51 @@ def test_synthetic_sequence_bitwise():
         np.testing.assert_array_equal(pa, pb)
         np.testing.assert_array_equal(la, lb)
         np.testing.assert_array_equal(Ta, Tb)
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"dimension": 40.0, "resolution": 0.5},
+    {"dimension": 12.0, "resolution": 0.5},
+    {"dimension": 300.0, "resolution": 0.2},
+    {"dimension": 70.0, "resolution": 0.37},
+])
+def test_wire_scales_bitwise(kw):
+    from groundgrid_tpu.pipeline import wire_scales as j_scales
+
+    from groundgrid_torch.pipeline import wire_scales as t_scales
+
+    a = t_scales(tconfig.GroundGridConfig(**kw))
+    b = j_scales(jconfig.GroundGridConfig(**kw))
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype == np.float32
+        np.testing.assert_array_equal(x, y)
+
+
+def test_port_imports_no_jax():
+    """``groundgrid_torch`` and every module of it import in a fresh
+    interpreter without pulling in ``jax`` or ``groundgrid_tpu``."""
+    import pathlib
+    import subprocess
+    import sys
+
+    import groundgrid_torch
+
+    root = pathlib.Path(groundgrid_torch.__file__).parent
+    modules = sorted(
+        "groundgrid_torch." + ".".join(p.relative_to(root).with_suffix("").parts)
+        for p in root.rglob("*.py") if p.name != "__init__.py"
+    )
+    assert "groundgrid_torch.ops.detect" in modules and len(modules) > 15
+    code = (
+        "import importlib, sys\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'groundgrid_tpu'))\n"
+        "assert not bad, ('imported at startup', bad)\n"
+        "sys.modules.update(jax=None, groundgrid_tpu=None)  # importing either now raises\n"
+        f"for m in {['groundgrid_torch', *modules]!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=root.parent, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.startswith("ok"), proc.stderr
