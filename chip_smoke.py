@@ -32,6 +32,19 @@ Phases (any failure raises and exits non-zero, printing no result):
    finite, a second kernel run bitwise equal, a checkpoint after scan 8
    (``save_state`` / ``load_state`` / ``restore``) whose resumed scans 9-16
    are bitwise those of the uninterrupted run, ms/scan from CUDA events.
+5. The entry point, ``python -m groundgrid_torch``, called in-process
+   (``runtime.cli.main``) at the default geometry over the 32 scans of phase
+   3 written as a SemanticKITTI sequence: (a) ``evaluate``, NumPy prep; (b)
+   with ``--native-loader``; (c) (b) with ``--pipeline-depth 2``; (d) (b)
+   with ``--on-device-eval``; (e) ``--wire --native-loader``; (f) a
+   checkpointed run to scan 15, then ``--resume`` over the sequence; (g)
+   ``playback --native-loader --pipeline-depth 2`` with layer and HTML
+   exports. The C++ loaders must be native; (a)-(d) and the resumed (f)
+   print the same statistics block and metrics; (e) is within 0.1 pt of (a)
+   on F1 and IoUg; per scan K1 x1 (x2 for (g)), K2 x3, K3 x1 and no
+   sortedness fallback; (g) writes 11 layer PNGs per exported scan and the
+   player. Prints ms/scan per variant (the payload's and CUDA events around
+   the call) and the host prep p50 of NumPy against the native loader.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -39,8 +52,11 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import sys
 import tempfile
 import time
@@ -52,6 +68,8 @@ N_SCANS = 32
 N_LAYER_SCANS = 16
 AGREE_MIN = 0.999
 GROUND_TRUTH_IDS = (40, 72)  # synthetic road and terrain (SemanticKITTI ids)
+WIRE_BUDGET_PT = 0.1  # the JAX CLI's ``accuracy`` budget (cli.py:539)
+TIMING_KEYS = ("avg_ms", "scans_per_sec", "pipeline_depth")
 
 
 def log(msg: str) -> None:
@@ -388,6 +406,178 @@ def phase_layers(config, records, device):
     return counts
 
 
+class StepRecorder:
+    """Keeps every step the CLI's drivers build, to read their fallbacks."""
+
+    def __init__(self):
+        from groundgrid_torch.runtime import driver
+
+        self.steps = []
+        self._module, self._make = driver, driver.make_step
+
+    def __enter__(self):
+        def make_step(*args, **kwargs):
+            self.steps.append(self._make(*args, **kwargs))
+            return self.steps[-1]
+
+        self._module.make_step = make_step
+        return self
+
+    def __exit__(self, *exc):
+        self._module.make_step = self._make
+
+    @property
+    def fallbacks(self) -> int:
+        return sum(s.fallbacks for s in self.steps)
+
+
+def run_cli(argv, n_scans, device, raster_per_scan=1):
+    """``cli.main(argv)`` with its launch counts checked; returns its output
+    lines (an ``evaluate``'s without the JSON payload), the payload and the
+    CUDA-event ms/scan."""
+    from groundgrid_torch.ops import launch_counts, reset_launch_counts
+    from groundgrid_torch.runtime import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with StepRecorder() as steps, contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        reset_launch_counts()
+        start.record()
+        rc = cli.main(argv)
+        end.record()
+        end.synchronize()
+        counts = launch_counts()
+    sys.stderr.write(err.getvalue())
+    if rc != 0:
+        raise AssertionError(f"{' '.join(argv[:1])}: exit code {rc}")
+    if "is not native" in err.getvalue():
+        raise AssertionError("the C++ loader did not build: scans were prepared in NumPy")
+    want = {"raster": raster_per_scan * n_scans, "lookup": 3 * n_scans, "spiral": n_scans,
+            "detect": 0}
+    if counts != want or steps.fallbacks:
+        raise AssertionError(f"{' '.join(argv)}: launches {counts} (want {want}), "
+                             f"{steps.fallbacks} sortedness fallbacks")
+    lines = out.getvalue().strip().splitlines()
+    ms = start.elapsed_time(end) / n_scans
+    if argv[0] != "evaluate":
+        return lines, None, ms
+    return lines[:-1], json.loads(lines[-1]), ms
+
+
+def host_prep_ms(root, config, device, n):
+    """Per-scan host prep as the consumer sees it: NumPy (read + ``make_scan``)
+    against a wait on the native loader, with the step run between waits."""
+    from groundgrid_torch.data.native_loader import SortedPrefetchingLoader
+    from groundgrid_torch.data.semantickitti import SemanticKITTI
+    from groundgrid_torch.runtime.driver import StreamingDriver
+
+    ds = SemanticKITTI(root, "00")
+    numpy_ms, native_ms = [], []
+    driver = StreamingDriver(config, device)
+    for k in range(n):
+        t0 = time.perf_counter()
+        rec = ds.read_scan(k)
+        driver.make_scan(rec)
+        torch.cuda.synchronize(device)
+        numpy_ms.append((time.perf_counter() - t0) * 1000.0)
+        driver.process(rec)
+    loader = SortedPrefetchingLoader(ds, config, device)
+    if not loader.native:
+        raise AssertionError("SortedPrefetchingLoader is not native")
+    driver, it = StreamingDriver(config, device), iter(loader)
+    for _ in range(n):
+        t0 = time.perf_counter()
+        rec = next(it)
+        torch.cuda.synchronize(device)
+        native_ms.append((time.perf_counter() - t0) * 1000.0)
+        driver.process(rec)
+    loader.close()
+    return numpy_ms, native_ms
+
+
+def phase_entry_point(config, records, device):
+    """Phase 5: ``python -m groundgrid_torch`` evaluate and playback."""
+    from groundgrid_torch.data.native_loader import WirePrefetchingLoader
+    from groundgrid_torch.data.semantickitti import SemanticKITTI, write_sequence
+
+    n = len(records)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_sequence(root, 0, [(r.points, r.labels, r.t_map_velo) for r in records])
+        ds = SemanticKITTI(root, "00")
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        log(f"entry point: {n} scans written as a SemanticKITTI sequence "
+            f"({size / 2**20:.1f} MiB) in {time.perf_counter() - t0:.1f} s")
+        wire_cfg = dataclasses.replace(config, wire_format=True)
+        wire_loader = WirePrefetchingLoader(ds, wire_cfg, device)
+        if not wire_loader.native:
+            raise AssertionError("WirePrefetchingLoader is not native")
+        wire_loader.close()
+
+        common = ["--sequence", "00", "--device", str(device), "--dimension",
+                  repr(config.dimension), "--resolution", repr(config.resolution),
+                  "--max-points", str(config.max_points)]
+        base = ["evaluate", "--directory", root] + common
+        native = ["--native-loader"]
+        variants = {"a": base, "b": base + native, "c": base + native + ["--pipeline-depth", "2"],
+                    "d": base + native + ["--on-device-eval"], "e": base + ["--wire"] + native}
+        runs = {k: run_cli(argv, n, device) for k, argv in variants.items()}
+
+        ckpt = os.path.join(root, "state.npz")
+        half = n // 2
+        end_s = repr(float(ds.times[half - 1]))
+        first = run_cli(base + ["--checkpoint", ckpt, "--checkpoint-every", str(half // 2),
+                                "--end", end_s], half, device)
+        runs["f"] = run_cli(base + ["--checkpoint", ckpt, "--resume"], n - half, device)
+
+        layers, html = os.path.join(root, "layers"), os.path.join(root, "player.html")
+        play = ["playback", "--directory", root] + common + [
+            "--native-loader", "--pipeline-depth", "2", "--export-layers", layers,
+            "--export-every", "8", "--export-html", html]
+        play_lines, _, play_ms = run_cli(play, n, device, raster_per_scan=2)
+
+        metrics = {k: {key: v for key, v in p.items() if key not in TIMING_KEYS}
+                   for k, (_, p, _) in runs.items()}
+        for k in "bcdf":
+            if runs[k][0] != runs["a"][0] or metrics[k] != metrics["a"]:
+                raise AssertionError(f"variant ({k}): statistics or metrics differ from (a)")
+        if first[1]["scans"] != half or runs["f"][1]["scans"] != n:
+            raise AssertionError("checkpointed run: wrong scan counts")
+        for key in ("f1", "ioug"):
+            delta = abs(metrics["e"][key] - metrics["a"][key]) * 100.0
+            if delta > WIRE_BUDGET_PT:
+                raise AssertionError(f"wire (e): {key} {delta:.3f} pt from (a)")
+        exported = sorted(os.listdir(layers))
+        if len(exported) != 11 * len(range(0, n, 8)):
+            raise AssertionError(f"playback: {len(exported)} layer PNGs")
+        if not os.path.getsize(html) or not any("-frame player" in s for s in play_lines):
+            raise AssertionError("playback: no HTML player written")
+        if sum(s.startswith("scan ") for s in play_lines) != n:
+            raise AssertionError("playback: not one line per scan")
+        numpy_ms, native_ms = host_prep_ms(root, config, device, n)
+
+    log(f"entry point: (a)-(d) and resumed (f) bitwise (statistics block and metrics: "
+        f"F1 {metrics['a']['f1']:.6f}, IoUg {metrics['a']['ioug']:.6f}); wire (e) "
+        f"F1 {metrics['e']['f1']:.6f}, IoUg {metrics['e']['ioug']:.6f}; launches per scan "
+        f"K1 x1 (x2 playback), K2 x3, K3 x1; 0 fallbacks; loaders native; "
+        f"{len(exported)} layer PNGs and the player written")
+    names = {"a": "evaluate, NumPy prep", "b": "--native-loader",
+             "c": "--native-loader --pipeline-depth 2", "d": "--native-loader --on-device-eval",
+             "e": "--wire --native-loader", "f": "--resume (second half)"}
+    for k, (_, p, ms) in runs.items():
+        log(f"entry point ({k}) {names[k]}: payload avg_ms {p['avg_ms']:.3f} "
+            f"({p['scans_per_sec']:.2f} scans/s, depth {p['pipeline_depth']}); "
+            f"CUDA events around the call {ms:.3f} ms/scan")
+    log(f"entry point (g) playback --native-loader --pipeline-depth 2 with exports: "
+        f"CUDA events around the call {play_ms:.3f} ms/scan")
+    log(f"host prep per scan: NumPy p50 {np.percentile(numpy_ms, 50):.3f} ms "
+        f"(p90 {np.percentile(numpy_ms, 90):.3f}); native loader wait p50 "
+        f"{np.percentile(native_ms, 50):.3f} ms (p90 {np.percentile(native_ms, 90):.3f})")
+
+
 def main() -> int:
     phase_environment()
     from groundgrid_torch.config import GroundGridConfig
@@ -410,6 +600,7 @@ def main() -> int:
     counts = phase_sequence(config, records, device)
     layer_config = dataclasses.replace(config, wire_format=True, fused_detect=True)
     layer_counts = phase_layers(layer_config, records[:N_LAYER_SCANS], device)
+    phase_entry_point(config, records, device)
     kernels = []
     # launches: each kernel's count in the path it serves (K4: phase 4)
     for name, route_file, replaces, key, res, launches in (

@@ -10,6 +10,11 @@ interpolation, classification and, with ``with_aux``, the eleven published
 grid layers; plus checkpoint / restore of the grid state in the JAX
 package's format. Four hand-written CUDA kernels (``groundgrid_torch/ops``,
 sources in ``groundgrid_torch/csrc``) are built by ``nvcc`` at first use.
+
+Entry point: ``python -m groundgrid_torch evaluate | playback | bench``
+(``runtime/cli.py``) over a SemanticKITTI-layout dataset, with the C++
+prefetching loaders (``data/native_loader.py``), the pipelined driver and
+on-device scoring (``eval/device.py``).
 """
 
 from groundgrid_torch.config import DEFAULT_CONFIG, GroundGridConfig
@@ -27,8 +32,9 @@ from groundgrid_torch.pipeline import (
     prepare_scan,
     prepare_scan_wire,
 )
+from groundgrid_torch.data.semantickitti import ScanRecord
 from groundgrid_torch.runtime.checkpoint import load_state, save_state
-from groundgrid_torch.runtime.driver import ScanRecord, StreamingDriver
+from groundgrid_torch.runtime.driver import StreamingDriver
 
 __version__ = "0.1.0"
 
@@ -55,3 +61,22 @@ __all__ = [
     "StreamingDriver",
     "__version__",
 ]
+
+
+_LAZY = {
+    "SemanticKITTI": "groundgrid_torch.data.semantickitti",
+    "Evaluator": "groundgrid_torch.eval.metrics",
+    "DeviceEvaluator": "groundgrid_torch.eval.device",
+    "SortedPrefetchingLoader": "groundgrid_torch.data.native_loader",
+    "WirePrefetchingLoader": "groundgrid_torch.data.native_loader",
+    "LiveServer": "groundgrid_torch.runtime.live",
+}
+
+
+def __getattr__(name):
+    # the data, evaluation and viewer entry points, imported on first use
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'groundgrid_torch' has no attribute {name!r}")

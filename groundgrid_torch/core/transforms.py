@@ -2,7 +2,8 @@
 
 A copy of the host pieces of ``groundgrid_tpu/core/transforms.py``: in
 sorted-scan mode the points are transformed to the map frame on the host
-(``pipeline.prepare_scan``), so the port needs only the NumPy forms.
+(``pipeline.prepare_scan``), so the port needs only the NumPy forms; the
+SemanticKITTI reader conjugates its camera-frame poses with ``KITTI_TR``.
 
 Conventions: ``T_a_b`` maps points from frame ``b`` to frame ``a``
 (``p_a = T_a_b @ p_b``); points are ``(N, 3)`` arrays.
@@ -48,6 +49,25 @@ def translation(x: float, y: float, z: float, dtype=np.float64) -> np.ndarray:
 # (launch/KITTIPlayback.launch:13-17): base_link sits at ground level 1.95 m
 # ahead of the sensor.
 T_KITTIBASE_BASE = translation(1.95, 0.0, -1.73)
+
+# KITTI odometry camera->velodyne calibration ``Tr`` of sequences 00-10, the
+# constant the reference player hardcodes (kitti_data_publisher.py:168).
+KITTI_TR = np.array(
+    [
+        [4.276802385584e-04, -9.999672484946e-01, -8.084491683471e-03, -1.198459927713e-02],
+        [-7.210626507497e-03, 8.081198471645e-03, -9.999413164504e-01, -5.403984729748e-02],
+        [9.999738645903e-01, 4.859485810390e-04, -7.206933692422e-03, -2.921968648686e-01],
+        [0.0, 0.0, 0.0, 1.0],
+    ],
+    dtype=np.float64,
+)
+
+
+def kitti_pose_to_map(pose_3x4: np.ndarray) -> np.ndarray:
+    """Conjugate a KITTI camera-frame pose into the velodyne/map frame:
+    ``pose' = Tr^-1 @ P @ Tr`` (kitti_data_publisher.py:164-180)."""
+    P = np.vstack([np.asarray(pose_3x4, dtype=np.float64).reshape(3, 4), [0, 0, 0, 1]])
+    return np.linalg.inv(KITTI_TR) @ P @ KITTI_TR
 
 
 def scan_poses(T_map_velo: np.ndarray):

@@ -5,13 +5,17 @@ sorted-scan path: each record is prepared on the host (map-frame transform,
 cell sort against the f64 center tracker; quantized to the s16 wire format
 under ``config.wire_format``), stepped on the device, and its labels are
 returned in the input point order, overflow points (beyond ``max_points``)
-labelled 0. With ``with_aux`` each result also carries the eleven grid
-layers and the map-frame coordinates. A record with a non-finite pose is
-dropped (the reference drops clouds whose transform is missing,
+labelled 0. A :class:`~groundgrid_torch.data.native_loader.PreparedRecord`
+(host prep already done by the native loader's threads) is stepped as it
+comes. With ``with_aux`` each result also carries the eleven grid layers and
+the map-frame coordinates. A record with a non-finite pose is dropped (the
+reference drops clouds whose transform is missing,
 GroundGridNodelet.cpp:124-136), or, with ``config.stale_pose_reuse``, run
 with the last good pose.
 
-The grid state can be checkpointed at any scan boundary
+:meth:`StreamingDriver.run` can keep ``pipeline_depth`` scans in flight
+beyond the one being fetched: results stay in order and bitwise those of the
+lock-step run. The grid state can be checkpointed at any scan boundary
 (``runtime/checkpoint.py``) and installed again with :meth:`restore`, or by
 assigning ``driver.state``: the resumed stream reproduces the uninterrupted
 one bitwise.
@@ -19,10 +23,11 @@ one bitwise.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import time
-from typing import Optional
+from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -30,6 +35,7 @@ import torch
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core import transforms as tf
 from groundgrid_torch.core.grid import GridState
+from groundgrid_torch.data.semantickitti import ScanRecord
 from groundgrid_torch.pipeline import (
     CenterTracker,
     init_state,
@@ -38,19 +44,9 @@ from groundgrid_torch.pipeline import (
     prepare_scan_wire,
 )
 
+__all__ = ["InFlight", "ScanRecord", "ScanResult", "StreamingDriver", "TimingStats"]
+
 log = logging.getLogger("groundgrid_torch.driver")
-
-
-@dataclasses.dataclass
-class ScanRecord:
-    """One sensor-frame scan with its pose (the JAX package's record layout;
-    any object with these attributes is accepted)."""
-
-    index: int
-    timestamp: float
-    points: np.ndarray  # (P, >=3) f32 sensor frame
-    labels: np.ndarray  # (P,) int32 semantic ids (ride the ring channel)
-    t_map_velo: np.ndarray  # (4, 4) f64 velodyne pose in the map frame
 
 
 @dataclasses.dataclass
@@ -65,6 +61,49 @@ class ScanResult:
     x: Optional[np.ndarray] = None  # (P,) map-frame coordinates, with_aux only
     y: Optional[np.ndarray] = None
     z: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class InFlight:
+    """A dispatched scan whose outputs are not fetched yet.
+
+    Holds the step's output tensors, never the grid state: the step updates
+    the state object in place, but no output tensor is written after the
+    step returns it.
+    """
+
+    index: int
+    timestamp: float
+    n_points: int
+    t0: float
+    step_out: object  # pipeline.StepOutput (device tensors, step order)
+    aux: object  # pipeline.AuxLayers or None
+    order: np.ndarray  # this scan's sort permutation
+    rings: torch.Tensor  # the scan's ring channel (ground-truth ids), step order
+
+
+@dataclasses.dataclass
+class TimingStats:
+    """Running averages like the reference's logs (GroundGridNodelet.cpp:205).
+
+    ``pipeline_depth`` tags how the per-scan ms was measured: 0 = lock-step
+    latency; >= 1 = dispatch-to-fetch latency *including pipeline residency*,
+    not comparable to lock-step numbers.
+    """
+
+    scans: int = 0
+    total_ms: float = 0.0
+    avg_ms: float = 0.0
+    pipeline_depth: int = 0
+
+    def update(self, ms: float) -> None:
+        self.avg_ms = (ms + self.scans * self.avg_ms) / (self.scans + 1)
+        self.scans += 1
+        self.total_ms += ms
+
+    @property
+    def scans_per_sec(self) -> float:
+        return 1000.0 / self.avg_ms if self.avg_ms > 0 else 0.0
 
 
 class StreamingDriver:
@@ -85,11 +124,13 @@ class StreamingDriver:
         self.with_aux = with_aux
         self.step = make_step(config, with_aux)
         self.state: GridState | None = None
+        self.stats = TimingStats()
         self._tracker: CenterTracker | None = None
         self._last_pose: np.ndarray | None = None
 
     def reset(self) -> None:
         self.state = None
+        self.stats = TimingStats()
         self._tracker = None
         self._last_pose = None
 
@@ -106,6 +147,23 @@ class StreamingDriver:
         if center64 is None:
             center64 = self._state_center64(state)
         self._tracker = CenterTracker(self.config, np.asarray(center64, np.float64))
+
+    def reconfigure(self, config: GroundGridConfig) -> None:
+        """Swap runtime parameters, keeping the grid state when compatible.
+
+        The counterpart of the reference's dynamic_reconfigure callback
+        (GroundGridNodelet.cpp:299-302): the step is rebuilt for ``config``;
+        a change of grid geometry or point capacity drops the state, as
+        re-creating the map does in the reference.
+        """
+        keep_state = (self.state is not None
+                      and config.cell_count == self.config.cell_count
+                      and config.max_points == self.config.max_points)
+        self.step = make_step(config, self.with_aux)
+        self.config = config
+        if not keep_state:
+            self.state = None
+            self._tracker = None
 
     @property
     def center64(self) -> Optional[np.ndarray]:
@@ -143,8 +201,12 @@ class StreamingDriver:
                     self.device, t_map_base=mb, t_base_map=bm)
 
     def _check_pose(self, rec):
+        """The record, pose-patched under ``stale_pose_reuse``, or None to
+        drop it. A prepared record was binned against its own pose and is
+        never patched."""
         if not np.isfinite(rec.t_map_velo).all():
-            if self.config.stale_pose_reuse and self._last_pose is not None:
+            if (self.config.stale_pose_reuse and self._last_pose is not None
+                    and getattr(rec, "scan", None) is None):
                 log.warning("scan %d: non-finite pose; reusing last good transform", rec.index)
                 return dataclasses.replace(rec, t_map_velo=self._last_pose)
             log.warning("dropping scan %d: non-finite pose", rec.index)
@@ -153,7 +215,18 @@ class StreamingDriver:
         return rec
 
     def process(self, rec) -> Optional[ScanResult]:
-        """Run one scan (odometry update + segmentation), blocking."""
+        """Run one scan (odometry update + segmentation), blocking.
+
+        ``rec`` is a :class:`ScanRecord` (host prep happens here) or a
+        ``PreparedRecord`` from the native loaders. Returns None for a
+        dropped scan.
+        """
+        tok = self.dispatch(rec)
+        return None if tok is None else self._finalize(tok)
+
+    def dispatch(self, rec) -> Optional[InFlight]:
+        """Check the pose, prepare (unless prepared) and step one scan;
+        fetch nothing. None for a dropped scan."""
         rec = self._check_pose(rec)
         if rec is None:
             return None
@@ -164,14 +237,24 @@ class StreamingDriver:
             # half-cell snap tie)
             self._ensure_tracker(np.asarray(rec.t_map_velo, np.float64)[:2, 3])
             self.state = init_state(self.config, rec.t_map_velo, self.device)
-        scan, order = self.make_scan(rec)
+        prepared = getattr(rec, "scan", None)
+        if prepared is not None:
+            scan, order, n = prepared, rec.order, rec.n_points
+            # the tracker adopts the center the loader binned against, so a
+            # checkpoint taken now carries the stream's exact f64 center
+            self._tracker = CenterTracker(self.config, rec.center64)
+        else:
+            (scan, order), n = self.make_scan(rec), rec.points.shape[0]
         out = self.step(self.state, scan)
         self.state = out[0]
-        return self._finalize(rec, out[1], out[2] if self.with_aux else None, order, t0)
+        return InFlight(index=rec.index, timestamp=rec.timestamp, n_points=n, t0=t0,
+                         step_out=out[1], aux=out[2] if self.with_aux else None,
+                         order=order, rings=scan.rings)
 
-    def _finalize(self, rec, out, aux, order, t0) -> ScanResult:
-        """Fetch the outputs, restore the input point order, pad overflow."""
-        n = rec.points.shape[0]
+    def _finalize(self, tok: InFlight) -> ScanResult:
+        """Fetch a dispatched scan's outputs, restore the input point order,
+        pad overflow."""
+        n, order = tok.n_points, tok.order
 
         def fetch(t, dtype):
             a = t.cpu().numpy().astype(dtype)
@@ -182,15 +265,48 @@ class StreamingDriver:
                 u = np.concatenate([u, np.zeros(n - u.shape[0], u.dtype)])
             return u[:n]
 
+        out = tok.step_out
         labels = fetch(out.labels, np.int32)
         outlier = fetch(out.outlier, bool)
         extra = {}
-        if aux is not None:
+        if tok.aux is not None:
             # copies: on the CPU a tensor's numpy() shares its memory
             extra = dict(aux={k: v.to("cpu", copy=True).numpy()
-                              for k, v in aux._asdict().items()},
+                              for k, v in tok.aux._asdict().items()},
                          x=fetch(out.x, np.float32), y=fetch(out.y, np.float32),
                          z=fetch(out.z, np.float32))
-        ms = (time.perf_counter() - t0) * 1000.0
-        return ScanResult(index=rec.index, timestamp=rec.timestamp, labels=labels,
+        ms = (time.perf_counter() - tok.t0) * 1000.0
+        self.stats.update(ms)
+        return ScanResult(index=tok.index, timestamp=tok.timestamp, labels=labels,
                           outlier=outlier, n_points=n, wall_ms=ms, **extra)
+
+    def run(self, records: Iterable, callback: Optional[Callable[[ScanResult], None]] = None,
+            pipeline_depth: int = 0) -> Iterator[ScanResult]:
+        """Stream records through the step; yields one result per kept scan.
+
+        ``pipeline_depth``: scans dispatched beyond the one being fetched.
+        0 is lock-step (each scan's fetch completes before the next
+        dispatch). With depth >= 1 the next scans' host prep and dispatch
+        run before the fetch; the step reads the device twice per scan
+        (sortedness check, march candidate count), so the overlap is bounded
+        by those reads. Results arrive in order, bitwise those of depth 0;
+        ``wall_ms`` then includes pipeline residency.
+        """
+        if pipeline_depth > 0:
+            self.stats.pipeline_depth = pipeline_depth
+        queue: collections.deque[InFlight] = collections.deque()
+        for rec in records:
+            tok = self.dispatch(rec)
+            if tok is None:
+                continue
+            queue.append(tok)
+            while len(queue) > pipeline_depth:
+                result = self._finalize(queue.popleft())
+                if callback is not None:
+                    callback(result)
+                yield result
+        while queue:
+            result = self._finalize(queue.popleft())
+            if callback is not None:
+                callback(result)
+            yield result

@@ -203,3 +203,53 @@ def test_layers_path_step_on_card_matches_cpu(cuda):
     assert launch_counts() == {"raster": 6, "lookup": 9, "spiral": 3, "detect": 3}
     assert mism <= 0.001 * total
     assert gpu.step.fallbacks == 0
+
+
+def test_device_evaluator_on_card_matches_cpu(cuda):
+    """The int32 ``index_add_`` table on the card: counts equal the CPU's."""
+    from groundgrid_torch.eval.device import DeviceEvaluator
+
+    rng = np.random.default_rng(4)
+    evs = {d: DeviceEvaluator("00", d, drain_every=2) for d in ("cpu", cuda)}
+    for _ in range(5):
+        gt = rng.choice([0, 10, 40, 44, 48, 50, 70, 72, 252, 400], 131072).astype(np.int32)
+        pred = rng.choice([0, 49, 99], 131072, p=[0.05, 0.8, 0.15]).astype(np.int32)
+        for d, ev in evs.items():
+            ev.add_cloud_device(torch.from_numpy(pred).to(d), torch.from_numpy(gt).to(d))
+    a, b = evs["cpu"].to_host(), evs[cuda].to_host()
+    for name in ("nonground_count", "true_positive", "false_positive", "total"):
+        np.testing.assert_array_equal(getattr(b, name), getattr(a, name), err_msg=name)
+
+
+@pytest.mark.parametrize("wire", [False, True], ids=["sorted", "wire"])
+def test_native_loader_on_card_matches_prepare_scan(cuda, tmp_path, wire):
+    """Loader scans on the card (pinned copies from fresh buffers) equal
+    ``prepare_scan`` / ``prepare_scan_wire`` on the card."""
+    from groundgrid_torch.data import native_loader as nl
+    from groundgrid_torch.data.semantickitti import SemanticKITTI, write_sequence
+    from groundgrid_torch.data.synthetic import synthetic_sequence
+    from groundgrid_torch.pipeline import CenterTracker, prepare_scan, prepare_scan_wire
+
+    if nl.load_library() is None:
+        pytest.skip("native loader not built (no C++ toolchain?)")
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5, max_points=16384, ray_steps=40,
+                           max_outlier_candidates=1024, sorted_scans=True, wire_format=wire)
+    write_sequence(str(tmp_path), 0, synthetic_sequence(6, seed=7, n_beams=24, n_azimuth=720))
+    ds = SemanticKITTI(str(tmp_path), 0)
+    kind = nl.WirePrefetchingLoader if wire else nl.SortedPrefetchingLoader
+    loader = kind(ds, cfg, cuda)
+    assert loader.native
+    got = list(loader)  # all scans in flight at once: no buffer may be reused
+    loader.close()
+    prep = prepare_scan_wire if wire else prepare_scan
+    tracker = None
+    for rec_p in got:
+        rec = ds.read_scan(rec_p.index)
+        pos = np.asarray(rec.t_map_velo, np.float64)[:2, 3]
+        tracker = tracker or CenterTracker(cfg, pos)
+        want, order = prep(cfg, rec.points[:, :3], rec.labels, rec.t_map_velo,
+                           tracker.update(pos), cuda)
+        np.testing.assert_array_equal(rec_p.order, order)
+        for f in ("qx", "qy", "qz", "rings") if wire else ("px", "py", "pz", "rings", "valid"):
+            a, b = getattr(rec_p.scan, f), getattr(want, f)
+            assert a.device == b.device and torch.equal(a, b), f

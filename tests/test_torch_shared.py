@@ -2,8 +2,11 @@
 
 ``groundgrid_torch`` cannot import ``groundgrid_tpu`` (that imports JAX), so
 it carries copies of the config dataclass, the host transforms, the detect
-tables' expected-points table and the synthetic scan generator. These tests
-hold each copy to its original: same fields and defaults, bitwise outputs.
+tables' expected-points table, the synthetic scan generator, the label table,
+the host scorer and its baseline comparison, the SemanticKITTI reader and
+writer, and the viewers' image and terrain exports. These tests hold each
+copy to its original: same fields and defaults, bitwise outputs, the same
+text and bytes.
 """
 
 import dataclasses
@@ -154,3 +157,128 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=root.parent, timeout=300)
     assert proc.returncode == 0 and proc.stdout.startswith("ok"), proc.stderr
+
+
+def test_labels_table():
+    import groundgrid_tpu.data.labels as jl
+
+    import groundgrid_torch.data.labels as tl
+
+    assert tl.LABELS == jl.LABELS and tl.MAX_LABEL_ID == jl.MAX_LABEL_ID
+    for name in ("GROUND_IDS", "ADDITIONAL_GROUND_IDS", "NON_GROUND_IDS", "ALL_GROUND_IDS"):
+        assert getattr(tl, name) == getattr(jl, name), name
+
+
+def _random_clouds(seed, n_clouds=3, n=5000):
+    rng = np.random.default_rng(seed)
+    ids = [0, 10, 40, 44, 48, 49, 50, 51, 60, 70, 72, 80, 252, 300]
+    return [(rng.choice([0, 49, 99], n, p=[0.05, 0.75, 0.2]).astype(np.int32),
+             rng.choice(ids, n).astype(np.int32)) for _ in range(n_clouds)]
+
+
+def test_evaluator_counts_metrics_and_text():
+    """Counts, metrics, the reference's statistics block and the checkpoint
+    state: equal, and each package loads the other's state."""
+    from groundgrid_tpu.eval.metrics import Evaluator as JEval
+
+    from groundgrid_torch.eval.metrics import Evaluator as TEval
+
+    j, t = JEval("07"), TEval("07")
+    for pred, gt in _random_clouds(3):
+        j.add_cloud(pred, gt)
+        t.add_cloud(pred, gt)
+    assert t.compute().as_dict() == j.compute().as_dict()
+    assert t.format_statistics() == j.format_statistics()
+    assert t.per_label_table() == j.per_label_table()
+    assert t.state_dict() == j.state_dict()
+    t2, j2 = TEval(), JEval()
+    t2.load_state_dict(j.state_dict())
+    j2.load_state_dict(t.state_dict())
+    assert t2.format_statistics() == j2.format_statistics() == j.format_statistics()
+
+
+def test_baseline_comparison_text():
+    from groundgrid_tpu.eval.baseline import REFERENCE_SEQ00, format_baseline_comparison as jf
+
+    from groundgrid_torch.eval.baseline import format_baseline_comparison as tf_
+
+    worse = dict(REFERENCE_SEQ00, ioug=REFERENCE_SEQ00["ioug"] - 0.006)
+    for metrics, scans in ((dict(REFERENCE_SEQ00), 4540), (worse, 4540),
+                           (dict(REFERENCE_SEQ00), 100)):
+        assert tf_(metrics, scans) == jf(metrics, scans)
+
+
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_semantickitti_round_trip_both_ways(tmp_path, writer):
+    """What either package writes, both read bitwise alike."""
+    from groundgrid_tpu.data import semantickitti as jk
+
+    from groundgrid_torch.data import semantickitti as tk
+
+    scans = list(tsyn.synthetic_sequence(3, seed=2, n_beams=8, n_azimuth=90))
+    (tk if writer == "torch" else jk).write_sequence(str(tmp_path), 4, scans)
+    a, b = tk.SemanticKITTI(str(tmp_path), 4), jk.SemanticKITTI(str(tmp_path), 4)
+    assert len(a) == len(b) == 3
+    np.testing.assert_array_equal(a.times, b.times)
+    np.testing.assert_array_equal(a.poses, b.poses)
+    assert a.seek_index(0.15) == b.seek_index(0.15) == 2
+    for k, (pts, lbl, T) in enumerate(scans):
+        ra, rb = a.read_scan(k), b.read_scan(k)
+        for f in ("index", "timestamp"):
+            assert getattr(ra, f) == getattr(rb, f)
+        np.testing.assert_array_equal(ra.points, rb.points)
+        np.testing.assert_array_equal(ra.points[:, :3], pts[:, :3])
+        np.testing.assert_array_equal(ra.labels, rb.labels)
+        np.testing.assert_allclose(ra.t_map_velo, T, atol=1e-9)
+
+
+def test_kitti_calibration_bitwise():
+    P = np.array([[0.9, -0.1, 0.0, 12.5], [0.1, 0.9, 0.0, -3.25], [0.0, 0.0, 1.0, 0.5]])
+    np.testing.assert_array_equal(ttf.KITTI_TR, jtf.KITTI_TR)
+    np.testing.assert_array_equal(ttf.kitti_pose_to_map(P), jtf.kitti_pose_to_map(P))
+
+
+def test_viz_exports_bytes(tmp_path):
+    """Layer PNGs, terrain artifacts, the segmented-cloud image and the packed
+    3-D cloud: byte for byte."""
+    from groundgrid_tpu.runtime import viz as jv
+
+    from groundgrid_torch.runtime import viz as tv
+
+    rng = np.random.default_rng(9)
+    layers = {"ground": rng.normal(0, 1, (24, 24)).astype(np.float32),
+              "points_raw": rng.integers(0, 9, (24, 24)).astype(np.float32),
+              "flat": np.zeros((24, 24), np.float32)}
+    for name, mod in (("t", tv), ("j", jv)):
+        mod.export_layers(layers, str(tmp_path / name), prefix="000008_")
+        mod.save_terrain_artifact(str(tmp_path / name), layers["ground"], layers["points_raw"],
+                                  8, 1.5, -2.25)
+    for f in sorted((tmp_path / "j").iterdir()):
+        assert (tmp_path / "t" / f.name).read_bytes() == f.read_bytes(), f.name
+    assert len(list((tmp_path / "t").iterdir())) == 4
+    x, y = rng.uniform(-30, 30, 500), rng.uniform(-30, 30, 500)
+    z = rng.uniform(-1, 2, 500).astype(np.float32)
+    lab = rng.choice([0, 49, 99], 500).astype(np.int32)
+    np.testing.assert_array_equal(tv.render_segmented_cloud(x, y, lab, (0.5, -1.0), size=128),
+                                  jv.render_segmented_cloud(x, y, lab, (0.5, -1.0), size=128))
+    kw = dict(ground=layers["ground"], resolution=0.5, max_points=300, terrain_side=12)
+    assert (tv.pack_cloud_3d(x, y, z, lab, (0.5, -1.0), 0.25, **kw)
+            == jv.pack_cloud_3d(x, y, z, lab, (0.5, -1.0), 0.25, **kw))
+
+
+def test_lazy_exports():
+    """The data, scoring and viewer entry points resolve from the package."""
+    import groundgrid_torch
+    from groundgrid_torch.data import native_loader, semantickitti
+    from groundgrid_torch.eval import device, metrics
+    from groundgrid_torch.runtime import live
+
+    assert groundgrid_torch.SemanticKITTI is semantickitti.SemanticKITTI
+    assert groundgrid_torch.ScanRecord is semantickitti.ScanRecord
+    assert groundgrid_torch.Evaluator is metrics.Evaluator
+    assert groundgrid_torch.DeviceEvaluator is device.DeviceEvaluator
+    assert groundgrid_torch.SortedPrefetchingLoader is native_loader.SortedPrefetchingLoader
+    assert groundgrid_torch.WirePrefetchingLoader is native_loader.WirePrefetchingLoader
+    assert groundgrid_torch.LiveServer is live.LiveServer
+    with pytest.raises(AttributeError):
+        groundgrid_torch.NoSuchName
