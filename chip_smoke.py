@@ -17,8 +17,13 @@ Phases (any failure raises and exits non-zero, printing no result):
    confidence bitwise, heights atol 2e-5 / rtol 1e-5), K4 fused detect
    (the warm raster layers of a real scan at 364^2, and random layers at
    n = 12 and 45, one seed with low variance so that the main update
-   fires: ground and confidence bitwise). CUDA-event times beside
-   the plain versions'.
+   fires: ground and confidence bitwise). Per kernel: its device time
+   (``torch.profiler``, the named kernel's own time per launch), the
+   wrapper's cost per call (CUDA events around back-to-back calls), the
+   plain version's, the least time the card could take (bytes over 3.35
+   TB/s or f32 operations over 67 TFLOP/s, from this run's shapes) and,
+   for K2, one ``torch.index_select`` over the stacked tables, timed in
+   turns with the kernel (no one PyTorch call computes K1, K3 or K4).
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
    synthetic scans: per-scan launch counts (K1 x1, K2 x3, K3 x1), no
    sortedness fallback, labels against the plain-version run on the card
@@ -46,8 +51,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    player. Prints ms/scan per variant (the payload's and CUDA events around
    the call) and the host prep p50 of NumPy against the native loader.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record (``ms`` is the device
+time, ``library_ms`` null where no one PyTorch call computes the function);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -76,18 +82,26 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean CUDA-event milliseconds of ``fn()`` over ``reps`` calls, warmed."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def kernel_times(fn, reps: int, name: str, plain=None, plain_reps: int = 0) -> dict:
+    """``device_ms`` (the kernel ``name``'s own time on the card, by
+    ``torch.profiler``), ``call_ms`` (CUDA events around back-to-back wrapper
+    calls) and ``plain_ms`` of ``plain()``, each per call."""
+    from groundgrid_torch.runtime.kernel_timing import device_ms, event_ms
+
+    dev, seen = device_ms(fn, reps, name)  # the mean over the launches the profiler saw
+    if seen > reps:
+        raise AssertionError(f"{name}: the profiler saw {seen} launches in {reps} calls")
+    out = {"device_ms": dev, "call_ms": event_ms(fn, reps)}
+    if plain is not None:
+        out["plain_ms"] = event_ms(plain, plain_reps)
+    return out
+
+
+def bound(n_bytes: float, n_flops: float) -> dict:
+    from groundgrid_torch.runtime.kernel_timing import bound_ms
+
+    ms, by = bound_ms(n_bytes, n_flops)
+    return {"bound_ms": ms, "bound_by": by}
 
 
 def phase_environment():
@@ -144,11 +158,19 @@ def check_raster(config, driver, rec):
             raise AssertionError(f"K1 column {j} ({op}): {int((g != w).sum())} cells differ, "
                                  f"max {float((g - w).abs().max())}")
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    ms = cuda_ms(lambda: raster.raster_reduce(cell, cols, ops, n2), 50)
-    plain_ms = cuda_ms(lambda: raster.raster_reduce_plain(cell, cols, ops, n2), 10)
+    rec = {"max_abs_err": err, "library_ms": None}
+    rec.update(kernel_times(lambda: raster.raster_reduce(cell, cols, ops, n2), 50,
+                            "raster_reduce_kernel",
+                            lambda: raster.raster_reduce_plain(cell, cols, ops, n2), 10))
+    # reads the ids and each column once, writes one value per cell and
+    # column; one sum, min or max per point and column
+    rec.update(bound(cell.nbytes + sum(c.nbytes for c in cols) + 4 * len(cols) * n2,
+                     len(cols) * cell.shape[0]))
     log(f"K1 raster_reduce: {cell.shape[0]} points, {len(cols)} columns, n2={n2}: "
-        f"max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms, cell
+        f"max_abs_err {err:.3g}, device {rec['device_ms']:.4f} ms, call {rec['call_ms']:.4f} "
+        f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']})")
+    return rec, cell
 
 
 def check_lookup(config, driver, cell):
@@ -168,14 +190,43 @@ def check_lookup(config, driver, cell):
         for g, w in zip(got, want):
             if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
                 raise AssertionError(f"K2 ({name}) differs from the plain version")
-    ms = cuda_ms(lambda: lookup.lookup(cell, [ground, conf], n2), 100)
-    plain_ms = cuda_ms(lambda: lookup.lookup_plain(cell, [ground, conf], n2), 20)
-    lat_ms = cuda_ms(lambda: lookup.lookup(lattice, [conf], n2), 100)
-    lat_plain_ms = cuda_ms(lambda: lookup.lookup_plain(lattice, [conf], n2), 20)
-    log(f"K2 lookup: bitwise on all cases; 2 tables x {cell.shape[0]} sorted points: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; 1 table x {lattice.shape[0]} unsorted: "
-        f"kernel {lat_ms:.4f} ms, plain {lat_plain_ms:.4f} ms")
-    return 0.0, ms, plain_ms
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    # the yardstick: one index_select over the stacked tables with a zero
+    # column at n2 (built outside the timed window; the port never calls it)
+    padded = torch.zeros((2, n2 + 1), dtype=torch.float32, device=cell.device)
+    padded[:, :n2] = torch.stack([ground.reshape(-1), conf.reshape(-1)])
+    library = torch.index_select(padded, 1, cell)
+    for g, w in zip(lookup.lookup(cell, [ground, conf], n2), library):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError("K2: index_select differs from the kernel")
+
+    def two_tables():
+        return lookup.lookup(cell, [ground, conf], n2)
+
+    def yardstick():
+        return torch.index_select(padded, 1, cell)
+
+    # kernel and library in turns (kernel, library, library, kernel)
+    rec = {"max_abs_err": 0.0}
+    rec.update(kernel_times(two_tables, 100, "lookup_kernel",
+                            lambda: lookup.lookup_plain(cell, [ground, conf], n2), 20))
+    lib_runs = [device_ms(yardstick, 100)[0], device_ms(yardstick, 100)[0]]
+    dev_runs = [rec["device_ms"], kernel_times(two_tables, 100, "lookup_kernel")["device_ms"]]
+    rec["device_ms"] = sum(dev_runs) / 2
+    rec["library_ms"] = sum(lib_runs) / 2
+    # reads the ids and both tables once, writes two words per id
+    rec.update(bound(cell.nbytes + 2 * 4 * n2 + 2 * 4 * cell.shape[0], 0))
+    lat = kernel_times(lambda: lookup.lookup(lattice, [conf], n2), 100, "lookup_kernel",
+                       lambda: lookup.lookup_plain(lattice, [conf], n2), 20)
+    lat.update(bound(lattice.nbytes + 4 * n2 + 4 * lattice.shape[0], 0))
+    log(f"K2 lookup: bitwise on all cases; 2 tables x {cell.shape[0]} sorted points: device "
+        f"{dev_runs[0]:.4f} / {dev_runs[1]:.4f} ms, index_select {lib_runs[0]:.4f} / "
+        f"{lib_runs[1]:.4f} ms (in turns), call {rec['call_ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; 1 table x "
+        f"{lattice.shape[0]} unsorted: device {lat['device_ms']:.4f} ms, call "
+        f"{lat['call_ms']:.4f} ms, plain {lat['plain_ms']:.4f} ms, bound {lat['bound_ms']:.4f} ms")
+    return rec
 
 
 def check_spiral(config, driver, rec):
@@ -197,12 +248,20 @@ def check_spiral(config, driver, rec):
     err = float((g_k - g_p).abs().max())
     # the walk's work does not depend on the values: time repeated sweeps
     h, c = ground.clone(), conf.clone()
-    ms = cuda_ms(lambda: spiral.spiral_interpolation(config, h, c, base_z), 20)
-    plain_ms = cuda_ms(lambda: spiral.spiral_interpolation_plain(config, h, c, base_z), 2)
-    log(f"K3 spiral_interpolation: {config.cell_count}^2, {config.center_cell - 1} rings: "
-        f"confidence bitwise, height max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    rec = {"max_abs_err": err, "library_ms": None}
+    rec.update(kernel_times(lambda: spiral.spiral_interpolation(config, h, c, base_z), 20,
+                            "spiral_kernel",
+                            lambda: spiral.spiral_interpolation_plain(config, h, c, base_z), 2))
+    # reads and writes both layers once; ~55 f32 operations per visited cell
+    # (8 products and 16 sums of the stencil, 3 divisions, 2 decays, the scan)
+    n, m = config.cell_count, config.center_cell
+    visits = (m - 1) * (4 * m + 2) + 1
+    rec.update(bound(4 * 4 * n * n, 55 * visits))
+    log(f"K3 spiral_interpolation: {n}^2, {m - 1} rings: confidence bitwise, height "
+        f"max_abs_err {err:.3g}, device {rec['device_ms']:.4f} ms, call {rec['call_ms']:.4f} "
+        f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']})")
+    return rec
 
 
 def check_detect(config, driver, rec):
@@ -249,12 +308,24 @@ def check_detect(config, driver, rec):
         if not changed[-1]:
             raise AssertionError(f"K4 ({name}): the sweep changed no cell")
     _, tabs, args = cases[0][1:]
-    ms = cuda_ms(lambda: detect.detect_fused(config, tabs, *args), 100)
-    plain_ms = cuda_ms(lambda: detect.detect_fused_plain(config, tabs, *args), 20)
-    log(f"K4 detect_fused: bitwise at {config.cell_count}^2 ({changed[0]} cells updated), "
-        f"n=12 and n=45 (4 seeds each); {config.cell_count}^2: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    rec = {"max_abs_err": err, "library_ms": None}
+    rec.update(kernel_times(lambda: detect.detect_fused(config, tabs, *args), 100,
+                            "detect_kernel",
+                            lambda: detect.detect_fused_plain(config, tabs, *args), 20))
+    # reads 5 layers, 3 float tables and use3 once, writes 2 layers; per
+    # interior cell 6 operations per window cell (2 products, 3 sums, a min)
+    # over its 3x3 or 5x5 window, ~25 for the branch ladder
+    n = config.cell_count
+    ins = list(args) + [tabs.var_thr_sq, tabs.skip_thr, tabs.min_expected_s, tabs.use3]
+    use3 = tabs.use3[2:n - 2, 2:n - 2]
+    n3 = int(use3.sum())
+    flops = 6 * (9 * n3 + 25 * (use3.numel() - n3)) + 25 * use3.numel()
+    rec.update(bound(sum(t.nbytes for t in ins) + 2 * 4 * n * n, flops))
+    log(f"K4 detect_fused: bitwise at {n}^2 ({changed[0]} cells updated), n=12 and n=45 "
+        f"(4 seeds each); {n}^2: device {rec['device_ms']:.4f} ms, call {rec['call_ms']:.4f} "
+        f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']})")
+    return rec
 
 
 def run_sequence(config, records, device, with_aux=False, driver=None):
@@ -591,8 +662,8 @@ def main() -> int:
         f"{records[0].points.shape[0]} points in the first")
 
     driver = warm_driver(config, records, device)
-    k1 = check_raster(config, driver, records[4])
-    k2 = check_lookup(config, driver, k1[3])
+    k1, cell = check_raster(config, driver, records[4])
+    k2 = check_lookup(config, driver, cell)
     k3 = check_spiral(config, driver, records[4])
     k4 = check_detect(config, driver, records[4])
     torch.cuda.synchronize()
@@ -614,8 +685,10 @@ def main() -> int:
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"groundgrid_torch/csrc/{route_file}",
-            "replaces": replaces, "launches": launches[key], "max_abs_err": res[0],
-            "ms": res[1], "plain_ms": res[2],
+            "replaces": replaces, "launches": launches[key], "max_abs_err": res["max_abs_err"],
+            "ms": res["device_ms"], "device_ms": res["device_ms"], "call_ms": res["call_ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,188 +4,471 @@
 // spiral_interpolation_pallas (_spiral_kernel, _segment, _band_update,
 // _affine_hillis_steele, _narrow_refix, _writeback, _owner_masks), the
 // center-outward ring walk of GroundSegmentation.cpp:398-465. The center
-// cell is seeded with the base height at confidence 1; rings run inner ->
-// outer, each as 4 segments in walk order (top row ->, left column v, bottom
-// row <-, right column ^; the corners (i, i) and (outer, outer) are visited
-// twice). Within a segment a cell's 3x3 stencil reads an updated value only
-// from its walk predecessor, so the heights obey the affine recurrence
+// cell (m, m), m = n/2 - 1, is seeded with the base height at confidence 1;
+// rings of radius D = 1 .. m-1 run inner -> outer, each as 4 segments in walk
+// order (top row ->, left column v, bottom row <-, right column ^; the
+// corners (i, i) and (o, o), i = m - D, o = m + D, are visited twice).
+// Within a segment a cell's 3x3 stencil reads an updated value only from its
+// walk predecessor, so the heights obey the affine recurrence
 // h[k] = a[k] + b[k] * h[k-1] with coefficients known before the segment
 // starts; confidence is a per-cell decay outside min_dist_squared.
 //
-// Design: one thread block walks every ring in order, with both layers in
-// global memory (2 x 0.53 MB at 364^2: L2-resident; more than one SM's
-// shared memory). Per segment the block computes all coefficients in
-// parallel (the formulas of core/interpolate.py:76-124, op for op), solves
-// the recurrence with a Hillis-Steele scan over per-thread affine maps in
-// shared memory, writes back and syncs. The TPU kernel's transposed copies,
-// segment pairing and 3-lane refix exist to fill TPU vregs and are gone.
+// Bound on the card: not the 2.1 MB of HBM traffic (both layers read and
+// written once, ~0.6 us at 3.35 TB/s) but the serial chain of m - 1 rings
+// (180 at 364^2, 720 segments) that one thread block walks in order while
+// the other SMs idle. The design shortens each link of the chain:
 //
-// Bound on the card: the serial chain of 4 x 180 segments, each a handful
-// of dependent L2 round trips and ~20 block barriers; the SMs other than the
-// one running the block idle. Built with --fmad=false so every product is
-// rounded as in the plain PyTorch version: confidence is bitwise, and with
-// one walk position per thread (n <= 1024) so are the heights.
+// - A ring band in shared memory. A 3x3 stencil on ring D reads only rings
+//   D-1 (final), D (being walked) and D+1 (not yet walked): the Chebyshev
+//   distance to the center moves by at most 1. Ring d lives in band buffer
+//   d % 4 as (height, confidence) pairs in ring order (slot_cell below;
+//   ops/spiral.py slot_cell is its Python twin, ring_slot the inverse), so each
+//   line of a ring is a run of slots and a stencil's nine reads are runs
+//   plus six corner cases per segment, planned once per ring. Every stencil
+//   read and write on the chain hits shared memory.
+// - Memory warps. The last kMemThreads threads never join the walkers'
+//   barriers: during ring d they store ring d-1 (final) to global memory,
+//   copy ring d+2 into the fourth buffer with cp.async and plan ring d+1.
+//   Walkers and memory warps meet once per ring.
+// - A ring-wide scan. A visit reads a cell that an earlier segment of the
+//   same ring writes only at the junctions (left 0, 1; bottom L-2, L-1; right
+//   0, 1 and L-2, L-1). So the coefficients of all 8D+2 visits come from the
+//   band as the ring starts, warp 0 redoes the junctions at the starts, one
+//   two-level scan (warp shuffles, then the warp totals) solves every
+//   segment at once, and warp 0 redoes the junctions at the ends. Ring 1,
+//   whose junctions overlap, is walked segment by segment by one warp.
+//
+// The band takes 11 (8m + 1) floats (4 buffers x 2 layers and 3 per-visit
+// arrays) plus 160 of scratch: 63 KB at n = 364, 209 KB at n = 1212. A block
+// can hold 227 KB (232,448 B), so n <= 1319; the wrapper (ops/spiral.py
+// band_layout) raises above that.
+//
+// Built with --fmad=false and with the coefficient and decay arithmetic op
+// for op that of the plain PyTorch version, so confidence is bitwise. The
+// scan associates the compositions differently from the plain version's
+// Hillis-Steele (and in fused multiply-adds), so heights agree to a few
+// ulps, not bitwise. The order is fixed and there are no atomics: two runs
+// are bitwise equal.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kFltTiny = 1.17549435082228750797e-38f;  // C++ FLT_MIN
+constexpr int kMemThreads = 128;   // the memory warps
+constexpr int kPlan = 4 * 12;      // one ring's segment plans (ints)
+constexpr int kScratch = 2 * 32 + 2 * kPlan;  // scan totals (a, b), plans of two rings
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Consts {
   int n, cidx;
   float res2, dec, min_d2, floor_c;
 };
 
-__device__ __forceinline__ float decay(const Consts& K, int f, int y, float occ) {
-  float a = (float)(f - K.cidx);
-  float b = (float)(y - K.cidx);
-  float d2 = (a * a + b * b) * K.res2;
-  if (d2 > K.min_d2) {
-    float v = occ - occ / K.dec;
-    return v > K.floor_c ? v : K.floor_c;
-  }
-  return occ;
+// The confidence decay of a visited cell (f, y), branch-free: the division
+// is always taken, the result only outside min_dist_squared.
+__device__ __forceinline__ float decay(const Consts& K, float af2, int y, float occ) {
+  const float b = (float)(y - K.cidx);
+  const float d2 = (af2 + b * b) * K.res2;
+  float v = occ - occ / K.dec;
+  v = v > K.floor_c ? v : K.floor_c;
+  return d2 > K.min_d2 ? v : occ;
 }
 
-// One ring segment: line f (row, or column when tr), cells [lo, hi) along
-// it, walked ascending or descending.
-__device__ void segment(float* h, float* c, const Consts& K, int f, int lo, int hi,
-                        bool tr, bool desc, float* sa, float* sb, float* sc,
-                        float* ta, float* tb) {
-  const int n = K.n;
-  const int T = blockDim.x, t = threadIdx.x;
-  const int L = hi - lo;
-  const int E = (L + T - 1) / T;   // walk positions per thread
-  const int nT = (L + E - 1) / E;  // threads holding positions
-  const int k0 = t * E;
-  const int k1 = min(L, k0 + E);
-  const int s_r = tr ? 1 : n;  // stride across the band lines f-1, f, f+1
-  const int s_y = tr ? n : 1;  // stride along the segment
-  const int step = desc ? -1 : 1;
+// The slot map's inverse: flat grid index of slot s < 8d on ring d. Slots
+// run clockwise from the top-left corner: top row, right column, bottom row,
+// left column (8d in all, the center's 0); slot 8d is a second copy of slot
+// 0 so that the left column's run does not wrap.
+__device__ __forceinline__ int slot_cell(int s, int d, const Consts& K) {
+  const int lo = K.cidx - d, hi = K.cidx + d;
+  int r, c;
+  if (s < 2 * d) { r = lo; c = lo + s; }
+  else if (s < 4 * d) { r = lo + s - 2 * d; c = hi; }
+  else if (s < 6 * d) { r = hi; c = hi - (s - 4 * d); }
+  else { r = hi - (s - 6 * d); c = lo; }
+  return r * K.n + c;
+}
 
-  // phase 1: coefficients, from values as they stand before the segment
-  for (int k = k0; k < k1; ++k) {
-    const int y = desc ? hi - 1 - k : lo + k;
-    const int q = f * s_r + y * s_y;
-    const int qp = q - step * s_y;  // walk predecessor
-    const int qs = q + step * s_y;  // walk successor
-    const float c0p = c[qp - s_r], c0y = c[q - s_r], c0s = c[qs - s_r];
-    const float c2p = c[qp + s_r], c2y = c[q + s_r], c2s = c[qs + s_r];
-    const float c1p = c[qp], c1y = c[q], c1s = c[qs];
-    const float w0p = c0p * h[qp - s_r], w0y = c0y * h[q - s_r], w0s = c0s * h[qs - s_r];
-    const float w2p = c2p * h[qp + s_r], w2y = c2y * h[q + s_r], w2s = c2s * h[qs + s_r];
-    const float w1y = c1y * h[q], w1s = c1s * h[qs];
-    float num = w0p + w0y;
-    num = num + w0s;
-    num = num + w2p;
-    num = num + w2y;
-    num = num + w2s;
-    num = num + w1y;
-    num = num + w1s;
-    float den = c0p + c0y;
-    den = den + c0s;
-    den = den + c2p;
-    den = den + c2y;
-    den = den + c2s;
-    den = den + c1y;
-    den = den + c1s;
-    const bool pin = k > 0;  // predecessor inside this segment
-    const float occ = c1y;
-    const float cpred = pin ? decay(K, f, y - step, c1p) : c1p;
-    den = den + cpred;
-    den = den + kFltTiny;
-    const float blend = 1.0f - occ;
-    const float b = pin ? (blend * cpred) / den : 0.0f;
-    const float ns = num + (pin ? 0.0f : cpred * h[qp]);
-    const float a = (blend * ns) / den + occ * h[q];
-    sa[k] = a;
-    sb[k] = b;
-    sc[k] = decay(K, f, y, occ);
-  }
-  __syncthreads();
+// The plan of segment `kind` of ring D (0 top row ->, 1 left column v, 2
+// bottom row <-, 3 right column ^). Walk position j of the own line (ring
+// D), the outer line (ring D+1) and the inner line (ring D-1) sits at slot
+// a + s*j of its ring, s = +1 for top and bottom, -1 for left and right:
+// each line is a run of slots, the outer one a - own a = kDist[kind] past
+// the own one, the inner one as far before it. Only the own line's j = -1, L
+// and the inner line's j = -1, 0, L-1, L leave their run (corners, other
+// rings); their slots are alpha*D + beta on ring D + r. ops/spiral.py
+// SEGMENT_DIST and SEGMENT_SPECIAL are the Python twins of these tables,
+// held to the general slot map by tests/test_torch_spiral_band.py.
+__constant__ int kDist[4] = {1, 7, 5, 3};
+__constant__ int kSpecial[4][6][3] = {  // {r, alpha, beta}: own -1, own L, in -1, in 0, in L-1, in L
+    {{1, 8, 7}, {0, 2, 0}, {1, 8, 6}, {0, 8, -1}, {-1, 2, -2}, {0, 2, 1}},
+    {{1, 0, 1}, {0, 6, 0}, {1, 0, 2}, {0, 0, 1}, {-1, 6, -6}, {0, 6, -1}},
+    {{1, 4, 3}, {1, 6, 7}, {1, 4, 2}, {0, 4, -1}, {0, 6, 1}, {1, 6, 8}},
+    {{1, 4, 5}, {1, 2, 1}, {1, 4, 6}, {0, 4, 1}, {0, 2, -1}, {1, 2, 0}}};
 
-  // phase 2: each thread composes its positions' maps h -> a + b*h, then an
-  // inclusive Hillis-Steele scan over the threads
-  float A = 0.0f, B = 1.0f;
-  for (int k = k0; k < k1; ++k) {
-    A = sa[k] + sb[k] * A;
-    B = sb[k] * B;
-  }
-  ta[t] = A;
-  tb[t] = B;
-  __syncthreads();
-  for (int d = 1; d < nT; d <<= 1) {
-    const bool has = t >= d;
-    float a1 = 0.0f, b1 = 1.0f;
-    if (has) { a1 = ta[t - d]; b1 = tb[t - d]; }
-    __syncthreads();
-    if (has) {
-      A = A + B * a1;
-      B = B * b1;
-      ta[t] = A;
-      tb[t] = B;
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ int ring_size(int d) { return d == 0 ? 1 : 8 * d; }
 
-  // phase 3: write back (h[-1] := 0, so a prefix's A is the height)
-  if (E == 1) {
-    if (k0 < L) {
-      const int y = desc ? hi - 1 - k0 : lo + k0;
-      const int q = f * s_r + y * s_y;
-      h[q] = A;
-      c[q] = sc[k0];
-    }
+struct Band {
+  float2* v;   // (height, confidence); 4 buffers of `stride` cells, ring d in buffer d % 4
+  int stride;  // 8m + 1: the largest ring and its corner copy
+};
+
+__device__ __forceinline__ int buffer(const Band& B, int d) { return (d & 3) * B.stride; }
+
+__device__ __forceinline__ void sync_walkers(int count) {
+  if (count == 32) {
+    __syncwarp();
   } else {
-    float hin = t == 0 ? 0.0f : ta[t - 1];
-    for (int k = k0; k < k1; ++k) {
-      const int y = desc ? hi - 1 - k : lo + k;
-      const int q = f * s_r + y * s_y;
-      hin = sa[k] + sb[k] * hin;
-      h[q] = hin;
-      c[q] = sc[k];
-    }
+    asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");
   }
-  __syncthreads();
 }
 
-__global__ void spiral_kernel(float* h, float* c, Consts K, float base_z) {
-  extern __shared__ float smem[];
-  const int n = K.n;
-  float* sa = smem;
-  float* sb = sa + n;
-  float* sc = sb + n;
-  float* ta = sc + n;
-  float* tb = ta + blockDim.x;
+__device__ __forceinline__ void sync_all(int count) {
+  asm volatile("bar.sync 2, %0;" ::"r"(count) : "memory");
+}
+
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(to), "l"(src) : "memory");
+}
+
+// Ring d from global memory into its band buffer, with the corner copy;
+// threads [t0, t0 + T) share the work.
+__device__ void fetch_ring(const Band& B, const Consts& K, const float* h, const float* c,
+                           int d, int t0, int T) {
+  float2* ring = B.v + buffer(B, d);
+  for (int s = threadIdx.x - t0; s < ring_size(d); s += T) {
+    const int q = slot_cell(s, d, K);
+    copy_async(&ring[s].x, h + q);
+    copy_async(&ring[s].y, c + q);
+    if (s == 0) {
+      copy_async(&ring[8 * d].x, h + q);
+      copy_async(&ring[8 * d].y, c + q);
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__device__ void store_ring(const Band& B, const Consts& K, float* h, float* c, int d, int t0,
+                           int T) {
+  const float2* ring = B.v + buffer(B, d);
+  for (int s = threadIdx.x - t0; s < ring_size(d); s += T) {
+    const int q = slot_cell(s, d, K);
+    const float2 v = ring[s];
+    h[q] = v.x;
+    c[q] = v.y;
+  }
+}
+
+// Entry `e` of segment `kind`'s plan for ring D, 12 ints: the band index
+// of walk position 0 on the own, outer and inner lines, the six irregular
+// band indices, the line f (also the grid coordinate of position 0), L.
+__device__ int plan_entry(const Band& B, const Consts& K, int D, int kind, int e) {
+  const int a_own = kind == 0 ? 0 : (kind == 1 ? 8 * D : 4 * D);
+  switch (e) {
+    case 0: return buffer(B, D) + a_own;
+    case 1: return buffer(B, D + 1) + a_own + kDist[kind];
+    case 2: return buffer(B, D - 1) + a_own - kDist[kind];
+    case 9: return kind >= 2 ? K.cidx + D : K.cidx - D;
+    case 10: return kind >= 2 ? 2 * D + 1 : 2 * D;
+    case 11: return 0;
+    default: {
+      const int* x = kSpecial[kind][e - 3];
+      return buffer(B, D + x[0]) + x[1] * D + x[2];
+    }
+  }
+}
+
+struct Coef {
+  float a, b, cc;  // h -> a + b*h, the visit's new confidence
+  int slot;        // band index of the visited cell
+};
+
+// The coefficients of walk position k of segment `kind`, from the band as
+// it stands (the plain version's formulas, op for op).
+__device__ Coef coefficients(const Band& B, const Consts& K, const int* plan, int kind, int k) {
+  const int4 pa = reinterpret_cast<const int4*>(plan)[0];
+  const int4 pb = reinterpret_cast<const int4*>(plan)[1];
+  const int4 pc = reinterpret_cast<const int4*>(plan)[2];
+  const int own0 = pa.x, out0 = pa.y, in0 = pa.z;
+  const int own_first = pa.w, own_last = pb.x;
+  const int in_m1 = pb.y, in_0 = pb.z, in_l1 = pb.w, in_l = pc.x;
+  const int f = pc.y, L = pc.z;
+  const bool desc = kind >= 2;
+  const int s = (kind & 1) ? -1 : 1;  // slot step per walk position
+  const int ystep = desc ? -1 : 1;    // grid step per walk position
+  const float af = (float)(f - K.cidx);
+  const float af2 = af * af;
+  const float2* V = B.v;
+
+  const int y = f + ystep * k;
+  const int q1 = own0 + s * k;
+  const int p1 = k == 0 ? own_first : q1 - s;
+  const int s1 = k == L - 1 ? own_last : q1 + s;
+  const int qu = out0 + s * k;
+  const int qi0 = in0 + s * k;
+  const int pi = k == 0 ? in_m1 : (k == 1 ? in_0 : qi0 - s);
+  const int qi = k == 0 ? in_0 : (k == L - 1 ? in_l1 : qi0);
+  const int si = k == L - 1 ? in_l : (k == L - 2 ? in_l1 : qi0 + s);
+  // line f-1 is the outer line of the top and left segments, the inner one
+  // of the bottom and right segments; line f+1 the other
+  const float2 v0p = V[desc ? pi : qu - s], v0y = V[desc ? qi : qu], v0s = V[desc ? si : qu + s];
+  const float2 v2p = V[desc ? qu - s : pi], v2y = V[desc ? qu : qi], v2s = V[desc ? qu + s : si];
+  const float2 v1p = V[p1], v1y = V[q1], v1s = V[s1];
+  const float w0p = v0p.y * v0p.x, w0y = v0y.y * v0y.x, w0s = v0s.y * v0s.x;
+  const float w2p = v2p.y * v2p.x, w2y = v2y.y * v2y.x, w2s = v2s.y * v2s.x;
+  const float w1y = v1y.y * v1y.x, w1s = v1s.y * v1s.x;
+  float num = w0p + w0y;
+  num = num + w0s;
+  num = num + w2p;
+  num = num + w2y;
+  num = num + w2s;
+  num = num + w1y;
+  num = num + w1s;
+  float den = v0p.y + v0y.y;
+  den = den + v0s.y;
+  den = den + v2p.y;
+  den = den + v2y.y;
+  den = den + v2s.y;
+  den = den + v1y.y;
+  den = den + v1s.y;
+  const bool pin = k > 0;  // predecessor inside this segment
+  const float occ = v1y.y;
+  const float cpred = pin ? decay(K, af2, y - ystep, v1p.y) : v1p.y;
+  den = den + cpred;
+  den = den + kFltTiny;
+  const float blend = 1.0f - occ;
+  Coef x;
+  x.b = pin ? (blend * cpred) / den : 0.0f;
+  const float ns = num + (pin ? 0.0f : cpred * v1p.x);
+  x.a = (blend * ns) / den + occ * v1y.x;
+  x.cc = decay(K, af2, y, occ);
+  x.slot = q1;
+  return x;
+}
+
+// A visit's result into the band; position 0 of top and left is the
+// top-left corner, whose slots 0 and 8D = 4L both take it.
+__device__ __forceinline__ void put(const Band& B, int kind, int k, int L, int slot, float h,
+                                    float cc) {
+  const float2 v = make_float2(h, cc);
+  B.v[slot] = v;
+  if (kind < 2 && k == 0) B.v[slot + (kind == 0 ? 4 * L : -4 * L)] = v;
+}
+
+// Ring 1 by warp 0, segment by segment: its segments are too short for the
+// ring-wide scan (each one's junctions with the next overlap).
+__device__ void walk_ring1(const Band& B, const Consts& K, const int* plans) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int kind = 0; kind < 4; ++kind) {
+    const int* plan = plans + 12 * kind;
+    const int L = plan[10];
+    Coef x{0.0f, 0.0f, 0.0f, 0};
+    if (lane < L) x = coefficients(B, K, plan, kind, lane);
+    __syncwarp();
+    float h = 0.0f;
+    for (int k = 0; k < L; ++k) {  // h[k] = a[k] + b[k] h[k-1], b[0] = 0
+      const float a = __shfl_sync(kFull, x.a, k), b = __shfl_sync(kFull, x.b, k);
+      h = __fmaf_rn(b, h, a);
+      if (lane == k) put(B, kind, k, L, x.slot, h, x.cc);
+    }
+    __syncwarp();
+  }
+}
+
+// Ring D >= 2 by the first P threads. Its 8D+2 visits (top 2D, left 2D,
+// bottom 2D+1, right 2D+1, in walk order) are solved together: a visit reads
+// a cell that an earlier segment of the ring writes only at the junctions,
+// left positions 0, 1 (top's 0, 1), bottom L-2, L-1 (left's last), right 0,
+// 1 (bottom's 0, 1) and right L-2, L-1 (top's last). So all coefficients come
+// from the band as the ring starts; warp 0 then redoes left 0, 1 and right
+// 0, 1 with top's and bottom's first results in the band; one scan over the
+// ring gives every height (b = 0 at each segment's position 0 restarts the
+// recurrence) and writes the visits back; warp 0 redoes bottom and right
+// L-2, L-1 with top's and left's last results in the band.
+__device__ void walk_ring(const Band& B, const Consts& K, const int* plans, int D, int P,
+                          float* sa, float* sb, float* sc, float* scratch) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int N = 8 * D + 2;
+  const int E = N > P ? (N + P - 1) / P : 1;  // visits per thread
+  const int g0 = t * E, g1 = min(N, g0 + E);
+  auto locate = [&](int g, int& kind, int& k) {
+    kind = g < 2 * D ? 0 : (g < 4 * D ? 1 : (g < 6 * D + 1 ? 2 : 3));
+    k = g - (kind == 0 ? 0 : (kind == 1 ? 2 * D : (kind == 2 ? 4 * D : 6 * D + 1)));
+  };
+  const int left0 = 2 * D, bottom0 = 4 * D, right0 = 6 * D + 1;
+  const int bottom_end = 6 * D - 1, right_end = 8 * D;  // position L-2 of each
+
+  // phase 1: every visit's coefficients, from the band as the ring starts
+  for (int g = g0; g < g1; ++g) {
+    int kind, k;
+    locate(g, kind, k);
+    const Coef x = coefficients(B, K, plans + 12 * kind, kind, k);
+    sa[g] = x.a;
+    sb[g] = x.b;
+    sc[g] = x.cc;
+  }
+  sync_walkers(P);
+
+  // junctions at the starts: lanes 0 and 1 put top's and bottom's positions
+  // 0 and 1, lanes 0-3 redo left 0, 1 and right 0, 1
+  if (warp == 0 && lane < 4) {
+    if (lane < 2) {
+      const int g = lane == 0 ? 0 : bottom0, kind = lane == 0 ? 0 : 2;
+      const int L = plans[12 * kind + 10];
+      const float h0 = sa[g], h1 = __fmaf_rn(sb[g + 1], h0, sa[g + 1]);
+      put(B, kind, 0, L, plans[12 * kind], h0, sc[g]);
+      put(B, kind, 1, L, plans[12 * kind] + ((kind & 1) ? -1 : 1), h1, sc[g + 1]);
+    }
+    __syncwarp(0xfu);
+    const int kind = lane < 2 ? 1 : 3, k = lane & 1;
+    const Coef x = coefficients(B, K, plans + 12 * kind, kind, k);
+    const int g = (lane < 2 ? left0 : right0) + k;
+    sa[g] = x.a;
+    sb[g] = x.b;
+    sc[g] = x.cc;
+  }
+  sync_walkers(P);
+
+  // phase 2: each thread composes its visits' maps h -> a + b*h, warps scan
+  // those with shuffles, every warp scans the totals of the warps before it
+  float A = 0.0f, Bm = 1.0f;
+  for (int g = g0; g < g1; ++g) {
+    A = __fmaf_rn(sb[g], A, sa[g]);
+    Bm = sb[g] * Bm;
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float a1 = __shfl_up_sync(kFull, A, d), b1 = __shfl_up_sync(kFull, Bm, d);
+    if (lane >= d) {
+      A = __fmaf_rn(Bm, a1, A);
+      Bm = Bm * b1;
+    }
+  }
+  float ea = __shfl_up_sync(kFull, A, 1), eb = __shfl_up_sync(kFull, Bm, 1);
+  if (lane == 0) {
+    ea = 0.0f;
+    eb = 1.0f;
+  }
+  float before = 0.0f;  // the height entering this warp
+  if (P > 32) {
+    float* wa = scratch;
+    float* wb = scratch + 32;
+    if (lane == 31) {
+      wa[warp] = A;
+      wb[warp] = Bm;
+    }
+    sync_walkers(P);
+    float A2 = lane < warp ? wa[lane] : 0.0f, B2 = lane < warp ? wb[lane] : 1.0f;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float a1 = __shfl_up_sync(kFull, A2, d), b1 = __shfl_up_sync(kFull, B2, d);
+      if (lane >= d) {
+        A2 = __fmaf_rn(B2, a1, A2);
+        B2 = B2 * b1;
+      }
+    }
+    before = __shfl_sync(kFull, A2, 31);
+  }
+  // phase 3: the heights, each visit into the band but the first visits of
+  // the corners (i, i) and (o, o), which the second ones overwrite, and
+  // bottom's and right's last three, which the end junctions read first
+  float hin = __fmaf_rn(eb, before, ea);
+  for (int g = g0; g < g1; ++g) {
+    hin = __fmaf_rn(sb[g], hin, sa[g]);
+    sa[g] = hin;
+    const bool junction = g == 0 || g == bottom0 || (g >= bottom_end - 1 && g <= bottom_end + 1) ||
+                          g >= right_end - 1;
+    if (!junction) {
+      int kind, k;
+      locate(g, kind, k);
+      const int* plan = plans + 12 * kind;
+      put(B, kind, k, plan[10], plan[0] + ((kind & 1) ? -k : k), hin, sc[g]);
+    }
+  }
+  sync_walkers(P);
+
+  // junctions at the ends: lanes 0-3 redo bottom L-2, L-1 and right L-2,
+  // L-1 with top's and left's last results in the band, then put those and
+  // position L-3
+  if (warp == 0 && lane < 4) {
+    const int kind = lane < 2 ? 2 : 3, L = 2 * D + 1, k = L - 2 + (lane & 1);
+    const int* plan = plans + 12 * kind;
+    const Coef x = coefficients(B, K, plan, kind, k);
+    const int g = (lane < 2 ? bottom_end : right_end) + (lane & 1);
+    float h = __fmaf_rn(x.b, sa[g - 1], x.a);  // position L-2 from the scan's L-3
+    const float h2 = __shfl_up_sync(0xfu, h, 1);
+    if (lane & 1) h = __fmaf_rn(x.b, h2, x.a);  // L-1 from the new L-2
+    __syncwarp(0xfu);                            // every read before any write
+    put(B, kind, k, L, x.slot, h, x.cc);
+    if (!(lane & 1)) put(B, kind, k - 1, L, x.slot - ((kind & 1) ? -1 : 1), sa[g - 1], sc[g - 1]);
+  }
+}
+
+// One block: the first blockDim.x - kMemThreads threads walk the rings; the
+// last kMemThreads (the memory warps) store each finished ring, fetch the
+// ring two ahead and plan the next ring's segments, and meet the walkers
+// once per ring.
+__global__ void __launch_bounds__(1024, 1)
+spiral_kernel(float* h, float* c, Consts K, float base_z, int stride) {
+  extern __shared__ float2 band[];
+  const Band B{band, stride};
+  float* scratch = reinterpret_cast<float*>(band + 4 * stride);
+  int* plans = reinterpret_cast<int*>(scratch + 64);  // ring d's in plans[(d & 1) * kPlan]
+  float* sa = scratch + kScratch;  // per visit of a ring: a (then the height), b, confidence
+  float* sb = sa + stride;
+  float* sc = sb + stride;
   const int m = K.cidx;
-  if (threadIdx.x == 0) {
-    h[m * n + m] = base_z;
-    c[m * n + m] = 1.0f;
-  }
+  const int T = blockDim.x, Tc = T - kMemThreads, t = threadIdx.x;
+
+  if (t == 0) B.v[0] = make_float2(base_z, 1.0f);  // ring 0, the center, in buffer 0
+  for (int d = 1; d <= 2 && d <= m; ++d) fetch_ring(B, K, h, c, d, 0, T);
+  if (t < kPlan && m > 1) plans[kPlan + t] = plan_entry(B, K, 1, t / 12, t % 12);
   __syncthreads();
-  for (int i = m - 1; i >= 1; --i) {
-    const int outer = 2 * m - i;
-    segment(h, c, K, i, i, outer, false, false, sa, sb, sc, ta, tb);          // top ->
-    segment(h, c, K, i, i, outer, true, false, sa, sb, sc, ta, tb);           // left v
-    segment(h, c, K, outer, i, outer + 1, false, true, sa, sb, sc, ta, tb);   // bottom <-
-    segment(h, c, K, outer, i, outer + 1, true, true, sa, sb, sc, ta, tb);    // right ^
+
+  for (int d = 1; d < m; ++d) {
+    if (t >= Tc) {
+      store_ring(B, K, h, c, d - 1, Tc, kMemThreads);
+      if (d + 2 <= m) fetch_ring(B, K, h, c, d + 2, Tc, kMemThreads);
+      const int u = t - Tc;
+      if (u < kPlan && d + 1 < m) {
+        plans[((d + 1) & 1) * kPlan + u] = plan_entry(B, K, d + 1, u / 12, u % 12);
+      }
+    } else {
+      // the walkers this ring needs: one per visit, 8d+2
+      const int P = min(Tc, (8 * d + 2 + 31) / 32 * 32);
+      const int* plan = plans + (d & 1) * kPlan;
+      if (d == 1) {
+        if (t < 32) walk_ring1(B, K, plan);
+      } else if (t < P) {
+        walk_ring(B, K, plan, d, P, sa, sb, sc, scratch);
+      }
+    }
+    sync_all(T);
   }
+  if (t >= Tc) store_ring(B, K, h, c, m - 1, Tc, kMemThreads);
 }
 
 }  // namespace
 
-// h, c: (n, n) f32 row-major, updated in place.
+// h, c: (n, n) f32 row-major, updated in place. threads and smem_bytes come
+// from ops/spiral.py band_layout; a launch whose geometry does not fit the
+// kernel's limits returns cudaErrorInvalidValue without launching.
 extern "C" int gg_spiral(float* h, float* c, int n, int cidx, float base_z, float res2,
-                         float dec, float min_d2, float floor_c, cudaStream_t stream) {
-  int threads = ((n + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const size_t smem = (3 * (size_t)n + 2 * (size_t)threads) * sizeof(float);
-  if (smem > 48 * 1024) {
+                         float dec, float min_d2, float floor_c, int threads, int smem_bytes,
+                         cudaStream_t stream) {
+  const int m = cidx > 0 ? cidx : 0;
+  const int stride = 8 * m + 1;
+  if (threads > 1024 || threads % 32 != 0 || threads - kMemThreads < 32 ||
+      (size_t)smem_bytes != (11 * (size_t)stride + kScratch) * sizeof(float)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        spiral_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        spiral_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
   Consts K{n, cidx, res2, dec, min_d2, floor_c};
-  spiral_kernel<<<1, threads, smem, stream>>>(h, c, K, base_z);
+  spiral_kernel<<<1, threads, smem_bytes, stream>>>(h, c, K, base_z, stride);
   return (int)cudaGetLastError();
 }

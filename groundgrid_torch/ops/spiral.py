@@ -7,11 +7,26 @@ spec of the kernel: the walk of GroundSegmentation.cpp:398-465, rings inner
 -> outer, four segments per ring in walk order, each segment's heights the
 affine recurrence ``h[y] = a[y] + b[y] * h[y-1]``.
 
+On the card the kernel is bound by the walk's serial chain, m - 1 rings
+(180 at 364^2) in one thread block, not by its 2.1 MB of HBM traffic (~0.6
+us at 3.35 TB/s). It keeps a ring band in shared memory, the rings a 3x3
+stencil on ring ``D`` reads (D-1, D, D+1) and the next one, each in the slot
+order of :func:`ring_slot` / :func:`slot_cell` (the twins of the ``.cu``'s),
+so that no stencil read or write on the chain leaves the SM; memory warps
+store and fetch rings beside the walk; and all four segments of a ring are
+solved by one warp-shuffle affine scan, with the few visits that read an
+earlier segment's cells (:func:`stencil_slots`'s junctions) redone around it.
+:func:`band_layout` sizes the launch: ``4 * (11 (8 m + 1) + 160)`` bytes of
+shared memory (m = n // 2 - 1); a block holds at most 232,448, so grids
+above 1319 cells a side raise ``ValueError``.
+
 :func:`spiral_interpolation` launches the kernel for CUDA tensors and takes
 the plain version only for CPU tensors.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -20,6 +35,118 @@ from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.ops import _build
 
 FLT_TINY = float(np.finfo(np.float32).tiny)
+
+
+# the kernel's launch (csrc/spiral.cu): shared memory a block can hold on
+# Hopper, the memory warps' threads, the scratch floats (the scan's warp
+# totals, two rings' segment plans)
+SMEM_LIMIT = 232_448
+MEM_THREADS = 128
+SCRATCH_FLOATS = 160
+
+
+def ring_slot(dr: int, dc: int, d: int) -> int:
+    """Slot of the cell ``(dr, dc)`` from the center on its ring ``d``.
+
+    Clockwise from the top-left corner: top row (dc -d .. d-1), right column
+    (dr -d .. d-1), bottom row (dc d .. -d+1), left column (dr d .. -d+1);
+    ``8 d`` slots, the center's 0. The band also keeps slot ``8 d``, a copy
+    of slot 0 (the top-left corner), so that the left column's run of slots
+    does not wrap. The inverse of :func:`slot_cell`.
+    """
+    if dr == -d and dc < d:
+        return dc + d
+    if dc == d and dr < d:
+        return 3 * d + dr
+    if dr == d and dc > -d:
+        return 5 * d - dc
+    return 7 * d - dr
+
+
+def slot_cell(s: int, d: int, m: int) -> tuple[int, int]:
+    """Grid cell (row, column) of slot ``s`` on ring ``d`` around ``(m, m)``:
+    the twin of ``slot_cell`` in the ``.cu``."""
+    lo, hi = m - d, m + d
+    if s < 2 * d:
+        return lo, lo + s
+    if s < 4 * d:
+        return lo + s - 2 * d, hi
+    if s < 6 * d:
+        return hi, hi - (s - 4 * d)
+    return hi - (s - 6 * d), lo
+
+
+# a segment's line of ring D: slot a + s*j at walk position j, s = +1 for
+# top and bottom, -1 for left and right; the outer line (ring D+1) starts
+# SEGMENT_DIST[kind] slots past the own line's a, the inner line (ring D-1)
+# as far before it. SEGMENT_SPECIAL: (r, alpha, beta) of the cells that
+# leave their line's run (own j = -1, L; inner j = -1, 0, L-1, L), slot
+# alpha*D + beta on ring D + r. Twins of kDist and kSpecial in the .cu.
+SEGMENT_DIST = (1, 7, 5, 3)
+SEGMENT_SPECIAL = (
+    ((1, 8, 7), (0, 2, 0), (1, 8, 6), (0, 8, -1), (-1, 2, -2), (0, 2, 1)),
+    ((1, 0, 1), (0, 6, 0), (1, 0, 2), (0, 0, 1), (-1, 6, -6), (0, 6, -1)),
+    ((1, 4, 3), (1, 6, 7), (1, 4, 2), (0, 4, -1), (0, 6, 1), (1, 6, 8)),
+    ((1, 4, 5), (1, 2, 1), (1, 4, 6), (0, 4, 1), (0, 2, -1), (1, 2, 0)),
+)
+
+
+def stencil_slots(d: int, kind: int, k: int) -> list[tuple[int, int]]:
+    """(ring, slot) of the nine cells that visit ``k`` of segment ``kind``
+    (0 top, 1 left, 2 bottom, 3 right) of ring ``d`` reads, as the kernel
+    addresses them: lines f-1, f, f+1, each at the walk predecessor, the
+    cell and the successor. Slot ``8 r`` of ring r is the corner copy of 0."""
+    length = 2 * d + 1 if kind >= 2 else 2 * d
+    step = -1 if kind & 1 else 1
+    a_own = (0, 8 * d, 4 * d, 4 * d)[kind]
+    dist = SEGMENT_DIST[kind]
+    special = [(d + r, alpha * d + beta) for r, alpha, beta in SEGMENT_SPECIAL[kind]]
+
+    def own(j):
+        return {-1: special[0], length: special[1]}.get(j, (d, a_own + step * j))
+
+    def outer(j):
+        return d + 1, a_own + dist + step * j
+
+    def inner(j):
+        ends = {-1: special[2], 0: special[3], length - 1: special[4], length: special[5]}
+        return ends.get(j, (d - 1, a_own - dist + step * j))
+
+    before, after = (inner, outer) if kind >= 2 else (outer, inner)  # lines f-1, f+1
+    return [line(j) for line in (before, own, after) for j in (k - 1, k, k + 1)]
+
+
+def ring_walk(m: int, d: int) -> list[tuple[int, int]]:
+    """The cells of ring ``d`` in walk order, 8 d + 2 visits: top row ->,
+    left column v, bottom row <-, right column ^ (``spiral_interpolation_plain``)."""
+    i, outer = m - d, m + d
+    top = [(i, y) for y in range(i, outer)]
+    left = [(y, i) for y in range(i, outer)]
+    bottom = [(outer, y) for y in range(outer, i - 1, -1)]
+    right = [(y, outer) for y in range(outer, i - 1, -1)]
+    return top + left + bottom + right
+
+
+class BandLayout(NamedTuple):
+    """The kernel's launch geometry for an ``n``-cell grid."""
+
+    threads: int  # one block: the walkers, then MEM_THREADS memory threads
+    stride: int  # cells per band buffer: 8 m + 1, the largest ring and its corner copy
+    smem_bytes: int  # 4 buffers x 2 layers + 3 per-visit arrays, stride floats each; scratch
+
+
+def band_layout(n: int) -> BandLayout:
+    """Threads and shared-memory bytes of the K3 launch; ``ValueError`` where
+    the band does not fit one block's shared memory (n above 1319)."""
+    m = max(n // 2 - 1, 0)
+    stride = 8 * m + 1
+    visits = max(8 * m - 6, 1)  # ring m-1, the largest walked
+    walkers = min(1024 - MEM_THREADS, -(-visits // 32) * 32)
+    smem = 4 * (11 * stride + SCRATCH_FLOATS)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"spiral_interpolation: a {n}^2 grid needs a {smem}-byte ring band; "
+                         f"one block holds {SMEM_LIMIT} bytes (n <= 1319)")
+    return BandLayout(walkers + MEM_THREADS, stride, smem)
 
 
 def _affine_scan(a, b):
@@ -146,13 +273,14 @@ def spiral_interpolation(config: GroundGridConfig, ground, groundpatch, base_z):
         raise RuntimeError(f"spiral_interpolation: unsupported device {ground.device}")
     if not (ground.is_contiguous() and groundpatch.is_contiguous()):
         raise ValueError("spiral_interpolation needs contiguous layers")
+    layout = band_layout(n)
     lib = _build.library()
     code = lib.lib.gg_spiral(
         ground.data_ptr(), groundpatch.data_ptr(), n, config.center_cell,
         float(np.float32(base_z)), float(np.float32(config.resolution ** 2)),
         float(np.float32(config.occupied_cells_decrease_factor)),
         float(np.float32(config.min_dist_squared)), float(np.float32(0.001)),
-        _build.stream_ptr(ground.device),
+        layout.threads, layout.smem_bytes, _build.stream_ptr(ground.device),
     )
     _build.check(code, "spiral_interpolation")
     spiral_interpolation.launches += 1

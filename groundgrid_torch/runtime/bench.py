@@ -17,7 +17,8 @@ the same metric name, ``synthetic_hdl64_scans_per_sec_per_chip``.
 
 Run on the card: ``python -m groundgrid_torch.runtime.bench`` prints one
 JSON line; ``--profile`` prints instead a ``torch.profiler`` table of eight
-warm steps by device time. A device that is not CUDA raises: this bench
+warm steps by device time, then the device busy ms per step (the sum of the
+device activities' durations over the steps). A device that is not CUDA raises: this bench
 gives no CPU number.
 """
 
@@ -34,6 +35,7 @@ import torch
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.data.synthetic import make_scene, render_scan, vehicle_pose
 from groundgrid_torch.runtime.driver import ScanRecord, StreamingDriver
+from groundgrid_torch.runtime.kernel_timing import device_us
 
 
 def _log(msg: str) -> None:
@@ -178,7 +180,11 @@ def profile_steps(n_steps: int = 8, device="cuda") -> str:
         for scan in scans:
             state, _ = driver.step(state, scan)
         torch.cuda.synchronize(device)
-    return prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+    busy_us, activities = device_us(prof)
+    return (f"{table}\ndevice busy {busy_us / 1000.0 / len(scans):.4f} ms per step "
+            f"({activities / len(scans):.1f} device activities per step) over {len(scans)} "
+            f"warm steps")
 
 
 def main() -> None:

@@ -9,7 +9,8 @@ alone:
 
 Small sizes, including grids below 32 cells a side: K1 bitwise on every
 column, K2 bitwise, K3 confidence bitwise and heights within atol 2e-5 /
-rtol 1e-5, K4 bitwise; plus the small-config streaming step on the card
+rtol 1e-5 (up to n = 1212; two runs bitwise; a band beyond shared memory
+refused), K4 bitwise; plus the small-config streaming step on the card
 against the same step on the CPU, on the main path and on the fused, aux
 and wire path.
 """
@@ -77,17 +78,24 @@ def test_lookup_kernel_matches_plain(cuda, kind):
             assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
-@pytest.mark.parametrize("dimension,resolution", [(12.0, 0.5), (15.0, 0.5), (40.0, 0.5),
-                                                  (70.0, 0.5), (120.0, 0.33)])
-def test_spiral_kernel_matches_plain(cuda, dimension, resolution):
-    cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
-    n = cfg.cell_count
+def _spiral_layers(n, device):
     rng = np.random.default_rng(n)
-    ground = torch.from_numpy(rng.normal(0, 0.5, (n, n)).astype(np.float32)).to(cuda)
+    ground = torch.from_numpy(rng.normal(0, 0.5, (n, n)).astype(np.float32)).to(device)
     conf = np.zeros((n, n), np.float32)
     mask = rng.random((n, n)) < 0.4
     conf[mask] = rng.uniform(0.0, 1.0, mask.sum())
-    conf = torch.from_numpy(conf).to(cuda)
+    return ground, torch.from_numpy(conf).to(device)
+
+
+@pytest.mark.parametrize("dimension,resolution", [
+    (5.0, 0.5), (12.0, 0.5), (12.5, 0.5), (15.0, 0.5), (16.65, 0.37), (40.0, 0.5), (70.0, 0.5),
+    (120.0, 0.33), (400.0, 0.33),
+])
+def test_spiral_kernel_matches_plain(cuda, dimension, resolution):
+    """n = 10 (two rings), 24, 25, 30 (below a warp), 45 (odd), 80, 140, 364
+    and 1212 (more visits than threads, a ring band above 48 KB)."""
+    cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
+    ground, conf = _spiral_layers(cfg.cell_count, cuda)
     g_k, c_k = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
     g_p, c_p = spiral.spiral_interpolation_plain(cfg, ground.clone(), conf.clone(), 0.37)
     torch.cuda.synchronize()
@@ -95,6 +103,27 @@ def test_spiral_kernel_matches_plain(cuda, dimension, resolution):
     torch.testing.assert_close(g_k, g_p, atol=2e-5, rtol=1e-5)
     with pytest.raises(ValueError):  # the kernel writes in place: no strided views
         spiral.spiral_interpolation(cfg, ground.t(), conf.t(), 0.37)
+
+
+def test_spiral_kernel_is_deterministic(cuda):
+    cfg = GroundGridConfig()
+    ground, conf = _spiral_layers(cfg.cell_count, cuda)
+    runs = [spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def test_spiral_kernel_refuses_a_band_beyond_shared_memory(cuda):
+    """n = 2500: the ring band needs more than a block's 227 KB (n <= 1319);
+    no fallback."""
+    cfg = GroundGridConfig(dimension=825.0, resolution=0.33)
+    n = cfg.cell_count
+    layers = [torch.zeros(n, n, device=cuda) for _ in range(2)]
+    before = spiral.spiral_interpolation.launches
+    with pytest.raises(ValueError, match="ring band"):
+        spiral.spiral_interpolation(cfg, *layers, 0.37)
+    assert spiral.spiral_interpolation.launches == before
 
 
 @pytest.mark.parametrize("dimension,resolution,scale", [
