@@ -18,12 +18,14 @@ Phases (any failure raises and exits non-zero, printing no result):
    (the warm raster layers of a real scan at 364^2, and random layers at
    n = 12 and 45, one seed with low variance so that the main update
    fires: ground and confidence bitwise). Per kernel: its device time
-   (``torch.profiler``, the named kernel's own time per launch), the
-   wrapper's cost per call (CUDA events around back-to-back calls), the
-   plain version's, the least time the card could take (bytes over 3.35
-   TB/s or f32 operations over 67 TFLOP/s, from this run's shapes) and,
-   for K2, one ``torch.index_select`` over the stacked tables, timed in
-   turns with the kernel (no one PyTorch call computes K1, K3 or K4).
+   (``torch.profiler``, the named kernel's own time per launch), the device
+   time of everything one wrapper call launches (K1's column stack
+   included), the wrapper's cost per call (CUDA events around back-to-back
+   calls), the plain version's, the least time the card could take (the
+   bytes this run's inputs need over 3.35 TB/s or its f32 operations over
+   67 TFLOP/s: K2 reads only the distinct cells its ids name) and, for K2,
+   one ``torch.index_select`` over the stacked tables, timed in turns with
+   the kernel (no one PyTorch call computes K1, K3 or K4).
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
    synthetic scans: per-scan launch counts (K1 x1, K2 x3, K3 x1), no
    sortedness fallback, labels against the plain-version run on the card
@@ -84,14 +86,17 @@ def log(msg: str) -> None:
 
 def kernel_times(fn, reps: int, name: str, plain=None, plain_reps: int = 0) -> dict:
     """``device_ms`` (the kernel ``name``'s own time on the card, by
-    ``torch.profiler``), ``call_ms`` (CUDA events around back-to-back wrapper
-    calls) and ``plain_ms`` of ``plain()``, each per call."""
+    ``torch.profiler``), ``wrapper_device_ms`` (every device activity of one
+    wrapper call: the kernel and any copy the wrapper makes), ``call_ms``
+    (CUDA events around back-to-back wrapper calls) and ``plain_ms`` of
+    ``plain()``, each per call."""
     from groundgrid_torch.runtime.kernel_timing import device_ms, event_ms
 
     dev, seen = device_ms(fn, reps, name)  # the mean over the launches the profiler saw
     if seen > reps:
         raise AssertionError(f"{name}: the profiler saw {seen} launches in {reps} calls")
-    out = {"device_ms": dev, "call_ms": event_ms(fn, reps)}
+    out = {"device_ms": dev, "wrapper_device_ms": device_ms(fn, reps)[0],
+           "call_ms": event_ms(fn, reps)}
     if plain is not None:
         out["plain_ms"] = event_ms(plain, plain_reps)
     return out
@@ -162,14 +167,17 @@ def check_raster(config, driver, rec):
     rec.update(kernel_times(lambda: raster.raster_reduce(cell, cols, ops, n2), 50,
                             "raster_reduce_kernel",
                             lambda: raster.raster_reduce_plain(cell, cols, ops, n2), 10))
-    # reads the ids and each column once, writes one value per cell and
-    # column; one sum, min or max per point and column
-    rec.update(bound(cell.nbytes + sum(c.nbytes for c in cols) + 4 * len(cols) * n2,
-                     len(cols) * cell.shape[0]))
-    log(f"K1 raster_reduce: {cell.shape[0]} points, {len(cols)} columns, n2={n2}: "
-        f"max_abs_err {err:.3g}, device {rec['device_ms']:.4f} ms, call {rec['call_ms']:.4f} "
-        f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']})")
+    # reads every id once and each column at the points of real cells (the
+    # padding at id n2 is dropped), writes one value per cell and column;
+    # one sum, min or max per real point and column
+    real = int((cell < n2).sum())
+    rec.update(bound(cell.nbytes + 4 * len(cols) * real + 4 * len(cols) * n2,
+                     len(cols) * real))
+    log(f"K1 raster_reduce: {cell.shape[0]} points ({real} in cells), {len(cols)} columns, "
+        f"n2={n2}: max_abs_err {err:.3g}, device {rec['device_ms']:.4f} ms (with the "
+        f"wrapper's column stack {rec['wrapper_device_ms']:.4f} ms), call "
+        f"{rec['call_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return rec, cell
 
 
@@ -215,17 +223,21 @@ def check_lookup(config, driver, cell):
     dev_runs = [rec["device_ms"], kernel_times(two_tables, 100, "lookup_kernel")["device_ms"]]
     rec["device_ms"] = sum(dev_runs) / 2
     rec["library_ms"] = sum(lib_runs) / 2
-    # reads the ids and both tables once, writes two words per id
-    rec.update(bound(cell.nbytes + 2 * 4 * n2 + 2 * 4 * cell.shape[0], 0))
+    # reads every id once and each table at the distinct real cells the ids
+    # name (ids at n2 read nothing), writes one word per id and table
+    touched = int(torch.unique(cell[cell < n2]).numel())
+    rec.update(bound(cell.nbytes + 2 * 4 * touched + 2 * 4 * cell.shape[0], 0))
     lat = kernel_times(lambda: lookup.lookup(lattice, [conf], n2), 100, "lookup_kernel",
                        lambda: lookup.lookup_plain(lattice, [conf], n2), 20)
-    lat.update(bound(lattice.nbytes + 4 * n2 + 4 * lattice.shape[0], 0))
-    log(f"K2 lookup: bitwise on all cases; 2 tables x {cell.shape[0]} sorted points: device "
-        f"{dev_runs[0]:.4f} / {dev_runs[1]:.4f} ms, index_select {lib_runs[0]:.4f} / "
-        f"{lib_runs[1]:.4f} ms (in turns), call {rec['call_ms']:.4f} ms, plain "
-        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; 1 table x "
-        f"{lattice.shape[0]} unsorted: device {lat['device_ms']:.4f} ms, call "
-        f"{lat['call_ms']:.4f} ms, plain {lat['plain_ms']:.4f} ms, bound {lat['bound_ms']:.4f} ms")
+    lat_touched = int(torch.unique(lattice[lattice < n2]).numel())
+    lat.update(bound(lattice.nbytes + 4 * lat_touched + 4 * lattice.shape[0], 0))
+    log(f"K2 lookup: bitwise on all cases; 2 tables x {cell.shape[0]} sorted points "
+        f"({touched} distinct cells): device {dev_runs[0]:.4f} / {dev_runs[1]:.4f} ms, "
+        f"index_select {lib_runs[0]:.4f} / {lib_runs[1]:.4f} ms (in turns), call "
+        f"{rec['call_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} "
+        f"ms; 1 table x {lattice.shape[0]} unsorted ({lat_touched} distinct cells): device "
+        f"{lat['device_ms']:.4f} ms, call {lat['call_ms']:.4f} ms, plain "
+        f"{lat['plain_ms']:.4f} ms, bound {lat['bound_ms']:.5f} ms")
     return rec
 
 
@@ -252,11 +264,13 @@ def check_spiral(config, driver, rec):
     rec.update(kernel_times(lambda: spiral.spiral_interpolation(config, h, c, base_z), 20,
                             "spiral_kernel",
                             lambda: spiral.spiral_interpolation_plain(config, h, c, base_z), 2))
-    # reads and writes both layers once; ~55 f32 operations per visited cell
-    # (8 products and 16 sums of the stencil, 3 divisions, 2 decays, the scan)
+    # reads both layers on rings 0..m (the walk's stencils reach ring m) and
+    # writes them on rings 0..m-1, each cell once; ~55 f32 operations per
+    # visit (8 products and 16 sums of the stencil, 3 divisions, 2 decays,
+    # the scan)
     n, m = config.cell_count, config.center_cell
     visits = (m - 1) * (4 * m + 2) + 1
-    rec.update(bound(4 * 4 * n * n, 55 * visits))
+    rec.update(bound(2 * 4 * ((2 * m + 1) ** 2 + (2 * m - 1) ** 2), 55 * visits))
     log(f"K3 spiral_interpolation: {n}^2, {m - 1} rings: confidence bitwise, height "
         f"max_abs_err {err:.3g}, device {rec['device_ms']:.4f} ms, call {rec['call_ms']:.4f} "
         f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
@@ -686,7 +700,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"groundgrid_torch/csrc/{route_file}",
             "replaces": replaces, "launches": launches[key], "max_abs_err": res["max_abs_err"],
-            "ms": res["device_ms"], "device_ms": res["device_ms"], "call_ms": res["call_ms"],
+            "ms": res["device_ms"], "device_ms": res["device_ms"],
+            "wrapper_device_ms": res["wrapper_device_ms"], "call_ms": res["call_ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
         })

@@ -20,28 +20,33 @@
 //
 // - A ring band in shared memory. A 3x3 stencil on ring D reads only rings
 //   D-1 (final), D (being walked) and D+1 (not yet walked): the Chebyshev
-//   distance to the center moves by at most 1. Ring d lives in band buffer
-//   d % 4 as (height, confidence) pairs in ring order (slot_cell below;
-//   ops/spiral.py slot_cell is its Python twin, ring_slot the inverse), so each
-//   line of a ring is a run of slots and a stencil's nine reads are runs
-//   plus six corner cases per segment, planned once per ring. Every stencil
-//   read and write on the chain hits shared memory.
+//   distance to the center moves by at most 1. Ring d >= 1 lives in band
+//   buffer d % 3 as (height, confidence) pairs in ring order (slot_cell
+//   below; ops/spiral.py slot_cell is its Python twin, ring_slot the
+//   inverse), the center in a slot of its own, so each line of a ring is a
+//   run of slots and a stencil's nine reads are runs plus six corner cases
+//   per segment, planned once per ring. Every stencil read and write on the
+//   chain hits shared memory.
 // - Memory warps. The last kMemThreads threads never join the walkers'
 //   barriers: during ring d they store ring d-1 (final) to global memory,
-//   copy ring d+2 into the fourth buffer with cp.async and plan ring d+1.
-//   Walkers and memory warps meet once per ring.
+//   plan ring d+1 and, once the walkers have read ring d-1 (they signal it
+//   after computing the ring's coefficients), copy ring d+2 into ring d-1's
+//   buffer with cp.async. Walkers and memory warps meet once per ring.
 // - A ring-wide scan. A visit reads a cell that an earlier segment of the
 //   same ring writes only at the junctions (left 0, 1; bottom L-2, L-1; right
 //   0, 1 and L-2, L-1). So the coefficients of all 8D+2 visits come from the
-//   band as the ring starts, warp 0 redoes the junctions at the starts, one
-//   two-level scan (warp shuffles, then the warp totals) solves every
-//   segment at once, and warp 0 redoes the junctions at the ends. Ring 1,
+//   band as the ring starts (each thread keeps its visits' in registers),
+//   warp 0 redoes the junctions at the starts, one two-level scan (warp
+//   shuffles, then the warp totals) solves every segment at once, and warp 0
+//   redoes the junctions at the ends. The eight ring D-1 cells those redone
+//   visits read are kept in a junction cache, since ring D+2 overwrites
+//   ring D-1 meanwhile (ops/spiral.py junction_cells, its twin). Ring 1,
 //   whose junctions overlap, is walked segment by segment by one warp.
 //
-// The band takes 11 (8m + 1) floats (4 buffers x 2 layers and 3 per-visit
-// arrays) plus 160 of scratch: 63 KB at n = 364, 209 KB at n = 1212. A block
-// can hold 227 KB (232,448 B), so n <= 1319; the wrapper (ops/spiral.py
-// band_layout) raises above that.
+// The band takes 3 (8m + 1) + 9 (height, confidence) pairs and 192 floats of
+// scratch: 35,616 B at n = 364, 117,024 B at n = 1212. A block can hold 227 KB
+// (232,448 B), so n <= 2415; the wrapper (ops/spiral.py band_layout) raises
+// above that. A walker keeps up to kMaxPerThread visits (n = 2415: 11).
 //
 // Built with --fmad=false and with the coefficient and decay arithmetic op
 // for op that of the plain PyTorch version, so confidence is bitwise. The
@@ -49,6 +54,7 @@
 // Hillis-Steele (and in fused multiply-adds), so heights agree to a few
 // ulps, not bitwise. The order is fixed and there are no atomics: two runs
 // are bitwise equal.
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,7 +62,11 @@ namespace {
 constexpr float kFltTiny = 1.17549435082228750797e-38f;  // C++ FLT_MIN
 constexpr int kMemThreads = 128;   // the memory warps
 constexpr int kPlan = 4 * 12;      // one ring's segment plans (ints)
-constexpr int kScratch = 2 * 32 + 2 * kPlan;  // scan totals (a, b), plans of two rings
+constexpr int kBandExtra = 1 + 8;  // after the 3 buffers: the center, the junction cache (pairs)
+constexpr int kExchange = 32;      // junction visits' coefficients and heights (floats)
+constexpr int kScratch = 2 * 32 + kExchange + 2 * kPlan;  // scan totals (a, b), exchange, plans of two rings
+constexpr int kMaxPerThread = 12;  // visits a walker keeps in registers
+constexpr int kNoOverride = INT_MIN;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Consts {
@@ -105,14 +115,30 @@ __constant__ int kSpecial[4][6][3] = {  // {r, alpha, beta}: own -1, own L, in -
     {{1, 4, 3}, {1, 6, 7}, {1, 4, 2}, {0, 4, -1}, {0, 6, 1}, {1, 6, 8}},
     {{1, 4, 5}, {1, 2, 1}, {1, 4, 6}, {0, 4, 1}, {0, 2, -1}, {1, 2, 0}}};
 
+// The junction cache: pair p holds inner-line walk positions j0, j0+1 of
+// segment kJunctionKind[p] (left and right from position 1, bottom and
+// right from L-3), the ring D-1 cells that the redone visits of its start
+// (p 0, 1) or end (p 2, 3) read. ops/spiral.py JUNCTION_KIND is the twin.
+__constant__ int kJunctionKind[4] = {1, 3, 2, 3};
+
 __device__ __forceinline__ int ring_size(int d) { return d == 0 ? 1 : 8 * d; }
 
 struct Band {
-  float2* v;   // (height, confidence); 4 buffers of `stride` cells, ring d in buffer d % 4
+  float2* v;   // (height, confidence): 3 buffers of `stride` cells, the center, the junction cache
   int stride;  // 8m + 1: the largest ring and its corner copy
 };
 
-__device__ __forceinline__ int buffer(const Band& B, int d) { return (d & 3) * B.stride; }
+// Ring d >= 1 in buffer d % 3, the center after the three buffers.
+__device__ __forceinline__ int buffer(const Band& B, int d) {
+  return d == 0 ? 3 * B.stride : (d % 3) * B.stride;
+}
+
+// The inner line's base index for junction pair p of ring D: base + s*j
+// lands in the pair's two cache cells for its positions j.
+__device__ __forceinline__ int junction_in0(const Band& B, int p, int D) {
+  const int base = 3 * B.stride + 1 + 2 * p, j0 = p < 2 ? 1 : 2 * D - 2;
+  return (kJunctionKind[p] & 1) ? base + 1 + j0 : base - j0;
+}
 
 __device__ __forceinline__ void sync_walkers(int count) {
   if (count == 32) {
@@ -184,12 +210,14 @@ struct Coef {
 };
 
 // The coefficients of walk position k of segment `kind`, from the band as
-// it stands (the plain version's formulas, op for op).
-__device__ Coef coefficients(const Band& B, const Consts& K, const int* plan, int kind, int k) {
+// it stands (the plain version's formulas, op for op). `in0` replaces the
+// plan's inner-line base (the junction cache) unless it is kNoOverride.
+__device__ Coef coefficients(const Band& B, const Consts& K, const int* plan, int kind, int k,
+                             int in0x = kNoOverride) {
   const int4 pa = reinterpret_cast<const int4*>(plan)[0];
   const int4 pb = reinterpret_cast<const int4*>(plan)[1];
   const int4 pc = reinterpret_cast<const int4*>(plan)[2];
-  const int own0 = pa.x, out0 = pa.y, in0 = pa.z;
+  const int own0 = pa.x, out0 = pa.y, in0 = in0x == kNoOverride ? pa.z : in0x;
   const int own_first = pa.w, own_last = pb.x;
   const int in_m1 = pb.y, in_0 = pb.z, in_l1 = pb.w, in_l = pc.x;
   const int f = pc.y, L = pc.z;
@@ -276,21 +304,25 @@ __device__ void walk_ring1(const Band& B, const Consts& K, const int* plans) {
   }
 }
 
-// Ring D >= 2 by the first P threads. Its 8D+2 visits (top 2D, left 2D,
-// bottom 2D+1, right 2D+1, in walk order) are solved together: a visit reads
-// a cell that an earlier segment of the ring writes only at the junctions,
-// left positions 0, 1 (top's 0, 1), bottom L-2, L-1 (left's last), right 0,
-// 1 (bottom's 0, 1) and right L-2, L-1 (top's last). So all coefficients come
-// from the band as the ring starts; warp 0 then redoes left 0, 1 and right
-// 0, 1 with top's and bottom's first results in the band; one scan over the
-// ring gives every height (b = 0 at each segment's position 0 restarts the
+// Ring D >= 2 by the first P threads, each with up to EM visits in
+// registers. Its 8D+2 visits (top 2D, left 2D, bottom 2D+1, right 2D+1, in
+// walk order) are solved together: a visit reads a cell that an earlier
+// segment of the ring writes only at the junctions, left positions 0, 1
+// (top's 0, 1), bottom L-2, L-1 (left's last), right 0, 1 (bottom's 0, 1)
+// and right L-2, L-1 (top's last). So all coefficients come from the band
+// as the ring starts; warp 0 then redoes left 0, 1 and right 0, 1 with top's
+// and bottom's first results in the band; one scan over the ring gives
+// every height (b = 0 at each segment's position 0 restarts the
 // recurrence) and writes the visits back; warp 0 redoes bottom and right
-// L-2, L-1 with top's and left's last results in the band.
+// L-2, L-1 with top's and left's last results in the band. The junction
+// visits' values pass through the exchange X; `release` tells the memory
+// warps (barrier 3) that ring D-1 has been read.
+template <int EM>
 __device__ void walk_ring(const Band& B, const Consts& K, const int* plans, int D, int P,
-                          float* sa, float* sb, float* sc, float* scratch) {
+                          float* scratch, bool release) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int N = 8 * D + 2;
-  const int E = N > P ? (N + P - 1) / P : 1;  // visits per thread
+  const int E = N > P ? (N + P - 1) / P : 1;  // visits per thread, <= EM
   const int g0 = t * E, g1 = min(N, g0 + E);
   auto locate = [&](int g, int& kind, int& k) {
     kind = g < 2 * D ? 0 : (g < 4 * D ? 1 : (g < 6 * D + 1 ? 2 : 3));
@@ -298,44 +330,80 @@ __device__ void walk_ring(const Band& B, const Consts& K, const int* plans, int 
   };
   const int left0 = 2 * D, bottom0 = 4 * D, right0 = 6 * D + 1;
   const int bottom_end = 6 * D - 1, right_end = 8 * D;  // position L-2 of each
+  float* wa = scratch;
+  float* wb = scratch + 32;
+  // X: (a, b, confidence) of top 0, 1 and bottom 0, 1 at 0-11, of the redone
+  // left 0, 1 and right 0, 1 at 12-23; (height, confidence) of bottom L-3
+  // at 24, 25 and right L-3 at 26, 27
+  float* X = scratch + 64;
 
   // phase 1: every visit's coefficients, from the band as the ring starts
-  for (int g = g0; g < g1; ++g) {
-    int kind, k;
-    locate(g, kind, k);
-    const Coef x = coefficients(B, K, plans + 12 * kind, kind, k);
-    sa[g] = x.a;
-    sb[g] = x.b;
-    sc[g] = x.cc;
+  float ra[EM] = {}, rb[EM] = {}, rc[EM] = {};
+#pragma unroll
+  for (int e = 0; e < EM; ++e) {
+    const int g = g0 + e;
+    if (g < g1) {
+      int kind, k;
+      locate(g, kind, k);
+      const Coef x = coefficients(B, K, plans + 12 * kind, kind, k);
+      ra[e] = x.a;
+      rb[e] = x.b;
+      rc[e] = x.cc;
+      if (g < 2 || (g >= bottom0 && g < bottom0 + 2)) {
+        float* to = X + 3 * (g < 2 ? g : g - bottom0 + 2);
+        to[0] = x.a;
+        to[1] = x.b;
+        to[2] = x.cc;
+      }
+    }
+  }
+  if (warp == 0 && lane < 8) {  // the junction cache, from ring D-1
+    const int p = lane >> 1, kind = kJunctionKind[p], s = (kind & 1) ? -1 : 1;
+    const int j = (p < 2 ? 1 : 2 * D - 2) + (lane & 1);
+    B.v[junction_in0(B, p, D) + s * j] = B.v[plans[12 * kind + 2] + s * j];
   }
   sync_walkers(P);
+  if (release && warp == 0) asm volatile("bar.arrive 3, %0;" ::"r"(32 + kMemThreads) : "memory");
 
   // junctions at the starts: lanes 0 and 1 put top's and bottom's positions
   // 0 and 1, lanes 0-3 redo left 0, 1 and right 0, 1
   if (warp == 0 && lane < 4) {
     if (lane < 2) {
-      const int g = lane == 0 ? 0 : bottom0, kind = lane == 0 ? 0 : 2;
+      const int kind = lane == 0 ? 0 : 2;
+      const float* from = X + 6 * lane;
       const int L = plans[12 * kind + 10];
-      const float h0 = sa[g], h1 = __fmaf_rn(sb[g + 1], h0, sa[g + 1]);
-      put(B, kind, 0, L, plans[12 * kind], h0, sc[g]);
-      put(B, kind, 1, L, plans[12 * kind] + ((kind & 1) ? -1 : 1), h1, sc[g + 1]);
+      const float h0 = from[0], h1 = __fmaf_rn(from[4], h0, from[3]);
+      put(B, kind, 0, L, plans[12 * kind], h0, from[2]);
+      put(B, kind, 1, L, plans[12 * kind] + ((kind & 1) ? -1 : 1), h1, from[5]);
     }
     __syncwarp(0xfu);
     const int kind = lane < 2 ? 1 : 3, k = lane & 1;
-    const Coef x = coefficients(B, K, plans + 12 * kind, kind, k);
-    const int g = (lane < 2 ? left0 : right0) + k;
-    sa[g] = x.a;
-    sb[g] = x.b;
-    sc[g] = x.cc;
+    const Coef x = coefficients(B, K, plans + 12 * kind, kind, k, junction_in0(B, lane >> 1, D));
+    float* to = X + 12 + 3 * lane;
+    to[0] = x.a;
+    to[1] = x.b;
+    to[2] = x.cc;
   }
   sync_walkers(P);
 
-  // phase 2: each thread composes its visits' maps h -> a + b*h, warps scan
-  // those with shuffles, every warp scans the totals of the warps before it
+  // phase 2: each thread composes its visits' maps h -> a + b*h (taking the
+  // redone junction visits' coefficients), warps scan those with shuffles,
+  // every warp scans the totals of the warps before it
   float A = 0.0f, Bm = 1.0f;
-  for (int g = g0; g < g1; ++g) {
-    A = __fmaf_rn(sb[g], A, sa[g]);
-    Bm = sb[g] * Bm;
+#pragma unroll
+  for (int e = 0; e < EM; ++e) {
+    const int g = g0 + e;
+    if (g < g1) {
+      const int r = g >= left0 && g < left0 + 2 ? g - left0
+                    : (g >= right0 && g < right0 + 2 ? g - right0 + 2 : -1);
+      if (r >= 0) {
+        ra[e] = X[12 + 3 * r];
+        rb[e] = X[13 + 3 * r];
+        rc[e] = X[14 + 3 * r];
+      }
+      A = __fmaf_rn(rb[e], A, ra[e]);
+      Bm = rb[e] * Bm;
+    }
   }
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
@@ -352,8 +420,6 @@ __device__ void walk_ring(const Band& B, const Consts& K, const int* plans, int 
   }
   float before = 0.0f;  // the height entering this warp
   if (P > 32) {
-    float* wa = scratch;
-    float* wb = scratch + 32;
     if (lane == 31) {
       wa[warp] = A;
       wb[warp] = Bm;
@@ -374,16 +440,24 @@ __device__ void walk_ring(const Band& B, const Consts& K, const int* plans, int 
   // the corners (i, i) and (o, o), which the second ones overwrite, and
   // bottom's and right's last three, which the end junctions read first
   float hin = __fmaf_rn(eb, before, ea);
-  for (int g = g0; g < g1; ++g) {
-    hin = __fmaf_rn(sb[g], hin, sa[g]);
-    sa[g] = hin;
-    const bool junction = g == 0 || g == bottom0 || (g >= bottom_end - 1 && g <= bottom_end + 1) ||
-                          g >= right_end - 1;
-    if (!junction) {
-      int kind, k;
-      locate(g, kind, k);
-      const int* plan = plans + 12 * kind;
-      put(B, kind, k, plan[10], plan[0] + ((kind & 1) ? -k : k), hin, sc[g]);
+#pragma unroll
+  for (int e = 0; e < EM; ++e) {
+    const int g = g0 + e;
+    if (g < g1) {
+      hin = __fmaf_rn(rb[e], hin, ra[e]);
+      if (g == bottom_end - 1 || g == right_end - 1) {
+        float* to = X + (g == bottom_end - 1 ? 24 : 26);
+        to[0] = hin;
+        to[1] = rc[e];
+      }
+      const bool junction = g == 0 || g == bottom0 ||
+                            (g >= bottom_end - 1 && g <= bottom_end + 1) || g >= right_end - 1;
+      if (!junction) {
+        int kind, k;
+        locate(g, kind, k);
+        const int* plan = plans + 12 * kind;
+        put(B, kind, k, plan[10], plan[0] + ((kind & 1) ? -k : k), hin, rc[e]);
+      }
     }
   }
   sync_walkers(P);
@@ -393,35 +467,33 @@ __device__ void walk_ring(const Band& B, const Consts& K, const int* plans, int 
   // position L-3
   if (warp == 0 && lane < 4) {
     const int kind = lane < 2 ? 2 : 3, L = 2 * D + 1, k = L - 2 + (lane & 1);
-    const int* plan = plans + 12 * kind;
-    const Coef x = coefficients(B, K, plan, kind, k);
-    const int g = (lane < 2 ? bottom_end : right_end) + (lane & 1);
-    float h = __fmaf_rn(x.b, sa[g - 1], x.a);  // position L-2 from the scan's L-3
+    const Coef x = coefficients(B, K, plans + 12 * kind, kind, k,
+                                junction_in0(B, 2 + (lane >> 1), D));
+    const float* from = X + (lane < 2 ? 24 : 26);  // position L-3
+    float h = __fmaf_rn(x.b, from[0], x.a);        // position L-2 from L-3
     const float h2 = __shfl_up_sync(0xfu, h, 1);
     if (lane & 1) h = __fmaf_rn(x.b, h2, x.a);  // L-1 from the new L-2
     __syncwarp(0xfu);                            // every read before any write
     put(B, kind, k, L, x.slot, h, x.cc);
-    if (!(lane & 1)) put(B, kind, k - 1, L, x.slot - ((kind & 1) ? -1 : 1), sa[g - 1], sc[g - 1]);
+    if (!(lane & 1)) put(B, kind, k - 1, L, x.slot - ((kind & 1) ? -1 : 1), from[0], from[1]);
   }
 }
 
 // One block: the first blockDim.x - kMemThreads threads walk the rings; the
-// last kMemThreads (the memory warps) store each finished ring, fetch the
-// ring two ahead and plan the next ring's segments, and meet the walkers
+// last kMemThreads (the memory warps) store each finished ring, plan the
+// next ring's segments and fetch the ring two ahead, and meet the walkers
 // once per ring.
+template <int EM>
 __global__ void __launch_bounds__(1024, 1)
 spiral_kernel(float* h, float* c, Consts K, float base_z, int stride) {
   extern __shared__ float2 band[];
   const Band B{band, stride};
-  float* scratch = reinterpret_cast<float*>(band + 4 * stride);
-  int* plans = reinterpret_cast<int*>(scratch + 64);  // ring d's in plans[(d & 1) * kPlan]
-  float* sa = scratch + kScratch;  // per visit of a ring: a (then the height), b, confidence
-  float* sb = sa + stride;
-  float* sc = sb + stride;
+  float* scratch = reinterpret_cast<float*>(band + 3 * stride + kBandExtra);
+  int* plans = reinterpret_cast<int*>(scratch + 2 * 32 + kExchange);  // ring d's at (d & 1) * kPlan
   const int m = K.cidx;
   const int T = blockDim.x, Tc = T - kMemThreads, t = threadIdx.x;
 
-  if (t == 0) B.v[0] = make_float2(base_z, 1.0f);  // ring 0, the center, in buffer 0
+  if (t == 0) B.v[buffer(B, 0)] = make_float2(base_z, 1.0f);  // ring 0, the center
   for (int d = 1; d <= 2 && d <= m; ++d) fetch_ring(B, K, h, c, d, 0, T);
   if (t < kPlan && m > 1) plans[kPlan + t] = plan_entry(B, K, 1, t / 12, t % 12);
   __syncthreads();
@@ -429,10 +501,15 @@ spiral_kernel(float* h, float* c, Consts K, float base_z, int stride) {
   for (int d = 1; d < m; ++d) {
     if (t >= Tc) {
       store_ring(B, K, h, c, d - 1, Tc, kMemThreads);
-      if (d + 2 <= m) fetch_ring(B, K, h, c, d + 2, Tc, kMemThreads);
       const int u = t - Tc;
       if (u < kPlan && d + 1 < m) {
         plans[((d + 1) & 1) * kPlan + u] = plan_entry(B, K, d + 1, u / 12, u % 12);
+      }
+      if (d + 2 <= m) {
+        // ring d+2 takes ring d-1's buffer once the walkers have read ring
+        // d-1 (ring 0, the center, has a slot of its own)
+        if (d >= 2) asm volatile("bar.sync 3, %0;" ::"r"(32 + kMemThreads) : "memory");
+        fetch_ring(B, K, h, c, d + 2, Tc, kMemThreads);
       }
     } else {
       // the walkers this ring needs: one per visit, 8d+2
@@ -441,12 +518,24 @@ spiral_kernel(float* h, float* c, Consts K, float base_z, int stride) {
       if (d == 1) {
         if (t < 32) walk_ring1(B, K, plan);
       } else if (t < P) {
-        walk_ring(B, K, plan, d, P, sa, sb, sc, scratch);
+        walk_ring<EM>(B, K, plan, d, P, scratch, d + 2 <= m);
       }
     }
     sync_all(T);
   }
-  if (t >= Tc) store_ring(B, K, h, c, m - 1, Tc, kMemThreads);
+  if (t >= Tc && m >= 1) store_ring(B, K, h, c, m - 1, Tc, kMemThreads);
+}
+
+template <int EM>
+int launch(float* h, float* c, const Consts& K, float base_z, int stride, int threads,
+           int smem_bytes, cudaStream_t stream) {
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        spiral_kernel<EM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  spiral_kernel<EM><<<1, threads, smem_bytes, stream>>>(h, c, K, base_z, stride);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -459,16 +548,20 @@ extern "C" int gg_spiral(float* h, float* c, int n, int cidx, float base_z, floa
                          cudaStream_t stream) {
   const int m = cidx > 0 ? cidx : 0;
   const int stride = 8 * m + 1;
-  if (threads > 1024 || threads % 32 != 0 || threads - kMemThreads < 32 ||
-      (size_t)smem_bytes != (11 * (size_t)stride + kScratch) * sizeof(float)) {
+  const int walkers = threads - kMemThreads;
+  const size_t band = (3 * (size_t)stride + kBandExtra) * sizeof(float2) + kScratch * sizeof(float);
+  if (threads > 1024 || threads % 32 != 0 || walkers < 32 || (size_t)smem_bytes != band) {
     return (int)cudaErrorInvalidValue;
   }
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        spiral_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
+  // visits per walker on ring m-1, the largest walked (walk_ring's E)
+  const int visits = 8 * (m - 1) + 2;
+  const int per = m >= 3 ? (visits + walkers - 1) / walkers : 1;
+  const Consts K{n, cidx, res2, dec, min_d2, floor_c};
+  if (per <= 2) return launch<2>(h, c, K, base_z, stride, threads, smem_bytes, stream);
+  if (per <= 4) return launch<4>(h, c, K, base_z, stride, threads, smem_bytes, stream);
+  if (per <= 8) return launch<8>(h, c, K, base_z, stride, threads, smem_bytes, stream);
+  if (per <= kMaxPerThread) {
+    return launch<kMaxPerThread>(h, c, K, base_z, stride, threads, smem_bytes, stream);
   }
-  Consts K{n, cidx, res2, dec, min_d2, floor_c};
-  spiral_kernel<<<1, threads, smem_bytes, stream>>>(h, c, K, base_z, stride);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -9,16 +9,18 @@ affine recurrence ``h[y] = a[y] + b[y] * h[y-1]``.
 
 On the card the kernel is bound by the walk's serial chain, m - 1 rings
 (180 at 364^2) in one thread block, not by its 2.1 MB of HBM traffic (~0.6
-us at 3.35 TB/s). It keeps a ring band in shared memory, the rings a 3x3
-stencil on ring ``D`` reads (D-1, D, D+1) and the next one, each in the slot
-order of :func:`ring_slot` / :func:`slot_cell` (the twins of the ``.cu``'s),
-so that no stencil read or write on the chain leaves the SM; memory warps
-store and fetch rings beside the walk; and all four segments of a ring are
-solved by one warp-shuffle affine scan, with the few visits that read an
-earlier segment's cells (:func:`stencil_slots`'s junctions) redone around it.
-:func:`band_layout` sizes the launch: ``4 * (11 (8 m + 1) + 160)`` bytes of
-shared memory (m = n // 2 - 1); a block holds at most 232,448, so grids
-above 1319 cells a side raise ``ValueError``.
+us at 3.35 TB/s). It keeps a ring band in shared memory, the three rings a
+3x3 stencil on ring ``D`` reads (D-1, D, D+1), each in the slot order of
+:func:`ring_slot` / :func:`slot_cell` (the twins of the ``.cu``'s), so that
+no stencil read or write on the chain leaves the SM; memory warps store
+each finished ring and fetch the ring two ahead into the buffer of the ring
+the walkers have just read; and all four segments of a ring are solved by
+one warp-shuffle affine scan over coefficients kept in registers, with the
+few visits that read an earlier segment's cells redone around it (their
+ring D-1 cells, :func:`junction_cells`, cached before that ring's buffer is
+refilled). :func:`band_layout` sizes the launch: ``8 (3 (8 m + 1) + 9) +
+4 * 192`` bytes of shared memory (m = n // 2 - 1); a block holds at most
+232,448, so grids above 2415 cells a side raise ``ValueError``.
 
 :func:`spiral_interpolation` launches the kernel for CUDA tensors and takes
 the plain version only for CPU tensors.
@@ -38,11 +40,15 @@ FLT_TINY = float(np.finfo(np.float32).tiny)
 
 
 # the kernel's launch (csrc/spiral.cu): shared memory a block can hold on
-# Hopper, the memory warps' threads, the scratch floats (the scan's warp
-# totals, two rings' segment plans)
+# Hopper, the memory warps' threads, the (height, confidence) pairs after
+# the three ring buffers (the center, the junction cache), the scratch
+# floats (the scan's warp totals, the junction exchange, two rings' segment
+# plans), the visits a walker keeps in registers
 SMEM_LIMIT = 232_448
 MEM_THREADS = 128
-SCRATCH_FLOATS = 160
+BAND_EXTRA = 9
+SCRATCH_FLOATS = 192
+MAX_PER_THREAD = 12
 
 
 def ring_slot(dr: int, dc: int, d: int) -> int:
@@ -116,6 +122,27 @@ def stencil_slots(d: int, kind: int, k: int) -> list[tuple[int, int]]:
     return [line(j) for line in (before, own, after) for j in (k - 1, k, k + 1)]
 
 
+# the junction cache: pair p holds inner-line positions j0, j0 + 1 of
+# segment JUNCTION_KIND[p], read by the redone visits of its start (p 0, 1:
+# positions 0, 1) or end (p 2, 3: positions L-2, L-1). Twin of kJunctionKind.
+JUNCTION_KIND = (1, 3, 2, 3)
+
+
+def junction_visits(d: int, p: int) -> tuple[int, int]:
+    """Walk positions of segment ``JUNCTION_KIND[p]`` that warp 0 redoes."""
+    return (0, 1) if p < 2 else (2 * d - 1, 2 * d)
+
+
+def junction_cells(d: int, p: int) -> list[tuple[int, int]]:
+    """(ring, slot) of the two inner-line cells junction pair ``p`` of ring
+    ``d`` caches: positions 1, 2 (p 0, 1) or L-3, L-2 (p 2, 3)."""
+    kind = JUNCTION_KIND[p]
+    step = -1 if kind & 1 else 1
+    a_inner = (0, 8 * d, 4 * d, 4 * d)[kind] - SEGMENT_DIST[kind]
+    j0 = 1 if p < 2 else 2 * d - 2
+    return [(d - 1, a_inner + step * j) for j in (j0, j0 + 1)]
+
+
 def ring_walk(m: int, d: int) -> list[tuple[int, int]]:
     """The cells of ring ``d`` in walk order, 8 d + 2 visits: top row ->,
     left column v, bottom row <-, right column ^ (``spiral_interpolation_plain``)."""
@@ -132,21 +159,22 @@ class BandLayout(NamedTuple):
 
     threads: int  # one block: the walkers, then MEM_THREADS memory threads
     stride: int  # cells per band buffer: 8 m + 1, the largest ring and its corner copy
-    smem_bytes: int  # 4 buffers x 2 layers + 3 per-visit arrays, stride floats each; scratch
+    smem_bytes: int  # 3 buffers and BAND_EXTRA (height, confidence) pairs; scratch
+    per_thread: int  # visits of ring m-1, the largest walked, per walker
 
 
 def band_layout(n: int) -> BandLayout:
     """Threads and shared-memory bytes of the K3 launch; ``ValueError`` where
-    the band does not fit one block's shared memory (n above 1319)."""
+    the band does not fit one block's shared memory (n above 2415)."""
     m = max(n // 2 - 1, 0)
     stride = 8 * m + 1
     visits = max(8 * m - 6, 1)  # ring m-1, the largest walked
     walkers = min(1024 - MEM_THREADS, -(-visits // 32) * 32)
-    smem = 4 * (11 * stride + SCRATCH_FLOATS)
+    smem = 8 * (3 * stride + BAND_EXTRA) + 4 * SCRATCH_FLOATS
     if smem > SMEM_LIMIT:
         raise ValueError(f"spiral_interpolation: a {n}^2 grid needs a {smem}-byte ring band; "
-                         f"one block holds {SMEM_LIMIT} bytes (n <= 1319)")
-    return BandLayout(walkers + MEM_THREADS, stride, smem)
+                         f"one block holds {SMEM_LIMIT} bytes (n <= 2415)")
+    return BandLayout(walkers + MEM_THREADS, stride, smem, -(-visits // walkers))
 
 
 def _affine_scan(a, b):

@@ -2,33 +2,13 @@
 ``torch.profiler``, the wrapper's cost per call by CUDA events, and the
 least time the card could take for the same work.
 
-Run as a script from the repository root, it times K3 (the spiral sweep) at
-the default 364^2 geometry in two source trees of this package, in turns
-(parent, tree, tree, parent), each in its own process with its own build::
-
-    python groundgrid_torch/runtime/kernel_timing.py --parent _archive/parent
-
-``--parent`` is an unpacked ``git archive`` of the commit to compare with
-(``_archive/`` is gitignored). Each turn prints one JSON line; the last line
-holds every turn, and the outputs of the two trees are compared (confidence
-bitwise, heights within atol 2e-5 / rtol 1e-5). This module imports nothing
-of ``groundgrid_torch`` at import time, so that a child process can import
-the package from the tree it times.
+``chip_smoke.py`` phase 2 times each kernel with these; ``kernel_turns.py``
+runs that phase in several source trees, in turns.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
-import sys
-import tempfile
-
-import numpy as np
 import torch
-
-TREE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside
 # the tensor cores (per millisecond below)
@@ -86,87 +66,3 @@ def device_us(prof, name: str | None = None) -> tuple[float, int]:
     seen = [e for e in prof.events()
             if e.device_type == cuda and (name is None or name in e.name)]
     return sum(e.time_range.end - e.time_range.start for e in seen), len(seen)
-
-
-def spiral_inputs(n: int, seed: int = 0):
-    """Heights N(0, 0.5) and confidence U(0, 1) on 40 % of the cells."""
-    rng = np.random.default_rng(seed)
-    ground = rng.normal(0, 0.5, (n, n)).astype(np.float32)
-    conf = np.zeros((n, n), np.float32)
-    mask = rng.random((n, n)) < 0.4
-    conf[mask] = rng.uniform(0.0, 1.0, int(mask.sum())).astype(np.float32)
-    return ground, conf
-
-
-def _child(root: str, out: str, reps: int) -> None:
-    """Time K3 of the tree at ``root`` and save one sweep's output."""
-    sys.path.insert(0, os.path.abspath(root))
-    from groundgrid_torch.config import GroundGridConfig
-    from groundgrid_torch.ops import spiral
-
-    if not spiral.__file__.startswith(os.path.abspath(root)):
-        raise RuntimeError(f"imported {spiral.__file__}, not the tree at {root}")
-    device = torch.device("cuda", 0)
-    config = GroundGridConfig(sorted_scans=True)
-    ground, conf = (torch.from_numpy(a).to(device) for a in spiral_inputs(config.cell_count))
-    g, c = spiral.spiral_interpolation(config, ground.clone(), conf.clone(), 0.37)
-    np.savez(out, ground=g.cpu().numpy(), conf=c.cpu().numpy())
-    # the walk's work does not depend on the values: time repeated sweeps
-    h, cc = ground.clone(), conf.clone()
-    dev, seen = device_ms(lambda: spiral.spiral_interpolation(config, h, cc, 0.37), reps,
-                          "spiral_kernel")
-    call = event_ms(lambda: spiral.spiral_interpolation(config, h, cc, 0.37), reps)
-    print(json.dumps({"root": root, "device_ms": dev, "kernels_seen": seen, "call_ms": call}),
-          flush=True)
-
-
-def _turns(parent: str, reps: int) -> int:
-    sys.path.insert(0, TREE)
-    from groundgrid_torch.runtime.bench import gpu_name_and_power_limit
-
-    print(gpu_name_and_power_limit(), flush=True)
-    turns, outputs = [], {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for k, root in enumerate((parent, TREE, TREE, parent)):
-            out = os.path.join(tmp, f"turn{k}.npz")
-            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root,
-                                   "--out", out, "--reps", str(reps)],
-                                  capture_output=True, text=True, timeout=600)
-            sys.stderr.write(proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(f"turn {k} ({root}) failed with {proc.returncode}")
-            line = proc.stdout.strip().splitlines()[-1]
-            print(line, flush=True)
-            turns.append(json.loads(line))
-            with np.load(out) as z:
-                outputs[root] = (z["ground"], z["conf"])
-    (g_old, c_old), (g_new, c_new) = outputs[parent], outputs[TREE]
-    err = float(np.abs(g_new - g_old).max())
-    same_conf = bool(np.array_equal(c_new, c_old))
-    close = bool(np.allclose(g_new, g_old, atol=2e-5, rtol=1e-5))
-    print(json.dumps({"turns": turns, "conf_bitwise": same_conf, "height_max_abs_err": err,
-                      "heights_close": close}), flush=True)
-    return 0 if same_conf and close else 1
-
-
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--parent", help="unpacked tree to compare with, in turns")
-    parser.add_argument("--child", help=argparse.SUPPRESS)
-    parser.add_argument("--out", help=argparse.SUPPRESS)
-    parser.add_argument("--reps", type=int, default=50)
-    args = parser.parse_args(argv)
-    if sys.path[0] == os.path.dirname(os.path.abspath(__file__)):
-        sys.path.pop(0)  # run as a script: import the package from a tree root, not from here
-    if not torch.cuda.is_available():
-        raise RuntimeError("kernel_timing needs a CUDA device")
-    if args.child:
-        _child(args.child, args.out, args.reps)
-        return 0
-    if not args.parent:
-        parser.error("--parent is required")
-    return _turns(args.parent, args.reps)
-
-
-if __name__ == "__main__":
-    sys.exit(main())

@@ -9,8 +9,8 @@ alone:
 
 Small sizes, including grids below 32 cells a side: K1 bitwise on every
 column, K2 bitwise, K3 confidence bitwise and heights within atol 2e-5 /
-rtol 1e-5 (up to n = 1212; two runs bitwise; a band beyond shared memory
-refused), K4 bitwise; plus the small-config streaming step on the card
+rtol 1e-5 (up to n = 2414, the largest band; two runs bitwise; a band
+beyond shared memory refused), K4 bitwise; plus the small-config streaming step on the card
 against the same step on the CPU, on the main path and on the fused, aux
 and wire path.
 """
@@ -89,11 +89,12 @@ def _spiral_layers(n, device):
 
 @pytest.mark.parametrize("dimension,resolution", [
     (5.0, 0.5), (12.0, 0.5), (12.5, 0.5), (15.0, 0.5), (16.65, 0.37), (40.0, 0.5), (70.0, 0.5),
-    (120.0, 0.33), (400.0, 0.33),
+    (120.0, 0.33), (400.0, 0.33), (1207.0, 0.5),
 ])
 def test_spiral_kernel_matches_plain(cuda, dimension, resolution):
-    """n = 10 (two rings), 24, 25, 30 (below a warp), 45 (odd), 80, 140, 364
-    and 1212 (more visits than threads, a ring band above 48 KB)."""
+    """n = 10 (two rings), 24, 25, 30 (below a warp), 45 (odd), 80, 140, 364,
+    1212 (more visits than threads, a ring band above 48 KB) and 2414 (the
+    largest band that fits, 11 visits per thread)."""
     cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
     ground, conf = _spiral_layers(cfg.cell_count, cuda)
     g_k, c_k = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
@@ -115,7 +116,7 @@ def test_spiral_kernel_is_deterministic(cuda):
 
 
 def test_spiral_kernel_refuses_a_band_beyond_shared_memory(cuda):
-    """n = 2500: the ring band needs more than a block's 227 KB (n <= 1319);
+    """n = 2500: the ring band needs more than a block's 227 KB (n <= 2415);
     no fallback."""
     cfg = GroundGridConfig(dimension=825.0, resolution=0.33)
     n = cfg.cell_count

@@ -7,8 +7,9 @@ runs of slots plus six planned corner cases per segment (``stencil_slots``).
 These tests hold the map to the walk of the plain version: every ring's
 slots are a bijection onto its cells, the walk visits them in order with its
 two double visits, every stencil address the kernel computes is the cell the
-walk reads and lies in the band, and the band's bytes are what the wrapper
-asks the launch for.
+walk reads and lies in the band, the junction cache holds every ring D-1
+cell that the redone junction visits read, and the band's bytes are what
+the wrapper asks the launch for.
 """
 
 from collections import Counter
@@ -20,8 +21,10 @@ from hypothesis import strategies as st
 
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.ops import spiral
-from groundgrid_torch.ops.spiral import (MEM_THREADS, SCRATCH_FLOATS, SMEM_LIMIT, band_layout,
-                                         ring_slot, ring_walk, slot_cell, stencil_slots)
+from groundgrid_torch.ops.spiral import (BAND_EXTRA, JUNCTION_KIND, MAX_PER_THREAD, MEM_THREADS,
+                                         SCRATCH_FLOATS, SMEM_LIMIT, band_layout, junction_cells,
+                                         junction_visits, ring_slot, ring_walk, slot_cell,
+                                         stencil_slots)
 
 SIZES = [12, 24, 45, 80, 140, 364, 1212]
 
@@ -93,29 +96,48 @@ def test_every_stencil_lands_in_the_band(n):
                     assert 0 <= slot <= 8 * ring < stride
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", SIZES + [2415])
+def test_junction_cache_holds_what_the_redone_visits_read(n):
+    """Ring d+2 overwrites ring d-1's buffer once the ring's coefficients
+    are in: the visits warp 0 redoes after that read ring d-1 only at the
+    cached cells."""
+    m = n // 2 - 1
+    for d in range(2, m):
+        for p, kind in enumerate(JUNCTION_KIND):
+            cached = junction_cells(d, p)
+            assert all(0 < slot <= 8 * (d - 1) for _, slot in cached)  # 8(d-1): the corner copy
+            read = {(ring, slot) for k in junction_visits(d, p)
+                    for ring, slot in stencil_slots(d, kind, k) if ring == d - 1}
+            assert read == set(cached)
+
+
+@pytest.mark.parametrize("n", SIZES + [2415])
 def test_band_bytes_are_what_the_launch_requests(n):
     m = n // 2 - 1
     layout = band_layout(n)
     largest = max(_slot(m, r, c) for r, c in (slot_cell(s, m, m) for s in range(8 * m))) + 1
     assert layout.stride == largest + 1 == 8 * m + 1  # the outer ring and its corner copy
-    # 4 buffers of (height, confidence), 3 arrays of one float per visit
-    assert layout.smem_bytes == 4 * (11 * layout.stride + SCRATCH_FLOATS) <= SMEM_LIMIT
+    # 3 buffers of (height, confidence), the center and the junction cache
+    # (8 pairs), then the scratch floats
+    assert BAND_EXTRA == 1 + 8
+    assert layout.smem_bytes == 8 * (3 * layout.stride + 9) + 4 * SCRATCH_FLOATS <= SMEM_LIMIT
     visits = 8 * (m - 1) + 2  # ring m-1, the largest walked
     walkers = layout.threads - MEM_THREADS
     assert walkers == min(1024 - MEM_THREADS, -(-visits // 32) * 32)
+    assert layout.per_thread == -(-visits // walkers) <= MAX_PER_THREAD
 
 
 def test_band_limit():
-    assert band_layout(1319).smem_bytes <= SMEM_LIMIT
+    assert band_layout(2415).smem_bytes <= SMEM_LIMIT
     with pytest.raises(ValueError, match="232448"):
-        band_layout(1320)
+        band_layout(2416)
 
 
 @settings(max_examples=60, deadline=None)
-@given(st.integers(min_value=8, max_value=1319))
+@given(st.integers(min_value=8, max_value=2415))
 def test_band_layout_fits_the_kernel(n):
     layout = band_layout(n)
     m = n // 2 - 1
-    assert layout.smem_bytes == 4 * (88 * m + 11 + SCRATCH_FLOATS) <= SMEM_LIMIT
+    assert layout.smem_bytes == 4 * (48 * m + 6 + 18 + SCRATCH_FLOATS) <= SMEM_LIMIT
     assert layout.threads % 32 == 0 and 32 + MEM_THREADS <= layout.threads <= 1024
+    assert layout.per_thread <= MAX_PER_THREAD
