@@ -11,21 +11,24 @@ Phases (any failure raises and exits non-zero, printing no result):
 2. Each kernel against its plain PyTorch version on the same CUDA tensors,
    at the main paths' shapes (364^2 grid, 131072-point buffer):
    K1 raster (7 columns of a prepared scan: counts, sums, min and max all
-   bitwise, the plain version folding each run in the kernel's order), K2
-   lookup (sorted point cells with 1 and 2 tables, an unsorted
-   lattice-sized cell vector: bitwise), K3 spiral (a warm state:
-   confidence bitwise, heights atol 2e-5 / rtol 1e-5), K4 fused detect
+   bitwise, the plain version folding each run in the kernel's order; its
+   run count and longest run, and for context ``torch.segment_reduce`` over
+   the same runs), K2 lookup (sorted point cells with 1 and 2 tables, a
+   uniform random lattice-sized vector and the march lattice of a warm scan,
+   the ids ``detect_outliers`` hands it: bitwise), K3 spiral (a warm state:
+   confidence bitwise, heights atol 2e-5 / rtol 1e-5; and its global-band
+   variant at n = 2416 on random layers, the same bounds), K4 fused detect
    (the warm raster layers of a real scan at 364^2, and random layers at
    n = 12 and 45, one seed with low variance so that the main update
    fires: ground and confidence bitwise). Per kernel: its device time
    (``torch.profiler``, the named kernel's own time per launch), the device
-   time of everything one wrapper call launches (K1's column stack
-   included), the wrapper's cost per call (CUDA events around back-to-back
-   calls), the plain version's, the least time the card could take (the
-   bytes this run's inputs need over 3.35 TB/s or its f32 operations over
-   67 TFLOP/s: K2 reads only the distinct cells its ids name) and, for K2,
-   one ``torch.index_select`` over the stacked tables, timed in turns with
-   the kernel (no one PyTorch call computes K1, K3 or K4).
+   time of everything one wrapper call launches, the wrapper's cost per
+   call (CUDA events around back-to-back calls), the plain version's, the
+   least time the card could take (the bytes this run's inputs need over
+   3.35 TB/s or its f32 operations over 67 TFLOP/s: K2 reads only the
+   distinct cells its ids name) and, for K2, one ``torch.index_select``
+   over the stacked tables, timed in turns with the kernel (no one PyTorch
+   call computes K1, K3 or K4).
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
    synthetic scans: per-scan launch counts (K1 x1, K2 x3, K3 x1), no
    sortedness fallback, labels against the plain-version run on the card
@@ -92,10 +95,9 @@ def kernel_times(fn, reps: int, name: str, plain=None, plain_reps: int = 0) -> d
     ``plain()``, each per call."""
     from groundgrid_torch.runtime.kernel_timing import device_ms, event_ms
 
-    dev, seen = device_ms(fn, reps, name)  # the mean over the launches the profiler saw
-    if seen > reps:
-        raise AssertionError(f"{name}: the profiler saw {seen} launches in {reps} calls")
-    out = {"device_ms": dev, "wrapper_device_ms": device_ms(fn, reps)[0],
+    # each over the calls the profiler kept (the launches of ``name``)
+    out = {"device_ms": device_ms(fn, reps, name)[0],
+           "wrapper_device_ms": device_ms(fn, reps, per=name)[0],
            "call_ms": event_ms(fn, reps)}
     if plain is not None:
         out["plain_ms"] = event_ms(plain, plain_reps)
@@ -148,6 +150,7 @@ def check_raster(config, driver, rec):
     """K1 on the 7 columns of one prepared scan, against its plain version."""
     from groundgrid_torch.core import rasterize as rasterlib
     from groundgrid_torch.ops import raster
+    from groundgrid_torch.runtime.kernel_timing import device_ms
 
     scan, binning, accept = prepared(config, driver, rec)
     cell = binning.cell
@@ -173,16 +176,85 @@ def check_raster(config, driver, rec):
     real = int((cell < n2).sum())
     rec.update(bound(cell.nbytes + 4 * len(cols) * real + 4 * len(cols) * n2,
                      len(cols) * real))
-    log(f"K1 raster_reduce: {cell.shape[0]} points ({real} in cells), {len(cols)} columns, "
-        f"n2={n2}: max_abs_err {err:.3g}, device {rec['device_ms']:.4f} ms (with the "
-        f"wrapper's column stack {rec['wrapper_device_ms']:.4f} ms), call "
+    # the runs K1 folds: their number and the longest, the serial chain
+    lengths = torch.bincount(cell[:real].long(), minlength=n2)
+    rec["runs"], rec["longest_run"] = int((lengths > 0).sum()), int(lengths.max())
+    # context, no yardstick: torch.segment_reduce over the same runs (the 5
+    # sum columns in one call, the min and the max column in one each) sums
+    # in its own order and leaves empty cells at the reductions' identities,
+    # so it does not compute K1's function: library_ms stays null
+    sums = torch.stack(cols[:5], 1)[:real].contiguous()
+    zmin, zmax = cols[5][:real].contiguous(), cols[6][:real].contiguous()
+
+    def segment_reduce():
+        return (torch.segment_reduce(sums, "sum", lengths=lengths, axis=0),
+                torch.segment_reduce(zmin, "min", lengths=lengths),
+                torch.segment_reduce(zmax, "max", lengths=lengths))
+
+    rec["segment_reduce_ms"] = device_ms(segment_reduce, 50)[0]
+    log(f"K1 raster_reduce: {cell.shape[0]} points ({real} in cells, {rec['runs']} runs, the "
+        f"longest {rec['longest_run']}), {len(cols)} columns, n2={n2}: max_abs_err {err:.3g}, "
+        f"device {rec['device_ms']:.4f} ms (wrapper {rec['wrapper_device_ms']:.4f} ms), call "
         f"{rec['call_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); torch.segment_reduce x3 over the "
+        f"same runs {rec['segment_reduce_ms']:.4f} device ms (context)")
     return rec, cell
 
 
-def check_lookup(config, driver, cell):
-    """K2 on sorted point cells (1 and 2 tables) and an unsorted lattice vector."""
+def march_lattice(config, driver, rec):
+    """The flat cell ids the occlusion march hands K2 on scan ``rec`` from the
+    driver's state (``core/outliers.py detect_outliers``), one lattice per
+    chunk of candidates, as the step builds them."""
+    from groundgrid_torch.core import grid as gridlib
+    from groundgrid_torch.core import outliers as outlierlib
+    from groundgrid_torch.core import rasterize as rasterlib
+    from groundgrid_torch.ops import lookup
+
+    n2 = config.cell_count ** 2
+    scan, _ = driver.make_scan(rec)
+    origin = np.asarray(scan.t_map_velo, np.float32)[:3, 3]
+    moved = gridlib.move(config, driver.state, scan.t_base_map, scan.center, scan.center_lo)
+    center, center_lo = moved.center_np, moved.center_lo_np
+    binning = rasterlib.bin_points(config, center, center_lo, scan.px, scan.py, scan.rings,
+                                   scan.valid > 0, origin)
+    (old_h,) = lookup.lookup_plain(binning.cell, [moved.ground], n2)
+    lattices = []
+
+    def keep(cell, tables, n):
+        lattices.append(cell.clone())
+        return lookup.lookup_plain(cell, tables, n)
+
+    outlierlib.detect_outliers(config, center, center_lo, moved.ground, moved.groundpatch,
+                               binning, scan.px, scan.py, scan.pz, origin, old_h, keep)
+    if not lattices:
+        raise AssertionError("the march made no lookup on the warm scan")
+    return lattices
+
+
+def check_lookup_march(config, driver, rec):
+    """K2 on the march lattice of a warm scan (its first chunk, the only one
+    at the default geometry) over one table: bitwise, device ms and bound
+    (reads the ids and the table at the distinct cells they name)."""
+    from groundgrid_torch.ops import lookup
+
+    n2 = config.cell_count ** 2
+    ids = march_lattice(config, driver, rec)[0]
+    table = driver.state.groundpatch
+    got = lookup.lookup(ids, [table], n2)[0]
+    if not torch.equal(got.view(torch.int32), lookup.lookup_plain(ids, [table], n2)[0]
+                       .view(torch.int32)):
+        raise AssertionError("K2 (march lattice) differs from the plain version")
+    out = kernel_times(lambda: lookup.lookup(ids, [table], n2), 100, "lookup_kernel",
+                       lambda: lookup.lookup_plain(ids, [table], n2), 20)
+    out["ids"] = ids.shape[0]
+    out["distinct_cells"] = int(torch.unique(ids[ids < n2]).numel())
+    out.update(bound(ids.nbytes + 4 * out["distinct_cells"] + 4 * ids.shape[0], 0))
+    return out
+
+
+def check_lookup(config, driver, cell, rec_scan):
+    """K2 on sorted point cells (1 and 2 tables), a uniform random
+    lattice-sized vector and the march lattice of scan ``rec_scan``."""
     from groundgrid_torch.ops import lookup
 
     n2 = config.cell_count ** 2
@@ -231,13 +303,18 @@ def check_lookup(config, driver, cell):
                        lambda: lookup.lookup_plain(lattice, [conf], n2), 20)
     lat_touched = int(torch.unique(lattice[lattice < n2]).numel())
     lat.update(bound(lattice.nbytes + 4 * lat_touched + 4 * lattice.shape[0], 0))
+    march = check_lookup_march(config, driver, rec_scan)
+    rec["lattice"], rec["march"] = lat, march
     log(f"K2 lookup: bitwise on all cases; 2 tables x {cell.shape[0]} sorted points "
         f"({touched} distinct cells): device {dev_runs[0]:.4f} / {dev_runs[1]:.4f} ms, "
         f"index_select {lib_runs[0]:.4f} / {lib_runs[1]:.4f} ms (in turns), call "
         f"{rec['call_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} "
-        f"ms; 1 table x {lattice.shape[0]} unsorted ({lat_touched} distinct cells): device "
-        f"{lat['device_ms']:.4f} ms, call {lat['call_ms']:.4f} ms, plain "
-        f"{lat['plain_ms']:.4f} ms, bound {lat['bound_ms']:.5f} ms")
+        f"ms; 1 table x {lattice.shape[0]} uniform random ({lat_touched} distinct cells): "
+        f"device {lat['device_ms']:.4f} ms, call {lat['call_ms']:.4f} ms, plain "
+        f"{lat['plain_ms']:.4f} ms, bound {lat['bound_ms']:.5f} ms; 1 table x {march['ids']} "
+        f"ids of the march lattice ({march['distinct_cells']} distinct cells): device "
+        f"{march['device_ms']:.4f} ms, call {march['call_ms']:.4f} ms, plain "
+        f"{march['plain_ms']:.4f} ms, bound {march['bound_ms']:.5f} ms")
     return rec
 
 
@@ -275,6 +352,50 @@ def check_spiral(config, driver, rec):
         f"max_abs_err {err:.3g}, device {rec['device_ms']:.4f} ms, call {rec['call_ms']:.4f} "
         f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']})")
+    return rec
+
+
+def check_spiral_global(device, dimension=241.6, resolution=0.1, seed=0):
+    """K3's global-band variant at n = 2416, the smallest grid the ring band
+    does not fit, on random layers from ``seed``, against its plain version."""
+    from groundgrid_torch.config import GroundGridConfig
+    from groundgrid_torch.ops import spiral
+
+    cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
+    n, m = cfg.cell_count, cfg.center_cell
+    if spiral.spiral_variant(n) != "global":
+        raise AssertionError(f"n={n} takes the band kernel")
+    rng = np.random.default_rng(seed)
+    conf = np.where(rng.random((n, n)) < 0.4, rng.uniform(0.0, 1.0, (n, n)), 0.0)
+    ground = torch.from_numpy(rng.normal(0, 0.5, (n, n)).astype(np.float32)).to(device)
+    conf = torch.from_numpy(conf.astype(np.float32)).to(device)
+    g_k, c_k = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
+    g_p, c_p = ground.clone(), conf.clone()
+    # the plain walk takes seconds here: the comparison's own call is timed
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    spiral.spiral_interpolation_plain(cfg, g_p, c_p, 0.37)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    if not torch.equal(c_k, c_p):
+        raise AssertionError(f"K3 global confidence differs in {int((c_k != c_p).sum())} cells")
+    if not torch.allclose(g_k, g_p, atol=2e-5, rtol=1e-5):
+        raise AssertionError(f"K3 global heights beyond atol 2e-5 / rtol 1e-5: "
+                             f"max {float((g_k - g_p).abs().max())}")
+    err = float((g_k - g_p).abs().max())
+    h, c = ground.clone(), conf.clone()
+    rec = {"max_abs_err": err, "library_ms": None, "n": n}
+    rec.update(kernel_times(lambda: spiral.spiral_interpolation(cfg, h, c, 0.37), 5,
+                            "spiral_global_kernel"))
+    rec["plain_ms"] = plain_ms
+    visits = (m - 1) * (4 * m + 2) + 1
+    rec.update(bound(2 * 4 * ((2 * m + 1) ** 2 + (2 * m - 1) ** 2), 55 * visits))
+    log(f"K3 spiral_interpolation (global band): {n}^2, {m - 1} rings: confidence bitwise, "
+        f"height max_abs_err {err:.3g}, device {rec['device_ms']:.4f} ms, call "
+        f"{rec['call_ms']:.4f} ms, plain {plain_ms:.1f} ms (one call), bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -387,11 +508,12 @@ def agreement(a, b, name):
 
 
 def phase_sequence(config, records, device):
-    from groundgrid_torch.ops import launch_counts, reset_launch_counts
+    from groundgrid_torch.ops import launch_counts, reset_launch_counts, spiral
 
     reset_launch_counts()
     results, driver, event_ms, wall_ms = run_sequence(config, records, device)
     counts = launch_counts()
+    spiral_global = spiral.spiral_interpolation.global_launches
     n = len(records)
     check_launches(counts, {"raster": n, "lookup": 3 * n, "spiral": n, "detect": 0}, driver,
                    "main path")
@@ -428,7 +550,8 @@ def phase_sequence(config, records, device):
     log(f"ground vs synthetic truth (warm scans): recall {recall:.4f} precision {precision:.4f}")
     if recall < 0.9 or precision < 0.8:
         raise AssertionError("ground recall/precision below 0.9/0.8")
-    return counts
+    # K3's launches by variant: the ring band at 364^2
+    return dict(counts, spiral_band=counts["spiral"] - spiral_global, spiral_global=spiral_global)
 
 
 def phase_layers(config, records, device):
@@ -677,8 +800,9 @@ def main() -> int:
 
     driver = warm_driver(config, records, device)
     k1, cell = check_raster(config, driver, records[4])
-    k2 = check_lookup(config, driver, cell)
+    k2 = check_lookup(config, driver, cell, records[4])
     k3 = check_spiral(config, driver, records[4])
+    k3g = check_spiral_global(device)
     k4 = check_detect(config, driver, records[4])
     torch.cuda.synchronize()
 
@@ -687,13 +811,16 @@ def main() -> int:
     layer_counts = phase_layers(layer_config, records[:N_LAYER_SCANS], device)
     phase_entry_point(config, records, device)
     kernels = []
-    # launches: each kernel's count in the path it serves (K4: phase 4)
+    # launches: each kernel's count in the path it serves (K4: phase 4; K3's
+    # global-band variant serves grids above 2415 cells a side, none of them)
     for name, route_file, replaces, key, res, launches in (
         ("raster_reduce", "raster.cu", "groundgrid_tpu/ops/pallas_raster.py:229", "raster", k1,
          counts),
         ("lookup", "lookup.cu", "groundgrid_tpu/ops/pallas_lookup.py:95", "lookup", k2, counts),
         ("spiral_interpolation", "spiral.cu", "groundgrid_tpu/ops/pallas_spiral.py:662",
-         "spiral", k3, counts),
+         "spiral_band", k3, counts),
+        ("spiral_interpolation_global", "spiral_global.cu",
+         "groundgrid_tpu/ops/pallas_spiral.py:662", "spiral_global", k3g, counts),
         ("detect_ground_patches_fused", "detect.cu", "groundgrid_tpu/ops/pallas_detect.py:157",
          "detect", k4, layer_counts),
     ):

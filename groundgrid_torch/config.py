@@ -75,7 +75,7 @@ class GroundGridConfig:
     # sorts them by flat cell id against the host-tracked grid center
     sorted_scans: bool = False
     # verify sortedness on the device (and sort there if the host order was
-    # wrong); kept for config parity
+    # wrong); False trusts the host's order and skips the check's host read
     sorted_fallback_check: bool = True
     # quantized s16 wire format: 8 bytes per point (pipeline.WireScan)
     wire_format: bool = False

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "gg_raster_reduce": [_P, _P, _I, _I, ctypes.c_uint, _I, _P, _P],
     "gg_lookup": [_P, _I, _P, _P, _I, _P, _P, _P],
     "gg_spiral": [_P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P],
+    "gg_spiral_global": [_P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P],
     "gg_detect": [_P] * 9 + [_I, _F, _F, _F, _P, _P, _P],
 }
 

@@ -20,7 +20,14 @@ few visits that read an earlier segment's cells redone around it (their
 ring D-1 cells, :func:`junction_cells`, cached before that ring's buffer is
 refilled). :func:`band_layout` sizes the launch: ``8 (3 (8 m + 1) + 9) +
 4 * 192`` bytes of shared memory (m = n // 2 - 1); a block holds at most
-232,448, so grids above 2415 cells a side raise ``ValueError``.
+232,448, so the band takes grids up to 2415 cells a side.
+
+Above that, :func:`spiral_variant` picks ``csrc/spiral_global.cu``: the same
+walk in one block with the layers in global memory / L2, one segment at a
+time (coefficients, a Hillis-Steele scan, the write-back), its three
+per-segment arrays in shared memory or, where they do not fit a block
+(:func:`global_layout`), in a global scratch buffer. So every grid that fits
+in device memory runs on the card.
 
 :func:`spiral_interpolation` launches the kernel for CUDA tensors and takes
 the plain version only for CPU tensors.
@@ -154,6 +161,17 @@ def ring_walk(m: int, d: int) -> list[tuple[int, int]]:
     return top + left + bottom + right
 
 
+def _band_smem_bytes(n: int) -> int:
+    stride = 8 * max(n // 2 - 1, 0) + 1
+    return 8 * (3 * stride + BAND_EXTRA) + 4 * SCRATCH_FLOATS
+
+
+def spiral_variant(n: int) -> str:
+    """``"band"`` where the ring band of an ``n``-cell grid fits one block's
+    shared memory (n <= 2415), else ``"global"``."""
+    return "band" if _band_smem_bytes(n) <= SMEM_LIMIT else "global"
+
+
 class BandLayout(NamedTuple):
     """The kernel's launch geometry for an ``n``-cell grid."""
 
@@ -170,11 +188,30 @@ def band_layout(n: int) -> BandLayout:
     stride = 8 * m + 1
     visits = max(8 * m - 6, 1)  # ring m-1, the largest walked
     walkers = min(1024 - MEM_THREADS, -(-visits // 32) * 32)
-    smem = 8 * (3 * stride + BAND_EXTRA) + 4 * SCRATCH_FLOATS
+    smem = _band_smem_bytes(n)
     if smem > SMEM_LIMIT:
         raise ValueError(f"spiral_interpolation: a {n}^2 grid needs a {smem}-byte ring band; "
                          f"one block holds {SMEM_LIMIT} bytes (n <= 2415)")
     return BandLayout(walkers + MEM_THREADS, stride, smem, -(-visits // walkers))
+
+
+class GlobalLayout(NamedTuple):
+    """The launch geometry of the global-band variant for an ``n``-cell grid."""
+
+    threads: int  # one block, one thread per segment cell up to 1024
+    smem_bytes: int  # the scan's 2 floats per thread (+ 3 n floats unless scratch)
+    scratch_floats: int  # 3 n where the per-segment arrays leave shared memory, else 0
+
+
+def global_layout(n: int) -> GlobalLayout:
+    """Threads, shared-memory bytes and global scratch of the global-band
+    variant: the per-segment arrays (a, b, confidence) stay in shared memory
+    where ``3 n + 2 threads`` floats fit a block (n up to 18,688)."""
+    threads = min(1024, -(-max(n, 1) // 32) * 32)
+    scan = 4 * 2 * threads
+    if scan + 4 * 3 * n <= SMEM_LIMIT:
+        return GlobalLayout(threads, scan + 4 * 3 * n, 0)
+    return GlobalLayout(threads, scan, 3 * n)
 
 
 def _affine_scan(a, b):
@@ -301,18 +338,31 @@ def spiral_interpolation(config: GroundGridConfig, ground, groundpatch, base_z):
         raise RuntimeError(f"spiral_interpolation: unsupported device {ground.device}")
     if not (ground.is_contiguous() and groundpatch.is_contiguous()):
         raise ValueError("spiral_interpolation needs contiguous layers")
-    layout = band_layout(n)
     lib = _build.library()
-    code = lib.lib.gg_spiral(
-        ground.data_ptr(), groundpatch.data_ptr(), n, config.center_cell,
-        float(np.float32(base_z)), float(np.float32(config.resolution ** 2)),
-        float(np.float32(config.occupied_cells_decrease_factor)),
-        float(np.float32(config.min_dist_squared)), float(np.float32(0.001)),
-        layout.threads, layout.smem_bytes, _build.stream_ptr(ground.device),
-    )
+    consts = (n, config.center_cell, float(np.float32(base_z)),
+              float(np.float32(config.resolution ** 2)),
+              float(np.float32(config.occupied_cells_decrease_factor)),
+              float(np.float32(config.min_dist_squared)), float(np.float32(0.001)))
+    stream = _build.stream_ptr(ground.device)
+    variant = spiral_variant(n)
+    if variant == "band":
+        layout = band_layout(n)
+        code = lib.lib.gg_spiral(ground.data_ptr(), groundpatch.data_ptr(), *consts,
+                                 layout.threads, layout.smem_bytes, stream)
+    else:
+        glayout = global_layout(n)
+        scratch = (torch.empty(glayout.scratch_floats, dtype=torch.float32,
+                               device=ground.device) if glayout.scratch_floats else None)
+        code = lib.lib.gg_spiral_global(
+            ground.data_ptr(), groundpatch.data_ptr(), *consts, glayout.threads,
+            glayout.smem_bytes, None if scratch is None else scratch.data_ptr(), stream)
     _build.check(code, "spiral_interpolation")
     spiral_interpolation.launches += 1
+    if variant == "global":
+        spiral_interpolation.global_launches += 1
     return ground, groundpatch
 
 
+# launches of either variant; global_launches: those of the global-band one
 spiral_interpolation.launches = 0
+spiral_interpolation.global_launches = 0

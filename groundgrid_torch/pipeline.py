@@ -133,7 +133,9 @@ class Step:
     ``scan`` is a :class:`Scan`, or a :class:`WireScan` under
     ``config.wire_format``. ``fallbacks`` counts scans whose device cell ids
     were not sorted (a host/device binning divergence); those are sorted on
-    the device, by a stable sort of the ids, before K1.
+    the device, by a stable sort of the ids, before K1. With
+    ``config.sorted_fallback_check`` false the step trusts the host's order,
+    as the JAX step does: no sortedness read, no fallback.
     """
 
     def __init__(self, config: GroundGridConfig, with_aux: bool = False):
@@ -187,7 +189,8 @@ class Step:
         rb, rz, racc = binning, z, accept
         cell = binning.cell
         order = None
-        if cell.shape[0] > 1 and not bool((cell[1:] >= cell[:-1]).all()):
+        if (cfg.sorted_fallback_check and cell.shape[0] > 1
+                and not bool((cell[1:] >= cell[:-1]).all())):
             self.fallbacks += 1
             order = torch.argsort(cell, stable=True)
             rb, rz, racc = binning.permute(order), z[order], accept[order]

@@ -38,13 +38,17 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, name: str | None = None) -> tuple[float, int]:
-    """Device milliseconds of ``fn()`` by ``torch.profiler`` over ``reps``
-    warm calls, and the number of device activities counted.
+def device_ms(fn, reps: int, name: str | None = None,
+              per: str | None = None) -> tuple[float, int]:
+    """Device milliseconds per call of ``fn()`` by ``torch.profiler`` over
+    ``reps`` warm calls, and the number of device activities counted.
 
-    With ``name``: the mean duration of the kernels whose name contains it
-    (one launch per call). Without: the summed duration of every device
-    activity (kernels, copies, sets) per call. Raises if the profiler saw none.
+    Sums the device activities whose name contains ``name`` (every one:
+    kernels, copies, sets, if None) and divides by the calls the profiler
+    kept, counted as the launches of kernel ``per`` (or ``name``), one per
+    call, else taken as ``reps``. The profiler can drop a launch of a long
+    kernel from its window (K3's global-band kernel: 4 of 5 kept). Raises
+    if it kept none.
     """
     fn()
     torch.cuda.synchronize()
@@ -54,9 +58,13 @@ def device_ms(fn, reps: int, name: str | None = None) -> tuple[float, int]:
             fn()
         torch.cuda.synchronize()
     us, seen = device_us(prof, name)
-    if not seen:
-        raise RuntimeError(f"torch.profiler recorded no device activity named {name!r}")
-    return us / 1000.0 / (seen if name else reps), seen
+    count = per or name
+    calls = device_us(prof, count)[1] if count else reps
+    if not seen or not calls:
+        raise RuntimeError(f"torch.profiler recorded no device activity named {count!r}")
+    if calls > reps:
+        raise RuntimeError(f"torch.profiler recorded {calls} launches of {count!r} in {reps} calls")
+    return us / 1000.0 / calls, seen
 
 
 def device_us(prof, name: str | None = None) -> tuple[float, int]:

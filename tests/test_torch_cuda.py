@@ -8,9 +8,13 @@ alone:
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest -q
 
 Small sizes, including grids below 32 cells a side: K1 bitwise on every
-column, K2 bitwise, K3 confidence bitwise and heights within atol 2e-5 /
-rtol 1e-5 (up to n = 2414, the largest band; two runs bitwise; a band
-beyond shared memory refused), K4 bitwise; plus the small-config streaming step on the card
+column (also on the cell distributions of ``test_torch_raster_tiles.py``:
+one cell, all overflow, runs across many tiles; two runs bitwise; and no
+CUDA error on ids out of order), K2
+bitwise (any point count, unsorted ids, ids at n2, an offset id view),
+K3 confidence bitwise and heights within atol 2e-5 / rtol 1e-5 (up to n =
+2414 on the band kernel, 2416 to 2800 on the global-band one; two runs
+bitwise), K4 bitwise; plus the small-config streaming step on the card
 against the same step on the CPU, on the main path and on the fused, aux
 and wire path.
 """
@@ -58,6 +62,70 @@ def test_raster_kernel_matches_plain(cuda, n, p):
         assert torch.equal(g, w), f"column {j}"
 
 
+def _raster_case(kind, n, device):
+    # the twin's distributions (a sibling test module: no JAX there either)
+    from test_torch_raster_tiles import _cells
+
+    n2 = n * n
+    cell = _cells(kind, seed=n, n2=n2)
+    rng = np.random.default_rng(n)
+    p = cell.shape[0]
+    cols = [torch.from_numpy(rng.standard_normal(p).astype(np.float32)).to(device)
+            for _ in range(7)]
+    cols[0] = (cols[0] > 0).float()
+    cols[6] = cols[6].round()  # ties for the max
+    return torch.from_numpy(cell).to(device), cols, ["sum"] * 5 + ["min", "max"], n2
+
+
+@pytest.mark.parametrize("n", [5, 31, 364])
+@pytest.mark.parametrize("kind", ["uniform", "one_cell", "overflow", "one_long_run", "long_runs",
+                                  "gaps", "tile_edges", "single"])
+def test_raster_kernel_on_tile_plan_distributions(cuda, kind, n):
+    cell, cols, ops, n2 = _raster_case(kind, n, cuda)
+    got = raster.raster_reduce(cell, cols, ops, n2)
+    again = raster.raster_reduce(cell, cols, ops, n2)
+    want = raster.raster_reduce_plain(cell, cols, ops, n2)
+    torch.cuda.synchronize()
+    for j, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, w), f"column {j}"
+        assert torch.equal(g, a), f"column {j}: two runs differ"
+
+
+@pytest.mark.parametrize("n,p", [(5, 4000), (31, 3000), (364, 131072)])
+def test_raster_kernel_survives_unsorted_ids(cuda, n, p):
+    """Ids out of order (outside the contract, as a step without the
+    sortedness check may pass) and ids outside [0, n2]: any values, but no
+    CUDA error, and the kernel is right again on the sorted ids."""
+    rng = np.random.default_rng(p)
+    n2 = n * n
+    ids = _sorted_cells(rng, p, n2)
+    ids[rng.integers(0, p, p // 50)] = rng.integers(-3, 2 * n2, p // 50)
+    cols = [torch.from_numpy(rng.standard_normal(p).astype(np.float32)).to(cuda)
+            for _ in range(7)]
+    ops = ["sum"] * 5 + ["min", "max"]
+    for shuffled in (ids[rng.permutation(p)], ids[::-1].copy(), ids):
+        got = raster.raster_reduce(torch.from_numpy(shuffled).to(cuda), cols, ops, n2)
+        torch.cuda.synchronize()
+        assert all(g.shape == (n2,) for g in got)
+    cell = torch.from_numpy(np.sort(np.clip(ids, 0, n2))).to(cuda)
+    for g, w in zip(raster.raster_reduce(cell, cols, ops, n2),
+                    raster.raster_reduce_plain(cell, cols, ops, n2)):
+        assert torch.equal(g, w)
+
+
+def test_raster_kernel_on_column_views(cuda):
+    """Ids and columns that start 4 bytes past an aligned address (the
+    scalar staging path), and strided columns (the wrapper copies them)."""
+    cell, cols, ops, n2 = _raster_case("long_runs", 31, cuda)
+    wide = torch.stack(cols, 1)  # (P, 7): column j is a stride-7 view
+    for views in ([c[1:] for c in cols], [w[1:] for w in wide.unbind(1)]):
+        got = raster.raster_reduce(cell[1:], views, ops, n2)
+        want = raster.raster_reduce_plain(cell[1:], views, ops, n2)
+        torch.cuda.synchronize()
+        for j, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), f"column {j}"
+
+
 @pytest.mark.parametrize("kind", ["sorted", "unsorted", "overflow", "empty"])
 def test_lookup_kernel_matches_plain(cuda, kind):
     rng = np.random.default_rng(3)
@@ -76,6 +144,30 @@ def test_lookup_kernel_matches_plain(cuda, kind):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("p", [0, 1, 3, 5, 8, 4 * 1001 + 3])
+def test_lookup_kernel_any_count(cuda, p):
+    """Any P (whole and partial warp groups of ids), unsorted ids with ids
+    at n2 and beyond, one and two tables, and an id view that starts 4
+    bytes past an aligned address: bitwise the plain version."""
+    rng = np.random.default_rng(p)
+    n2 = 31 * 31
+    ids = rng.integers(-2, n2 + 3, p + 1).astype(np.int32)
+    ids[::3] = n2
+    words = rng.integers(0, 1 << 32, n2, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    tabs = [torch.from_numpy(words).to(cuda),
+            torch.from_numpy(rng.standard_normal(n2).astype(np.float32)).to(cuda)]
+    full = torch.from_numpy(ids).to(cuda)
+    before = lookup.lookup.launches
+    for cell in (full[:p], full[1:]):  # full[1:] starts 4 bytes past an aligned address
+        for k in (1, 2):
+            got = lookup.lookup(cell, tabs[:k], n2)
+            want = lookup.lookup_plain(cell, tabs[:k], n2)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert lookup.lookup.launches == before + (4 if p else 0)  # nothing to read: no launch
 
 
 def _spiral_layers(n, device):
@@ -115,16 +207,24 @@ def test_spiral_kernel_is_deterministic(cuda):
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
 
 
-def test_spiral_kernel_refuses_a_band_beyond_shared_memory(cuda):
-    """n = 2500: the ring band needs more than a block's 227 KB (n <= 2415);
-    no fallback."""
-    cfg = GroundGridConfig(dimension=825.0, resolution=0.33)
-    n = cfg.cell_count
-    layers = [torch.zeros(n, n, device=cuda) for _ in range(2)]
-    before = spiral.spiral_interpolation.launches
-    with pytest.raises(ValueError, match="ring band"):
-        spiral.spiral_interpolation(cfg, *layers, 0.37)
-    assert spiral.spiral_interpolation.launches == before
+@pytest.mark.parametrize("dimension,resolution", [(241.6, 0.1), (825.0, 0.33), (280.0, 0.1)])
+def test_spiral_kernel_refuses_a_band_beyond_shared_memory(cuda, dimension, resolution):
+    """n = 2416, 2500 and 2800: the ring band does not fit a block's shared memory,
+    so the global-band kernel walks the grid (no fallback to the plain
+    version), counted as a K3 launch: confidence bitwise, heights within
+    atol 2e-5 / rtol 1e-5, two runs bitwise."""
+    cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
+    assert spiral.spiral_variant(cfg.cell_count) == "global"
+    ground, conf = _spiral_layers(cfg.cell_count, cuda)
+    reset_launch_counts()
+    runs = [spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
+            for _ in range(2)]
+    assert launch_counts()["spiral"] == 2 and spiral.spiral_interpolation.global_launches == 2
+    g_p, c_p = spiral.spiral_interpolation_plain(cfg, ground.clone(), conf.clone(), 0.37)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][1], c_p)
+    torch.testing.assert_close(runs[0][0], g_p, atol=2e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dimension,resolution,scale", [

@@ -54,12 +54,19 @@ def _cells(kind, rng, p=4096, n2=N2):
     if kind == "straddle":
         return np.sort((1024 * rng.integers(0, max(n2 // 1024, 1), p)
                         + rng.integers(-2, 3, p)).clip(0, n2)).astype(np.int32)
+    if kind == "long_runs":  # runs of 1 to 2,024 points on random cells, ascending
+        lengths = np.array([1, 2, 5, 40, 300, 700, 1024, p - 2072])
+        cells = np.sort(rng.choice(n2, lengths.size, replace=False))
+        return np.repeat(cells, rng.permutation(lengths)).astype(np.int32)
     raise KeyError(kind)
 
 
-@pytest.mark.parametrize("kind", ["random", "one_cell", "overflow", "straddle"])
+RASTER_KINDS = ["random", "one_cell", "overflow", "straddle", "long_runs"]
+
+
+@pytest.mark.parametrize("kind", RASTER_KINDS)
 def test_raster_plain_vs_pallas(kind):
-    rng = np.random.default_rng(["random", "one_cell", "overflow", "straddle"].index(kind))
+    rng = np.random.default_rng(RASTER_KINDS.index(kind))
     cell = _cells(kind, rng)
     p = cell.shape[0]
     ind = [rng.integers(0, 2, p).astype(np.float32) for _ in range(2)]

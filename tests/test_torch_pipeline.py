@@ -87,16 +87,23 @@ def test_port_runs_are_bitwise_identical(runs, small_scans):
         np.testing.assert_array_equal(a, b)
 
 
-def test_unsorted_scan_falls_back_and_matches_jax(runs, small_scans):
-    """A shuffled prepared scan: the JAX step takes its scatter fallback, the
-    port counts a fallback and sorts on the device; both agree."""
-    jcfg, tcfg, _, jstates = runs[:4]
-    pts, labels, T = small_scans[2]
+def _prepared_scan(jcfg, tcfg, small_scans, k=2):
+    """Scan ``k`` prepared for both steps against the stream's last center."""
+    pts, labels, T = small_scans[k]
     tracker = jpipe.CenterTracker(jcfg, small_scans[0][2][:2, 3].astype(np.float64))
     for _, _, Tk in small_scans:
         center = tracker.update(Tk[:2, 3].astype(np.float64))
     jscan, _ = jpipe.prepare_scan(jcfg, pts, labels, T, center)
     tscan, _ = tpipe.prepare_scan(tcfg, pts, labels, T, center, "cpu")
+    return jscan, tscan
+
+
+def test_unsorted_scan_falls_back_and_matches_jax(runs, small_scans):
+    """A shuffled prepared scan: the JAX step takes its scatter fallback, the
+    port counts a fallback and sorts on the device; both agree."""
+    jcfg, tcfg, _, jstates = runs[:4]
+    jscan, tscan = _prepared_scan(jcfg, tcfg, small_scans)
+    sorted_scan = tscan
     perm = np.random.default_rng(0).permutation(jcfg.max_points)
     jscan = jscan._replace(**{k: np.asarray(getattr(jscan, k))[perm]
                               for k in ("px", "py", "pz", "rings", "valid")})
@@ -115,9 +122,60 @@ def test_unsorted_scan_falls_back_and_matches_jax(runs, small_scans):
     assert close.mean() >= AGREE
     # same result as the sorted scan: the fallback only reorders the raster
     sorted_state, sorted_out = tpipe.make_step(tcfg)(
-        state_from_numpy(*jstates[1], device="cpu"), tpipe.prepare_scan(
-            tcfg, pts, labels, T, center, "cpu")[0])
+        state_from_numpy(*jstates[1], device="cpu"), sorted_scan)
     np.testing.assert_array_equal(tstate.ground.numpy(), sorted_state.ground.numpy())
+
+
+def test_no_fallback_check_on_sorted_stream_is_the_default(runs, small_scans):
+    """``sorted_fallback_check=False`` on the sorted stream: labels and state
+    bitwise those of the checked default, and no fallback."""
+    tcfg, tres, tstates = runs[1], runs[4], runs[5]
+    driver, again = _run_port(dataclasses.replace(tcfg, sorted_fallback_check=False),
+                              small_scans)
+    for a, b in zip(tres, again):
+        np.testing.assert_array_equal(a.labels, b.labels)
+    for a, b in zip(tstates[-1], state_to_numpy(driver.state)):
+        np.testing.assert_array_equal(a, b)
+    assert driver.step.fallbacks == 0
+
+
+def test_no_fallback_check_makes_no_sortedness_read(runs, small_scans, monkeypatch):
+    """Unchecked, a shuffled scan takes no fallback, and the step reads the
+    device one time fewer (the sortedness ``bool``) than the checked step."""
+    jcfg, tcfg, _, jstates = runs[:4]
+    _, tscan = _prepared_scan(jcfg, tcfg, small_scans)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(tcfg.max_points))
+    tscan = tscan._replace(**{k: getattr(tscan, k)[perm]
+                              for k in ("px", "py", "pz", "rings", "valid")})
+    reads = []
+    to_bool = torch.Tensor.__bool__
+    monkeypatch.setattr(torch.Tensor, "__bool__", lambda t: reads.append(1) or to_bool(t))
+    counts = {}
+    for check in (True, False):
+        step = tpipe.make_step(dataclasses.replace(tcfg, sorted_fallback_check=check))
+        reads.clear()
+        step(state_from_numpy(*jstates[1], device="cpu"), tscan)
+        counts[check] = (len(reads), step.fallbacks)
+    assert counts[True][1] == 1 and counts[False][1] == 0
+    assert counts[True][0] >= 1 and counts[False][0] == counts[True][0] - 1
+
+
+def test_no_fallback_check_matches_jax(runs, small_scans):
+    """The port and the JAX step, both with ``sorted_fallback_check=False``,
+    on a sorted scan from the same state."""
+    jcfg, tcfg, _, jstates = runs[:4]
+    jcfg = dataclasses.replace(jcfg, sorted_fallback_check=False)
+    tcfg = dataclasses.replace(tcfg, sorted_fallback_check=False)
+    jscan, tscan = _prepared_scan(jcfg, tcfg, small_scans)
+    jstate, jout = jpipe.make_step(jcfg)(jpipe.GridState(*jstates[1]), jscan)
+    step = tpipe.make_step(tcfg)
+    tstate, tout = step(state_from_numpy(*jstates[1], device="cpu"), tscan)
+    assert step.fallbacks == 0
+    lj, lt = np.asarray(jout.labels), tout.labels.numpy()
+    assert (lj != 0).sum() > 1000
+    assert (lj == lt).mean() >= AGREE, f"{int((lj != lt).sum())} labels differ"
+    close = np.abs(tstate.ground.numpy() - np.asarray(jstate.ground)) <= 1e-4
+    assert close.mean() >= AGREE
 
 
 def test_empty_overflow_and_bad_pose_scans(small_config, small_scans):

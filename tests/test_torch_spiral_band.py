@@ -9,7 +9,8 @@ slots are a bijection onto its cells, the walk visits them in order with its
 two double visits, every stencil address the kernel computes is the cell the
 walk reads and lies in the band, the junction cache holds every ring D-1
 cell that the redone junction visits read, and the band's bytes are what
-the wrapper asks the launch for.
+the wrapper asks the launch for. Above the band's limit the wrapper picks
+the global-band variant, whose launch fits a block for any n.
 """
 
 from collections import Counter
@@ -22,9 +23,9 @@ from hypothesis import strategies as st
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.ops import spiral
 from groundgrid_torch.ops.spiral import (BAND_EXTRA, JUNCTION_KIND, MAX_PER_THREAD, MEM_THREADS,
-                                         SCRATCH_FLOATS, SMEM_LIMIT, band_layout, junction_cells,
-                                         junction_visits, ring_slot, ring_walk, slot_cell,
-                                         stencil_slots)
+                                         SCRATCH_FLOATS, SMEM_LIMIT, band_layout, global_layout,
+                                         junction_cells, junction_visits, ring_slot, ring_walk,
+                                         slot_cell, spiral_variant, stencil_slots)
 
 SIZES = [12, 24, 45, 80, 140, 364, 1212]
 
@@ -141,3 +142,30 @@ def test_band_layout_fits_the_kernel(n):
     assert layout.smem_bytes == 4 * (48 * m + 6 + 18 + SCRATCH_FLOATS) <= SMEM_LIMIT
     assert layout.threads % 32 == 0 and 32 + MEM_THREADS <= layout.threads <= 1024
     assert layout.per_thread <= MAX_PER_THREAD
+
+
+@pytest.mark.parametrize("n,variant", [
+    (364, "band"), (2414, "band"), (2415, "band"), (2416, "global"), (20000, "global"),
+])
+def test_spiral_variant_by_grid_size(n, variant):
+    """The band kernel up to 2415 cells a side (the 364^2 main path among
+    them), the global-band kernel above, where the band does not fit."""
+    assert spiral_variant(n) == variant
+    if variant == "band":
+        assert band_layout(n).smem_bytes <= SMEM_LIMIT
+    else:
+        with pytest.raises(ValueError, match="ring band"):
+            band_layout(n)
+
+
+@pytest.mark.parametrize("n", [2416, 2800, 18688, 18689, 20000, 60000])
+def test_global_layout_fits_a_block(n):
+    """3 n + 2 T floats in shared memory where they fit; beyond, the 3 n
+    per-segment floats move to a global scratch buffer."""
+    layout = global_layout(n)
+    assert layout.threads == 1024 and layout.smem_bytes <= SMEM_LIMIT
+    scan = 4 * 2 * layout.threads
+    if layout.scratch_floats:
+        assert n > 18688 and layout.scratch_floats == 3 * n and layout.smem_bytes == scan
+    else:
+        assert n <= 18688 and layout.smem_bytes == scan + 4 * 3 * n
