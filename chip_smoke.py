@@ -18,9 +18,11 @@ Phases (any failure raises and exits non-zero, printing no result):
    the ids ``detect_outliers`` hands it: bitwise), K3 spiral (a warm state:
    confidence bitwise, heights atol 2e-5 / rtol 1e-5; and its global-band
    variant at n = 2416 on random layers, the same bounds), K4 fused detect
-   (the warm raster layers of a real scan at 364^2, and random layers at
-   n = 12 and 45, one seed with low variance so that the main update
-   fires: ground and confidence bitwise). Per kernel: its device time
+   (the warm raster layers of a real scan at 364^2 and at 1200^2, from a
+   ``HIGHRES_CONFIG`` fused-detect driver warmed on 4 scans, and random
+   layers at n = 12 and 45, one seed with low variance so that the main
+   update fires: ground and confidence bitwise, two runs bitwise; timed at
+   both grid sizes). Per kernel: its device time
    (``torch.profiler``, the named kernel's own time per launch), the device
    time of everything one wrapper call launches, the wrapper's cost per
    call (CUDA events around back-to-back calls), the plain version's, the
@@ -42,6 +44,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    finite, a second kernel run bitwise equal, a checkpoint after scan 8
    (``save_state`` / ``load_state`` / ``restore``) whose resumed scans 9-16
    are bitwise those of the uninterrupted run, ms/scan from CUDA events.
+   Then the same path at ``HIGHRES_CONFIG`` (1200^2) over the first 4 scans,
+   twice: launch counts per scan, 11 finite layers, the second run bitwise
+   the first, ms/scan of each run.
 5. The entry point, ``python -m groundgrid_torch``, called in-process
    (``runtime.cli.main``) at the default geometry over the 32 scans of phase
    3 written as a SemanticKITTI sequence: (a) ``evaluate``, NumPy prep; (b)
@@ -57,7 +62,8 @@ Phases (any failure raises and exits non-zero, printing no result):
    the call) and the host prep p50 of NumPy against the native loader.
 
 The line before the last is the kernels' JSON record (``ms`` is the device
-time, ``library_ms`` null where no one PyTorch call computes the function);
+time, ``library_ms`` null where no one PyTorch call computes the function;
+K4 adds its ``*_highres`` times and bound at 1200^2);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -77,6 +83,7 @@ import torch
 
 N_SCANS = 32
 N_LAYER_SCANS = 16
+N_HIGHRES_SCANS = 4
 AGREE_MIN = 0.999
 GROUND_TRUTH_IDS = (40, 72)  # synthetic road and terrain (SemanticKITTI ids)
 WIRE_BUDGET_PT = 0.1  # the JAX CLI's ``accuracy`` budget (cli.py:539)
@@ -399,25 +406,57 @@ def check_spiral_global(device, dimension=241.6, resolution=0.1, seed=0):
     return rec
 
 
-def check_detect(config, driver, rec):
-    """K4 on the warm raster layers of one real scan (364^2) and on random
-    layers at n = 12 and 45, against its plain version: bitwise."""
-    from groundgrid_torch.config import GroundGridConfig
-    from groundgrid_torch.core import detect as detectlib
+def warm_detect_layers(config, driver, rec):
+    """The detect stage's inputs on scan ``rec`` from the driver's warm state:
+    the raster layers (K1) and the moved ground and confidence."""
     from groundgrid_torch.core import grid as gridlib
     from groundgrid_torch.core import rasterize as rasterlib
-    from groundgrid_torch.data.synthetic import detect_layers
-    from groundgrid_torch.ops import detect, raster
+    from groundgrid_torch.ops import raster
 
     scan, binning, accept = prepared(config, driver, rec)
     layers = rasterlib.rasterize_sorted(config, binning, scan.pz, scan.t_map_velo[:3, 3],
                                         accept, scan.center, scan.t_base_map,
                                         raster.raster_reduce)
     moved = gridlib.move(config, driver.state, scan.t_base_map, scan.center, scan.center_lo)
-    device = scan.px.device
+    return (layers.points, layers.variance, layers.min_ground_height, moved.ground,
+            moved.groundpatch)
+
+
+def detect_times(config, tabs, args, plain_reps=20):
+    """K4's times on one case and its bound: reads 5 layers, 3 float tables
+    and use3 once, writes 2 layers; per interior cell 6 operations per
+    window cell (2 products, 3 sums, a min) over its 3x3 or 5x5 window, ~25
+    for the branch ladder."""
+    from groundgrid_torch.ops import detect
+
+    rec = kernel_times(lambda: detect.detect_fused(config, tabs, *args), 100, "detect_kernel",
+                       lambda: detect.detect_fused_plain(config, tabs, *args), plain_reps)
+    n = config.cell_count
+    ins = list(args) + [tabs.var_thr_sq, tabs.skip_thr, tabs.min_expected_s, tabs.use3]
+    use3 = tabs.use3[2:n - 2, 2:n - 2]
+    n3 = int(use3.sum())
+    flops = 6 * (9 * n3 + 25 * (use3.numel() - n3)) + 25 * use3.numel()
+    rec.update(bound(sum(t.nbytes for t in ins) + 2 * 4 * n * n, flops))
+    return rec
+
+
+def check_detect(config, driver, rec, records):
+    """K4 on the warm raster layers of one real scan at 364^2 and at 1200^2
+    (``HIGHRES_CONFIG``, a fused-detect driver warmed on ``records[:4]``) and
+    on random layers at n = 12 and 45, against its plain version: bitwise,
+    and two runs bitwise. Timed at both grid sizes."""
+    from groundgrid_torch.config import HIGHRES_CONFIG, GroundGridConfig
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.data.synthetic import detect_layers
+    from groundgrid_torch.ops import detect
+
+    device = driver.device
+    high = dataclasses.replace(HIGHRES_CONFIG, sorted_scans=True, fused_detect=True)
+    high_driver = warm_driver(high, records, device)
     cases = [("364^2 warm scan", config, detectlib.make_tables(config, device),
-              (layers.points, layers.variance, layers.min_ground_height, moved.ground,
-               moved.groundpatch))]
+              warm_detect_layers(config, driver, rec)),
+             ("1200^2 warm scan", high, detectlib.make_tables(high, device),
+              warm_detect_layers(high, high_driver, rec))]
     # n = 12 (points x10: the default density passes no skip threshold) and
     # 45; seed 3 with variance x0.01, where cells take the main update
     for dim, res, scale in ((6.0, 0.5, 10.0), (16.65, 0.37, 1.0)):
@@ -433,34 +472,32 @@ def check_detect(config, driver, rec):
     err, changed = 0.0, []
     for name, cfg, tabs, args in cases:
         got = detect.detect_fused(cfg, tabs, *args)
+        again = detect.detect_fused(cfg, tabs, *args)
         want = detect.detect_fused_plain(cfg, tabs, *args)
-        for g, w, what in zip(got, want, ("ground", "confidence")):
+        for g, a, w, what in zip(got, again, want, ("ground", "confidence")):
             if not torch.equal(g, w):
                 raise AssertionError(f"K4 ({name}) {what} differs in {int((g != w).sum())} "
                                      f"cells, max {float((g - w).abs().max())}")
+            if not torch.equal(g.view(torch.int32), a.view(torch.int32)):
+                raise AssertionError(f"K4 ({name}) {what}: two runs not bitwise equal")
             err = max(err, float((g - w).abs().max()))
         changed.append(int((got[1] != args[4]).sum()))
         if not changed[-1]:
             raise AssertionError(f"K4 ({name}): the sweep changed no cell")
-    _, tabs, args = cases[0][1:]
-    rec = {"max_abs_err": err, "library_ms": None}
-    rec.update(kernel_times(lambda: detect.detect_fused(config, tabs, *args), 100,
-                            "detect_kernel",
-                            lambda: detect.detect_fused_plain(config, tabs, *args), 20))
-    # reads 5 layers, 3 float tables and use3 once, writes 2 layers; per
-    # interior cell 6 operations per window cell (2 products, 3 sums, a min)
-    # over its 3x3 or 5x5 window, ~25 for the branch ladder
-    n = config.cell_count
-    ins = list(args) + [tabs.var_thr_sq, tabs.skip_thr, tabs.min_expected_s, tabs.use3]
-    use3 = tabs.use3[2:n - 2, 2:n - 2]
-    n3 = int(use3.sum())
-    flops = 6 * (9 * n3 + 25 * (use3.numel() - n3)) + 25 * use3.numel()
-    rec.update(bound(sum(t.nbytes for t in ins) + 2 * 4 * n * n, flops))
-    log(f"K4 detect_fused: bitwise at {n}^2 ({changed[0]} cells updated), n=12 and n=45 "
-        f"(4 seeds each); {n}^2: device {rec['device_ms']:.4f} ms, call {rec['call_ms']:.4f} "
-        f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']})")
-    return rec
+    out = {"max_abs_err": err, "library_ms": None}
+    out.update(detect_times(*cases[0][1:]))
+    high_times = detect_times(*cases[1][1:], plain_reps=5)
+    for key in ("device_ms", "wrapper_device_ms", "call_ms", "plain_ms", "bound_ms"):
+        out[key + "_highres"] = high_times[key]
+    for i, suffix in ((0, ""), (1, "_highres")):
+        n = cases[i][1].cell_count
+        log(f"K4 detect_fused {n}^2 warm scan ({changed[i]} cells updated): device "
+            f"{out['device_ms' + suffix]:.4f} ms (wrapper {out['wrapper_device_ms' + suffix]:.4f} "
+            f"ms), call {out['call_ms' + suffix]:.4f} ms, plain {out['plain_ms' + suffix]:.4f} "
+            f"ms, bound {out['bound_ms' + suffix]:.4f} ms ({out['bound_by']})")
+    log("K4 detect_fused: bitwise and two runs bitwise at 364^2, 1200^2, n=12 and n=45 "
+        "(4 seeds each)")
+    return out
 
 
 def run_sequence(config, records, device, with_aux=False, driver=None):
@@ -611,6 +648,35 @@ def phase_layers(config, records, device):
         raise AssertionError(f"resume after scan {nxt}: not bitwise the uninterrupted run")
     log(f"determinism: second kernel run bitwise equal (labels and 11 layers); "
         f"checkpoint after scan {nxt} resumed bitwise over scans {nxt + 1}-{n}")
+    return counts
+
+
+def phase_layers_highres(config, records, device):
+    """Phase 4 at 1200^2: the layer-publishing wire path at ``HIGHRES_CONFIG``
+    over ``records``, twice; launch counts per scan (K4 x1), 11 finite layers,
+    the second run bitwise the first."""
+    from groundgrid_torch.ops import launch_counts, reset_launch_counts
+
+    n = len(records)
+    reset_launch_counts()
+    results, driver, event_ms, wall_ms = run_sequence(config, records, device, with_aux=True)
+    counts = launch_counts()
+    check_launches(counts, {"raster": 2 * n, "lookup": 3 * n, "spiral": n, "detect": n},
+                   driver, f"layers path at {config.cell_count}^2")
+    check_labels(results, records)
+    cells = config.cell_count
+    for res in results:
+        if len(res.aux) != 11 or any(a.shape != (cells, cells) or not np.isfinite(a).all()
+                                     for a in res.aux.values()):
+            raise AssertionError(f"layers path at {cells}^2: aux layers wrong or not finite")
+    again, _, again_ms, _ = run_sequence(config, records, device, with_aux=True)
+    for a, b in zip(results, again):
+        if not (np.array_equal(a.labels, b.labels)
+                and all(np.array_equal(a.aux[k], b.aux[k]) for k in a.aux)):
+            raise AssertionError(f"layers path at {cells}^2: second run not bitwise equal")
+    log(f"layers path at {cells}^2 over {n} scans: {event_ms:.3f} / {again_ms:.3f} ms/scan "
+        f"(CUDA events, two runs, host prep included); host clock {wall_ms:.3f} ms/scan; "
+        f"second run bitwise equal (labels and 11 layers)")
     return counts
 
 
@@ -788,7 +854,7 @@ def phase_entry_point(config, records, device):
 
 def main() -> int:
     phase_environment()
-    from groundgrid_torch.config import GroundGridConfig
+    from groundgrid_torch.config import HIGHRES_CONFIG, GroundGridConfig
     from groundgrid_torch.runtime.bench import synthetic_records
 
     device = torch.device("cuda", 0)
@@ -803,12 +869,15 @@ def main() -> int:
     k2 = check_lookup(config, driver, cell, records[4])
     k3 = check_spiral(config, driver, records[4])
     k3g = check_spiral_global(device)
-    k4 = check_detect(config, driver, records[4])
+    k4 = check_detect(config, driver, records[4], records)
     torch.cuda.synchronize()
 
     counts = phase_sequence(config, records, device)
     layer_config = dataclasses.replace(config, wire_format=True, fused_detect=True)
     layer_counts = phase_layers(layer_config, records[:N_LAYER_SCANS], device)
+    high_config = dataclasses.replace(HIGHRES_CONFIG, sorted_scans=True, wire_format=True,
+                                      fused_detect=True)
+    phase_layers_highres(high_config, records[:N_HIGHRES_SCANS], device)
     phase_entry_point(config, records, device)
     kernels = []
     # launches: each kernel's count in the path it serves (K4: phase 4; K3's
@@ -831,6 +900,7 @@ def main() -> int:
             "wrapper_device_ms": res["wrapper_device_ms"], "call_ms": res["call_ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+            **{k: v for k, v in res.items() if k.endswith("_highres")},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,7 @@ prefetching loaders (``data/native_loader.py``), the pipelined driver and
 on-device scoring (``eval/device.py``).
 """
 
-from groundgrid_torch.config import DEFAULT_CONFIG, GroundGridConfig
+from groundgrid_torch.config import DEFAULT_CONFIG, HIGHRES_CONFIG, GroundGridConfig
 from groundgrid_torch.core.grid import GridState, state_from_numpy, state_to_numpy
 from groundgrid_torch.pipeline import (
     AuxLayers,
@@ -41,6 +41,7 @@ __version__ = "0.1.0"
 __all__ = [
     "GroundGridConfig",
     "DEFAULT_CONFIG",
+    "HIGHRES_CONFIG",
     "GridState",
     "state_from_numpy",
     "state_to_numpy",

@@ -116,3 +116,7 @@ class GroundGridConfig:
 
 
 DEFAULT_CONFIG = GroundGridConfig()
+
+# The 0.1m / 120m stress configuration: 1200^2 cells (the JAX package's
+# BASELINE.json config 4).
+HIGHRES_CONFIG = GroundGridConfig(resolution=0.1)

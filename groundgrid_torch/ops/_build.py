@@ -47,7 +47,7 @@ _SIGNATURES = {
     "gg_lookup": [_P, _I, _P, _P, _I, _P, _P, _P],
     "gg_spiral": [_P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P],
     "gg_spiral_global": [_P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P],
-    "gg_detect": [_P] * 9 + [_I, _F, _F, _F, _P, _P, _P],
+    "gg_detect": [_P] * 9 + [_I, _F, _F, _F, _P, _P, _I, _P],
 }
 
 

@@ -11,9 +11,16 @@ version, :func:`detect_fused_plain`, only for CPU tensors. The plain version
 sums in the TPU kernel's order (rows, then columns, each left to right), so
 on the card it agrees with the kernel bitwise. The non-fused stage,
 ``core/detect.py``, keeps the row-major order of the JAX package's XLA path.
+
+The kernel gives each block a tile of ``TILE_W`` output columns and a strip
+of rows, which it walks top down through a ring of staged rows.
+:func:`strip_rows` picks the strip height for the grid (the kernel takes it
+as an argument); :func:`tile_plan` is the Python twin of the split.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,6 +29,66 @@ from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core.detect import DetectTables
 from groundgrid_torch.core.exactf32 import div_const
 from groundgrid_torch.ops import _build
+
+
+# the kernel's shape (detect.cu kTileW, kThreads, kRing, kUse3Words, kColVals)
+TILE_W = 124
+STAGED_COLS = TILE_W + 4
+RING = 5
+SHARED_BYTES = 4 * (RING * ((3 + 5) * STAGED_COLS + 32) + 10 * STAGED_COLS)
+SHARED_LIMIT = 48 * 1024  # static shared memory: the launch sets no attribute
+
+
+class Block(NamedTuple):
+    """One block of the kernel: its output cells ``rows x cols`` (interior),
+    the rows and columns it stages, and the ranges whose border cells it
+    passes through (its rows and columns, widened to the grid's edges for
+    the first and last tiles)."""
+
+    rows: range
+    cols: range
+    staged_rows: range
+    staged_cols: range
+    owned_rows: range
+    owned_cols: range
+
+
+class TilePlan(NamedTuple):
+    rows: int  # strip height, the kernel's ``rows`` argument
+    grid: tuple[int, int]  # (column tiles, strips)
+    blocks: list[Block]
+
+
+def strip_rows(n: int) -> int:
+    """Rows per block for an (n, n) grid: 2 up to n = 599, n // 200 above,
+    at most 8. A block's rows run one after another, so short strips keep
+    the serial chain short where the grid gives few blocks; on large grids
+    longer strips stage fewer halo rows (the choice the card's timings
+    favoured: PERF.md, section 6)."""
+    return min(8, max(2, n // 200))
+
+
+def tile_plan(n: int) -> TilePlan:
+    """The kernel's split of an (n, n) grid, block by block, as ``detect.cu``
+    computes it from ``blockIdx`` and the strip height."""
+    if n < 5:
+        raise ValueError(f"the detect stencil needs n >= 5, got {n}")
+    rows = strip_rows(n)
+    inner = n - 4
+    gx, gy = -(-inner // TILE_W), -(-inner // rows)
+    blocks = []
+    for by in range(gy):
+        r0 = 2 + by * rows
+        r1 = min(r0 + rows, n - 2)
+        for bx in range(gx):
+            c0 = 2 + bx * TILE_W
+            c1 = c0 + min(TILE_W, n - 2 - c0)
+            blocks.append(Block(
+                range(r0, r1), range(c0, c1), range(r0 - 2, r1 + 2),
+                range(c0 - 2, min(c0 - 2 + STAGED_COLS, n)),
+                range(0 if by == 0 else r0, n if by == gy - 1 else r1),
+                range(0 if bx == 0 else c0, n if bx == gx - 1 else c1)))
+    return TilePlan(rows, (gx, gy), blocks)
 
 
 def _constants(config: GroundGridConfig):
@@ -147,7 +214,7 @@ def detect_fused(config: GroundGridConfig, tables: DetectTables, points, varianc
     lib = _build.library()
     code = lib.lib.gg_detect(
         *(t.data_ptr() for t in ins), n, pccvt, out_tol, ocpcf,
-        out_g.data_ptr(), out_c.data_ptr(), _build.stream_ptr(points.device),
+        out_g.data_ptr(), out_c.data_ptr(), strip_rows(n), _build.stream_ptr(points.device),
     )
     _build.check(code, "detect_fused")
     detect_fused.launches += 1

@@ -9,7 +9,9 @@ reverse. Each turn is its own process, started in the tree's root, so it
 imports that tree's ``chip_smoke`` and ``groundgrid_torch`` and builds that
 tree's kernels; it renders five synthetic scans, warms a driver on four and
 calls the tree's own phase-2 checks (``check_raster`` .. ``check_detect``),
-which hold each kernel against its plain version, then time it. With
+which hold each kernel against its plain version, then time it (a check
+that takes a fourth argument, as ``check_detect`` does for its 1200^2
+case, gets the five rendered scans). With
 ``lookup``, every turn also times its tree's K2 on the march lattice of a
 warm scan by this script's own ``chip_smoke.check_lookup_march`` (the
 same measurement in every tree, older trees having none). A turn prints the
@@ -61,7 +63,9 @@ for name in sys.argv[2:]:
         spec.loader.exec_module(probe)
         out["lookup_march"] = probe.check_lookup_march(config, driver, records[4])
     else:
-        out[name] = keep(getattr(cs, "check_" + name)(config, driver, records[4]))
+        check = getattr(cs, "check_" + name)
+        extra = (records,) if len(inspect.signature(check).parameters) > 3 else ()
+        out[name] = keep(check(config, driver, records[4], *extra))
 print(json.dumps(out))
 """
 

@@ -14,7 +14,9 @@ CUDA error on ids out of order), K2
 bitwise (any point count, unsorted ids, ids at n2, an offset id view),
 K3 confidence bitwise and heights within atol 2e-5 / rtol 1e-5 (up to n =
 2414 on the band kernel, 2416 to 2800 on the global-band one; two runs
-bitwise), K4 bitwise; plus the small-config streaming step on the card
+bitwise), K4 bitwise (n = 12 to 1200, grids that cut its tiles raggedly and
+one where the use3 disc's edge crosses a tile; two runs bitwise; border
+cells passed through); plus the small-config streaming step on the card
 against the same step on the CPU, on the main path and on the fused, aux
 and wire path.
 """
@@ -229,10 +231,14 @@ def test_spiral_kernel_refuses_a_band_beyond_shared_memory(cuda, dimension, reso
 
 @pytest.mark.parametrize("dimension,resolution,scale", [
     (6.0, 0.5, 10.0), (22.0, 0.5, 1.0), (16.65, 0.37, 1.0), (40.0, 0.5, 1.0), (120.0, 0.33, 1.0),
+    (63.5, 0.5, 1.0), (64.5, 0.5, 1.0), (60.0, 0.25, 1.0), (120.0, 0.1, 1.0),
 ])
 def test_detect_kernel_matches_plain(cuda, dimension, resolution, scale):
-    """n = 12 (points x10 so that cells pass the skip threshold), 44, 45, 80
-    and 364: ground and confidence bitwise."""
+    """n = 12 (points x10 so that cells pass the skip threshold), 44, 45, 80,
+    364; 127 and 129 (interiors of the tile width -1 and +1: a one-column
+    second tile, strips cut raggedly); 240 (the use3 disc's edge crosses a
+    tile); 1200 (HIGHRES_CONFIG): ground and confidence bitwise, two runs
+    bitwise."""
     cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
     n = cfg.cell_count
     tables = make_tables(cfg, cuda)
@@ -244,11 +250,52 @@ def test_detect_kernel_matches_plain(cuda, dimension, resolution, scale):
         ts = [torch.from_numpy(a).to(cuda) for a in layers]
         before = detect.detect_fused.launches
         got = detect.detect_fused(cfg, tables, *ts)
-        assert detect.detect_fused.launches == before + 1
+        again = detect.detect_fused(cfg, tables, *ts)
+        assert detect.detect_fused.launches == before + 2
         want = detect.detect_fused_plain(cfg, tables, *ts)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32), again[0].view(torch.int32))
+        assert torch.equal(got[1].view(torch.int32), again[1].view(torch.int32))
         assert (got[1].cpu().numpy() != layers[4]).any()
+
+
+def test_detect_grids_cover_the_tile_edges():
+    """The grids above cut K4's tiles as their docstring says (the plan only,
+    no card needed)."""
+    assert [len(b.cols) for b in detect.tile_plan(127).blocks[:1]] == [detect.TILE_W - 1]
+    assert [len(b.cols) for b in detect.tile_plan(129).blocks[:2]] == [detect.TILE_W, 1]
+    for n in (127, 129, 1200):
+        plan = detect.tile_plan(n)
+        assert (n - 4) % plan.rows != 0  # the last strip is ragged
+    cfg = GroundGridConfig(dimension=60.0, resolution=0.25)
+    use3 = make_tables(cfg, "cpu").use3.numpy()
+    split = [b for b in detect.tile_plan(cfg.cell_count).blocks
+             if use3[b.rows.start:b.rows.stop, b.cols.start:b.cols.stop].any()
+             and not use3[b.rows.start:b.rows.stop, b.cols.start:b.cols.stop].all()]
+    assert len({b.cols.start for b in split}) == 2  # the disc's edge in both tiles
+
+
+def test_detect_kernel_passes_border_through(cuda):
+    """Cells outside the interior [2, n-2)^2 copy ground and confidence
+    through exactly, on grids of one and of several tiles and strips; the
+    inputs stay as they were."""
+    for dimension, resolution in ((6.0, 0.5), (64.5, 0.5), (120.0, 0.33)):
+        cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
+        n = cfg.cell_count
+        layers = list(detect_layers(n, 7))
+        layers[0] = layers[0] * np.float32(10.0)
+        layers[1] = layers[1] * np.float32(0.01)
+        ts = [torch.from_numpy(a.copy()).to(cuda) for a in layers]
+        g, c = detect.detect_fused(cfg, make_tables(cfg, cuda), *ts)
+        torch.cuda.synchronize()
+        border = np.ones((n, n), dtype=bool)
+        border[2:n - 2, 2:n - 2] = False
+        np.testing.assert_array_equal(g.cpu().numpy()[border], layers[3][border])
+        np.testing.assert_array_equal(c.cpu().numpy()[border], layers[4][border])
+        assert (c.cpu().numpy()[~border] != layers[4][~border]).any()
+        for t, a in zip(ts, layers):
+            np.testing.assert_array_equal(t.cpu().numpy(), a)
 
 
 def test_plain_detect_on_card_matches_cpu(cuda):

@@ -33,6 +33,22 @@ def test_config_fields_and_defaults():
     assert _fields(tconfig.GroundGridConfig) == _fields(jconfig.GroundGridConfig)
 
 
+@pytest.mark.parametrize("name", ["DEFAULT_CONFIG", "HIGHRES_CONFIG"])
+def test_config_constants(name):
+    """The exported configurations, field by field; HIGHRES_CONFIG is the
+    1200^2 grid (120 m at 0.1 m)."""
+    import groundgrid_torch
+
+    j, t = getattr(jconfig, name), getattr(tconfig, name)
+    assert getattr(groundgrid_torch, name) is t
+    for f in dataclasses.fields(jconfig.GroundGridConfig):
+        assert getattr(t, f.name) == getattr(j, f.name), f.name
+    assert (t.cell_count, t.half_length, t.center_cell) == (
+        j.cell_count, j.half_length, j.center_cell)
+    if name == "HIGHRES_CONFIG":
+        assert t.cell_count == 1200
+
+
 @pytest.mark.parametrize("kw", [
     {},
     {"dimension": 40.0, "resolution": 0.5, "max_points": 16384, "ray_steps": 40},
