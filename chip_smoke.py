@@ -1,6 +1,7 @@
 """GPU smoke test of the PyTorch port: builds and checks its CUDA kernels,
-then drives the sorted-scan streaming path and the layer-publishing wire
-path on one card.
+then drives the sorted-scan streaming path, the layer-publishing wire path,
+the entry point, the unsorted default path, a 128-beam buffer and the golden
+parity tooling on one card.
 
     python3 chip_smoke.py
 
@@ -60,10 +61,31 @@ Phases (any failure raises and exits non-zero, printing no result):
    sortedness fallback; (g) writes 11 layer PNGs per exported scan and the
    player. Prints ms/scan per variant (the payload's and CUDA events around
    the call) and the host prep p50 of NumPy against the native loader.
+6. Unsorted mode at the config default, ``StreamingDriver(GroundGridConfig())``
+   (364^2, 131072 points, raw scans transformed and stable-sorted on the
+   device) over the 32 scans of phase 3: per-scan launch counts (K1 x1, K2
+   x3, K3 x1), labels against the plain-version run over the first 8 scans
+   (the plain K3 takes over a second a scan; >= 99.9 %) and against phase
+   3's sorted labels over all 32 (>= 99.9 %, the JAX package's sorted-vs-
+   default bar), a second kernel run bitwise, ms/scan from CUDA events, and
+   the device stable sort's own device time on a scan's cell ids.
+7. A 128-beam sensor's buffer, ``GroundGridConfig(max_points=262144,
+   sorted_scans=True)`` over 8 scans of ``synthetic_sequence(n_beams=128,
+   n_azimuth=2048)``: the march selects candidates by the exact-budget key
+   above 2^17 points. Points per scan and marchable candidates against
+   ``max_outlier_candidates``, launch counts, labels against the plain run
+   (>= 99.9 %), a second kernel run bitwise, ms/scan.
+8. Golden parity with the port on the card: ``python -m groundgrid_torch
+   accuracy`` at ``tests/test_accuracy.py``'s size cut to 6 scans (32 beams x
+   900, a 60 m grid at 0.5 m, 32768 points), sorted and unsorted, exits 0
+   within 0.1 pt; the five
+   boundary configs of the config fuzz pass their row bounds (< 0.1 pt,
+   < 2e-3 label mismatch).
 
 The line before the last is the kernels' JSON record (``ms`` is the device
 time, ``library_ms`` null where no one PyTorch call computes the function;
-K4 adds its ``*_highres`` times and bound at 1200^2);
+K4 adds its ``*_highres`` times and bound at 1200^2; ``launches`` counts phase
+3, ``launches_unsorted`` phase 6 and ``launches_topk`` phase 7);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -84,6 +106,9 @@ import torch
 N_SCANS = 32
 N_LAYER_SCANS = 16
 N_HIGHRES_SCANS = 4
+N_PLAIN_UNSORTED = 8  # the plain K3 takes over a second a scan
+N_TOPK_SCANS = 8
+TOPK_POINTS = 262144  # a 128-beam sensor at 2048 azimuths: ~240k points a scan
 AGREE_MIN = 0.999
 GROUND_TRUTH_IDS = (40, 72)  # synthetic road and terrain (SemanticKITTI ids)
 WIRE_BUDGET_PT = 0.1  # the JAX CLI's ``accuracy`` budget (cli.py:539)
@@ -500,9 +525,10 @@ def check_detect(config, driver, rec, records):
     return out
 
 
-def run_sequence(config, records, device, with_aux=False, driver=None):
+def run_sequence(config, records, device, with_aux=False, driver=None, per_scan=None):
     """Results (input order) of ``driver`` (a fresh one by default) over
-    ``records``, with the CUDA-event and host-clock ms/scan of the run."""
+    ``records``, with the CUDA-event and host-clock ms/scan of the run;
+    ``per_scan(driver)`` runs after each scan."""
     from groundgrid_torch.runtime.driver import StreamingDriver
 
     if driver is None:
@@ -512,7 +538,11 @@ def run_sequence(config, records, device, with_aux=False, driver=None):
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    results = [driver.process(rec) for rec in records]
+    results = []
+    for rec in records:
+        results.append(driver.process(rec))
+        if per_scan is not None:
+            per_scan(driver)
     end.record()
     end.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1000.0 / len(records)
@@ -520,10 +550,21 @@ def run_sequence(config, records, device, with_aux=False, driver=None):
     return results, driver, event_ms, wall_ms
 
 
+def path_counts():
+    """The launch counts since the last reset, with K3's split by variant:
+    ``spiral_band`` (``spiral.cu``) and ``spiral_global``."""
+    from groundgrid_torch.ops import launch_counts, spiral
+
+    counts = launch_counts()
+    spiral_global = spiral.spiral_interpolation.global_launches
+    return dict(counts, spiral_band=counts["spiral"] - spiral_global,
+                spiral_global=spiral_global)
+
+
 def check_launches(counts, want, driver, name):
     log(f"{name} over {want['spiral']} scans: launches {counts} (want {want}), "
         f"fallbacks {driver.step.fallbacks}")
-    if counts != want:
+    if {k: counts[k] for k in want} != want:
         raise AssertionError(f"{name}: launch counts {counts} != {want}")
     if driver.step.fallbacks != 0:
         raise AssertionError(f"{name}: {driver.step.fallbacks} sortedness fallbacks")
@@ -545,12 +586,11 @@ def agreement(a, b, name):
 
 
 def phase_sequence(config, records, device):
-    from groundgrid_torch.ops import launch_counts, reset_launch_counts, spiral
+    from groundgrid_torch.ops import reset_launch_counts
 
     reset_launch_counts()
     results, driver, event_ms, wall_ms = run_sequence(config, records, device)
-    counts = launch_counts()
-    spiral_global = spiral.spiral_interpolation.global_launches
+    counts = path_counts()
     n = len(records)
     check_launches(counts, {"raster": n, "lookup": 3 * n, "spiral": n, "detect": 0}, driver,
                    "main path")
@@ -587,8 +627,7 @@ def phase_sequence(config, records, device):
     log(f"ground vs synthetic truth (warm scans): recall {recall:.4f} precision {precision:.4f}")
     if recall < 0.9 or precision < 0.8:
         raise AssertionError("ground recall/precision below 0.9/0.8")
-    # K3's launches by variant: the ring band at 364^2
-    return dict(counts, spiral_band=counts["spiral"] - spiral_global, spiral_global=spiral_global)
+    return counts, results
 
 
 def phase_layers(config, records, device):
@@ -852,6 +891,139 @@ def phase_entry_point(config, records, device):
         f"{np.percentile(native_ms, 50):.3f} ms (p90 {np.percentile(native_ms, 90):.3f})")
 
 
+def phase_unsorted(records, sorted_results, device):
+    """Phase 6: the unsorted default path against its plain run, phase 3's
+    sorted labels and a second kernel run; the device sort's own time."""
+    from groundgrid_torch.config import GroundGridConfig
+    from groundgrid_torch.core import rasterize as rasterlib
+    from groundgrid_torch.core import transforms as tf
+    from groundgrid_torch.ops import reset_launch_counts
+    from groundgrid_torch.pipeline import pad_scan
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    config = GroundGridConfig()
+    if config.sorted_scans:
+        raise AssertionError("the config default is not unsorted mode")
+    n = len(records)
+    reset_launch_counts()
+    results, driver, event_ms, wall_ms = run_sequence(config, records, device)
+    counts = path_counts()
+    check_launches(counts, {"raster": n, "lookup": 3 * n, "spiral": n, "detect": 0}, driver,
+                   "unsorted path")
+    check_labels(results, records)
+    for t in (driver.state.ground, driver.state.groundpatch):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("unsorted path: grid layers not finite")
+    log(f"unsorted path: {event_ms:.3f} ms/scan (CUDA events, host prep included), "
+        f"{1000.0 / event_ms:.2f} scans/s; host clock {wall_ms:.3f} ms/scan")
+
+    cut = records[:N_PLAIN_UNSORTED]
+    plain, _, plain_ms, _ = run_sequence(dataclasses.replace(config, use_pallas=False), cut,
+                                         device)
+    mism, total = agreement(results[:N_PLAIN_UNSORTED], plain, "unsorted path vs plain")
+    smism, stotal = agreement(results, sorted_results, "unsorted vs sorted path")
+    log(f"unsorted path vs plain versions on the card (first {len(cut)} scans): {mism} of "
+        f"{total} points differ ({1 - mism / total:.6%} agree; plain {plain_ms:.3f} ms/scan); "
+        f"vs phase 3's sorted labels: {smism} of {stotal} differ "
+        f"({1 - smism / stotal:.6%} agree)")
+
+    again, driver2, again_ms, _ = run_sequence(config, records, device)
+    if not all(np.array_equal(a.labels, b.labels) for a, b in zip(results, again)):
+        raise AssertionError("unsorted path, second kernel run: labels not bitwise equal")
+    for a, b in ((driver.state.ground, driver2.state.ground),
+                 (driver.state.groundpatch, driver2.state.groundpatch)):
+        if not torch.equal(a, b):
+            raise AssertionError("unsorted path, second kernel run: layers not bitwise equal")
+
+    # the stable sort of one scan's cell ids, as the step runs it
+    rec = records[4]
+    scan = pad_scan(config, rec.points, rec.labels, rec.t_map_velo, device)
+    x, y, _ = tf.transform_points_soa(scan.t_map_velo, scan.px, scan.py, scan.pz)
+    center = np.asarray(scan.t_map_velo, np.float32)[:2, 3]
+    cell = rasterlib.bin_points(config, center, None, x, y, scan.rings, scan.valid > 0,
+                                scan.t_map_velo[:3, 3]).cell
+    sort_ms, activities = device_ms(lambda: torch.argsort(cell, stable=True), 50)
+    log(f"unsorted path: second kernel run bitwise ({again_ms:.3f} ms/scan); device stable "
+        f"sort of {cell.shape[0]} cell ids {sort_ms:.4f} device ms ({activities // 50} device "
+        f"activities a sort)")
+    return counts, {"ms_per_scan": event_ms, "again_ms_per_scan": again_ms,
+                    "plain_ms_per_scan": plain_ms, "sort_device_ms": sort_ms}
+
+
+def phase_topk(device):
+    """Phase 7: a 128-beam sensor's 262,144-point buffer (sorted mode), where
+    the march selects candidates by the exact-budget key."""
+    from groundgrid_torch.config import GroundGridConfig
+    from groundgrid_torch.core.outliers import IDX_BITS
+    from groundgrid_torch.data.semantickitti import ScanRecord
+    from groundgrid_torch.data.synthetic import synthetic_sequence
+    from groundgrid_torch.ops import reset_launch_counts
+
+    config = GroundGridConfig(max_points=TOPK_POINTS, sorted_scans=True)
+    if config.max_points <= 1 << IDX_BITS:
+        raise AssertionError("phase 7's buffer does not take the exact-budget key")
+    t0 = time.perf_counter()
+    records = [ScanRecord(index=k, timestamp=0.1 * k, points=p, labels=l, t_map_velo=T)
+               for k, (p, l, T) in enumerate(synthetic_sequence(
+                   N_TOPK_SCANS, seed=0, n_beams=128, n_azimuth=2048, step_m=1.2))]
+    points = [r.points.shape[0] for r in records]
+    if max(points) > config.max_points or min(points) <= 1 << IDX_BITS:
+        raise AssertionError(f"128-beam scans of {min(points)}-{max(points)} points")
+    render_s = time.perf_counter() - t0
+    n = len(records)
+    candidates = []
+    reset_launch_counts()
+    results, driver, event_ms, wall_ms = run_sequence(
+        config, records, device, per_scan=lambda d: candidates.append(d.step.marchable))
+    counts = path_counts()
+    check_launches(counts, {"raster": n, "lookup": 3 * n, "spiral": n, "detect": 0}, driver,
+                   "128-beam path")
+    check_labels(results, records)
+    plain, _, plain_ms, _ = run_sequence(dataclasses.replace(config, use_pallas=False),
+                                         records, device)
+    mism, total = agreement(results, plain, "128-beam path vs plain")
+    again, _, again_ms, _ = run_sequence(config, records, device)
+    if not all(np.array_equal(a.labels, b.labels) for a, b in zip(results, again)):
+        raise AssertionError("128-beam path, second kernel run: labels not bitwise equal")
+    log(f"128-beam path ({n} scans rendered in {render_s:.1f} s): {min(points)}-{max(points)} "
+        f"points a scan in a {config.max_points}-point buffer; marchable candidates a scan: "
+        f"{candidates} against max_outlier_candidates {config.max_outlier_candidates}; "
+        f"{event_ms:.3f} / {again_ms:.3f} ms/scan (CUDA events, two runs, bitwise); host clock "
+        f"{wall_ms:.3f} ms/scan; vs plain versions {mism} of {total} points differ "
+        f"({1 - mism / total:.6%} agree; plain {plain_ms:.3f} ms/scan)")
+    return counts, {"ms_per_scan": event_ms, "again_ms_per_scan": again_ms,
+                    "plain_ms_per_scan": plain_ms, "points": points, "candidates": candidates}
+
+
+def phase_golden(device):
+    """Phase 8: the accuracy subcommand (sorted and unsorted) and the fuzz's
+    boundary rows, with the port on the card."""
+    from groundgrid_torch.eval import fuzz
+    from groundgrid_torch.runtime import cli
+
+    t0 = time.perf_counter()
+    # tests/test_accuracy.py's geometry and scans, cut to 6 (~23k points each)
+    cut = ["accuracy", "--device", str(device), "--scans", "6", "--seed", "23", "--beams", "32",
+           "--azimuth", "900", "--step", "2.0", "--dimension", "60", "--resolution", "0.5",
+           "--max-points", "32768"]
+    for mode in ("--sorted", "--no-sorted"):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(cut + [mode])
+        payload = json.loads(out.getvalue().strip().splitlines()[-1])
+        log(f"accuracy {mode} (6 scans, 60 m at 0.5 m): exit {rc}, max |delta| "
+            f"{payload['max_abs_delta_pt']:.4f} pt, label mismatch "
+            f"{payload['label_mismatch_rate']:.3e}, backend {payload['workload']['backend']}")
+        if rc != 0:
+            raise AssertionError(f"accuracy {mode}: exit code {rc}")
+    for name, cfg, seed in fuzz.campaign(0):
+        r = fuzz.fuzz_one(cfg, seed=seed, device=device)
+        log(f"fuzz boundary row '{name}': max |delta| {r['max_abs_delta_pt']:.4f} pt, "
+            f"label mismatch {r['label_mismatch_rate']:.3e}")
+        if not fuzz.row_ok(r, wire=False):
+            raise AssertionError(f"fuzz boundary row '{name}' beyond its bounds")
+    log(f"golden parity on the card: passed in {time.perf_counter() - t0:.1f} s")
+
 def main() -> int:
     phase_environment()
     from groundgrid_torch.config import HIGHRES_CONFIG, GroundGridConfig
@@ -872,13 +1044,16 @@ def main() -> int:
     k4 = check_detect(config, driver, records[4], records)
     torch.cuda.synchronize()
 
-    counts = phase_sequence(config, records, device)
+    counts, sorted_results = phase_sequence(config, records, device)
     layer_config = dataclasses.replace(config, wire_format=True, fused_detect=True)
     layer_counts = phase_layers(layer_config, records[:N_LAYER_SCANS], device)
     high_config = dataclasses.replace(HIGHRES_CONFIG, sorted_scans=True, wire_format=True,
                                       fused_detect=True)
     phase_layers_highres(high_config, records[:N_HIGHRES_SCANS], device)
     phase_entry_point(config, records, device)
+    unsorted_counts, _ = phase_unsorted(records, sorted_results, device)
+    topk_counts, _ = phase_topk(device)
+    phase_golden(device)
     kernels = []
     # launches: each kernel's count in the path it serves (K4: phase 4; K3's
     # global-band variant serves grids above 2415 cells a side, none of them)
@@ -895,7 +1070,9 @@ def main() -> int:
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"groundgrid_torch/csrc/{route_file}",
-            "replaces": replaces, "launches": launches[key], "max_abs_err": res["max_abs_err"],
+            "replaces": replaces, "launches": launches[key],
+            "launches_unsorted": unsorted_counts[key], "launches_topk": topk_counts[key],
+            "max_abs_err": res["max_abs_err"],
             "ms": res["device_ms"], "device_ms": res["device_ms"],
             "wrapper_device_ms": res["wrapper_device_ms"], "call_ms": res["call_ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],

@@ -2,8 +2,9 @@
 
 A port of ``groundgrid_tpu`` (JAX/XLA/Pallas on a TPU), which stays in the
 repository as the reference it is tested against. The port imports torch and
-NumPy, never JAX or ``groundgrid_tpu``. It covers the sorted-scan streaming
-step: host prep (f32 or the s16 wire format), grid move, f64-faithful
+NumPy, never JAX or ``groundgrid_tpu``. It covers the streaming step in both
+modes, sorted scans (host prep in f32 or the s16 wire format) and unsorted
+raw scans (transform and cell sort on the device): grid move, f64-faithful
 binning, outlier ray-march, sorted rasterization, patch detection (row-major
 stencils, or the fused stencil under ``config.fused_detect``), spiral
 interpolation, classification and, with ``with_aux``, the eleven published
@@ -11,10 +12,13 @@ grid layers; plus checkpoint / restore of the grid state in the JAX
 package's format. Four hand-written CUDA kernels (``groundgrid_torch/ops``,
 sources in ``groundgrid_torch/csrc``) are built by ``nvcc`` at first use.
 
-Entry point: ``python -m groundgrid_torch evaluate | playback | bench``
-(``runtime/cli.py``) over a SemanticKITTI-layout dataset, with the C++
-prefetching loaders (``data/native_loader.py``), the pipelined driver and
-on-device scoring (``eval/device.py``).
+Entry point: ``python -m groundgrid_torch evaluate | playback | accuracy |
+bench`` (``runtime/cli.py``) over a SemanticKITTI-layout dataset, with the
+C++ prefetching loaders (``data/native_loader.py``), the pipelined driver
+and on-device scoring (``eval/device.py``). The evidence tooling holds the
+port to its own copy of the NumPy oracle (``golden.py``): the accuracy
+harness (``eval/accuracy.py``) and the config fuzz
+(``python -m groundgrid_torch.eval.fuzz``).
 """
 
 from groundgrid_torch.config import DEFAULT_CONFIG, HIGHRES_CONFIG, GroundGridConfig
@@ -29,6 +33,7 @@ from groundgrid_torch.pipeline import (
     make_step,
     make_step_fn,
     make_wire_step,
+    pad_scan,
     prepare_scan,
     prepare_scan_wire,
 )
@@ -54,6 +59,7 @@ __all__ = [
     "make_step",
     "make_step_fn",
     "make_wire_step",
+    "pad_scan",
     "prepare_scan",
     "prepare_scan_wire",
     "save_state",
@@ -71,6 +77,7 @@ _LAZY = {
     "SortedPrefetchingLoader": "groundgrid_torch.data.native_loader",
     "WirePrefetchingLoader": "groundgrid_torch.data.native_loader",
     "LiveServer": "groundgrid_torch.runtime.live",
+    "run_accuracy_benchmark": "groundgrid_torch.eval.accuracy",
 }
 
 

@@ -28,22 +28,7 @@ import torch
 
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core.exactf32 import div_const
-
-
-def expected_points_table(config: GroundGridConfig) -> np.ndarray:
-    """Per-cell expected point count per laser (GroundSegmentation.cpp:37-48).
-
-    A copy of ``groundgrid_tpu.golden.expected_points_table``:
-    atan(1 / hypot(i - N/2, j - N/2)) / verticalPointAngDist; the center
-    divides by zero -> atan(inf) = pi/2, as in C++.
-    """
-    n = config.cell_count
-    ii, jj = np.meshgrid(np.arange(n, dtype=np.float64), np.arange(n, dtype=np.float64),
-                         indexing="ij")
-    dist = np.hypot(ii - n / 2.0, jj - n / 2.0)
-    with np.errstate(divide="ignore"):
-        table = np.arctan(1.0 / dist) / config.vertical_point_ang_dist
-    return table.astype(np.float32)
+from groundgrid_torch.golden import expected_points_table
 
 
 class DetectTables(NamedTuple):

@@ -54,6 +54,8 @@ class GridState:
 
 
 def _host_pair(v) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        v = v.numpy()
     return torch.from_numpy(np.array(v, dtype=np.float32).reshape(2))
 
 
@@ -153,18 +155,63 @@ def cell_positions(config: GroundGridConfig, center, device):
     return px, py
 
 
-def move(config: GroundGridConfig, state: GridState, t_base_map, new_center,
-         new_center_lo) -> GridState:
-    """Relocate the grid to the host-tracked center (``GroundGrid::update``).
+def index_shift_ds(config: GroundGridConfig, center, center_lo, new_position):
+    """The device center recurrence: the whole-cell shift towards
+    ``new_position`` and the ds center ``center += k * resolution``.
 
-    Content shifts by whole cells (``torch.roll`` with host ints); freshly
-    exposed cells are re-initialized to the base_link plane height
-    ``ground := -z_base(cell)``, ``groundpatch := 0`` (GroundGrid.cpp:121-133).
-    No movement leaves the layers untouched (GroundGrid.cpp:136-137).
-    Returns a new state; the input layers are not modified.
+    The JAX package's ``index_shift_ds`` (``grid.py:111-140``), op for op on
+    host f32: ``k`` snaps the f32 position delta half away from zero, then
+    ``k`` times the ds image of the f64 resolution is added to the (hi, lo)
+    center, mirroring grid_map's double recurrence to ~2^-47. ``center``,
+    ``center_lo`` (None = zero tail) and ``new_position``: (2,) f32 values.
+
+    Caveat: an odometry step of exactly half a cell, a tie grid_map decides
+    in f64, can snap the other way once |position| is large enough that f32
+    loses the tie. The drivers therefore track the center in f64 on the host
+    (``pipeline.CenterTracker``) and ship it in ``Scan.center``, which
+    :func:`move` prefers; this recurrence serves scans without a center
+    (``pipeline.pad_scan``).
+    Returns ``(k, new_center, new_center_lo)``: (k0, k1) ints and two (2,)
+    f32 CPU tensors.
+    """
+    res = np.float32(config.resolution)
+    c = _host_pair(center)
+    lo = torch.zeros(2, dtype=torch.float32) if center_lo is None else _host_pair(center_lo)
+    delta = _host_pair(new_position) - c
+    # through int32, as the JAX package's k: a snapped -0.0 becomes +0.0
+    kf = _snap_cells(delta / torch.tensor(res)).to(torch.int32).to(torch.float32)
+    rh, rl, _ = exactf32.res_ds(config.resolution)
+    rhh, rhl = exactf32.split(rh)
+    rlh, rll = exactf32.split(rl)
+    p1h, p1l = exactf32.two_prod_int_const(kf, rh, rhh, rhl)
+    p2h, p2l = exactf32.two_prod_int_const(kf, rl, rlh, rll)
+    nh, nl = exactf32.ds_add(c, lo, p1h, p1l)
+    nh, nl = exactf32.ds_add(nh, nl, p2h, p2l)
+    return (int(kf[0]), int(kf[1])), nh, nl
+
+
+def move(config: GroundGridConfig, state: GridState, t_base_map, new_center=None,
+         new_center_lo=None, new_position=None) -> GridState:
+    """Relocate the grid (``GroundGrid::update``).
+
+    To the host-tracked ``new_center`` / ``new_center_lo`` when given; with
+    ``new_center`` None, to the center :func:`index_shift_ds` derives from
+    the sensor's (2,) f32 ``new_position``, as the JAX ``move`` does
+    (``grid.py:170-173``). Content shifts by whole cells (``torch.roll``
+    with host ints); freshly exposed cells are re-initialized to the
+    base_link plane height ``ground := -z_base(cell)``, ``groundpatch := 0``
+    (GroundGrid.cpp:121-133). No movement leaves the layers untouched
+    (GroundGrid.cpp:136-137). Returns a new state; the input layers are not
+    modified.
     """
     n = config.cell_count
-    k = shift_cells(config, state.center_np, new_center)
+    if new_center is None:
+        k, new_center, new_center_lo = index_shift_ds(config, state.center, state.center_lo,
+                                                      new_position)
+    else:
+        k = shift_cells(config, state.center_np, new_center)
+        if new_center_lo is None:
+            new_center_lo = np.zeros((2,), np.float32)
     ground, groundpatch = state.ground, state.groundpatch
     if k != (0, 0):
         dev = ground.device

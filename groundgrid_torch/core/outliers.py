@@ -11,10 +11,13 @@ and height tests pass), the point is an occluded-return outlier.
 What is kept from the JAX package, exactly: the f64-faithful per-point
 budget (ray length = correctly rounded f32 sqrt of the f64 sum of squares,
 IEEE-rounded direction, the oracle's ``step^2 < fl32(length^2)`` loop test),
-the ``max_outlier_candidates`` cap, and the selection key -- the truncated
-15-bit monotone budget in the high bits and the point index in the low 17,
-held in int64 -- so overflow sheds the same candidates. The three per-sample
-table tests fold into one monotone u32 key per cell.
+the ``max_outlier_candidates`` cap, and the selection keys, so overflow
+sheds the same candidates: up to 2^17 points, the truncated 15-bit monotone
+budget in the high bits and the point index in the low 17 (ties: the higher
+index first); above, the exact budget, descending, ties to the lower index,
+as ``lax.top_k`` orders them. Both keys are unique int64s, so
+``torch.topk`` has no tie to break. The three per-sample table tests fold
+into one monotone u32 key per cell.
 
 What is not: the tier/peel lattice, the while loops, the 2-wide pair table
 and the sort/unsort around the lattice lookups were TPU loop-cost and
@@ -35,7 +38,7 @@ from groundgrid_torch.core.rasterize import Binning, faithful_cells
 
 U32 = 0xFFFFFFFF
 U32_TOP = 0x80000000
-IDX_BITS = 17  # point index bits of the selection key
+IDX_BITS = 17  # point index bits of the truncated selection key
 # lattice elements per K2 read: the default geometry's full 8192-candidate
 # lattice (93 steps) fits one read; larger caps march in chunks
 LATTICE_ELEMS = 1 << 21
@@ -93,9 +96,28 @@ def _ray(x, y, z, o):
     return dx, dy, dz, exactf32.sqrt_rn_ds(ssh, ssl)
 
 
+def selection_key(budget):
+    """(P,) unique int64 keys whose descending order is the JAX package's
+    candidate order over the nonnegative f32 ``budget``.
+
+    Up to ``2^IDX_BITS`` points: the truncated monotone budget | index
+    (``outliers.py:235-246`` of the JAX package). Above: the exact budget's
+    bits (monotone for nonnegative floats) over ``2^32 - 1 - index``, so
+    equal budgets rank the lower index first, the order of its
+    ``lax.top_k`` (``outliers.py:248``).
+    """
+    p_total = budget.shape[0]
+    idx = torch.arange(p_total, dtype=torch.int64, device=budget.device)
+    if p_total <= 1 << IDX_BITS:
+        return (_mono_u32(budget) & ~((1 << IDX_BITS) - 1)) | idx
+    return (_u32_bits(budget) << 32) | (U32 - idx)
+
+
 def detect_outliers(config: GroundGridConfig, center, center_lo, ground, groundpatch,
                     binning: Binning, x, y, z, origin, old_h, lookup_fn):
-    """(P,) bool: True for occluded-return outliers.
+    """``((P,) bool, int)``: True for occluded-return outliers, and the
+    number of marchable candidates (before the ``max_outlier_candidates``
+    cap; 0 when the cap is 0), which the one host read already fetched.
 
     ``ground``/``groundpatch``: the previous scan's layers (after the move).
     ``old_h``: per-point ``ground[cell]`` (K2). ``center``/``center_lo``/
@@ -108,9 +130,7 @@ def detect_outliers(config: GroundGridConfig, center, center_lo, ground, groundp
     out = torch.zeros(p_total, dtype=torch.int32, device=dev)
     k_max = min(config.max_outlier_candidates, p_total)
     if k_max == 0:
-        return out > 0
-    if p_total > 1 << IDX_BITS:
-        raise ValueError(f"at most {1 << IDX_BITS} points per scan (selection key index bits)")
+        return out > 0, 0
     o = np.asarray(origin, np.float32)
     tol = float(np.float32(config.outlier_tolerance))
 
@@ -120,14 +140,14 @@ def detect_outliers(config: GroundGridConfig, center, center_lo, ground, groundp
     vz = exactf32.div_rn(dza, length)
     budget = torch.where(cand & (vz < float(np.float32(-0.01))), len2, torch.zeros_like(len2))
 
-    # candidate selection: descending (truncated budget, index) key; a
-    # positive budget always outranks a zero one, so the top min(k_max,
-    # #positive) keys are exactly the JAX package's marchable buffer
-    trunc = _mono_u32(budget) & ~((1 << IDX_BITS) - 1)
-    key = trunc | torch.arange(p_total, dtype=torch.int64, device=dev)
-    n_act = min(int((budget > 0).sum()), k_max)  # the one host read
+    # candidate selection; a positive budget always outranks a zero one, so
+    # the top min(k_max, #positive) keys are exactly the JAX package's
+    # marchable buffer
+    key = selection_key(budget)
+    n_marchable = int((budget > 0).sum())  # the one host read
+    n_act = min(n_marchable, k_max)
     if n_act == 0:
-        return out > 0
+        return out > 0, n_marchable
     pidx = torch.topk(key, n_act, sorted=False).indices
 
     key_table = occlusion_key_table(config, ground, groundpatch)
@@ -150,4 +170,4 @@ def detect_outliers(config: GroundGridConfig, center, center_lo, ground, groundp
         key_hit = _u32_bits(vals).reshape(flat.shape) >= thr
         hit = (within & inside & key_hit).any(dim=0).to(torch.int32)
         out.scatter_reduce_(0, cp, hit, reduce="amax")
-    return out > 0
+    return out > 0, n_marchable

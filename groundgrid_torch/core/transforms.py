@@ -1,9 +1,10 @@
-"""Host-side rigid-transform helpers (NumPy).
+"""Rigid-transform helpers: host NumPy forms and the device transform.
 
 A copy of the host pieces of ``groundgrid_tpu/core/transforms.py``: in
 sorted-scan mode the points are transformed to the map frame on the host
-(``pipeline.prepare_scan``), so the port needs only the NumPy forms; the
-SemanticKITTI reader conjugates its camera-frame poses with ``KITTI_TR``.
+(``pipeline.prepare_scan``); the SemanticKITTI reader conjugates its
+camera-frame poses with ``KITTI_TR``. In unsorted mode the step transforms
+on the device (:func:`transform_points_soa`).
 
 Conventions: ``T_a_b`` maps points from frame ``b`` to frame ``a``
 (``p_a = T_a_b @ p_b``); points are ``(N, 3)`` arrays.
@@ -25,6 +26,23 @@ def transform_points(T, points):
     out_y = T[1, 0] * x + T[1, 1] * y + T[1, 2] * z + T[1, 3]
     out_z = T[2, 0] * x + T[2, 1] * y + T[2, 2] * z + T[2, 3]
     return np.stack([out_x, out_y, out_z], axis=-1)
+
+
+def transform_points_soa(T, x, y, z):
+    """Rigid transform of three (P,) f32 tensors (or NumPy arrays) by the
+    (4, 4) f32 ``T``.
+
+    The JAX package's ``transform_points_soa`` in its order of operations,
+    ``((T00*x + T01*y) + T02*z) + T03``, each product and sum rounded as its
+    own f32 op (eager PyTorch and NumPy fuse none); the matrix entries enter
+    as the f32 values they are.
+    """
+    t = np.asarray(T, np.float32)
+
+    def row(i):
+        return ((float(t[i, 0]) * x + float(t[i, 1]) * y) + float(t[i, 2]) * z) + float(t[i, 3])
+
+    return row(0), row(1), row(2)
 
 
 def invert_rigid(T):

@@ -1,10 +1,10 @@
 """Synthetic Velodyne-style scene generator (host NumPy).
 
-A copy of the pieces of ``groundgrid_tpu/data/synthetic.py`` that the port's
-slice, its bench and ``chip_smoke.py`` use: ``Scene``, ``make_scene``,
-``terrain_z``, ``vehicle_pose``, ``render_scan`` and ``synthetic_sequence``,
-and of the random detect-stage layers of ``tests/test_pallas_detect.py``
-(:func:`detect_layers`). It is carried here because importing
+A copy of ``groundgrid_tpu/data/synthetic.py``: ``Scene``, ``make_scene``,
+``terrain_z``, ``vehicle_pose``, ``render_scan``, ``synthetic_sequence`` and
+the adversarial world of the accuracy harness (``make_adversarial_scene``,
+``vehicle_pose_6dof``, ``adversarial_sequence``); and of the random
+detect-stage layers of ``tests/test_pallas_detect.py`` (:func:`detect_layers`). It is carried here because importing
 ``groundgrid_tpu`` imports JAX; ``tests/test_torch_shared.py`` holds the
 copy's output bitwise to the original's.
 
@@ -192,6 +192,124 @@ def render_scan(
         out_lbl = np.concatenate([out_lbl, refl_extra[1]])
     pts_velo = (pts_map - o[None, :]) @ R  # R^-1 = R^T applied from the right
     return pts_velo.astype(np.float32), out_lbl
+
+
+FENCE, OTHER_STRUCTURE, OUTLIER = 51, 52, 1
+
+
+def make_adversarial_scene(seed: int = 0, extent: float = 160.0) -> Scene:
+    """Adversarial test world (VERDICT r2 'What's weak' #2).
+
+    Contents the benign :func:`make_scene` lacks, each targeting a specific
+    reference code path:
+      * steep linear grade + large short-wave terrain -> pitched/rolled poses
+        and damage-fill base-plane math with non-identity rotations
+        (GroundGrid.cpp:121-133)
+      * retaining walls (thin tall fences beside the road) -> near-vertical
+        surfaces adjacent to ground cells (variance/stencil stress,
+        GroundSegmentation.cpp:343-395)
+      * bridge decks / overhangs above the road -> elevated structure over
+        valid ground (tolerance/classification stress)
+      * porous vegetation canopies -> mixed-cell variance
+      * mirror reflections below the surface -> the occlusion ray-march's
+        raison d'etre (GroundSegmentation.cpp:242-275)
+    """
+    rng = np.random.default_rng(seed)
+    k = 4
+    amp = rng.uniform(0.3, 0.9, size=k)
+    freq = rng.uniform(2 * np.pi / 160.0, 2 * np.pi / 35.0, size=(k, 2))
+    phase = rng.uniform(0, 2 * np.pi, size=k)
+    grade = (rng.uniform(0.04, 0.09) * rng.choice([-1.0, 1.0]),
+             rng.uniform(0.01, 0.04) * rng.choice([-1.0, 1.0]))
+
+    boxes = []
+    # retaining walls: 0.4 m thick, 2-4 m tall, 20-60 m long, near the road
+    for _ in range(4):
+        cx = rng.uniform(10.0, extent)
+        side = rng.choice([-1.0, 1.0])
+        cy = side * rng.uniform(6.5, 9.0)
+        boxes.append((cx, cy, rng.uniform(20.0, 60.0), 0.4,
+                      rng.uniform(2.0, 4.0), float(FENCE), 0.0, 0.0))
+    # bridge decks: wide slabs 4.5-6 m above the terrain spanning the road
+    for _ in range(2):
+        cx = rng.uniform(25.0, extent)
+        boxes.append((cx, 0.0, rng.uniform(6.0, 10.0), 44.0, 0.6,
+                      float(OTHER_STRUCTURE), rng.uniform(4.5, 6.0), 0.0))
+    # dense porous vegetation
+    for _ in range(12):
+        cx = rng.uniform(5.0, extent)
+        cy = rng.choice([-1.0, 1.0]) * rng.uniform(6.5, 22.0)
+        s = rng.uniform(2.0, 6.0)
+        boxes.append((cx, cy, s, s, rng.uniform(2.5, 7.0), float(VEGETATION),
+                      0.0, 0.55))
+    # cars and buildings as in the benign scene
+    for _ in range(8):
+        cx = rng.uniform(5.0, extent)
+        side = rng.choice([-1.0, 1.0])
+        boxes.append((cx, side * rng.uniform(2.0, 5.0), rng.uniform(3.5, 5.0),
+                      rng.uniform(1.6, 2.0), rng.uniform(1.4, 1.8),
+                      float(CAR), 0.0, 0.0))
+    for _ in range(4):
+        cx = rng.uniform(10.0, extent)
+        side = rng.choice([-1.0, 1.0])
+        boxes.append((cx, side * rng.uniform(12.0, 30.0),
+                      rng.uniform(8.0, 20.0), rng.uniform(6.0, 15.0),
+                      rng.uniform(4.0, 10.0), float(BUILDING), 0.0, 0.0))
+    return Scene(
+        terrain_amp=amp, terrain_freq=freq, terrain_phase=phase,
+        boxes=np.array(boxes, dtype=np.float64),
+        grade=grade, reflection_rate=0.004,
+    )
+
+
+def vehicle_pose_6dof(scene: Scene, scan_idx: int, step_m: float = 1.0) -> np.ndarray:
+    """Full 6-DoF velodyne pose: yaw from the path, pitch/roll from terrain.
+
+    The benign :func:`vehicle_pose` is yaw-only; real odometry (and the
+    damage-fill base-plane transform it feeds, GroundGrid.cpp:121-133) has
+    pitch and roll whenever the road does. R = Rz(yaw) @ Ry(pitch) @ Rx(roll)
+    with pitch/roll from the numerical terrain gradient at the vehicle.
+    """
+    x = scan_idx * step_m
+    y = 2.5 * np.sin(0.015 * x)
+    dydx = 2.5 * 0.015 * np.cos(0.015 * x)
+    yaw = np.arctan2(dydx, 1.0)
+
+    eps = 0.5
+    dzdx = (terrain_z(scene, x + eps, y) - terrain_z(scene, x - eps, y)) / (2 * eps)
+    dzdy = (terrain_z(scene, x, y + eps) - terrain_z(scene, x, y - eps)) / (2 * eps)
+    # slope along/across the heading direction
+    c, s = np.cos(yaw), np.sin(yaw)
+    slope_fwd = dzdx * c + dzdy * s
+    slope_lat = -dzdx * s + dzdy * c
+    pitch = -np.arctan(slope_fwd)  # nose up on rising grade (Ry convention)
+    roll = np.arctan(slope_lat)
+
+    cr, sr = np.cos(roll), np.sin(roll)
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    Rz = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
+    Ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
+    Rx = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]])
+    T = np.eye(4)
+    T[:3, :3] = Rz @ Ry @ Rx
+    T[:3, 3] = (x, y, terrain_z(scene, x, y) + SENSOR_HEIGHT)
+    return T
+
+
+def adversarial_sequence(
+    n_scans: int,
+    seed: int = 0,
+    n_beams: int = 64,
+    n_azimuth: int = 1800,
+    step_m: float = 1.0,
+):
+    """Yield (points_velo, labels, t_map_velo) over the adversarial world."""
+    scene = make_adversarial_scene(seed)
+    for k in range(n_scans):
+        T = vehicle_pose_6dof(scene, k, step_m)
+        pts, lbl = render_scan(scene, T, n_beams=n_beams, n_azimuth=n_azimuth,
+                               seed=seed + 1000 + k)
+        yield pts, lbl, T
 
 
 def synthetic_sequence(

@@ -1,20 +1,30 @@
 """The per-scan segmentation step, in PyTorch.
 
-The torch counterpart of ``groundgrid_tpu/pipeline.py`` for its flagship
-sorted-scan path: the host transforms each scan to the map frame and sorts
-it by flat cell id against the host-tracked grid center
-(:func:`prepare_scan`); the device step then runs, in the reference's stage
-order (``GroundSegmentation.cpp:50-197``, ``GroundGrid.cpp:83-147``):
+The torch counterpart of ``groundgrid_tpu/pipeline.py``. In sorted-scan mode
+(``config.sorted_scans``, the flagship path) the host transforms each scan to
+the map frame and sorts it by flat cell id against the host-tracked grid
+center (:func:`prepare_scan`); the device step then runs, in the reference's
+stage order (``GroundSegmentation.cpp:50-197``, ``GroundGrid.cpp:83-147``):
 
     move -> bin -> K2 (old ground) -> march -> K1 raster -> detect
          -> K3 spiral -> K2 (ground, variance) -> classify
+
+Unsorted mode (``sorted_scans=False``, the config default) takes raw
+sensor-frame scans (:func:`pad_scan`): the step transforms them on the
+device, bins against the shipped center (or, without one, the device center
+recurrence ``grid.index_shift_ds``), and orders the raster's inputs by a
+stable device sort of the cell ids before K1. Where the JAX package's
+unsorted step scatters (``rasterize``), the port sorts: no float atomics,
+so it stays deterministic. Per-point outputs come back in the scan's own
+order.
 
 PyTorch idiom: plain functions on tensors, eager. Entry points that
 allocate take an explicit ``device``. The step updates the ``GridState`` it
 is given in place and returns it (the JAX step donated the state's buffers,
 ``pipeline.py:325`` of the JAX package); the spiral kernel writes into the
-detect stage's fresh layers. Per scan the step reads the device twice: the
-sortedness check and the march's candidate count.
+detect stage's fresh layers. Per scan the step reads the device twice in
+sorted mode (the sortedness check and the march's candidate count) and once
+in unsorted mode (the count).
 
 Kernels: with ``config.use_pallas`` None or True, K1-K4 go through their
 wrappers (``groundgrid_torch/ops``), which launch the CUDA kernels for CUDA
@@ -26,8 +36,6 @@ Options, as in the JAX package: ``with_aux`` also returns all eleven
 published grid layers (:class:`AuxLayers`; the non-ground count is a second
 K1 launch), and ``config.wire_format`` takes the 8-byte-per-point s16
 :class:`WireScan` (:func:`prepare_scan_wire`), dequantized on the device.
-Unsorted scans (``sorted_scans=False``) raise ``NotImplementedError`` (see
-ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -55,14 +63,18 @@ from groundgrid_torch.ops import spiral as spiralops
 
 
 class Scan(NamedTuple):
-    """One host-prepared, cell-sorted scan.
+    """One padded scan on the step's device.
 
-    px/py/pz: (P,) f32 map-frame coordinates on the step's device.
+    px/py/pz: (P,) f32 coordinates: map frame and cell-sorted in sorted-scan
+        mode (:func:`prepare_scan`), sensor frame in unsorted mode
+        (:func:`pad_scan`).
     rings:    (P,) i32 ring channel (the SemanticKITTI label rides here).
     valid:    (P,) i32 padding mask (1 = real point).
     t_map_velo, t_map_base, t_base_map: (4, 4) f32 NumPy poses (host).
     center, center_lo: (2,) f32 NumPy ds image of the host-tracked f64 grid
-        center the points were sorted against.
+        center the points are binned against; sorted mode requires it. None
+        (unsorted mode only) derives it on the device
+        (``grid.index_shift_ds``).
     """
 
     px: torch.Tensor
@@ -73,12 +85,12 @@ class Scan(NamedTuple):
     t_map_velo: np.ndarray
     t_map_base: np.ndarray
     t_base_map: np.ndarray
-    center: np.ndarray
-    center_lo: np.ndarray
+    center: np.ndarray | None = None
+    center_lo: np.ndarray | None = None
 
 
 class StepOutput(NamedTuple):
-    """Per-scan results, (P,) in the scan's (sorted) point order.
+    """Per-scan results, (P,) in the scan's own point order.
 
     labels: int32 49 ground / 99 non-ground / 0 dropped; outlier: int32 0/1;
     x/y/z: f32 map-frame coordinates.
@@ -109,16 +121,6 @@ class AuxLayers(NamedTuple):
 
 def _validate(config: GroundGridConfig) -> None:
     config.validate()
-    if not config.sorted_scans:
-        raise NotImplementedError(
-            "groundgrid_torch runs sorted scans only; not ported yet: sorted_scans=False "
-            "(see ROADMAP.md, Queue 1)"
-        )
-    if config.max_points > 1 << outlierlib.IDX_BITS:
-        raise NotImplementedError(
-            f"max_points > {1 << outlierlib.IDX_BITS} (the outlier selection key's index "
-            "bits) is not ported yet (see ROADMAP.md)"
-        )
     need = int(math.ceil(config.half_length * math.sqrt(2.0))) + 8
     if config.ray_steps < need:
         raise ValueError(
@@ -131,17 +133,21 @@ class Step:
     """``step(state, scan) -> (state, StepOutput[, AuxLayers])`` for one config.
 
     ``scan`` is a :class:`Scan`, or a :class:`WireScan` under
-    ``config.wire_format``. ``fallbacks`` counts scans whose device cell ids
-    were not sorted (a host/device binning divergence); those are sorted on
-    the device, by a stable sort of the ids, before K1. With
-    ``config.sorted_fallback_check`` false the step trusts the host's order,
-    as the JAX step does: no sortedness read, no fallback.
+    ``config.wire_format``. In sorted mode ``fallbacks`` counts scans whose
+    device cell ids were not sorted (a host/device binning divergence);
+    those are sorted on the device, by a stable sort of the ids, before K1.
+    With ``config.sorted_fallback_check`` false the step trusts the host's
+    order, as the JAX step does: no sortedness read, no fallback. Unsorted
+    mode takes that stable sort on every scan, and counts no fallback.
+    ``marchable`` is the last scan's count of marchable outlier candidates,
+    before the ``max_outlier_candidates`` cap.
     """
 
     def __init__(self, config: GroundGridConfig, with_aux: bool = False):
         self.config = config
         self.with_aux = with_aux
         self.fallbacks = 0
+        self.marchable = 0
         self._tables: dict[torch.device, detectlib.DetectTables] = {}
         if config.use_pallas is False:
             self._reduce = rasterops.raster_reduce_plain
@@ -166,11 +172,18 @@ class Step:
         n2 = cfg.cell_count ** 2
         if cfg.wire_format:
             scan = dequantize_scan(cfg, scan)
-        x, y, z = scan.px, scan.py, scan.pz
+        if cfg.sorted_scans:
+            if scan.center is None:
+                raise ValueError("a sorted scan carries the center it was sorted against")
+            x, y, z = scan.px, scan.py, scan.pz
+        else:
+            # --- transform to the map frame (GroundGridNodelet.cpp:139-184) ---
+            x, y, z = tf.transform_points_soa(scan.t_map_velo, scan.px, scan.py, scan.pz)
         origin = np.asarray(scan.t_map_velo, np.float32)[:3, 3]
 
         # --- grid relocation (GroundGrid.cpp:83-147) ---
-        moved = gridlib.move(cfg, state, scan.t_base_map, scan.center, scan.center_lo)
+        moved = gridlib.move(cfg, state, scan.t_base_map, scan.center, scan.center_lo,
+                             new_position=origin[:2])
         center, center_lo = moved.center_np, moved.center_lo_np
 
         # --- f64-faithful binning ---
@@ -179,7 +192,7 @@ class Step:
 
         # --- outlier ray-march against the previous terrain (cpp:242-275) ---
         (old_h,) = self._lookup(binning.cell, [moved.ground], n2)
-        outlier = outlierlib.detect_outliers(
+        outlier, self.marchable = outlierlib.detect_outliers(
             cfg, center, center_lo, moved.ground, moved.groundpatch, binning, x, y, z,
             origin, old_h, self._lookup,
         )
@@ -189,10 +202,13 @@ class Step:
         rb, rz, racc = binning, z, accept
         cell = binning.cell
         order = None
-        if (cfg.sorted_fallback_check and cell.shape[0] > 1
+        if not cfg.sorted_scans:
+            order = torch.argsort(cell, stable=True)
+        elif (cfg.sorted_fallback_check and cell.shape[0] > 1
                 and not bool((cell[1:] >= cell[:-1]).all())):
             self.fallbacks += 1
             order = torch.argsort(cell, stable=True)
+        if order is not None:
             rb, rz, racc = binning.permute(order), z[order], accept[order]
         raster = rasterlib.rasterize_sorted(cfg, rb, rz, origin, racc, center,
                                             scan.t_base_map, self._reduce,
@@ -234,7 +250,7 @@ class Step:
 
 
 def make_step_fn(config: GroundGridConfig, with_aux: bool = False) -> Step:
-    """Build the per-scan step for ``config`` (raises for unported modes)."""
+    """Build the per-scan step for ``config`` (raises for invalid configs)."""
     _validate(config)
     return Step(config, with_aux)
 
@@ -292,6 +308,38 @@ class CenterTracker:
         k = gridlib._snap_cells(dc)
         self.center64 = self.center64 + k * self._res
         return self.center64
+
+
+def pad_scan(config: GroundGridConfig, points, rings, t_map_velo, device, t_map_base=None,
+             t_base_map=None) -> Scan:
+    """Host helper for unsorted mode: pad a raw sensor-frame scan to
+    ``max_points`` and ship it to ``device`` in one copy.
+
+    Points beyond ``max_points`` are dropped (the driver labels them 0). The
+    scan carries no center: the step derives it with the device recurrence
+    unless the caller sets one (``scan._replace(center=..., center_lo=...)``,
+    as the driver does with its f64 tracker's).
+    """
+    p = np.asarray(points, dtype=np.float32)
+    r = np.asarray(rings, dtype=np.int32)
+    cap = config.max_points
+    count = min(p.shape[0], cap)
+    t_map_velo = np.asarray(t_map_velo, dtype=np.float64)
+    if t_map_base is None or t_base_map is None:
+        _, t_map_base, t_base_map = tf.scan_poses(t_map_velo)
+    # one (5, P) 32-bit buffer: x, y, z as f32, rings and valid as i32 bits
+    buf = np.zeros((5, cap), np.float32)
+    buf[:3, :count] = p[:count, :3].T
+    buf[3:].view(np.int32)[0, :count] = r[:count]
+    buf[3:].view(np.int32)[1, :count] = 1
+    dev = _to_device(buf, device)
+    return Scan(
+        px=dev[0], py=dev[1], pz=dev[2],
+        rings=dev[3].view(torch.int32), valid=dev[4].view(torch.int32),
+        t_map_velo=t_map_velo.astype(np.float32),
+        t_map_base=np.asarray(t_map_base, np.float32),
+        t_base_map=np.asarray(t_base_map, np.float32),
+    )
 
 
 def _center_ds(center, center_lo=None):

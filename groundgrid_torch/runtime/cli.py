@@ -1,4 +1,4 @@
-"""Command-line interface of the port: evaluate / playback / bench.
+"""Command-line interface of the port: evaluate / playback / accuracy / bench.
 
 The torch counterpart of ``groundgrid_tpu/runtime/cli.py``, with its flags,
 output lines and JSON payload, on one explicit ``--device`` (default
@@ -10,10 +10,14 @@ output lines and JSON payload, on one explicit ``--device`` (default
   * ``playback`` == KITTIPlayback.launch: stream a sequence, log timing,
     optionally export layer images, terrain artifacts, an HTML player or a
     live viewer
+  * ``accuracy`` == the pipeline-vs-golden metric deltas on synthetic worlds
+    (``eval/accuracy.py``), exit code 0 within ``--budget-pt``
   * ``bench``    == the port's synthetic throughput benchmark (one JSON line)
 
-Sorted-scan mode is the only mode (``--no-sorted`` raises). Not ported yet:
-the ``accuracy`` subcommand and ``bench --batch`` above 1 (see ROADMAP.md).
+Sorted-scan mode is the default (the JAX CLI's default on its accelerator);
+``--no-sorted`` runs unsorted mode, where ``--native-loader`` reads raw scans
+in the C++ threads and the step transforms and sorts on the device. Not
+ported yet: ``bench --batch`` above 1 (see ROADMAP.md).
 
     python -m groundgrid_torch evaluate --directory <kitti_root> --sequence 00
 """
@@ -45,16 +49,20 @@ def _add_device(p: argparse.ArgumentParser) -> None:
                    help="torch device to run on (default cuda; raises without a card)")
 
 
+def _add_sorted(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--sorted", dest="sorted_scans", action="store_true", default=None,
+                   help="sorted-scan mode: host transform and cell sort (the default)")
+    p.add_argument("--no-sorted", dest="sorted_scans", action="store_false",
+                   help="unsorted mode: raw scans, transformed and sorted on the device")
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dimension", type=float, default=120.0)
     p.add_argument("--resolution", type=float, default=0.33)
     p.add_argument("--max-points", type=int, default=131072)
     p.add_argument("--start", type=float, default=0.0, help="start seconds (player start)")
     p.add_argument("--end", type=float, default=float("inf"), help="end seconds (player end)")
-    p.add_argument("--sorted", dest="sorted_scans", action="store_true", default=None,
-                   help="sorted-scan mode (the only mode of the port)")
-    p.add_argument("--no-sorted", dest="sorted_scans", action="store_false",
-                   help="unsorted mode: not ported, raises")
+    _add_sorted(p)
     p.add_argument("--wire", action="store_true",
                    help="s16 quantized wire format (~2.5x smaller ingest, ~1-2 mm lossy)")
     p.add_argument("--native-loader", action="store_true",
@@ -82,13 +90,16 @@ def _device(args) -> torch.device:
     return device
 
 
+def _sorted_mode(args) -> bool:
+    """``--sorted`` / ``--no-sorted``; sorted by default."""
+    return args.sorted_scans is not False
+
+
 def _config(args) -> GroundGridConfig:
-    if args.sorted_scans is False:
-        raise NotImplementedError(
-            "--no-sorted: unsorted mode is not ported to groundgrid_torch (see ROADMAP.md)")
+    wire = bool(args.wire)
     return GroundGridConfig(dimension=args.dimension, resolution=args.resolution,
-                            max_points=args.max_points, sorted_scans=True,
-                            wire_format=bool(args.wire))
+                            max_points=args.max_points,
+                            sorted_scans=wire or _sorted_mode(args), wire_format=wire)
 
 
 def _records(ds, cfg, args, device, start_index=None, center64=None):
@@ -97,8 +108,9 @@ def _records(ds, cfg, args, device, start_index=None, center64=None):
     With ``--native-loader`` the prefetching loader starts at the first
     in-window scan, binning against the center track a driver starting there
     keeps (from ``center64``, a resumed driver's center, if given), and is
-    closed when the stream ends. ``start_index`` (resume) also skips
-    already-processed scans.
+    closed when the stream ends; in unsorted mode it is the raw loader,
+    which reads and truncates to ``max_points``, as the JAX CLI's does.
+    ``start_index`` (resume) also skips already-processed scans.
     """
     first = ds.seek_index(args.start) if args.start > 0 else 0
     if start_index is not None:
@@ -113,9 +125,15 @@ def _records(ds, cfg, args, device, start_index=None, center64=None):
                 yield ds.read_scan(idx)
         return gen_raw()
 
-    kind = native_loader.WirePrefetchingLoader if cfg.wire_format \
-        else native_loader.SortedPrefetchingLoader
-    loader = kind(ds, cfg, device, start=first, center64=center64)
+    if cfg.sorted_scans:
+        kind = native_loader.WirePrefetchingLoader if cfg.wire_format \
+            else native_loader.SortedPrefetchingLoader
+        loader = kind(ds, cfg, device, start=first, center64=center64)
+    else:
+        kind = native_loader.PrefetchingLoader
+        loader = kind(ds, cap=cfg.max_points)
+        if first:
+            loader.seek(first)
     if not loader.native:
         print(f"warning: {kind.__name__} is not native (native/loader.cpp did not "
               "build); preparing scans in NumPy", file=sys.stderr, flush=True)
@@ -361,6 +379,43 @@ def cmd_playback(args) -> int:
     return 0
 
 
+def cmd_accuracy(args) -> int:
+    """Pipeline-vs-golden metric deltas on synthetic scans (``eval/accuracy.py``).
+
+    Exit code 0 when max |delta| is within ``--budget-pt`` (or, with
+    ``--chaos-control``, within the perturbed oracle's envelope). Writes the
+    markdown report to ``--output``, else prints it; the last line is JSON.
+    """
+    from groundgrid_torch.eval.accuracy import format_accuracy_report, run_accuracy_benchmark
+
+    device = _device(args)
+    cfg = GroundGridConfig(dimension=args.dimension, resolution=args.resolution,
+                           max_points=args.max_points, sorted_scans=_sorted_mode(args))
+    result = run_accuracy_benchmark(
+        cfg, n_scans=args.scans, seed=args.seed, n_beams=args.beams,
+        n_azimuth=args.azimuth, step_m=args.step, adversarial=not args.benign,
+        progress=lambda s: print(s, file=sys.stderr, flush=True),
+        chaos_control=(args.chaos_mode if args.chaos_control else False),
+        world=args.world, variant=args.variant, rain_rate=args.rain, device=device,
+    )
+    report = format_accuracy_report(result)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(report)
+        print(f"wrote {args.output}", file=sys.stderr, flush=True)
+    else:
+        print(report, flush=True)
+    keys = ["workload", "pipeline", "golden", "delta_pt", "max_abs_delta_pt",
+            "label_mismatch_rate"]
+    if "chaos_envelope_pt" in result:
+        keys += ["chaos_envelope_pt", "max_abs_chaos_envelope_pt"]
+    print(json.dumps({k: result[k] for k in keys}), flush=True)
+    ok = result["max_abs_delta_pt"] < args.budget_pt or (
+        "max_abs_chaos_envelope_pt" in result
+        and result["max_abs_delta_pt"] <= result["max_abs_chaos_envelope_pt"])
+    return 0 if ok else 1
+
+
 def cmd_bench(args) -> int:
     from groundgrid_torch.runtime.bench import run_benchmark
 
@@ -413,6 +468,40 @@ def main(argv=None) -> int:
                         help="real-time pacing factor (0 = as fast as possible)")
     _add_common(p_play)
     p_play.set_defaults(func=cmd_playback)
+
+    p_acc = sub.add_parser("accuracy",
+                           help="pipeline-vs-golden metric deltas on synthetic worlds")
+    p_acc.add_argument("--scans", type=int, default=120)
+    p_acc.add_argument("--seed", type=int, default=17)
+    p_acc.add_argument("--beams", type=int, default=64)
+    p_acc.add_argument("--azimuth", type=int, default=1800)
+    p_acc.add_argument("--step", type=float, default=1.2, help="metres per scan")
+    p_acc.add_argument("--benign", action="store_true",
+                       help="use the benign scene generator instead")
+    p_acc.add_argument("--world", choices=("", "kitti"), default="",
+                       help="kitti: the KITTI-operating-point urban world "
+                            "(data/kitti_world.py); default: the adversarial "
+                            "(or --benign) world")
+    p_acc.add_argument("--variant", choices=("city", "forward"), default="city",
+                       help="kitti world drive plan: city = cruise + stop + reverse + "
+                            "exact-half-cell + moving cars; forward = pure cruise")
+    p_acc.add_argument("--rain", type=float, default=0.0,
+                       help="kitti world rain rate (ring dropout + airborne clutter)")
+    p_acc.add_argument("--output", default="", help="markdown report path")
+    p_acc.add_argument("--budget-pt", type=float, default=0.1,
+                       help="max |delta| in percentage points for exit code 0")
+    p_acc.add_argument("--chaos-control", action="store_true",
+                       help="also run a perturbed golden to measure the scene's "
+                            "intrinsic metric sensitivity (see --chaos-mode); deltas "
+                            "within that envelope also exit 0")
+    p_acc.add_argument("--chaos-mode", choices=("ulp", "perm"), default="ulp",
+                       help="ulp: +-1-ulp variance nudge; perm: point-order permutation")
+    p_acc.add_argument("--dimension", type=float, default=120.0)
+    p_acc.add_argument("--resolution", type=float, default=0.33)
+    p_acc.add_argument("--max-points", type=int, default=131072)
+    _add_sorted(p_acc)
+    _add_device(p_acc)
+    p_acc.set_defaults(func=cmd_accuracy)
 
     p_bench = sub.add_parser("bench", help="synthetic throughput benchmark (CUDA only)")
     p_bench.add_argument("--scans", type=int, default=64)

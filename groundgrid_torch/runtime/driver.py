@@ -1,14 +1,16 @@
 """Streaming driver: plays a LiDAR sequence through the PyTorch step.
 
-The torch counterpart of ``groundgrid_tpu/runtime/driver.py`` for the
-sorted-scan path: each record is prepared on the host (map-frame transform,
-cell sort against the f64 center tracker; quantized to the s16 wire format
-under ``config.wire_format``), stepped on the device, and its labels are
-returned in the input point order, overflow points (beyond ``max_points``)
-labelled 0. A :class:`~groundgrid_torch.data.native_loader.PreparedRecord`
-(host prep already done by the native loader's threads) is stepped as it
-comes. With ``with_aux`` each result also carries the eleven grid layers and
-the map-frame coordinates. A record with a non-finite pose is dropped (the
+The torch counterpart of ``groundgrid_tpu/runtime/driver.py``: each record
+is prepared on the host, stepped on the device, and its labels are returned
+in the input point order, overflow points (beyond ``max_points``) labelled
+0. In sorted-scan mode the prep is the map-frame transform and the cell sort
+against the f64 center tracker (quantized to the s16 wire format under
+``config.wire_format``); in unsorted mode it pads the raw points and ships
+the tracker's ds center, and the step transforms on the device. A
+:class:`~groundgrid_torch.data.native_loader.PreparedRecord` (sorted host
+prep already done by the native loader's threads) is stepped as it comes.
+With ``with_aux`` each result also carries the eleven grid layers and the
+map-frame coordinates. A record with a non-finite pose is dropped (the
 reference drops clouds whose transform is missing,
 GroundGridNodelet.cpp:124-136), or, with ``config.stale_pose_reuse``, run
 with the last good pose.
@@ -40,6 +42,7 @@ from groundgrid_torch.pipeline import (
     CenterTracker,
     init_state,
     make_step,
+    pad_scan,
     prepare_scan,
     prepare_scan_wire,
 )
@@ -78,7 +81,7 @@ class InFlight:
     t0: float
     step_out: object  # pipeline.StepOutput (device tensors, step order)
     aux: object  # pipeline.AuxLayers or None
-    order: np.ndarray  # this scan's sort permutation
+    order: Optional[np.ndarray]  # this scan's host sort permutation (None: unsorted mode)
     rings: torch.Tensor  # the scan's ring channel (ground-truth ids), step order
 
 
@@ -191,11 +194,19 @@ class StreamingDriver:
 
     def make_scan(self, rec):
         """Host prep of one record: ``(scan, order)``, a ``WireScan`` under
-        ``config.wire_format``."""
+        ``config.wire_format``; ``order`` is None in unsorted mode."""
         mv, mb, bm = tf.scan_poses(rec.t_map_velo)
         # f64, as grid_map tracks its center in doubles (GroundGrid.cpp:58)
         pos = np.asarray(rec.t_map_velo, np.float64)[:2, 3]
         center = self._ensure_tracker(pos).update(pos)
+        if not self.config.sorted_scans:
+            # the tracker's center rides along in unsorted mode too: the
+            # device recurrence snaps from an f32 delta and can misround an
+            # exact half-cell step that f64 resolves (grid.index_shift_ds)
+            chi, clo = self._tracker.center_ds()
+            scan = pad_scan(self.config, rec.points, rec.labels, rec.t_map_velo, self.device,
+                            t_map_base=mb, t_base_map=bm)
+            return scan._replace(center=chi, center_lo=clo), None
         prep = prepare_scan_wire if self.config.wire_format else prepare_scan
         return prep(self.config, rec.points[:, :3], rec.labels, rec.t_map_velo, center,
                     self.device, t_map_base=mb, t_base_map=bm)
@@ -239,6 +250,8 @@ class StreamingDriver:
             self.state = init_state(self.config, rec.t_map_velo, self.device)
         prepared = getattr(rec, "scan", None)
         if prepared is not None:
+            if not self.config.sorted_scans:
+                raise ValueError("a PreparedRecord is cell-sorted: it needs a sorted-scan config")
             scan, order, n = prepared, rec.order, rec.n_points
             # the tracker adopts the center the loader binned against, so a
             # checkpoint taken now carries the stream's exact f64 center
@@ -258,8 +271,11 @@ class StreamingDriver:
 
         def fetch(t, dtype):
             a = t.cpu().numpy().astype(dtype)
-            u = np.empty_like(a)
-            u[order] = a
+            if order is None:
+                u = a
+            else:
+                u = np.empty_like(a)
+                u[order] = a
             if n > u.shape[0]:
                 # beyond max_points: never processed, reported as dropped
                 u = np.concatenate([u, np.zeros(n - u.shape[0], u.dtype)])

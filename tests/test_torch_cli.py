@@ -315,11 +315,9 @@ def test_playback_resume(long_dataset_root, capsys, tmp_path):
 
 
 def test_unported_options_raise(long_dataset_root, monkeypatch):
-    """--no-sorted and bench --batch > 1 are not ported; --device cuda
-    without a card raises instead of running on the CPU."""
-    with pytest.raises(NotImplementedError):
-        main(["evaluate", "--directory", long_dataset_root, "--no-sorted"] + COMMON)
-    with pytest.raises(NotImplementedError):
+    """bench --batch > 1 is not ported; --device cuda without a card raises
+    instead of running on the CPU."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["bench", "--batch", "2", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cmd in ("evaluate", "playback"):
@@ -327,6 +325,22 @@ def test_unported_options_raise(long_dataset_root, monkeypatch):
             main([cmd, "--directory", long_dataset_root] + GEOMETRY)
     with pytest.raises(RuntimeError):
         main(["bench", "--scans", "1"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--native-loader"], ["--on-device-eval"],
+                                   ["--native-loader", "--pipeline-depth", "2"]])
+def test_evaluate_no_sorted_matches_lockstep(long_dataset_root, capsys, extra):
+    """Unsorted mode (raw scans, transform and sort on the device): the raw
+    native loader, on-device scoring and pipelining are bitwise the
+    lock-step run, whose scores stay within 0.1 pt of sorted mode's."""
+    base = _evaluate(capsys, long_dataset_root, "--no-sorted")
+    got = _evaluate(capsys, long_dataset_root, "--no-sorted", *extra)
+    assert base["scans"] == got["scans"] == 6
+    for key in COUNTS + ("f1", "ioug"):
+        assert got[key] == base[key], key
+    srt = _evaluate(capsys, long_dataset_root)
+    for key in ("f1", "ioug"):
+        assert abs(base[key] - srt[key]) * 100.0 < 0.1, key
 
 
 def _run_module(package, args, env=None):

@@ -16,9 +16,10 @@ K3 confidence bitwise and heights within atol 2e-5 / rtol 1e-5 (up to n =
 2414 on the band kernel, 2416 to 2800 on the global-band one; two runs
 bitwise), K4 bitwise (n = 12 to 1200, grids that cut its tiles raggedly and
 one where the use3 disc's edge crosses a tile; two runs bitwise; border
-cells passed through); plus the small-config streaming step on the card
-against the same step on the CPU, on the main path and on the fused, aux
-and wire path.
+cells passed through); the occlusion march shedding candidates at the
+cap, on both selection keys, bitwise the CPU's; plus the small-config
+streaming step on the card against the same step on the CPU, on the main
+path and on the fused, aux and wire path.
 """
 
 import dataclasses
@@ -380,6 +381,99 @@ def test_layers_path_step_on_card_matches_cpu(cuda):
     assert launch_counts() == {"raster": 6, "lookup": 9, "spiral": 3, "detect": 3}
     assert mism <= 0.001 * total
     assert gpu.step.fallbacks == 0
+
+
+def test_unsorted_step_on_card_matches_cpu(cuda):
+    """Unsorted mode: the device transform bitwise the CPU's (each product
+    and sum its own rounded op on both), K1-K3 launched, labels as on the
+    CPU; through the driver (shipped center) and ``pad_scan`` (center
+    recurrence)."""
+    from groundgrid_torch import pipeline
+    from groundgrid_torch.data.synthetic import synthetic_sequence
+    from groundgrid_torch.runtime.driver import ScanRecord, StreamingDriver
+
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5, max_points=16384, ray_steps=40,
+                           max_outlier_candidates=1024)
+    assert not cfg.sorted_scans
+    scans = list(synthetic_sequence(3, seed=7, n_beams=24, n_azimuth=720, step_m=1.5))
+    recs = [ScanRecord(index=i, timestamp=0.1 * i, points=p, labels=l, t_map_velo=T)
+            for i, (p, l, T) in enumerate(scans)]
+    cpu, gpu = StreamingDriver(cfg, "cpu", with_aux=True), StreamingDriver(cfg, cuda,
+                                                                           with_aux=True)
+    reset_launch_counts()
+    total = mism = 0
+    for rec in recs:
+        a, b = cpu.process(rec), gpu.process(rec)
+        total += a.labels.size
+        mism += int((a.labels != b.labels).sum())
+        for k in "xyz":
+            np.testing.assert_array_equal(getattr(b, k), getattr(a, k), err_msg=k)
+        assert b.aux["points"].sum() == (b.labels == 99).sum()
+    assert launch_counts() == {"raster": 6, "lookup": 9, "spiral": 3, "detect": 0}
+    assert mism <= 0.001 * total
+    assert gpu.step.fallbacks == 0
+    np.testing.assert_array_equal(gpu.state.center.numpy(), cpu.state.center.numpy())
+
+    step_cpu, step_gpu = pipeline.make_step(cfg), pipeline.make_step(cfg)
+    s_cpu = pipeline.init_state(cfg, scans[0][2], "cpu")
+    s_gpu = pipeline.init_state(cfg, scans[0][2], cuda)
+    for pts, labels, T in scans:
+        s_cpu, o_cpu = step_cpu(s_cpu, pipeline.pad_scan(cfg, pts, labels, T, "cpu"))
+        s_gpu, o_gpu = step_gpu(s_gpu, pipeline.pad_scan(cfg, pts, labels, T, cuda))
+        np.testing.assert_array_equal(o_gpu.x.cpu().numpy(), o_cpu.x.numpy())
+        np.testing.assert_array_equal(s_gpu.center.numpy(), s_cpu.center.numpy())
+        np.testing.assert_array_equal(s_gpu.center_lo.numpy(), s_cpu.center_lo.numpy())
+        assert (o_gpu.labels.cpu() != o_cpu.labels).float().mean() <= 0.001
+
+
+@pytest.mark.parametrize("p_total", [1 << 17, 1 << 18])
+def test_march_shedding_on_card_matches_cpu(cuda, p_total):
+    """The occlusion march with more marchable candidates (800) than
+    ``max_outlier_candidates`` (450), the cut inside a group of equal
+    budgets: the outlier set on the card is bitwise the CPU's, on the
+    truncated key (2^17 points) and on the exact-budget key (2^18)."""
+    from groundgrid_torch.core import outliers, rasterize
+
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5, max_points=p_total, ray_steps=40,
+                           max_outlier_candidates=450)
+    n = cfg.cell_count
+    rng = np.random.default_rng(0)
+
+    def ring(k, r0, r1, z):
+        ang, r = rng.uniform(0, 2 * np.pi, k), rng.uniform(r0, r1, k)
+        return np.stack([r * np.cos(ang), r * np.sin(ang), np.full(k, z)], 1)
+
+    # 300 long rays, 300 identical ones, 200 short ones below a flat
+    # confident terrain, 5000 points above it; shuffled over the buffer
+    pts = np.concatenate([ring(300, 12.0, 17.0, -2.0), np.tile([[10.0, 3.0, -2.5]], (300, 1)),
+                          ring(200, 5.0, 7.0, -1.0), ring(5000, 4.0, 18.0, 0.5)])
+    slots = rng.permutation(p_total)[: pts.shape[0]]
+    xyz = np.zeros((3, p_total), np.float32)
+    xyz[:, slots] = pts.T
+    valid = np.zeros(p_total, bool)
+    valid[slots] = True
+    center = lo = np.zeros(2, np.float32)
+    origin = np.float32([0.0, 0.0, 1.7])
+
+    def run(dev):
+        x, y, z = (torch.from_numpy(a).to(dev) for a in xyz)
+        ground = torch.zeros((n, n), dtype=torch.float32, device=dev)
+        conf = torch.ones((n, n), dtype=torch.float32, device=dev)
+        b = rasterize.bin_points(cfg, center, lo, x, y,
+                                 torch.zeros(p_total, dtype=torch.int32, device=dev),
+                                 torch.from_numpy(valid).to(dev), origin)
+        (old_h,) = lookup.lookup(b.cell, [ground], n * n)
+        got, marchable = outliers.detect_outliers(cfg, center, lo, ground, conf, b, x, y, z,
+                                                  origin, old_h, lookup.lookup)
+        return got.cpu().numpy(), marchable
+
+    want, want_marchable = run("cpu")
+    before = lookup.lookup.launches
+    got, marchable = run(cuda)
+    assert lookup.lookup.launches > before
+    assert marchable == want_marchable == 800
+    assert int(want.sum()) == 450
+    np.testing.assert_array_equal(got, want)
 
 
 def test_device_evaluator_on_card_matches_cpu(cuda):

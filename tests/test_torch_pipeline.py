@@ -199,8 +199,20 @@ def test_empty_overflow_and_bad_pose_scans(small_config, small_scans):
         assert (a.labels != b.labels).sum() <= (1 - AGREE) * p.shape[0]
 
 
-@pytest.mark.parametrize("change", [{"sorted_scans": False}])
-def test_unported_configurations_raise(small_config, change):
-    _, tcfg = _configs(small_config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.make_step(dataclasses.replace(tcfg, **change))
+@pytest.mark.parametrize("config", [
+    TConfig(),  # the default: unsorted mode at 364^2
+    TConfig(dimension=40.0, resolution=0.5, max_points=(1 << 17) + 640, ray_steps=40,
+            sorted_scans=True),  # past the march key's index bits
+])
+def test_default_and_large_configurations_step(config, small_scans):
+    """Once refused: ``make_step(GroundGridConfig())`` and a buffer above
+    131,072 points build and step through the driver."""
+    tpipe.make_step(config)
+    driver = StreamingDriver(config, device="cpu")
+    for i, (pts, labels, T) in enumerate(small_scans[:2]):
+        res = driver.process(ScanRecord(index=i, timestamp=0.1 * i, points=pts, labels=labels,
+                                        t_map_velo=T))
+        assert res.labels.shape == (pts.shape[0],)
+        assert np.isin(res.labels, (0, 49, 99)).all()
+        assert (res.labels == 49).sum() > 1000 and (res.labels == 99).sum() > 100
+    assert driver.step.fallbacks == 0

@@ -1,10 +1,11 @@
 """The port's copies of framework-free pieces equal the JAX package's originals.
 
 ``groundgrid_torch`` cannot import ``groundgrid_tpu`` (that imports JAX), so
-it carries copies of the config dataclass, the host transforms, the detect
-tables' expected-points table, the synthetic scan generator, the label table,
-the host scorer and its baseline comparison, the SemanticKITTI reader and
-writer, and the viewers' image and terrain exports. These tests hold each
+it carries copies of the config dataclass, the host transforms, the golden
+oracle (whose expected-points table the detect tables use), the synthetic
+scan generators (benign, adversarial and the KITTI-operating-point world),
+the label table, the host scorer and its baseline comparison, the
+SemanticKITTI reader and writer, and the viewers' image and terrain exports. These tests hold each
 copy to its original: same fields and defaults, bitwise outputs, the same
 text and bytes.
 """
@@ -22,7 +23,7 @@ from groundgrid_tpu.golden import expected_points_table as j_expected
 import groundgrid_torch.config as tconfig
 import groundgrid_torch.core.transforms as ttf
 import groundgrid_torch.data.synthetic as tsyn
-from groundgrid_torch.core.detect import expected_points_table as t_expected
+from groundgrid_torch.golden import expected_points_table as t_expected
 
 
 def _fields(cls):
@@ -93,6 +94,9 @@ def test_transforms_bitwise():
 
 @pytest.mark.parametrize("kw", [{}, {"dimension": 40.0, "resolution": 0.5}])
 def test_expected_points_table_bitwise(kw):
+    from groundgrid_torch.core import detect
+
+    assert detect.expected_points_table is t_expected  # one copy, the oracle's
     np.testing.assert_array_equal(
         t_expected(tconfig.GroundGridConfig(**kw)), j_expected(jconfig.GroundGridConfig(**kw)))
 
@@ -144,6 +148,64 @@ def test_wire_scales_bitwise(kw):
     for x, y in zip(a, b):
         assert x.dtype == y.dtype == np.float32
         np.testing.assert_array_equal(x, y)
+
+
+def test_adversarial_scene_and_poses_bitwise():
+    a, b = tsyn.make_adversarial_scene(5), jsyn.make_adversarial_scene(5)
+    for f in dataclasses.fields(jsyn.Scene):
+        np.testing.assert_array_equal(np.asarray(getattr(a, f.name)),
+                                      np.asarray(getattr(b, f.name)), err_msg=f.name)
+    for k in (0, 9, 40):
+        np.testing.assert_array_equal(tsyn.vehicle_pose_6dof(a, k, step_m=1.2),
+                                      jsyn.vehicle_pose_6dof(b, k, step_m=1.2))
+    kw = dict(seed=23, n_beams=16, n_azimuth=400, step_m=2.0)
+    for (pa, la, Ta), (pb, lb, Tb) in zip(tsyn.adversarial_sequence(3, **kw),
+                                          jsyn.adversarial_sequence(3, **kw)):
+        np.testing.assert_array_equal(pa, pb)
+        np.testing.assert_array_equal(la, lb)
+        np.testing.assert_array_equal(Ta, Tb)
+
+
+@pytest.mark.parametrize("variant,rain", [("city", 0.0), ("forward", 0.15)])
+def test_kitti_world_bitwise(variant, rain):
+    import groundgrid_tpu.data.kitti_world as jkw
+
+    import groundgrid_torch.data.kitti_world as tkw
+
+    kw = dict(seed=1, n_beams=16, n_azimuth=300, step_m=1.2, variant=variant, rain_rate=rain,
+              resolution=0.5)
+    for (pa, la, Ta), (pb, lb, Tb) in zip(tkw.kitti_sequence(4, **kw),
+                                          jkw.kitti_sequence(4, **kw)):
+        np.testing.assert_array_equal(pa, pb)
+        np.testing.assert_array_equal(la, lb)
+        np.testing.assert_array_equal(Ta, Tb)
+    assert tkw.drive_plan(300, 1.2, 0.33, "city") == jkw.drive_plan(300, 1.2, 0.33, "city")
+
+
+@pytest.mark.parametrize("chaos", [0, 1])
+def test_golden_bitwise(chaos):
+    """The oracle copy over three adversarial scans: labels, the grid state
+    and the scratch layers bitwise (``chaos``: the ulp variance nudge)."""
+    from groundgrid_tpu.golden import GoldenGroundGrid as JGolden
+
+    from groundgrid_torch.golden import GoldenGroundGrid as TGolden
+
+    kw = dict(dimension=30.0, resolution=0.5, border_drop=bool(chaos))
+    ja, tb = JGolden(jconfig.GroundGridConfig(**kw)), TGolden(tconfig.GroundGridConfig(**kw))
+    ja.chaos_variance_ulps = tb.chaos_variance_ulps = chaos
+    for pts, lbl, T in jsyn.adversarial_sequence(3, seed=2, n_beams=16, n_azimuth=300,
+                                                 step_m=2.0):
+        mv, mb, bm = jtf.scan_poses(T)
+        x, y, z = jtf.transform_points_soa(np.asarray(mv), pts[:, 0], pts[:, 1], pts[:, 2])
+        args = (np.stack([x, y, z], -1), lbl, np.asarray(mv[:3, 3]), np.asarray(mb, np.float64))
+        for g in (ja, tb):
+            g.update_odom(np.asarray(T, np.float64), np.asarray(bm, np.float64))
+        np.testing.assert_array_equal(tb.filter_cloud(*args), ja.filter_cloud(*args))
+        for f in ("ground", "groundpatch", "center"):
+            np.testing.assert_array_equal(getattr(tb.state, f), getattr(ja.state, f), f)
+        assert sorted(tb.scratch) == sorted(ja.scratch)
+        for k in ja.scratch:
+            np.testing.assert_array_equal(tb.scratch[k], ja.scratch[k], k)
 
 
 def test_port_imports_no_jax():

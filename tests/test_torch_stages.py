@@ -85,7 +85,7 @@ def _outliers(jcfg, tcfg, d, ground, groundpatch, z_shift=None):
             jnp.asarray(d["origin"]), center_lo=jnp.asarray(d["center_lo"]))
     n2 = tcfg.cell_count ** 2
     (old_h,) = lookup.lookup(tb.cell, [_t(ground)], n2)
-    got = toutliers.detect_outliers(tcfg, d["center"], d["center_lo"], _t(ground),
+    got, _ = toutliers.detect_outliers(tcfg, d["center"], d["center_lo"], _t(ground),
                                     _t(groundpatch), tb, _t(d["px"]), _t(d["py"]), _t(z),
                                     d["origin"], old_h, lookup.lookup)
     return got.numpy(), np.asarray(want)
