@@ -1,14 +1,15 @@
 """GPU smoke test of the PyTorch port: builds and checks its CUDA kernels,
 then drives the sorted-scan streaming path, the layer-publishing wire path,
-the entry point, the unsorted default path, a 128-beam buffer and the golden
-parity tooling on one card.
+the entry point, the unsorted default path, a 128-beam buffer, the golden
+parity tooling and a 64-vehicle fleet on one card.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero, printing no result):
 
 1. Environment: torch and CUDA versions, the card's name and power limit,
-   the kernels' build time (nvcc, from ``groundgrid_torch/csrc``).
+   the kernels' build time (nvcc, one process per source under
+   ``groundgrid_torch/csrc``, all started together).
 2. Each kernel against its plain PyTorch version on the same CUDA tensors,
    at the main paths' shapes (364^2 grid, 131072-point buffer):
    K1 raster (7 columns of a prepared scan: counts, sums, min and max all
@@ -34,7 +35,11 @@ Phases (any failure raises and exits non-zero, printing no result):
    call computes K1, K3 or K4).
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
    synthetic scans: per-scan launch counts (K1 x1, K2 x3, K3 x1), no
-   sortedness fallback, labels against the plain-version run on the card
+   sortedness fallback, every step after the first under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no device-to-host read),
+   labels and outliers bitwise those of the host-read step (the counted
+   march and the host sortedness check, as the step ran before it stopped
+   reading the host), labels against the plain-version run on the card
    (>= 99.9 % agreement), a second kernel run bitwise equal to the first,
    ground-vs-truth recall/precision, ms/scan from CUDA events.
 4. The layer-publishing wire path, ``StreamingDriver(GroundGridConfig(
@@ -64,7 +69,8 @@ Phases (any failure raises and exits non-zero, printing no result):
 6. Unsorted mode at the config default, ``StreamingDriver(GroundGridConfig())``
    (364^2, 131072 points, raw scans transformed and stable-sorted on the
    device) over the 32 scans of phase 3: per-scan launch counts (K1 x1, K2
-   x3, K3 x1), labels against the plain-version run over the first 8 scans
+   x3, K3 x1), the sync check and the host-read step as in phase 3, labels
+   against the plain-version run over the first 8 scans
    (the plain K3 takes over a second a scan; >= 99.9 %) and against phase
    3's sorted labels over all 32 (>= 99.9 %, the JAX package's sorted-vs-
    default bar), a second kernel run bitwise, ms/scan from CUDA events, and
@@ -73,19 +79,33 @@ Phases (any failure raises and exits non-zero, printing no result):
    sorted_scans=True)`` over 8 scans of ``synthetic_sequence(n_beams=128,
    n_azimuth=2048)``: the march selects candidates by the exact-budget key
    above 2^17 points. Points per scan and marchable candidates against
-   ``max_outlier_candidates``, launch counts, labels against the plain run
-   (>= 99.9 %), a second kernel run bitwise, ms/scan.
+   ``max_outlier_candidates``, launch counts, the sync check and the
+   host-read step as in phase 3, labels against the plain run (>= 99.9 %),
+   a second kernel run bitwise, ms/scan.
 8. Golden parity with the port on the card: ``python -m groundgrid_torch
    accuracy`` at ``tests/test_accuracy.py``'s size cut to 6 scans (32 beams x
    900, a 60 m grid at 0.5 m, 32768 points), sorted and unsorted, exits 0
    within 0.1 pt; the five
    boundary configs of the config fuzz pass their row bounds (< 0.1 pt,
    < 2e-3 label mismatch).
+9. BASELINE.json config 5, the fleet: ``FleetDriver(GroundGridConfig(
+   sorted_scans=True), batch=64, device)`` for 4 ticks, vehicle v on phase
+   3's records from record v mod 32 (backward for v >= 32): per tick K1 x64,
+   K2 x192, K3 x64, the step of ticks 2-4 under the sync check (host prep
+   and the tick's one fetch outside), the summary equal to the fetched
+   labels' counts; every vehicle's labels and outliers bitwise those of a
+   ``StreamingDriver`` over its stream; a 2-vehicle, 2-tick plain-version
+   fleet (>= 99.9 %); tick 1 again with the summary all_reduced through a
+   1-rank NCCL group (``parallel/multihost.py``): the local sum, bitwise
+   labels; ``bench --batch 64``. Prints ms per tick and scans/s (CUDA
+   events around the tick, host prep and fetch included) and the bench's
+   metric line.
 
 The line before the last is the kernels' JSON record (``ms`` is the device
 time, ``library_ms`` null where no one PyTorch call computes the function;
 K4 adds its ``*_highres`` times and bound at 1200^2; ``launches`` counts phase
-3, ``launches_unsorted`` phase 6 and ``launches_topk`` phase 7);
+3, ``launches_unsorted`` phase 6, ``launches_topk`` phase 7 and
+``launches_fleet`` phase 9's 4 ticks);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -109,6 +129,8 @@ N_HIGHRES_SCANS = 4
 N_PLAIN_UNSORTED = 8  # the plain K3 takes over a second a scan
 N_TOPK_SCANS = 8
 TOPK_POINTS = 262144  # a 128-beam sensor at 2048 azimuths: ~240k points a scan
+FLEET_BATCH = 64  # BASELINE.json config 5: 64 scans a step
+FLEET_TICKS = 4
 AGREE_MIN = 0.999
 GROUND_TRUTH_IDS = (40, 72)  # synthetic road and terrain (SemanticKITTI ids)
 WIRE_BUDGET_PT = 0.1  # the JAX CLI's ``accuracy`` budget (cli.py:539)
@@ -525,10 +547,69 @@ def check_detect(config, driver, rec, records):
     return out
 
 
-def run_sequence(config, records, device, with_aux=False, driver=None, per_scan=None):
+class SyncChecked:
+    """A step run under ``torch.cuda.set_sync_debug_mode("error")``: any
+    device-to-host read inside it raises. Host prep and the fetch stay
+    outside; the step's attributes (``fallbacks``) read through."""
+
+    def __init__(self, step):
+        self.step = step
+
+    def __call__(self, *args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return self.step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+
+@contextlib.contextmanager
+def counted_march():
+    """The march as it was before it stopped reading the host: it reads the
+    marchable count and marches only min(count, cap) candidates."""
+    from groundgrid_torch.core import outliers
+
+    fixed = outliers.detect_outliers
+
+    def counted(config, *args):
+        _, marchable = fixed(config, *args)
+        n_act = min(int(marchable), config.max_outlier_candidates)
+        return fixed(dataclasses.replace(config, max_outlier_candidates=n_act), *args)
+
+    outliers.detect_outliers = counted
+    try:
+        yield
+    finally:
+        outliers.detect_outliers = fixed
+
+
+def same_as_host_read_step(config, records, device, results, name):
+    """``results`` bitwise (labels and outlier flags) those of the step as it
+    was before it stopped reading the host: the counted march, and the
+    sortedness check as a Python ``bool``. ``run_sequence`` has held the
+    step to 0 fallbacks, so that check found every scan sorted and left the
+    raster's inputs as they came: the reference trusts the host's order
+    (``sorted_fallback_check=False``)."""
+    ref_config = dataclasses.replace(config, sorted_fallback_check=False)
+    with counted_march():
+        ref, _, _, _ = run_sequence(ref_config, records, device)
+    for a, b in zip(results, ref):
+        if not (np.array_equal(a.labels, b.labels) and np.array_equal(a.outlier, b.outlier)):
+            raise AssertionError(f"{name}: not bitwise the host-read step (counted march, "
+                                 f"host sortedness check)")
+    log(f"{name}: labels and outliers bitwise those of the host-read step (counted march, "
+        f"host sortedness check) over {len(records)} scans")
+
+
+def run_sequence(config, records, device, with_aux=False, driver=None, per_scan=None,
+                 sync_check=False):
     """Results (input order) of ``driver`` (a fresh one by default) over
     ``records``, with the CUDA-event and host-clock ms/scan of the run;
-    ``per_scan(driver)`` runs after each scan."""
+    ``per_scan(driver)`` runs after each scan. With ``sync_check`` every
+    step after the first runs under :class:`SyncChecked`."""
     from groundgrid_torch.runtime.driver import StreamingDriver
 
     if driver is None:
@@ -539,7 +620,9 @@ def run_sequence(config, records, device, with_aux=False, driver=None, per_scan=
     t0 = time.perf_counter()
     start.record()
     results = []
-    for rec in records:
+    for i, rec in enumerate(records):
+        if sync_check and i == 1:
+            driver.step = SyncChecked(driver.step)
         results.append(driver.process(rec))
         if per_scan is not None:
             per_scan(driver)
@@ -589,13 +672,15 @@ def phase_sequence(config, records, device):
     from groundgrid_torch.ops import reset_launch_counts
 
     reset_launch_counts()
-    results, driver, event_ms, wall_ms = run_sequence(config, records, device)
+    results, driver, event_ms, wall_ms = run_sequence(config, records, device, sync_check=True)
     counts = path_counts()
     n = len(records)
     check_launches(counts, {"raster": n, "lookup": 3 * n, "spiral": n, "detect": 0}, driver,
                    "main path")
     log(f"main path: {event_ms:.3f} ms/scan (CUDA events, host prep included), "
-        f"{1000.0 / event_ms:.2f} scans/s; host clock {wall_ms:.3f} ms/scan")
+        f"{1000.0 / event_ms:.2f} scans/s; host clock {wall_ms:.3f} ms/scan; steps 2-{n} under "
+        f"the sync check")
+    same_as_host_read_step(config, records, device, results, "main path")
 
     check_labels(results, records)
     for t in (driver.state.ground, driver.state.groundpatch):
@@ -906,7 +991,7 @@ def phase_unsorted(records, sorted_results, device):
         raise AssertionError("the config default is not unsorted mode")
     n = len(records)
     reset_launch_counts()
-    results, driver, event_ms, wall_ms = run_sequence(config, records, device)
+    results, driver, event_ms, wall_ms = run_sequence(config, records, device, sync_check=True)
     counts = path_counts()
     check_launches(counts, {"raster": n, "lookup": 3 * n, "spiral": n, "detect": 0}, driver,
                    "unsorted path")
@@ -915,7 +1000,9 @@ def phase_unsorted(records, sorted_results, device):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError("unsorted path: grid layers not finite")
     log(f"unsorted path: {event_ms:.3f} ms/scan (CUDA events, host prep included), "
-        f"{1000.0 / event_ms:.2f} scans/s; host clock {wall_ms:.3f} ms/scan")
+        f"{1000.0 / event_ms:.2f} scans/s; host clock {wall_ms:.3f} ms/scan; steps 2-{n} under "
+        f"the sync check")
+    same_as_host_read_step(config, records, device, results, "unsorted path")
 
     cut = records[:N_PLAIN_UNSORTED]
     plain, _, plain_ms, _ = run_sequence(dataclasses.replace(config, use_pallas=False), cut,
@@ -974,11 +1061,13 @@ def phase_topk(device):
     candidates = []
     reset_launch_counts()
     results, driver, event_ms, wall_ms = run_sequence(
-        config, records, device, per_scan=lambda d: candidates.append(d.step.marchable))
+        config, records, device, per_scan=lambda d: candidates.append(d.step.marchable),
+        sync_check=True)
     counts = path_counts()
     check_launches(counts, {"raster": n, "lookup": 3 * n, "spiral": n, "detect": 0}, driver,
                    "128-beam path")
     check_labels(results, records)
+    same_as_host_read_step(config, records, device, results, "128-beam path")
     plain, _, plain_ms, _ = run_sequence(dataclasses.replace(config, use_pallas=False),
                                          records, device)
     mism, total = agreement(results, plain, "128-beam path vs plain")
@@ -1024,6 +1113,124 @@ def phase_golden(device):
             raise AssertionError(f"fuzz boundary row '{name}' beyond its bounds")
     log(f"golden parity on the card: passed in {time.perf_counter() - t0:.1f} s")
 
+
+def fleet_streams(records, n_vehicles, n_ticks):
+    """Vehicle v drives phase 3's records from record ``v mod n``, forward
+    for the first n vehicles and backward after: no two share a stream."""
+    n = len(records)
+    step = [1 if v < n else -1 for v in range(n_vehicles)]
+    return [[records[(v + step[v] * k) % n] for k in range(n_ticks)] for v in range(n_vehicles)]
+
+
+def check_summary(tick, name):
+    counts = (int((tick.labels == 49).sum()), int((tick.labels == 99).sum()),
+              int(tick.outlier.sum()))
+    summary = (tick.ground_points, tick.nonground_points, tick.outliers)
+    if summary != counts:
+        raise AssertionError(f"{name}: fleet summary {summary} != the labels' counts {counts}")
+    return counts
+
+
+def phase_fleet(config, records, device):
+    """Phase 9: BASELINE config 5, a fleet of FLEET_BATCH vehicles."""
+    import torch.distributed as dist
+
+    from groundgrid_torch.ops import reset_launch_counts
+    from groundgrid_torch.parallel.multihost import init_multihost
+    from groundgrid_torch.runtime import cli
+    from groundgrid_torch.runtime.fleet import FleetDriver
+
+    b = FLEET_BATCH
+    streams = fleet_streams(records, b, FLEET_TICKS)
+    fleet = FleetDriver(config, batch=b, device=device)
+    ticks, tick_ms, total = [], [], {}
+    want = {"raster": b, "lookup": 3 * b, "spiral": b, "detect": 0, "spiral_band": b,
+            "spiral_global": 0}
+    for k in range(FLEET_TICKS):
+        if k == 1:  # ticks 2+: the step under the sync check, prep and fetch outside
+            fleet.step = SyncChecked(fleet.step)
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reset_launch_counts()
+        start.record()
+        tok = fleet.dispatch([s[k] for s in streams])
+        counts = path_counts()
+        ticks.append(fleet.fetch(tok))  # the tick's one blocking read
+        end.record()
+        end.synchronize()
+        tick_ms.append(start.elapsed_time(end))
+        if counts != want:
+            raise AssertionError(f"fleet tick {k + 1}: launches {counts} (want {want})")
+        total = {key: total.get(key, 0) + v for key, v in counts.items()}
+        check_summary(ticks[-1], f"fleet tick {k + 1}")
+    if fleet.step.fallbacks:
+        raise AssertionError(f"fleet: {fleet.step.fallbacks} sortedness fallbacks")
+    log(f"fleet of {b}, {FLEET_TICKS} ticks: launches per tick {want}; ticks 2-{FLEET_TICKS} "
+        f"stepped under the sync check; ms per tick (CUDA events, host prep and fetch "
+        f"included) {', '.join(f'{t:.1f}' for t in tick_ms)}, "
+        f"{1000.0 * b * len(tick_ms) / sum(tick_ms):.2f} scans/s")
+
+    stream_ms = []
+    for v, stream in enumerate(streams):
+        results, _, ms, _ = run_sequence(config, stream, device)
+        stream_ms.append(ms)
+        for k, res in enumerate(results):
+            n = res.n_points
+            if not (np.array_equal(ticks[k].labels[v][:n], res.labels)
+                    and np.array_equal(ticks[k].outlier[v][:n] > 0, res.outlier)):
+                raise AssertionError(f"fleet vehicle {v} tick {k + 1}: not bitwise streaming")
+    log(f"fleet: labels and outliers of all {b} vehicles bitwise {b} StreamingDrivers over the "
+        f"same streams ({np.mean(stream_ms):.3f} ms/scan streaming, CUDA events)")
+
+    plain = FleetDriver(dataclasses.replace(config, use_pallas=False), batch=2, device=device)
+    reset_launch_counts()
+    plain_ticks = list(plain.run([s[:2] for s in streams[:2]]))
+    if any(path_counts()[key] for key in ("raster", "lookup", "spiral", "detect")):
+        raise AssertionError("plain-version fleet launched a kernel")
+    total_pts = mism = 0
+    for k, pt in enumerate(plain_ticks):
+        for v in range(2):
+            n = pt.n_points[v]
+            total_pts += n
+            mism += int((pt.labels[v][:n] != ticks[k].labels[v][:n]).sum())
+    if 1 - mism / total_pts < AGREE_MIN:
+        raise AssertionError(f"fleet vs plain: {mism} of {total_pts} labels differ")
+    log(f"fleet vs a 2-vehicle, 2-tick plain-version fleet: {mism} of {total_pts} labels "
+        f"differ ({1 - mism / total_pts:.6%} agree)")
+
+    # the summary's all_reduce through a 1-rank NCCL group: tick 1 again
+    with tempfile.TemporaryDirectory() as tmp:
+        if init_multihost(f"file://{tmp}/store", 1, 0, device=device):
+            raise AssertionError("a 1-rank group reports several processes")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"backend {dist.get_backend()} on the card, want nccl")
+            grouped = FleetDriver(config, batch=b, device=device).process(
+                [s[0] for s in streams])
+        finally:
+            dist.destroy_process_group()
+    local = check_summary(grouped, "fleet through NCCL")
+    if local != check_summary(ticks[0], "fleet tick 1") or not np.array_equal(
+            grouped.labels, ticks[0].labels):
+        raise AssertionError("fleet through a 1-rank NCCL group differs from tick 1")
+    log(f"fleet summary all_reduced through a 1-rank NCCL group: {local} (ground, non-ground, "
+        f"outliers), the local sum and tick 1's")
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["bench", "--batch", str(b), "--scans", str(2 * b), "--device",
+                       str(device)])
+    sys.stderr.write(err.getvalue())
+    line = out.getvalue().strip().splitlines()[-1]
+    payload = json.loads(line)
+    extra = payload["extra"]
+    if rc != 0 or extra["batch"] != b or extra["fallbacks"] or not payload["value"] > 0:
+        raise AssertionError(f"bench --batch {b}: exit {rc}, {line}")
+    log(f"bench --batch {b}: {line}")
+    return total, {"ms_per_tick": tick_ms, "stream_ms_per_scan": float(np.mean(stream_ms)),
+                   "bench": payload}
+
 def main() -> int:
     phase_environment()
     from groundgrid_torch.config import HIGHRES_CONFIG, GroundGridConfig
@@ -1054,6 +1261,7 @@ def main() -> int:
     unsorted_counts, _ = phase_unsorted(records, sorted_results, device)
     topk_counts, _ = phase_topk(device)
     phase_golden(device)
+    fleet_counts, _ = phase_fleet(config, records, device)
     kernels = []
     # launches: each kernel's count in the path it serves (K4: phase 4; K3's
     # global-band variant serves grids above 2415 cells a side, none of them)
@@ -1072,6 +1280,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"groundgrid_torch/csrc/{route_file}",
             "replaces": replaces, "launches": launches[key],
             "launches_unsorted": unsorted_counts[key], "launches_topk": topk_counts[key],
+            "launches_fleet": fleet_counts[key],
             "max_abs_err": res["max_abs_err"],
             "ms": res["device_ms"], "device_ms": res["device_ms"],
             "wrapper_device_ms": res["wrapper_device_ms"], "call_ms": res["call_ms"],

@@ -15,10 +15,12 @@ sources in ``groundgrid_torch/csrc``) are built by ``nvcc`` at first use.
 Entry point: ``python -m groundgrid_torch evaluate | playback | accuracy |
 bench`` (``runtime/cli.py``) over a SemanticKITTI-layout dataset, with the
 C++ prefetching loaders (``data/native_loader.py``), the pipelined driver
-and on-device scoring (``eval/device.py``). The evidence tooling holds the
-port to its own copy of the NumPy oracle (``golden.py``): the accuracy
-harness (``eval/accuracy.py``) and the config fuzz
-(``python -m groundgrid_torch.eval.fuzz``).
+and on-device scoring (``eval/device.py``); ``bench --batch B`` runs a fleet
+of B vehicles in lock-step (``runtime/fleet.py``, ``parallel/``, the JAX
+package's fleet axis over a device list and ``torch.distributed``). The
+evidence tooling holds the port to its own copy of the NumPy oracle
+(``golden.py``): the accuracy harness (``eval/accuracy.py``) and the config
+fuzz (``python -m groundgrid_torch.eval.fuzz``).
 """
 
 from groundgrid_torch.config import DEFAULT_CONFIG, HIGHRES_CONFIG, GroundGridConfig
@@ -40,6 +42,9 @@ from groundgrid_torch.pipeline import (
 from groundgrid_torch.data.semantickitti import ScanRecord
 from groundgrid_torch.runtime.checkpoint import load_state, save_state
 from groundgrid_torch.runtime.driver import StreamingDriver
+from groundgrid_torch.runtime.fleet import FleetDriver, FleetTickResult
+from groundgrid_torch.parallel.sharding import FleetSummary, make_fleet_step, make_mesh
+from groundgrid_torch.parallel.multihost import MultiHostFleet, init_multihost
 
 __version__ = "0.1.0"
 
@@ -66,6 +71,13 @@ __all__ = [
     "load_state",
     "ScanRecord",
     "StreamingDriver",
+    "FleetDriver",
+    "FleetTickResult",
+    "FleetSummary",
+    "make_fleet_step",
+    "make_mesh",
+    "MultiHostFleet",
+    "init_multihost",
     "__version__",
 ]
 

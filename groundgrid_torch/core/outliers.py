@@ -21,10 +21,12 @@ into one monotone u32 key per cell.
 
 What is not: the tier/peel lattice, the while loops, the 2-wide pair table
 and the sort/unsort around the lattice lookups were TPU loop-cost and
-gather workarounds. Here one host read fetches the active candidate count,
-the buffered candidates march the whole (step x candidate) lattice, and
-every key read goes through K2 (``ops/lookup.py``), which takes unsorted
-cells.
+gather workarounds. Here the fixed ``k_max`` buffer of the JAX package
+(``outliers.py:225-246`` there) marches the whole (step x candidate)
+lattice, and every key read goes through K2 (``ops/lookup.py``), which
+takes unsorted cells. A candidate with a zero budget never fires
+(``step^2 < 0`` is false), so the padded buffer marks the outliers of the
+marchable ones alone, and the march reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -115,9 +117,9 @@ def selection_key(budget):
 
 def detect_outliers(config: GroundGridConfig, center, center_lo, ground, groundpatch,
                     binning: Binning, x, y, z, origin, old_h, lookup_fn):
-    """``((P,) bool, int)``: True for occluded-return outliers, and the
+    """``((P,) bool, () int64)``: True for occluded-return outliers, and the
     number of marchable candidates (before the ``max_outlier_candidates``
-    cap; 0 when the cap is 0), which the one host read already fetched.
+    cap; 0 when the cap is 0) as a tensor on the points' device, unread.
 
     ``ground``/``groundpatch``: the previous scan's layers (after the move).
     ``old_h``: per-point ``ground[cell]`` (K2). ``center``/``center_lo``/
@@ -130,7 +132,7 @@ def detect_outliers(config: GroundGridConfig, center, center_lo, ground, groundp
     out = torch.zeros(p_total, dtype=torch.int32, device=dev)
     k_max = min(config.max_outlier_candidates, p_total)
     if k_max == 0:
-        return out > 0, 0
+        return out > 0, torch.zeros((), dtype=torch.int64, device=dev)
     o = np.asarray(origin, np.float32)
     tol = float(np.float32(config.outlier_tolerance))
 
@@ -141,19 +143,15 @@ def detect_outliers(config: GroundGridConfig, center, center_lo, ground, groundp
     budget = torch.where(cand & (vz < float(np.float32(-0.01))), len2, torch.zeros_like(len2))
 
     # candidate selection; a positive budget always outranks a zero one, so
-    # the top min(k_max, #positive) keys are exactly the JAX package's
-    # marchable buffer
-    key = selection_key(budget)
-    n_marchable = int((budget > 0).sum())  # the one host read
-    n_act = min(n_marchable, k_max)
-    if n_act == 0:
-        return out > 0, n_marchable
-    pidx = torch.topk(key, n_act, sorted=False).indices
+    # the top k_max keys hold the JAX package's marchable buffer, padded
+    # with zero budgets that never fire
+    n_marchable = (budget > 0).sum()
+    pidx = torch.topk(selection_key(budget), k_max, sorted=False).indices
 
     key_table = occlusion_key_table(config, ground, groundpatch)
     steps = torch.arange(3, config.ray_steps, dtype=torch.float32, device=dev)[:, None]
     chunk = max(1, LATTICE_ELEMS // max(1, steps.shape[0]))
-    for start in range(0, n_act, chunk):
+    for start in range(0, k_max, chunk):
         cp = pidx[start:start + chunk]
         dx, dy, dz, clen = _ray(x[cp], y[cp], z[cp], o)
         vx = exactf32.div_rn(dx, clen)

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (``groundgrid_torch/csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every source under ``csrc/`` into one shared
+At first use, ``nvcc`` compiles every source under ``csrc/``, one process
+per source, all started together, and links the objects into one shared
 library with a plain C interface in ``groundgrid_torch/_build/`` (listed in
 ``.gitignore``), which is then loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -o _build/libgroundgrid_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c -o <tmp>/<source>.o csrc/<source>.cu   (each source)
+    nvcc -shared -o _build/libgroundgrid_kernels_<hash>.so <tmp>/*.o
 
 The file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the existing library. ``--fmad=false``
@@ -34,7 +36,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -92,17 +94,33 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, src.stem + ".o") for src in sources]
+        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(sources, objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in jobs]
+        try:
+            outputs = [proc.communicate() for proc in procs]
+        finally:
+            for proc in procs:  # none outlives the build
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for cmd, proc, (stdout, stderr) in zip(jobs, procs, outputs):
+            _check_nvcc(cmd, proc.returncode, stdout, stderr)
+        lib = os.path.join(tmp, out.name)
+        link = [nvcc, "-shared", "-o", lib, *objects]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, proc.returncode, proc.stdout, proc.stderr)
+        os.replace(lib, out)  # atomic: a concurrent build never sees a partial file
     return out
+
+
+def _check_nvcc(cmd, returncode, stdout, stderr) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}")
 
 
 def library() -> _Library:

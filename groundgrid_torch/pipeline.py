@@ -22,9 +22,9 @@ PyTorch idiom: plain functions on tensors, eager. Entry points that
 allocate take an explicit ``device``. The step updates the ``GridState`` it
 is given in place and returns it (the JAX step donated the state's buffers,
 ``pipeline.py:325`` of the JAX package); the spiral kernel writes into the
-detect stage's fresh layers. Per scan the step reads the device twice in
-sorted mode (the sortedness check and the march's candidate count) and once
-in unsorted mode (the count).
+detect stage's fresh layers. The step reads nothing back to the host: the
+march runs a fixed candidate buffer, and the sortedness check counts on
+the device.
 
 Kernels: with ``config.use_pallas`` None or True, K1-K4 go through their
 wrappers (``groundgrid_torch/ops``), which launch the CUDA kernels for CUDA
@@ -134,20 +134,24 @@ class Step:
 
     ``scan`` is a :class:`Scan`, or a :class:`WireScan` under
     ``config.wire_format``. In sorted mode ``fallbacks`` counts scans whose
-    device cell ids were not sorted (a host/device binning divergence);
-    those are sorted on the device, by a stable sort of the ids, before K1.
-    With ``config.sorted_fallback_check`` false the step trusts the host's
-    order, as the JAX step does: no sortedness read, no fallback. Unsorted
-    mode takes that stable sort on every scan, and counts no fallback.
-    ``marchable`` is the last scan's count of marchable outlier candidates,
-    before the ``max_outlier_candidates`` cap.
+    device cell ids were not sorted (a host/device binning divergence).
+    With the check on, every scan's raster inputs take a stable sort of the
+    ids before K1; of sorted ids it is the identity, so a sorted scan reaches
+    K1 bitwise as it came, and no host read picks between the two (the JAX
+    step's ``lax.cond``, ``pipeline.py:204-214`` there). With
+    ``config.sorted_fallback_check`` false the step trusts the host's order,
+    as the JAX step does: no check, no fallback, no sort. Unsorted mode
+    takes that stable sort on every scan, and counts no fallback. ``marchable``
+    is the last scan's count of marchable outlier candidates, before the
+    ``max_outlier_candidates`` cap. Both counts stay on the device until
+    read: reading one waits for the step.
     """
 
     def __init__(self, config: GroundGridConfig, with_aux: bool = False):
         self.config = config
         self.with_aux = with_aux
-        self.fallbacks = 0
-        self.marchable = 0
+        self._fallbacks: dict[torch.device, torch.Tensor] = {}  # a counter per device
+        self._marchable: torch.Tensor | None = None
         self._tables: dict[torch.device, detectlib.DetectTables] = {}
         if config.use_pallas is False:
             self._reduce = rasterops.raster_reduce_plain
@@ -160,6 +164,14 @@ class Step:
             self._spiral = spiralops.spiral_interpolation
             fused = detectops.detect_fused
         self._detect = fused if config.fused_detect else detectlib.detect_ground_patches
+
+    @property
+    def fallbacks(self) -> int:
+        return sum(int(count) for count in self._fallbacks.values())
+
+    @property
+    def marchable(self) -> int:
+        return 0 if self._marchable is None else int(self._marchable)
 
     def tables(self, device) -> detectlib.DetectTables:
         device = torch.device(device)
@@ -192,7 +204,7 @@ class Step:
 
         # --- outlier ray-march against the previous terrain (cpp:242-275) ---
         (old_h,) = self._lookup(binning.cell, [moved.ground], n2)
-        outlier, self.marchable = outlierlib.detect_outliers(
+        outlier, self._marchable = outlierlib.detect_outliers(
             cfg, center, center_lo, moved.ground, moved.groundpatch, binning, x, y, z,
             origin, old_h, self._lookup,
         )
@@ -202,12 +214,13 @@ class Step:
         rb, rz, racc = binning, z, accept
         cell = binning.cell
         order = None
-        if not cfg.sorted_scans:
+        if not cfg.sorted_scans or cfg.sorted_fallback_check:
             order = torch.argsort(cell, stable=True)
-        elif (cfg.sorted_fallback_check and cell.shape[0] > 1
-                and not bool((cell[1:] >= cell[:-1]).all())):
-            self.fallbacks += 1
-            order = torch.argsort(cell, stable=True)
+        if cfg.sorted_scans and cfg.sorted_fallback_check:
+            if cell.device not in self._fallbacks:
+                self._fallbacks[cell.device] = torch.zeros((), dtype=torch.int64,
+                                                           device=cell.device)
+            self._fallbacks[cell.device] += (cell[1:] < cell[:-1]).any()
         if order is not None:
             rb, rz, racc = binning.permute(order), z[order], accept[order]
         raster = rasterlib.rasterize_sorted(cfg, rb, rz, origin, racc, center,

@@ -1,19 +1,29 @@
 """Throughput benchmark of the PyTorch step on a CUDA device.
 
-The port's counterpart of ``groundgrid_tpu/runtime/bench.py`` (streaming,
-batch 1): one ego vehicle over synthetic HDL-64E scans (64 beams x 2048
-azimuths, ~118k valid points), the default sorted-scan configuration, and
-the same metric name, ``synthetic_hdl64_scans_per_sec_per_chip``.
+The port's counterpart of ``groundgrid_tpu/runtime/bench.py``: synthetic
+HDL-64E scans (64 beams x 2048 azimuths, ~118k valid points), the default
+sorted-scan configuration, and the same metric name,
+``synthetic_hdl64_scans_per_sec_per_chip``. Two modes, as there:
 
-* ``device_ms_per_scan``: CUDA events around warm forward steps on
-  host-prepared scans, the same 32-distinct-scan cycle as the JAX bench
-  (two re-warm steps re-enter the forward path after the cycle wraps, so no
-  timed step is a backward teleport). The event span is the device timeline
-  of the steps, including the gaps where the device waits on the host (the
-  step reads the device twice per scan), so it bounds the busy time above.
-* ``wall_ms_per_scan``: host clock over ``StreamingDriver.process``, host
-  prep (map-frame transform, cell sort, pinned H2D copy) and the label
-  fetch included; ``host_prep_ms_p50_p90`` is the host prep alone.
+* streaming (``batch=1``): one ego vehicle.
+
+  - ``device_ms_per_scan``: CUDA events around warm forward steps on
+    host-prepared scans, the same 32-distinct-scan cycle as the JAX bench
+    (two re-warm steps re-enter the forward path after the cycle wraps, so
+    no timed step is a backward teleport). The event span is the device
+    timeline of the steps, including the gaps where the device waits on
+    the host's dispatch, so it bounds the busy time above.
+  - ``wall_ms_per_scan``: host clock over ``StreamingDriver.process``, host
+    prep (map-frame transform, cell sort, pinned H2D copy) and the label
+    fetch included; ``host_prep_ms_p50_p90`` is the host prep alone.
+
+* fleet (``batch=B > 1``, BASELINE.json config 5): B vehicles stepped in
+  lock-step by the fleet step (``parallel/sharding.py``). As in the JAX
+  bench, 8 distinct scans are prepared once, every vehicle starts at the
+  first pose and vehicle v steps scan ``v mod 8`` every tick.
+  ``device_ms_per_scan`` is the mean CUDA-event span of a tick over B, over
+  at least ``FLEET_MIN_TICKS`` timed ticks (``n_scans / B`` if more);
+  ``wall_ms_per_scan`` adds the tick's fetch of the fleet summary.
 
 Run on the card: ``python -m groundgrid_torch.runtime.bench`` prints one
 JSON line; ``--profile`` prints instead a ``torch.profiler`` table of eight
@@ -34,8 +44,17 @@ import torch
 
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.data.synthetic import make_scene, render_scan, vehicle_pose
+from groundgrid_torch.parallel.sharding import (
+    make_fleet_step,
+    make_mesh,
+    shard_fleet_pytree,
+    stack_fleet_pytree,
+)
+from groundgrid_torch.pipeline import CenterTracker, init_state, prepare_scan
 from groundgrid_torch.runtime.driver import ScanRecord, StreamingDriver
 from groundgrid_torch.runtime.kernel_timing import device_us
+
+FLEET_MIN_TICKS = 8  # a fleet tick's span varies by tens of percent between ticks
 
 
 def _log(msg: str) -> None:
@@ -105,13 +124,91 @@ def device_ms_per_step(driver: StreamingDriver, records: list[ScanRecord]):
     return [a.elapsed_time(b) for a, b in zip(events, events[1:])], prep_ms
 
 
-def run_benchmark(n_scans: int = 64, resolution: float = 0.33, dimension: float = 120.0,
-                  warmup: int = 3, n_beams: int = 64, n_azimuth: int = 2048,
-                  max_points: int = 131072, device="cuda") -> dict:
-    """Streaming throughput of the sorted-scan step on one CUDA device."""
+def fleet_inputs(config: GroundGridConfig, records: list[ScanRecord], batch: int, device):
+    """The fleet bench's inputs on ``device``: ``(mesh, states, scans)``.
+
+    Each record is prepared once against the stream's f64 center tracker;
+    every vehicle starts at the first record's pose, and vehicle v steps
+    the prepared scan ``v mod len(records)``.
+    """
+    mesh = make_mesh([device])
+    positions = [np.asarray(r.t_map_velo, np.float64)[:2, 3] for r in records]
+    tracker = CenterTracker(config, positions[0])
+    scans = [prepare_scan(config, r.points[:, :3], r.labels, r.t_map_velo, tracker.update(pos),
+                          "cpu")[0] for r, pos in zip(records, positions)]
+    states = stack_fleet_pytree([init_state(config, records[0].t_map_velo, "cpu")] * batch)
+    batched = stack_fleet_pytree([scans[v % len(scans)] for v in range(batch)])
+    return mesh, shard_fleet_pytree(states, mesh), shard_fleet_pytree(batched, mesh)
+
+
+def run_fleet_benchmark(config: GroundGridConfig, records: list[ScanRecord], batch: int,
+                        n_scans: int, warmup: int, device) -> dict:
+    """Fleet throughput of ``batch`` vehicles on one CUDA device: the
+    metric line's fleet fields."""
+    mesh, states, scans = fleet_inputs(config, records, batch, device)
+    fleet = make_fleet_step(config, mesh)
+    for _ in range(warmup):
+        states, _, summary = fleet(states, scans)
+    int(summary.ground_points)
+    ticks, wall = [], []
+    for _ in range(max(FLEET_MIN_TICKS, n_scans // batch)):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        states, _, summary = fleet(states, scans)
+        end.record()
+        int(summary.ground_points)  # the tick's fetch
+        wall.append((time.perf_counter() - t0) * 1000.0)
+        ticks.append(start.elapsed_time(end))
+    tick_ms, wall_ms = float(np.mean(ticks)), float(np.mean(wall))
+    _log(f"bench: fleet of {batch}: {tick_ms:.3f} device ms per tick (CUDA events), wall "
+         f"{wall_ms:.3f} ms per tick, {len(ticks)} ticks timed")
+    return {
+        "batch": batch,
+        "n_chips": 1,
+        "total_scans_per_sec": round(1000.0 * batch / tick_ms, 2),
+        "device_ms_per_scan": round(tick_ms / batch, 4),
+        "device_ms_per_tick": round(tick_ms, 4),
+        "device_ms_per_tick_min_p50_p90_max": [round(float(v), 4)
+                                               for v in np.percentile(ticks, [0, 50, 90, 100])],
+        "ticks_timed": len(ticks),
+        "wall_ms_per_scan": round(wall_ms / batch, 4),
+        "wall_ms_per_tick": round(wall_ms, 4),
+        "fallbacks": fleet.fallbacks,
+        "methodology": (
+            "value = 1000 / device_ms_per_scan; device_ms_per_scan = mean CUDA-event "
+            "span of a warm fleet tick over the batch (device waits on the host's "
+            "dispatch included); wall_ms_per_scan = host clock over the tick and its "
+            "fetch of the fleet summary, over the batch; scans prepared once, as in the "
+            "JAX fleet bench"
+        ),
+    }
+
+
+def run_benchmark(n_scans: int = 64, batch: int = 1, resolution: float = 0.33,
+                  dimension: float = 120.0, warmup: int = 3, n_beams: int = 64,
+                  n_azimuth: int = 2048, max_points: int = 131072, device="cuda") -> dict:
+    """Throughput of the sorted-scan step on one CUDA device: streaming
+    (``batch=1``) or a fleet of ``batch`` vehicles."""
     device = require_cuda(device)
     config = GroundGridConfig(resolution=resolution, dimension=dimension,
                               max_points=max_points, sorted_scans=True)
+    if batch > 1:
+        records = synthetic_records(config, 8, n_beams, n_azimuth)
+        fleet = run_fleet_benchmark(config, records, batch, n_scans, warmup, device)
+        return {
+            "metric": "synthetic_hdl64_scans_per_sec_per_chip",
+            "value": round(1000.0 / fleet["device_ms_per_scan"], 2),
+            "unit": "scans/s/chip",
+            "extra": {
+                "platform": "cuda",
+                "gpu": torch.cuda.get_device_name(device),
+                "nvidia_smi_name_power_limit": gpu_name_and_power_limit(),
+                "grid_cells": config.cell_count,
+                "points_per_scan": int(min(records[0].points.shape[0], max_points)),
+                **fleet,
+            },
+        }
     n_distinct = min(32, max(4, n_scans))
     records = synthetic_records(config, n_distinct, n_beams, n_azimuth)
     n_points = int(min(records[0].points.shape[0], max_points))

@@ -12,12 +12,12 @@ output lines and JSON payload, on one explicit ``--device`` (default
     live viewer
   * ``accuracy`` == the pipeline-vs-golden metric deltas on synthetic worlds
     (``eval/accuracy.py``), exit code 0 within ``--budget-pt``
-  * ``bench``    == the port's synthetic throughput benchmark (one JSON line)
+  * ``bench``    == the port's synthetic throughput benchmark (one JSON line);
+    ``--batch B`` above 1 runs a fleet of B vehicles (``runtime/fleet.py``)
 
 Sorted-scan mode is the default (the JAX CLI's default on its accelerator);
 ``--no-sorted`` runs unsorted mode, where ``--native-loader`` reads raw scans
-in the C++ threads and the step transforms and sorts on the device. Not
-ported yet: ``bench --batch`` above 1 (see ROADMAP.md).
+in the C++ threads and the step transforms and sorts on the device.
 
     python -m groundgrid_torch evaluate --directory <kitti_root> --sequence 00
 """
@@ -419,10 +419,7 @@ def cmd_accuracy(args) -> int:
 def cmd_bench(args) -> int:
     from groundgrid_torch.runtime.bench import run_benchmark
 
-    if args.batch > 1:
-        raise NotImplementedError(
-            "bench --batch > 1 needs the fleet driver, not ported yet (see ROADMAP.md)")
-    result = run_benchmark(n_scans=args.scans, resolution=args.resolution,
+    result = run_benchmark(n_scans=args.scans, batch=args.batch, resolution=args.resolution,
                            dimension=args.dimension, device=args.device)
     print(json.dumps(result), flush=True)
     return 0

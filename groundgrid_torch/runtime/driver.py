@@ -303,10 +303,10 @@ class StreamingDriver:
         ``pipeline_depth``: scans dispatched beyond the one being fetched.
         0 is lock-step (each scan's fetch completes before the next
         dispatch). With depth >= 1 the next scans' host prep and dispatch
-        run before the fetch; the step reads the device twice per scan
-        (sortedness check, march candidate count), so the overlap is bounded
-        by those reads. Results arrive in order, bitwise those of depth 0;
-        ``wall_ms`` then includes pipeline residency.
+        run before the fetch; the step reads nothing back to the host, so
+        they overlap the device's work on the scans in flight. Results
+        arrive in order, bitwise those of depth 0; ``wall_ms`` then includes
+        pipeline residency.
         """
         if pipeline_depth > 0:
             self.stats.pipeline_depth = pipeline_depth

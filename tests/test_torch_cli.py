@@ -315,10 +315,11 @@ def test_playback_resume(long_dataset_root, capsys, tmp_path):
 
 
 def test_unported_options_raise(long_dataset_root, monkeypatch):
-    """bench --batch > 1 is not ported; --device cuda without a card raises
-    instead of running on the CPU."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["bench", "--batch", "2", "--device", "cpu"])
+    """bench gives no CPU number, streaming or fleet (--batch > 1); --device
+    cuda without a card raises instead of running on the CPU."""
+    for batch in ("1", "2"):
+        with pytest.raises(RuntimeError, match="a CUDA device is required"):
+            main(["bench", "--batch", batch, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cmd in ("evaluate", "playback"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -19,7 +19,9 @@ one where the use3 disc's edge crosses a tile; two runs bitwise; border
 cells passed through); the occlusion march shedding candidates at the
 cap, on both selection keys, bitwise the CPU's; plus the small-config
 streaming step on the card against the same step on the CPU, on the main
-path and on the fused, aux and wire path.
+path and on the fused, aux and wire path; the fleet on the card bitwise
+per-vehicle streaming; a warm step and a fleet tick under
+``torch.cuda.set_sync_debug_mode("error")``; the fleet bench.
 """
 
 import dataclasses
@@ -524,3 +526,79 @@ def test_native_loader_on_card_matches_prepare_scan(cuda, tmp_path, wire):
         for f in ("qx", "qy", "qz", "rings") if wire else ("px", "py", "pz", "rings", "valid"):
             a, b = getattr(rec_p.scan, f), getattr(want, f)
             assert a.device == b.device and torch.equal(a, b), f
+
+
+def _small_fleet_streams(n_vehicles, n_scans):
+    from groundgrid_torch.data.synthetic import synthetic_sequence
+    from groundgrid_torch.runtime.driver import ScanRecord
+
+    return [[ScanRecord(index=k, timestamp=0.1 * k, points=p, labels=l, t_map_velo=T)
+             for k, (p, l, T) in enumerate(synthetic_sequence(n_scans, seed=30 + v, n_beams=24,
+                                                              n_azimuth=720, step_m=1.5))]
+            for v in range(n_vehicles)]
+
+
+@pytest.mark.parametrize("sorted_scans", [True, False])
+def test_fleet_on_card_matches_streaming(cuda, sorted_scans):
+    """The fleet on the card equals one StreamingDriver per vehicle on the
+    card, bitwise; each tick launches K1 x1, K2 x3 and K3 x1 per vehicle."""
+    from groundgrid_torch.runtime.driver import StreamingDriver
+    from groundgrid_torch.runtime.fleet import FleetDriver
+
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5, max_points=16384, ray_steps=40,
+                           max_outlier_candidates=1024, sorted_scans=sorted_scans)
+    streams = _small_fleet_streams(4, 3)
+    fleet = FleetDriver(cfg, batch=4, device=cuda)
+    ticks = []
+    for k in range(3):
+        reset_launch_counts()
+        ticks.append(fleet.process([s[k] for s in streams]))
+        assert launch_counts() == {"raster": 4, "lookup": 12, "spiral": 4, "detect": 0}
+    for v, stream in enumerate(streams):
+        driver = StreamingDriver(cfg, device=cuda)
+        for k, rec in enumerate(stream):
+            res = driver.process(rec)
+            np.testing.assert_array_equal(ticks[k].labels[v][:res.n_points], res.labels)
+            np.testing.assert_array_equal(ticks[k].outlier[v][:res.n_points] > 0, res.outlier)
+    assert ticks[-1].ground_points == int((ticks[-1].labels == 49).sum()) > 0
+    assert fleet.step.fallbacks == 0
+
+
+@pytest.mark.parametrize("sorted_scans,check", [(True, True), (True, False), (False, True)])
+def test_warm_step_makes_no_sync(cuda, sorted_scans, check):
+    """A warm step, and a fleet tick without its fetch, run under
+    ``torch.cuda.set_sync_debug_mode("error")``: no device-to-host read."""
+    from groundgrid_torch.runtime.driver import StreamingDriver
+    from groundgrid_torch.runtime.fleet import FleetDriver
+
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5, max_points=16384, ray_steps=40,
+                           max_outlier_candidates=1024, sorted_scans=sorted_scans,
+                           sorted_fallback_check=check)
+    streams = _small_fleet_streams(2, 3)
+    driver = StreamingDriver(cfg, device=cuda)
+    fleet = FleetDriver(cfg, batch=2, device=cuda)
+    for k in range(2):
+        driver.process(streams[0][k])
+        fleet.process([s[k] for s in streams])
+    scan, _ = driver.make_scan(streams[0][2])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            int(driver.state.ground.sum())  # the mode is on
+        driver.step(driver.state, scan)
+        tick = fleet.dispatch([s[2] for s in streams])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fleet.fetch(tick).ground_points > 0
+    assert driver.step.fallbacks == fleet.step.fallbacks == 0
+
+
+def test_run_benchmark_fleet_smoke(cuda):
+    """``run_benchmark(batch > 1)`` end to end at a small size."""
+    from groundgrid_torch.runtime.bench import run_benchmark
+
+    r = run_benchmark(n_scans=4, batch=2, resolution=0.5, dimension=40.0, warmup=1,
+                      n_beams=8, n_azimuth=128, max_points=4096, device=cuda)
+    assert r["value"] > 0
+    assert r["extra"]["batch"] == 2 and r["extra"]["fallbacks"] == 0
