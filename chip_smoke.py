@@ -1,7 +1,8 @@
 """GPU smoke test of the PyTorch port: builds and checks its CUDA kernels,
 then drives the sorted-scan streaming path, the layer-publishing wire path,
 the entry point, the unsorted default path, a 128-beam buffer, the golden
-parity tooling and a 64-vehicle fleet on one card.
+parity tooling, a 64-vehicle fleet and one grid split over shards, on one
+card.
 
     python3 chip_smoke.py
 
@@ -24,7 +25,12 @@ Phases (any failure raises and exits non-zero, printing no result):
    ``HIGHRES_CONFIG`` fused-detect driver warmed on 4 scans, and random
    layers at n = 12 and 45, one seed with low variance so that the main
    update fires: ground and confidence bitwise, two runs bitwise; timed at
-   both grid sizes). Per kernel: its device time
+   both grid sizes). K3's ring ranges (``spiral_interpolation_rings``) at
+   364^2 and 1200^2 (warm states, ``HIGHRES_CONFIG`` for the latter) and at
+   n = 2416 (the global band, random layers): the bands of S = 2 and 8 in
+   order bitwise one full launch, one band against its plain version (the
+   bounds above), device ms per band launch; the full launch at 1200^2
+   timed alone. Per kernel: its device time
    (``torch.profiler``, the named kernel's own time per launch), the device
    time of everything one wrapper call launches, the wrapper's cost per
    call (CUDA events around back-to-back calls), the plain version's, the
@@ -100,12 +106,25 @@ Phases (any failure raises and exits non-zero, printing no result):
    labels; ``bench --batch 64``. Prints ms per tick and scans/s (CUDA
    events around the tick, host prep and fetch included) and the bench's
    metric line.
+10. The spatial step (``parallel/spatial.py``), one grid split row-wise
+   over an in-process mesh on the one card, sorted scans with their
+   centers, both spiral modes: (a) ``HIGHRES_CONFIG`` (1200^2) over
+   ``["cuda:0"] * 8``, (b) the default 364^2 over ``["cuda:0"] * 4``, each
+   over the first 4 scans: launches per scan K1 x S, K2 x 3S, K3 x S, steps
+   2-4 under the sync check, banded == replicated bitwise (labels,
+   outliers, ground, groundpatch), a second run of each bitwise the first,
+   against the single-grid ``Step`` over the same scans labels >= 99.95 %,
+   ground atol 2e-4 / rtol 1e-4, groundpatch 1e-5 / 1e-5 (the JAX spatial
+   test's bounds); ms per scan by CUDA events of both modes and of the
+   single-grid step. One card: these are no scaling numbers.
 
 The line before the last is the kernels' JSON record (``ms`` is the device
 time, ``library_ms`` null where no one PyTorch call computes the function;
 K4 adds its ``*_highres`` times and bound at 1200^2; ``launches`` counts phase
 3, ``launches_unsorted`` phase 6, ``launches_topk`` phase 7 and
-``launches_fleet`` phase 9's 4 ticks);
+``launches_fleet`` phase 9's 4 ticks, ``launches_spatial`` the first run of
+each mode in phase 10; K3 adds ``*_highres`` full-launch times at 1200^2 and
+``band_*_364`` / ``_1200`` / ``_2416`` ring-range results);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -131,6 +150,7 @@ N_TOPK_SCANS = 8
 TOPK_POINTS = 262144  # a 128-beam sensor at 2048 azimuths: ~240k points a scan
 FLEET_BATCH = 64  # BASELINE.json config 5: 64 scans a step
 FLEET_TICKS = 4
+N_SPATIAL_SCANS = 4
 AGREE_MIN = 0.999
 GROUND_TRUTH_IDS = (40, 72)  # synthetic road and terrain (SemanticKITTI ids)
 WIRE_BUDGET_PT = 0.1  # the JAX CLI's ``accuracy`` budget (cli.py:539)
@@ -208,8 +228,8 @@ def check_raster(config, driver, rec):
 
     scan, binning, accept = prepared(config, driver, rec)
     cell = binning.cell
-    cols, ops, _ = rasterlib.raster_columns(config, binning, scan.pz, scan.t_map_velo[:3, 3],
-                                           accept, scan.center, scan.t_base_map)
+    cols, ops = rasterlib.raster_columns(config, binning, scan.pz, scan.t_map_velo[:3, 3],
+                                        accept, scan.center, scan.t_base_map)
     n2 = config.cell_count ** 2
     got = raster.raster_reduce(cell, cols, ops, n2)
     want = raster.raster_reduce_plain(cell, cols, ops, n2)
@@ -451,6 +471,103 @@ def check_spiral_global(device, dimension=241.6, resolution=0.1, seed=0):
         f"{rec['call_ms']:.4f} ms, plain {plain_ms:.1f} ms (one call), bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return rec
+
+
+def ring_cells(d0: int, d1: int) -> int:
+    """Cells on rings d0 .. d1 (ring 0, the center, is one cell)."""
+    return sum(8 * d if d else 1 for d in range(d0, d1 + 1))
+
+
+def check_spiral_bands(cfg, ground, conf, base_z, name, time_full=False):
+    """K3's ring ranges on ``(ground, conf)``: the bands of S = 2 and 8 run in
+    order, bitwise one full launch; one band of S = 8 (the second) against
+    its plain version on the same inputs (heights atol 2e-5 / rtol 1e-5,
+    confidence bitwise); the device ms per band launch of S = 8 and, with
+    ``time_full``, the full launch's times. Random or warm layers alike."""
+    from groundgrid_torch.ops import spiral
+    from groundgrid_torch.parallel.spiral_shard import band_ranges
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    n, m = cfg.cell_count, cfg.center_cell
+    kname = "spiral_kernel" if spiral.spiral_variant(n) == "band" else "spiral_global_kernel"
+    full = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), base_z)
+    out = {"n": n}
+    for size in (2, 8):
+        h, c = ground.clone(), conf.clone()
+        for k, (d0, d1) in enumerate(band_ranges(cfg, size)):
+            spiral.spiral_interpolation_rings(cfg, h, c, base_z, d0, d1, seed_center=k == 0)
+        for got, want, what in ((h, full[0], "heights"), (c, full[1], "confidence")):
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"K3 {name}: the {size} bands in order differ from one "
+                                     f"launch in {what} ({int((got != want).sum())} cells)")
+    ranges = band_ranges(cfg, 8)
+    h, c = ground.clone(), conf.clone()
+    spiral.spiral_interpolation_rings(cfg, h, c, base_z, *ranges[0], seed_center=True)
+    d0, d1 = ranges[1]
+    g_k, c_k = spiral.spiral_interpolation_rings(cfg, h.clone(), c.clone(), base_z, d0, d1)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g_p, c_p = spiral.spiral_interpolation_rings_plain(cfg, h.clone(), c.clone(), base_z, d0, d1,
+                                                       False)
+    end.record()
+    end.synchronize()
+    if not torch.equal(c_k, c_p):
+        raise AssertionError(f"K3 {name} band {d0}-{d1}: confidence differs in "
+                             f"{int((c_k != c_p).sum())} cells")
+    if not torch.allclose(g_k, g_p, atol=2e-5, rtol=1e-5):
+        raise AssertionError(f"K3 {name} band {d0}-{d1}: heights beyond atol 2e-5 / rtol 1e-5: "
+                             f"max {float((g_k - g_p).abs().max())}")
+    out["band_max_abs_err"] = float((g_k - g_p).abs().max())
+    out["band_plain_ms"] = start.elapsed_time(end)
+    out["band_rings"] = [d0, d1]
+
+    def bands():
+        for k, (e0, e1) in enumerate(ranges):
+            spiral.spiral_interpolation_rings(cfg, h, c, base_z, e0, e1, seed_center=k == 0)
+
+    reps = 20 if n <= 1200 else 2
+    out["bands_device_ms"] = device_ms(bands, reps, kname, per_call=len(ranges))[0]
+    out["band_device_ms"] = out["bands_device_ms"] / len(ranges)  # per band launch
+    visits = (d1 - d0 + 1) * 2 + 8 * sum(range(d0, d1 + 1))
+    out.update({"band_" + k: v for k, v in bound(
+        2 * 4 * (ring_cells(d0 - 1, d1 + 1) + ring_cells(d0, d1)), 55 * visits).items()})
+    if time_full:
+        out.update(kernel_times(lambda: spiral.spiral_interpolation(cfg, h, c, base_z), 20,
+                                kname))
+        visits = (m - 1) * (4 * m + 2) + 1
+        out.update(bound(2 * 4 * ((2 * m + 1) ** 2 + (2 * m - 1) ** 2), 55 * visits))
+    log(f"K3 ring ranges at {name} ({n}^2): the bands of S = 2 and 8 in order bitwise one "
+        f"launch; band {d0}-{d1} vs plain: confidence bitwise, heights max_abs_err "
+        f"{out['band_max_abs_err']:.3g}, plain {out['band_plain_ms']:.1f} ms (one call); "
+        f"device {out['band_device_ms']:.4f} ms a band launch of S = 8 "
+        f"({out['bands_device_ms']:.4f} ms for all 8), band bound {out['band_bound_ms']:.5f} ms"
+        + (f"; full launch device {out['device_ms']:.4f} ms, call {out['call_ms']:.4f} ms, "
+           f"bound {out['bound_ms']:.4f} ms" if time_full else ""))
+    return out
+
+
+def check_spiral_ranges(config, driver, rec, high_driver, device):
+    """Phase 2's ring-range checks: K3 at 364^2 (the warm state of ``driver``),
+    at 1200^2 (``high_driver``, warm at ``HIGHRES_CONFIG``; the full launch
+    timed alone) and the global-band variant at n = 2416 (random layers)."""
+    from groundgrid_torch.config import GroundGridConfig
+
+    base_z = float(np.asarray(driver.make_scan(rec)[0].t_map_base)[2, 3])
+    out = {"364": check_spiral_bands(config, driver.state.ground, driver.state.groundpatch,
+                                     base_z, "364^2 warm")}
+    high = high_driver.config
+    out["1200"] = check_spiral_bands(high, high_driver.state.ground,
+                                     high_driver.state.groundpatch, base_z, "1200^2 warm",
+                                     time_full=True)
+    cfg = GroundGridConfig(dimension=241.6, resolution=0.1)
+    rng = np.random.default_rng(1)
+    n = cfg.cell_count
+    conf = np.where(rng.random((n, n)) < 0.4, rng.uniform(0.0, 1.0, (n, n)), 0.0)
+    out["2416"] = check_spiral_bands(
+        cfg, torch.from_numpy(rng.normal(0, 0.5, (n, n)).astype(np.float32)).to(device),
+        torch.from_numpy(conf.astype(np.float32)).to(device), 0.37, "n = 2416 (global band)")
+    return out
 
 
 def warm_detect_layers(config, driver, rec):
@@ -1231,6 +1348,118 @@ def phase_fleet(config, records, device):
     return total, {"ms_per_tick": tick_ms, "stream_ms_per_scan": float(np.mean(stream_ms)),
                    "bench": payload}
 
+def spatial_scans(config, records, device):
+    """``records`` prepared for the sorted step (host-tracked centers), on
+    ``device``, with the state to start from."""
+    from groundgrid_torch.pipeline import CenterTracker, init_state, prepare_scan
+
+    T0 = np.asarray(records[0].t_map_velo, np.float64)
+    tracker = CenterTracker(config, T0[:2, 3])
+    scans = []
+    for rec in records:
+        T = np.asarray(rec.t_map_velo, np.float64)
+        scan, _ = prepare_scan(config, rec.points, rec.labels, T, tracker.update(T[:2, 3]),
+                               device)
+        scans.append(scan)
+    return scans, init_state(config, T0.astype(np.float32), device)
+
+
+def run_spatial(step, state, scans, mesh, sync_check=True):
+    """The spatial step over ``scans`` from ``state``: per scan the gathered
+    (ground, groundpatch, labels, outlier), and the CUDA-event ms per scan
+    (scans prepared beforehand). Steps after the first run under the sync
+    check."""
+    from groundgrid_torch.parallel import spatial
+
+    g, c = spatial.split_rows(state.ground, mesh), spatial.split_rows(state.groundpatch, mesh)
+    center = (state.center, state.center_lo)
+    chunks = [spatial.shard_scan(scan, mesh) for scan in scans]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = []
+    for k, chunk in enumerate(chunks):
+        run = SyncChecked(step) if sync_check and k else step
+        g, c, center, labels, outlier = run(g, c, center, chunk)
+        outs.append((g, c, labels, outlier))
+    end.record()
+    end.synchronize()
+    results = [tuple(torch.cat(x) for x in out) for out in outs]
+    return results, start.elapsed_time(end) / len(scans)
+
+
+def phase_spatial(config, records, device, n_shards):
+    """Phase 10: the spatial step on ``["cuda:0"] * n_shards`` over ``records``
+    in both spiral modes, against the single-grid step and itself."""
+    from groundgrid_torch.ops import reset_launch_counts
+    from groundgrid_torch.parallel import spatial
+    from groundgrid_torch.pipeline import make_step
+
+    n, name = len(records), f"spatial {config.cell_count}^2 over {n_shards} shards"
+    scans, state0 = spatial_scans(config, records, device)
+    single = make_step(config)
+    state = dataclasses.replace(state0, ground=state0.ground.clone(),
+                                groundpatch=state0.groundpatch.clone())
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = []
+    for scan in scans:
+        state, out = single(state, scan)
+        ref.append((state.ground.clone(), state.groundpatch.clone(), out.labels, out.outlier))
+    end.record()
+    end.synchronize()
+    single_ms = start.elapsed_time(end) / n
+    mesh = [device] * n_shards
+    want = {"raster": n_shards * n, "lookup": 3 * n_shards * n, "spiral": n_shards * n,
+            "detect": 0, "spiral_band": n_shards * n, "spiral_global": 0}
+    runs, ms, total = {}, {}, {}
+    for mode in ("replicated", "banded"):
+        step = spatial.make_spatial_step(config, mesh, spiral_mode=mode, with_scan_center=True)
+        reset_launch_counts()
+        runs[mode], ms[mode] = run_spatial(step, state0, scans, mesh)
+        counts = path_counts()
+        if counts != want:
+            raise AssertionError(f"{name} ({mode}): launches {counts} (want {want})")
+        if step.fallbacks:
+            raise AssertionError(f"{name} ({mode}): {step.fallbacks} sortedness fallbacks")
+        total = {key: total.get(key, 0) + v for key, v in counts.items()}
+        again, ms[mode + "_again"] = run_spatial(step, state0, scans, mesh)
+        for k, (a, b) in enumerate(zip(runs[mode], again)):
+            if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                       for x, y in zip(a, b)):
+                raise AssertionError(f"{name} ({mode}) scan {k + 1}: second run not bitwise")
+    points = 0
+    worst = [0.0, 0.0]
+    for k, (r, b, s) in enumerate(zip(runs["replicated"], runs["banded"], ref)):
+        if not all(torch.equal(x, y) for x, y in zip(r, b)):
+            raise AssertionError(f"{name} scan {k + 1}: banded differs from replicated")
+        for j, (atol, rtol) in enumerate(((2e-4, 1e-4), (1e-5, 1e-5))):
+            if not bool(torch.isfinite(r[j]).all()) or not torch.allclose(r[j], s[j], atol=atol,
+                                                                           rtol=rtol):
+                raise AssertionError(f"{name} scan {k + 1}: layer {j} beyond atol {atol} / rtol "
+                                     f"{rtol} of the single-grid step: max "
+                                     f"{float((r[j] - s[j]).abs().max())}")
+            worst[j] = max(worst[j], float((r[j] - s[j]).abs().max()))
+        points += int((s[2] > 0).sum())
+        if not np.isin(r[2].cpu().numpy(), (0, 49, 99)).all():
+            raise AssertionError(f"{name}: labels outside 0 / 49 / 99")
+    mism = sum(int((r[2] != s[2]).sum()) for r, s in zip(runs["replicated"], ref))
+    rate = 1 - mism / (n * config.max_points)
+    if rate < 0.9995:
+        raise AssertionError(f"{name}: {mism} labels differ from the single-grid step")
+    log(f"{name}, {n} scans: launches per scan K1 x{n_shards}, K2 x{3 * n_shards}, K3 "
+        f"x{n_shards} in both spiral modes; steps 2-{n} under the sync check; banded == "
+        f"replicated bitwise (labels, outliers, ground, groundpatch); second runs bitwise; vs "
+        f"the single-grid step {mism} of {n * config.max_points} labels differ ({points} "
+        f"labelled points), ground max {worst[0]:.3g}, groundpatch max {worst[1]:.3g}; ms per "
+        f"scan (CUDA events, scans prepared beforehand): replicated {ms['replicated']:.3f} / "
+        f"{ms['replicated_again']:.3f}, banded {ms['banded']:.3f} / {ms['banded_again']:.3f}, "
+        f"single-grid {single_ms:.3f}")
+    return total, dict(ms, single=single_ms, label_mismatch=mism, ground_max=worst[0],
+                       groundpatch_max=worst[1])
+
+
 def main() -> int:
     phase_environment()
     from groundgrid_torch.config import HIGHRES_CONFIG, GroundGridConfig
@@ -1248,6 +1477,10 @@ def main() -> int:
     k2 = check_lookup(config, driver, cell, records[4])
     k3 = check_spiral(config, driver, records[4])
     k3g = check_spiral_global(device)
+    high_driver = warm_driver(dataclasses.replace(HIGHRES_CONFIG, sorted_scans=True), records,
+                              device)
+    k3r = check_spiral_ranges(config, driver, records[4], high_driver, device)
+    del high_driver
     k4 = check_detect(config, driver, records[4], records)
     torch.cuda.synchronize()
 
@@ -1262,6 +1495,16 @@ def main() -> int:
     topk_counts, _ = phase_topk(device)
     phase_golden(device)
     fleet_counts, _ = phase_fleet(config, records, device)
+    spatial_counts = {}
+    for cfg, shards in ((dataclasses.replace(HIGHRES_CONFIG, sorted_scans=True), 8),
+                        (config, 4)):
+        counts_s, _ = phase_spatial(cfg, records[:N_SPATIAL_SCANS], device, shards)
+        spatial_counts = {k: spatial_counts.get(k, 0) + v for k, v in counts_s.items()}
+    # K3 at 1200^2: the full launch alone and the bands of S = 8
+    k3.update({k + "_highres": v for k, v in k3r["1200"].items()
+               if k in ("device_ms", "wrapper_device_ms", "call_ms", "bound_ms")})
+    for key, res in (("364", k3), ("1200", k3), ("2416", k3g)):
+        res.update({f"{k}_{key}": v for k, v in k3r[key].items() if k.startswith("band")})
     kernels = []
     # launches: each kernel's count in the path it serves (K4: phase 4; K3's
     # global-band variant serves grids above 2415 cells a side, none of them)
@@ -1280,13 +1523,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"groundgrid_torch/csrc/{route_file}",
             "replaces": replaces, "launches": launches[key],
             "launches_unsorted": unsorted_counts[key], "launches_topk": topk_counts[key],
-            "launches_fleet": fleet_counts[key],
+            "launches_fleet": fleet_counts[key], "launches_spatial": spatial_counts[key],
             "max_abs_err": res["max_abs_err"],
             "ms": res["device_ms"], "device_ms": res["device_ms"],
             "wrapper_device_ms": res["wrapper_device_ms"], "call_ms": res["call_ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-            **{k: v for k, v in res.items() if k.endswith("_highres")},
+            **{k: v for k, v in res.items()
+               if k.endswith(("_highres", "_364", "_1200", "_2416"))},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,9 @@ bench`` (``runtime/cli.py``) over a SemanticKITTI-layout dataset, with the
 C++ prefetching loaders (``data/native_loader.py``), the pipelined driver
 and on-device scoring (``eval/device.py``); ``bench --batch B`` runs a fleet
 of B vehicles in lock-step (``runtime/fleet.py``, ``parallel/``, the JAX
-package's fleet axis over a device list and ``torch.distributed``). The
+package's fleet axis over a device list and ``torch.distributed``);
+``make_spatial_step`` splits one grid row-wise over a mesh of devices or
+ranks (``parallel/spatial.py``, the spiral as an exact band relay). The
 evidence tooling holds the port to its own copy of the NumPy oracle
 (``golden.py``): the accuracy harness (``eval/accuracy.py``) and the config
 fuzz (``python -m groundgrid_torch.eval.fuzz``).
@@ -45,6 +47,14 @@ from groundgrid_torch.runtime.driver import StreamingDriver
 from groundgrid_torch.runtime.fleet import FleetDriver, FleetTickResult
 from groundgrid_torch.parallel.sharding import FleetSummary, make_fleet_step, make_mesh
 from groundgrid_torch.parallel.multihost import MultiHostFleet, init_multihost
+from groundgrid_torch.parallel.spatial import (
+    GroupMesh,
+    LocalMesh,
+    blocks_from_numpy,
+    blocks_to_numpy,
+    make_spatial_step,
+    shard_scan,
+)
 
 __version__ = "0.1.0"
 
@@ -78,6 +88,12 @@ __all__ = [
     "make_mesh",
     "MultiHostFleet",
     "init_multihost",
+    "make_spatial_step",
+    "LocalMesh",
+    "GroupMesh",
+    "shard_scan",
+    "blocks_from_numpy",
+    "blocks_to_numpy",
     "__version__",
 ]
 

@@ -98,15 +98,55 @@ def detect_ground_patches(config: GroundGridConfig, tables: DetectTables, points
     Formulas of GroundSegmentation.cpp:343-395; 3x3 vs 5x5 per cell by the
     patch_size_change_distance rule (:330-338).
     """
+    return _update(config, tables, points, variance, min_ground_height, ground, groundpatch, 0)
+
+
+# ghost rows a row block's stencil inputs carry on each side (the 5x5 window)
+HALO = 2
+
+
+def row_tables(tables: DetectTables, rows: slice) -> DetectTables:
+    """The tables of a block of grid rows."""
+    return DetectTables(*(t[rows] for t in tables))
+
+
+def detect_block(config: GroundGridConfig, tables: DetectTables, points_h, variance_h,
+                 min_ground_height_h, ground, groundpatch):
+    """:func:`detect_ground_patches` on one block of grid rows, the port of
+    the JAX package's ``parallel/spatial.py _detect_block``.
+
+    The stencil inputs carry ``HALO`` ghost rows above and below the block
+    (``(rows + 2 HALO, N)``); ``tables`` (:func:`row_tables`), ``ground`` and
+    ``groundpatch`` are the block's own rows. The windows reduce over the
+    halo'd block, offsets in the whole grid's row-major order, and are then
+    cropped: with the neighbours' rows as halo, the block is bitwise the
+    whole grid's sweep on those rows. At the grid's top and bottom the JAX
+    step fills the halo with zeros, for the minimum too (+inf pads the
+    whole grid's); only rows 0-1 and N-2..N-1 read them, and those lie
+    outside ``tables.interior``, so no output changes.
+    """
+    return _update(config, tables, points_h, variance_h, min_ground_height_h, ground,
+                   groundpatch, HALO)
+
+
+def _update(config, tables, points_h, variance_h, min_gh_h, ground, groundpatch, halo):
     cfg = config
-    pv = points * variance
-    pm = points * min_ground_height  # empty cells: 0 * FLT_MAX == 0
+    rows = slice(halo, points_h.shape[0] - halo)
+    pv = points_h * variance_h
+    pm = points_h * min_gh_h  # empty cells: 0 * FLT_MAX == 0
+
+    def box(x, size):
+        return _box(x, size)[rows]
+
+    def minpool(x, size):
+        return _minpool(x, size)[rows]
 
     use3 = tables.use3
-    psum = torch.where(use3, _box(points, 3), _box(points, 5))
-    pvsum = torch.where(use3, _box(pv, 3), _box(pv, 5))
-    pmsum = torch.where(use3, _box(pm, 3), _box(pm, 5))
-    localmin = torch.where(use3, _minpool(min_ground_height, 3), _minpool(min_ground_height, 5))
+    psum = torch.where(use3, box(points_h, 3), box(points_h, 5))
+    pvsum = torch.where(use3, box(pv, 3), box(pv, 5))
+    pmsum = torch.where(use3, box(pm, 3), box(pm, 5))
+    localmin = torch.where(use3, minpool(min_gh_h, 3), minpool(min_gh_h, 5))
+    points, variance = points_h[rows], variance_h[rows]
 
     process = tables.interior & (psum >= tables.skip_thr)
     safe = torch.clamp_min(psum, 1.0)

@@ -143,13 +143,12 @@ def raster_columns(config: GroundGridConfig, binning: Binning, z, origin, accept
     where a point is not accepted). Rounding is monotone, so the per-cell
     minimum of ``z - 1e-4`` (the reference's epsilon) and the extrema of
     ``pd = z - origin.z`` follow bitwise from the z extrema.
-    Returns ``(cols, ops, shift)``, ``shift`` the (N*N,) plane-shift map.
+    Returns ``(cols, ops)``.
     """
     o2 = float(np.float32(np.asarray(origin, np.float32)[2]))
     pd = z - o2
     zero = torch.zeros_like(z)
     s_pt = _plane_shift_point(config, center, t_base_map, origin, binning.gi0, binning.gi1)
-    shift = _plane_shift_map(config, center, t_base_map, origin, z.device)
     pdc = torch.where(accept, pd - s_pt, zero)
     cols = [
         binning.inmap.to(torch.float32),
@@ -160,27 +159,55 @@ def raster_columns(config: GroundGridConfig, binning: Binning, z, origin, accept
         torch.where(accept, z, torch.full_like(z, MIN_SENT)),
         torch.where(accept, z, torch.full_like(z, -MIN_SENT)),
     ]
-    ops = ["sum", "sum", "sum", "sum", "sum", "min", "max"]
-    return cols, ops, shift
+    return cols, list(COLUMN_OPS)
 
 
-def rasterize_sorted(config: GroundGridConfig, binning: Binning, z, origin, accept,
-                     center, t_base_map, reduce_fn, with_max: bool = False) -> RasterLayers:
-    """Rasterization of a **cell-sorted** scan through one K1 call.
+# the reductions of the seven columns of :func:`raster_columns`
+COLUMN_OPS = ("sum", "sum", "sum", "sum", "sum", "min", "max")
 
-    ``reduce_fn``: ``ops.raster.raster_reduce`` (kernel on CUDA) or its
-    plain version, over the columns of :func:`raster_columns`. The pd-spread
-    flag of the exact-zero m2 gate is ``min pd < max pd`` over the accepted
-    points, the JAX package's "some pd differs from the first" test.
 
-    ``with_max`` fills the aux max layer from the same max column: the max of
+def raster_partials(config: GroundGridConfig, binning: Binning, z, origin, accept, center,
+                    t_base_map, reduce_fn) -> list:
+    """One shard's seven (N*N,) K1 columns over its **cell-sorted** points:
+    one ``reduce_fn`` call (``ops.raster.raster_reduce``, the kernel on
+    CUDA, or its plain version) over :func:`raster_columns`."""
+    cols, ops = raster_columns(config, binning, z, origin, accept, center, t_base_map)
+    return reduce_fn(binning.cell, cols, ops, config.cell_count ** 2)
+
+
+def finish_partials(config: GroundGridConfig, partials, origin, center, t_base_map,
+                    with_max: bool = False) -> RasterLayers:
+    """The raster layers from the K1 columns of S shards, in shard order.
+
+    Columns 0-4 are summed in the given order (so every process that folds
+    the same partials gets the same bits), column 5 takes the minimum and
+    column 6 the maximum over the shards that hold points of the cell; one
+    shard's columns pass through untouched. The pd-spread flag of the exact-zero m2 gate is
+    ``min pd < max pd`` over the accepted points, the JAX package's "some pd
+    differs from the first" test. The plane shift is per cell (the JAX
+    package's ``center`` / ``t_base_map`` form), so no scalar crosses the
+    shards.
+
+    ``with_max`` fills the aux max layer from the max column: the max of
     the accepted z and the reset value FLT_MIN (the reference's init quirk,
     GroundSegmentation.cpp:73), FLT_MIN in cells without accepted points.
     Without it the layer holds the reset value.
     """
     n2 = config.cell_count ** 2
-    cols, ops, shift = raster_columns(config, binning, z, origin, accept, center, t_base_map)
-    out = reduce_fn(binning.cell, cols, ops, n2)
+    if len(partials) == 1:
+        out = list(partials[0])
+    else:
+        # K1 leaves a cell without points at 0 in every column: its extrema
+        # take the sentinels before they fold
+        out = [torch.stack(col) for col in zip(*partials)]
+        has = out[0] > 0
+        out[5] = torch.where(has, out[5], MIN_SENT).amin(0)
+        out[6] = torch.where(has, out[6], -MIN_SENT).amax(0)
+        for j in range(5):
+            total = out[j][0]
+            for part in out[j][1:]:
+                total = total + part
+            out[j] = total
     raw, zmin, zmax = out[0], out[5], out[6]
     o2 = float(np.float32(np.asarray(origin, np.float32)[2]))
     # cells with no points read 0, all-ignored cells the sentinel
@@ -190,11 +217,20 @@ def rasterize_sorted(config: GroundGridConfig, binning: Binning, z, origin, acce
     if with_max:  # non-accepted points carry -MIN_SENT: they never win
         maxs = torch.where(raw > 0, torch.clamp_min(zmax, FLT_TINY), FLT_TINY)
     else:
-        maxs = torch.full((n2,), FLT_TINY, dtype=torch.float32, device=z.device)
+        maxs = torch.full((n2,), FLT_TINY, dtype=torch.float32, device=raw.device)
+    shift = _plane_shift_map(config, center, t_base_map, origin, raw.device)
     return _finish_layers(
         config, points_raw=raw, count=out[1], sum_z=out[2], sum_pdc=out[3],
         sum_pdc2=out[4], min_gh=mins, max_gh=maxs, shift=shift, has_spread=has_spread,
     )
+
+
+def rasterize_sorted(config: GroundGridConfig, binning: Binning, z, origin, accept,
+                     center, t_base_map, reduce_fn, with_max: bool = False) -> RasterLayers:
+    """Rasterization of a **cell-sorted** scan through one K1 call: the
+    one-shard case of :func:`raster_partials` and :func:`finish_partials`."""
+    part = raster_partials(config, binning, z, origin, accept, center, t_base_map, reduce_fn)
+    return finish_partials(config, [part], origin, center, t_base_map, with_max=with_max)
 
 
 def _finish_layers(config, points_raw, count, sum_z, sum_pdc, sum_pdc2, min_gh, max_gh,

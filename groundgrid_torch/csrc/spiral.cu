@@ -8,6 +8,8 @@
 // rings of radius D = 1 .. m-1 run inner -> outer, each as 4 segments in walk
 // order (top row ->, left column v, bottom row <-, right column ^; the
 // corners (i, i) and (o, o), i = m - D, o = m + D, are visited twice).
+// A launch may walk a range of rings d0 .. d1 (gg_spiral's arguments): the
+// banded relay of parallel/spiral_shard.py runs its bands one launch each.
 // Within a segment a cell's 3x3 stencil reads an updated value only from its
 // walk predecessor, so the heights obey the affine recurrence
 // h[k] = a[k] + b[k] * h[k-1] with coefficients known before the segment
@@ -479,33 +481,38 @@ __device__ void walk_ring(const Band& B, const Consts& K, const int* plans, int 
   }
 }
 
-// One block: the first blockDim.x - kMemThreads threads walk the rings; the
-// last kMemThreads (the memory warps) store each finished ring, plan the
+// One block: the first blockDim.x - kMemThreads threads walk rings d0 .. d1;
+// the last kMemThreads (the memory warps) store each finished ring, plan the
 // next ring's segments and fetch the ring two ahead, and meet the walkers
-// once per ring.
+// once per ring. The prologue fetches rings d0-1 (final), d0 and d0+1, and
+// seeds the center (ring 0) when `seed` is set; the launch stores ring d1
+// last. So the bands of a partition of 1 .. m-1, launched in order on the
+// same layers, give bitwise the one launch over the whole range.
 template <int EM>
 __global__ void __launch_bounds__(1024, 1)
-spiral_kernel(float* h, float* c, Consts K, float base_z, int stride) {
+spiral_kernel(float* h, float* c, Consts K, float base_z, int stride, int d0, int d1,
+              int seed) {
   extern __shared__ float2 band[];
   const Band B{band, stride};
   float* scratch = reinterpret_cast<float*>(band + 3 * stride + kBandExtra);
   int* plans = reinterpret_cast<int*>(scratch + 2 * 32 + kExchange);  // ring d's at (d & 1) * kPlan
   const int m = K.cidx;
+  const int top = min(d1 + 1, m);  // the outermost ring the launch reads
   const int T = blockDim.x, Tc = T - kMemThreads, t = threadIdx.x;
 
-  if (t == 0) B.v[buffer(B, 0)] = make_float2(base_z, 1.0f);  // ring 0, the center
-  for (int d = 1; d <= 2 && d <= m; ++d) fetch_ring(B, K, h, c, d, 0, T);
-  if (t < kPlan && m > 1) plans[kPlan + t] = plan_entry(B, K, 1, t / 12, t % 12);
+  for (int d = d0 - 1; d <= d0 + 1 && d <= m; ++d) fetch_ring(B, K, h, c, d, 0, T);
+  if (seed && t == 0) B.v[buffer(B, 0)] = make_float2(base_z, 1.0f);  // the thread that fetched it
+  if (t < kPlan && d0 <= d1) plans[(d0 & 1) * kPlan + t] = plan_entry(B, K, d0, t / 12, t % 12);
   __syncthreads();
 
-  for (int d = 1; d < m; ++d) {
+  for (int d = d0; d <= d1; ++d) {
     if (t >= Tc) {
       store_ring(B, K, h, c, d - 1, Tc, kMemThreads);
       const int u = t - Tc;
-      if (u < kPlan && d + 1 < m) {
+      if (u < kPlan && d + 1 <= d1) {
         plans[((d + 1) & 1) * kPlan + u] = plan_entry(B, K, d + 1, u / 12, u % 12);
       }
-      if (d + 2 <= m) {
+      if (d + 2 <= top) {
         // ring d+2 takes ring d-1's buffer once the walkers have read ring
         // d-1 (ring 0, the center, has a slot of its own)
         if (d >= 2) asm volatile("bar.sync 3, %0;" ::"r"(32 + kMemThreads) : "memory");
@@ -518,50 +525,56 @@ spiral_kernel(float* h, float* c, Consts K, float base_z, int stride) {
       if (d == 1) {
         if (t < 32) walk_ring1(B, K, plan);
       } else if (t < P) {
-        walk_ring<EM>(B, K, plan, d, P, scratch, d + 2 <= m);
+        walk_ring<EM>(B, K, plan, d, P, scratch, d + 2 <= top);
       }
     }
     sync_all(T);
   }
-  if (t >= Tc && m >= 1) store_ring(B, K, h, c, m - 1, Tc, kMemThreads);
+  if (t >= Tc) store_ring(B, K, h, c, d1, Tc, kMemThreads);
 }
 
 template <int EM>
-int launch(float* h, float* c, const Consts& K, float base_z, int stride, int threads,
-           int smem_bytes, cudaStream_t stream) {
+int launch(float* h, float* c, const Consts& K, float base_z, int stride, int d0, int d1,
+           int seed, int threads, int smem_bytes, cudaStream_t stream) {
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         spiral_kernel<EM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  spiral_kernel<EM><<<1, threads, smem_bytes, stream>>>(h, c, K, base_z, stride);
+  spiral_kernel<EM><<<1, threads, smem_bytes, stream>>>(h, c, K, base_z, stride, d0, d1,
+                                                        seed);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// h, c: (n, n) f32 row-major, updated in place. threads and smem_bytes come
-// from ops/spiral.py band_layout; a launch whose geometry does not fit the
-// kernel's limits returns cudaErrorInvalidValue without launching.
+// h, c: (n, n) f32 row-major, updated in place: rings d0 .. d1 walked, the
+// center seeded first when seed is nonzero (1 <= d0, d0 - 1 <= d1 <= m - 1;
+// the whole sweep is 1 .. m-1 seeded). threads and smem_bytes come from
+// ops/spiral.py band_layout; a launch whose geometry or range does not fit
+// the kernel's limits returns cudaErrorInvalidValue without launching.
 extern "C" int gg_spiral(float* h, float* c, int n, int cidx, float base_z, float res2,
-                         float dec, float min_d2, float floor_c, int threads, int smem_bytes,
-                         cudaStream_t stream) {
+                         float dec, float min_d2, float floor_c, int d0, int d1, int seed,
+                         int threads, int smem_bytes, cudaStream_t stream) {
   const int m = cidx > 0 ? cidx : 0;
   const int stride = 8 * m + 1;
   const int walkers = threads - kMemThreads;
   const size_t band = (3 * (size_t)stride + kBandExtra) * sizeof(float2) + kScratch * sizeof(float);
-  if (threads > 1024 || threads % 32 != 0 || walkers < 32 || (size_t)smem_bytes != band) {
+  if (threads > 1024 || threads % 32 != 0 || walkers < 32 || (size_t)smem_bytes != band ||
+      d0 < 1 || d1 < d0 - 1 || d1 > m - 1) {
     return (int)cudaErrorInvalidValue;
   }
-  // visits per walker on ring m-1, the largest walked (walk_ring's E)
-  const int visits = 8 * (m - 1) + 2;
-  const int per = m >= 3 ? (visits + walkers - 1) / walkers : 1;
+  // visits per walker on ring d1, the largest walked (walk_ring's E)
+  const int visits = 8 * d1 + 2;
+  const int per = d1 >= 2 ? (visits + walkers - 1) / walkers : 1;
   const Consts K{n, cidx, res2, dec, min_d2, floor_c};
-  if (per <= 2) return launch<2>(h, c, K, base_z, stride, threads, smem_bytes, stream);
-  if (per <= 4) return launch<4>(h, c, K, base_z, stride, threads, smem_bytes, stream);
-  if (per <= 8) return launch<8>(h, c, K, base_z, stride, threads, smem_bytes, stream);
+  const int s = seed != 0;
+  if (per <= 2) return launch<2>(h, c, K, base_z, stride, d0, d1, s, threads, smem_bytes, stream);
+  if (per <= 4) return launch<4>(h, c, K, base_z, stride, d0, d1, s, threads, smem_bytes, stream);
+  if (per <= 8) return launch<8>(h, c, K, base_z, stride, d0, d1, s, threads, smem_bytes, stream);
   if (per <= kMaxPerThread) {
-    return launch<kMaxPerThread>(h, c, K, base_z, stride, threads, smem_bytes, stream);
+    return launch<kMaxPerThread>(h, c, K, base_z, stride, d0, d1, s, threads, smem_bytes,
+                                 stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -5,7 +5,8 @@
 // groundgrid_tpu/ops/pallas_spiral.py:spiral_interpolation_pallas, the
 // center-outward ring walk of GroundSegmentation.cpp:398-465. The center
 // cell is seeded with the base height at confidence 1; rings run inner ->
-// outer, each as 4 segments in walk order (top row ->, left column v, bottom
+// outer (a launch may walk a range of them: gg_spiral_global's d0, d1), each
+// as 4 segments in walk order (top row ->, left column v, bottom
 // row <-, right column ^; the corners (i, i) and (outer, outer) are visited
 // twice). Within a segment a cell's 3x3 stencil reads an updated value only
 // from its walk predecessor, so the heights obey the affine recurrence
@@ -151,9 +152,11 @@ __device__ void segment(float* h, float* c, const Consts& K, int f, int lo, int 
 }
 
 // scratch: 3 n floats in global memory, or null to keep them in shared memory;
-// up to 1024 threads, so at most 64 registers a thread
+// up to 1024 threads, so at most 64 registers a thread. Walks rings d0 .. d1
+// (row i = m - D), the center seeded first when `seed` is set.
 __global__ void __launch_bounds__(1024)
-spiral_global_kernel(float* h, float* c, Consts K, float base_z, float* scratch) {
+spiral_global_kernel(float* h, float* c, Consts K, float base_z, float* scratch, int d0,
+                     int d1, int seed) {
   extern __shared__ float smem[];
   const int n = K.n;
   float* ta = smem;
@@ -162,12 +165,13 @@ spiral_global_kernel(float* h, float* c, Consts K, float base_z, float* scratch)
   float* sb = sa + n;
   float* sc = sb + n;
   const int m = K.cidx;
-  if (threadIdx.x == 0) {
+  if (seed && threadIdx.x == 0) {
     h[(size_t)m * n + m] = base_z;
     c[(size_t)m * n + m] = 1.0f;
   }
   __syncthreads();
-  for (int i = m - 1; i >= 1; --i) {
+  for (int d = d0; d <= d1; ++d) {
+    const int i = m - d;
     const int outer = 2 * m - i;
     segment(h, c, K, i, i, outer, false, false, sa, sb, sc, ta, tb);          // top ->
     segment(h, c, K, i, i, outer, true, false, sa, sb, sc, ta, tb);           // left v
@@ -178,16 +182,19 @@ spiral_global_kernel(float* h, float* c, Consts K, float base_z, float* scratch)
 
 }  // namespace
 
-// h, c: (n, n) f32 row-major, updated in place. threads and smem_bytes come
-// from ops/spiral.py global_layout: smem_bytes holds the scan's 2 threads
-// floats, plus the 3 n per-segment floats when scratch is null.
+// h, c: (n, n) f32 row-major, updated in place: rings d0 .. d1, the center
+// seeded first when seed is nonzero (1 <= d0, d0 - 1 <= d1 <= m - 1).
+// threads and smem_bytes come from ops/spiral.py global_layout: smem_bytes
+// holds the scan's 2 threads floats, plus the 3 n per-segment floats when
+// scratch is null.
 extern "C" int gg_spiral_global(float* h, float* c, int n, int cidx, float base_z,
-                                float res2, float dec, float min_d2, float floor_c,
-                                int threads, int smem_bytes, float* scratch,
+                                float res2, float dec, float min_d2, float floor_c, int d0,
+                                int d1, int seed, int threads, int smem_bytes, float* scratch,
                                 cudaStream_t stream) {
   const size_t want = (2 * (size_t)threads + (scratch != nullptr ? 0 : 3 * (size_t)n))
                       * sizeof(float);
-  if (threads > 1024 || threads % 32 != 0 || threads < 32 || (size_t)smem_bytes != want) {
+  if (threads > 1024 || threads % 32 != 0 || threads < 32 || (size_t)smem_bytes != want ||
+      d0 < 1 || d1 < d0 - 1 || d1 > cidx - 1) {
     return (int)cudaErrorInvalidValue;
   }
   if (smem_bytes > 48 * 1024) {
@@ -196,6 +203,7 @@ extern "C" int gg_spiral_global(float* h, float* c, int n, int cidx, float base_
     if (err != cudaSuccess) return (int)err;
   }
   const Consts K{n, cidx, res2, dec, min_d2, floor_c};
-  spiral_global_kernel<<<1, threads, smem_bytes, stream>>>(h, c, K, base_z, scratch);
+  spiral_global_kernel<<<1, threads, smem_bytes, stream>>>(h, c, K, base_z, scratch, d0, d1,
+                                                           seed != 0);
   return (int)cudaGetLastError();
 }

@@ -47,8 +47,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gg_raster_reduce": [_P, _P, _I, _I, ctypes.c_uint, _I, _P, _P],
     "gg_lookup": [_P, _I, _P, _P, _I, _P, _P, _P],
-    "gg_spiral": [_P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P],
-    "gg_spiral_global": [_P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P],
+    "gg_spiral": [_P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P],
+    "gg_spiral_global": [_P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P, _P],
     "gg_detect": [_P] * 9 + [_I, _F, _F, _F, _P, _P, _I, _P],
 }
 
@@ -145,8 +145,12 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
 
 
-def stream_ptr(device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``."""
+def launch(entry: str, device, *args) -> int:
+    """Call the C entry point ``entry`` with ``args`` and PyTorch's current
+    stream on ``device``, with ``device`` made the current device: a ctypes
+    call launches on the current device, and the default stream's handle
+    (0) names the current device's. Returns the entry's error code."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        return getattr(library().lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)

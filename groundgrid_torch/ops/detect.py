@@ -211,11 +211,8 @@ def detect_fused(config: GroundGridConfig, tables: DetectTables, points, varianc
     ins = [t.contiguous() for t in layers + [tables.var_thr_sq, tables.skip_thr,
                                              tables.min_expected_s, tables.use3]]
     out_g, out_c = torch.empty_like(ins[3]), torch.empty_like(ins[4])
-    lib = _build.library()
-    code = lib.lib.gg_detect(
-        *(t.data_ptr() for t in ins), n, pccvt, out_tol, ocpcf,
-        out_g.data_ptr(), out_c.data_ptr(), strip_rows(n), _build.stream_ptr(points.device),
-    )
+    code = _build.launch("gg_detect", points.device, *(t.data_ptr() for t in ins), n, pccvt,
+                         out_tol, ocpcf, out_g.data_ptr(), out_c.data_ptr(), strip_rows(n))
     _build.check(code, "detect_fused")
     detect_fused.launches += 1
     return out_g, out_c

@@ -55,13 +55,10 @@ def lookup(cell, tables, n2: int):
     outs = [torch.empty(cell.shape, dtype=torch.float32, device=cell.device) for _ in tabs]
     if cell.numel() == 0:
         return tuple(outs)  # nothing to read (a zero-block launch is invalid)
-    lib = _build.library()
     t1 = tabs[1].data_ptr() if len(tabs) > 1 else None
     o1 = outs[1].data_ptr() if len(outs) > 1 else None
-    code = lib.lib.gg_lookup(
-        cell.data_ptr(), cell.shape[0], tabs[0].data_ptr(), t1, n2,
-        outs[0].data_ptr(), o1, _build.stream_ptr(cell.device),
-    )
+    code = _build.launch("gg_lookup", cell.device, cell.data_ptr(), cell.shape[0],
+                         tabs[0].data_ptr(), t1, n2, outs[0].data_ptr(), o1)
     _build.check(code, "lookup")
     lookup.launches += 1
     return tuple(outs)

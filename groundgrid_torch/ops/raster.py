@@ -145,17 +145,15 @@ def raster_reduce(cell, cols, ops, n2: int):
     out = torch.empty((len(cols), n2), dtype=torch.float32, device=cell.device)
     if cell.numel() == 0:
         return tuple(out.zero_().unbind(0))  # no points: every cell empty, no launch
-    lib = _build.library()
     cell = cell.contiguous()
     cols = [c.contiguous() for c in cols]
     ptrs = (ctypes.c_void_p * MAX_COLS)(*[c.data_ptr() for c in cols])
     mask = 0
     for j, op in enumerate(ops):
         mask |= OPS[op] << (2 * j)
-    code = lib.lib.gg_raster_reduce(
-        cell.data_ptr(), ctypes.addressof(ptrs), cell.shape[0], len(cols), mask, n2,
-        out.data_ptr(), _build.stream_ptr(cell.device),
-    )
+    code = _build.launch("gg_raster_reduce", cell.device, cell.data_ptr(),
+                         ctypes.addressof(ptrs), cell.shape[0], len(cols), mask, n2,
+                         out.data_ptr())
     _build.check(code, "raster_reduce")
     raster_reduce.launches += 1
     return tuple(out.unbind(0))

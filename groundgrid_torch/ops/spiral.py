@@ -30,7 +30,11 @@ per-segment arrays in shared memory or, where they do not fit a block
 in device memory runs on the card.
 
 :func:`spiral_interpolation` launches the kernel for CUDA tensors and takes
-the plain version only for CPU tensors.
+the plain version only for CPU tensors. :func:`spiral_interpolation_rings`
+walks a range of rings in one launch (the same kernels, their ``d0 .. d1``
+arguments): the banded relay of ``parallel/spiral_shard.py`` runs one band
+a launch, and the whole sweep is the range ``1 .. m-1`` with the center
+seeded.
 """
 
 from __future__ import annotations
@@ -306,12 +310,17 @@ def _segment_update(config: GroundGridConfig, h, c, fixed, lo, hi, transposed, d
     c_view[fixed] = c_new_row
 
 
-def spiral_interpolation_plain(config: GroundGridConfig, ground, groundpatch, base_z):
-    """Plain PyTorch sweep, in place; returns (ground, groundpatch)."""
+def spiral_interpolation_rings_plain(config: GroundGridConfig, ground, groundpatch, base_z,
+                                     d_first: int, d_last: int, seed_center: bool):
+    """Plain PyTorch walk of rings ``d_first .. d_last`` (ring D: row and
+    column ``center - D`` to ``center + D``), inner to outer, in place; the
+    center seeded first when ``seed_center``. Returns (ground, groundpatch)."""
     c_idx = config.center_cell
-    ground[c_idx, c_idx] = float(np.float32(base_z))
-    groundpatch[c_idx, c_idx] = 1.0
-    for i in range(c_idx - 1, 0, -1):
+    if seed_center:
+        ground[c_idx, c_idx] = float(np.float32(base_z))
+        groundpatch[c_idx, c_idx] = 1.0
+    for d in range(d_first, d_last + 1):
+        i = c_idx - d
         outer = 2 * c_idx - i
         _segment_update(config, ground, groundpatch, i, i, outer, False, False)  # top ->
         _segment_update(config, ground, groundpatch, i, i, outer, True, False)  # left v
@@ -320,42 +329,61 @@ def spiral_interpolation_plain(config: GroundGridConfig, ground, groundpatch, ba
     return ground, groundpatch
 
 
-def spiral_interpolation(config: GroundGridConfig, ground, groundpatch, base_z):
-    """Center-outward sweep of the (N, N) float32 layers, in place.
+def spiral_interpolation_plain(config: GroundGridConfig, ground, groundpatch, base_z):
+    """Plain PyTorch sweep, in place: the center seeded, rings ``1 ..
+    center-1``; returns (ground, groundpatch)."""
+    return spiral_interpolation_rings_plain(config, ground, groundpatch, base_z, 1,
+                                            config.center_cell - 1, True)
 
-    Seeds the center cell with ``base_z`` (the vehicle base height, a host
-    float) at confidence 1, then walks rings ``center-1 .. 1``, updating
-    ``ground`` and ``groundpatch`` where they lie (the JAX step donated these
-    buffers). Returns the two given tensors.
+
+def spiral_interpolation_rings(config: GroundGridConfig, ground, groundpatch, base_z,
+                               d_first: int, d_last: int, seed_center: bool = False):
+    """Walk rings ``d_first .. d_last`` of the (N, N) float32 layers, inner to
+    outer, in place, as the whole sweep walks them; the center seeded with
+    ``base_z`` at confidence 1 first when ``seed_center`` (``d_first`` 1
+    only). Ring D's stencils read ring D-1's final values and ring D+1's
+    values before the sweep, so the bands of a partition of ``1 ..
+    center-1`` run in order give bitwise the whole sweep, kernel against
+    kernel and plain against plain (``parallel/spiral_shard.py``).
+
+    One launch of K3 for CUDA tensors (the band kernel, or the global-band
+    one above 2415 cells a side, with the range), none for an empty range
+    without a seed; the plain version for CPU tensors. Returns the two given
+    tensors.
     """
-    n = config.cell_count
+    n, m = config.cell_count, config.center_cell
     for t in (ground, groundpatch):
         if t.shape != (n, n) or t.dtype != torch.float32:
             raise ValueError(f"layers must be ({n}, {n}) float32, got {tuple(t.shape)} {t.dtype}")
+    if d_first < 1 or d_last < d_first - 1 or d_last > m - 1:
+        raise ValueError(f"rings {d_first} .. {d_last} outside 1 .. {m - 1}")
+    if seed_center and d_first != 1:
+        raise ValueError("only a range from ring 1 seeds the center")
     if ground.device.type == "cpu":
-        return spiral_interpolation_plain(config, ground, groundpatch, base_z)
+        return spiral_interpolation_rings_plain(config, ground, groundpatch, base_z, d_first,
+                                                d_last, seed_center)
     if ground.device.type != "cuda" or groundpatch.device != ground.device:
         raise RuntimeError(f"spiral_interpolation: unsupported device {ground.device}")
     if not (ground.is_contiguous() and groundpatch.is_contiguous()):
         raise ValueError("spiral_interpolation needs contiguous layers")
-    lib = _build.library()
-    consts = (n, config.center_cell, float(np.float32(base_z)),
-              float(np.float32(config.resolution ** 2)),
+    if d_first > d_last and not seed_center:
+        return ground, groundpatch
+    consts = (n, m, float(np.float32(base_z)), float(np.float32(config.resolution ** 2)),
               float(np.float32(config.occupied_cells_decrease_factor)),
-              float(np.float32(config.min_dist_squared)), float(np.float32(0.001)))
-    stream = _build.stream_ptr(ground.device)
+              float(np.float32(config.min_dist_squared)), float(np.float32(0.001)),
+              d_first, d_last, int(seed_center))
     variant = spiral_variant(n)
     if variant == "band":
         layout = band_layout(n)
-        code = lib.lib.gg_spiral(ground.data_ptr(), groundpatch.data_ptr(), *consts,
-                                 layout.threads, layout.smem_bytes, stream)
+        code = _build.launch("gg_spiral", ground.device, ground.data_ptr(),
+                             groundpatch.data_ptr(), *consts, layout.threads, layout.smem_bytes)
     else:
         glayout = global_layout(n)
         scratch = (torch.empty(glayout.scratch_floats, dtype=torch.float32,
                                device=ground.device) if glayout.scratch_floats else None)
-        code = lib.lib.gg_spiral_global(
-            ground.data_ptr(), groundpatch.data_ptr(), *consts, glayout.threads,
-            glayout.smem_bytes, None if scratch is None else scratch.data_ptr(), stream)
+        code = _build.launch("gg_spiral_global", ground.device, ground.data_ptr(),
+                             groundpatch.data_ptr(), *consts, glayout.threads, glayout.smem_bytes,
+                             None if scratch is None else scratch.data_ptr())
     _build.check(code, "spiral_interpolation")
     spiral_interpolation.launches += 1
     if variant == "global":
@@ -363,6 +391,21 @@ def spiral_interpolation(config: GroundGridConfig, ground, groundpatch, base_z):
     return ground, groundpatch
 
 
-# launches of either variant; global_launches: those of the global-band one
+def spiral_interpolation(config: GroundGridConfig, ground, groundpatch, base_z):
+    """Center-outward sweep of the (N, N) float32 layers, in place.
+
+    Seeds the center cell with ``base_z`` (the vehicle base height, a host
+    float) at confidence 1, then walks rings ``1 .. center-1`` (rows
+    ``center-1 .. 1``), updating ``ground`` and ``groundpatch`` where they
+    lie (the JAX step donated these buffers): one K3 launch over the whole
+    range (:func:`spiral_interpolation_rings`). Returns the two given
+    tensors.
+    """
+    return spiral_interpolation_rings(config, ground, groundpatch, base_z, 1,
+                                      config.center_cell - 1, True)
+
+
+# launches of either variant, by either entry; global_launches: those of
+# the global-band one
 spiral_interpolation.launches = 0
 spiral_interpolation.global_launches = 0

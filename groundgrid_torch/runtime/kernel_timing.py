@@ -39,14 +39,14 @@ def event_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int, name: str | None = None,
-              per: str | None = None) -> tuple[float, int]:
+              per: str | None = None, per_call: int = 1) -> tuple[float, int]:
     """Device milliseconds per call of ``fn()`` by ``torch.profiler`` over
     ``reps`` warm calls, and the number of device activities counted.
 
     Sums the device activities whose name contains ``name`` (every one:
     kernels, copies, sets, if None) and divides by the calls the profiler
-    kept, counted as the launches of kernel ``per`` (or ``name``), one per
-    call, else taken as ``reps``. The profiler can drop a launch of a long
+    kept, counted as the launches of kernel ``per`` (or ``name``),
+    ``per_call`` per call, else taken as ``reps``. The profiler can drop a launch of a long
     kernel from its window (K3's global-band kernel: 4 of 5 kept). Raises
     if it kept none.
     """
@@ -59,11 +59,12 @@ def device_ms(fn, reps: int, name: str | None = None,
         torch.cuda.synchronize()
     us, seen = device_us(prof, name)
     count = per or name
-    calls = device_us(prof, count)[1] if count else reps
+    calls = device_us(prof, count)[1] / per_call if count else reps
     if not seen or not calls:
         raise RuntimeError(f"torch.profiler recorded no device activity named {count!r}")
     if calls > reps:
-        raise RuntimeError(f"torch.profiler recorded {calls} launches of {count!r} in {reps} calls")
+        raise RuntimeError(f"torch.profiler recorded {calls * per_call} launches of {count!r} in "
+                           f"{reps} calls")
     return us / 1000.0 / calls, seen
 
 

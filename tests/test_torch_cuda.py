@@ -14,14 +14,16 @@ CUDA error on ids out of order), K2
 bitwise (any point count, unsorted ids, ids at n2, an offset id view),
 K3 confidence bitwise and heights within atol 2e-5 / rtol 1e-5 (up to n =
 2414 on the band kernel, 2416 to 2800 on the global-band one; two runs
-bitwise), K4 bitwise (n = 12 to 1200, grids that cut its tiles raggedly and
+bitwise; its ring ranges over the bands of ``ring_bands`` bitwise one full
+launch, n = 10 to 2416), K4 bitwise (n = 12 to 1200, grids that cut its tiles raggedly and
 one where the use3 disc's edge crosses a tile; two runs bitwise; border
 cells passed through); the occlusion march shedding candidates at the
 cap, on both selection keys, bitwise the CPU's; plus the small-config
 streaming step on the card against the same step on the CPU, on the main
 path and on the fused, aux and wire path; the fleet on the card bitwise
 per-vehicle streaming; a warm step and a fleet tick under
-``torch.cuda.set_sync_debug_mode("error")``; the fleet bench.
+``torch.cuda.set_sync_debug_mode("error")``; the fleet bench; the spatial
+step over four shards on the card.
 """
 
 import dataclasses
@@ -230,6 +232,81 @@ def test_spiral_kernel_refuses_a_band_beyond_shared_memory(cuda, dimension, reso
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
     assert torch.equal(runs[0][1], c_p)
     torch.testing.assert_close(runs[0][0], g_p, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("size", [2, 3, 8])
+@pytest.mark.parametrize("dimension,resolution", [
+    (5.0, 0.5), (15.0, 0.5), (40.0, 0.5), (120.0, 0.33), (120.0, 0.1), (241.6, 0.1),
+])
+def test_spiral_bands_in_order_match_one_launch(cuda, dimension, resolution, size):
+    """n = 10 (empty bands at S = 8), 30, 80, 364, 1200 and 2416 (the global
+    band): K3's ring-range launches over the bands of ``ring_bands``, in
+    order on the same layers, are bitwise one full launch, one launch per
+    non-empty band; a middle band agrees with its plain version."""
+    from groundgrid_torch.parallel.spiral_shard import band_ranges
+
+    cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
+    ground, conf = _spiral_layers(cfg.cell_count, cuda)
+    full = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
+    h, c = ground.clone(), conf.clone()
+    ranges = band_ranges(cfg, size)
+    reset_launch_counts()
+    for k, (d0, d1) in enumerate(ranges):
+        if k == 1:
+            before = (h.clone(), c.clone())
+        spiral.spiral_interpolation_rings(cfg, h, c, 0.37, d0, d1, seed_center=k == 0)
+    assert launch_counts()["spiral"] == sum(d1 >= d0 for d0, d1 in ranges)
+    torch.cuda.synchronize()
+    assert torch.equal(h.view(torch.int32), full[0].view(torch.int32))
+    assert torch.equal(c.view(torch.int32), full[1].view(torch.int32))
+    d0, d1 = ranges[1]
+    g_k, c_k = spiral.spiral_interpolation_rings(cfg, before[0].clone(), before[1].clone(), 0.37,
+                                                 d0, d1)
+    g_p, c_p = spiral.spiral_interpolation_rings_plain(cfg, before[0].clone(),
+                                                       before[1].clone(), 0.37, d0, d1, False)
+    assert torch.equal(c_k, c_p)
+    torch.testing.assert_close(g_k, g_p, atol=2e-5, rtol=1e-5)
+
+
+def test_spatial_step_on_card(cuda):
+    """The spatial step over ``["cuda:0"] * 4`` at the small config: launch
+    counts, banded == replicated bitwise, a warm step without a host read,
+    labels within 0.1 % of the same step on ``["cpu"] * 4``."""
+    from groundgrid_torch.data.synthetic import synthetic_sequence
+    from groundgrid_torch.parallel import spatial
+    from groundgrid_torch.pipeline import init_state, pad_scan
+
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5, max_points=16384, ray_steps=40,
+                           max_outlier_candidates=1024)
+    scans = list(synthetic_sequence(3, seed=5, n_beams=16, n_azimuth=500))
+    outs = {}
+    for dev, mode in ((cuda, "replicated"), (cuda, "banded"), (torch.device("cpu"), "replicated")):
+        on_card = dev.type == "cuda"
+        mesh = [dev] * 4
+        step = spatial.make_spatial_step(cfg, mesh, spiral_mode=mode)
+        st = init_state(cfg, np.asarray(scans[0][2], np.float32), dev)
+        g, c = spatial.split_rows(st.ground, mesh), spatial.split_rows(st.groundpatch, mesh)
+        center = (st.center, st.center_lo)
+        labels = []
+        for k, (pts, lbl, T) in enumerate(scans):
+            chunks = spatial.shard_scan(pad_scan(cfg, pts, lbl, T, dev), mesh)
+            reset_launch_counts()
+            if k and on_card:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                g, c, center, lab, _ = step(g, c, center, chunks)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if on_card:
+                assert launch_counts() == {"raster": 4, "lookup": 12, "spiral": 4, "detect": 0}
+            labels.append(torch.cat(lab).cpu())
+        outs[(str(dev), mode)] = (torch.cat(g).cpu(), torch.cat(c).cpu(), labels)
+    rep, band = outs[(str(cuda), "replicated")], outs[(str(cuda), "banded")]
+    assert torch.equal(rep[0], band[0]) and torch.equal(rep[1], band[1])
+    assert all(torch.equal(a, b) for a, b in zip(rep[2], band[2]))
+    cpu = outs[("cpu", "replicated")]
+    mism = sum(int((a != b).sum()) for a, b in zip(rep[2], cpu[2]))
+    assert mism <= 0.001 * 3 * cfg.max_points
 
 
 @pytest.mark.parametrize("dimension,resolution,scale", [
