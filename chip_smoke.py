@@ -2,7 +2,8 @@
 then drives the sorted-scan streaming path, the layer-publishing wire path,
 the entry point, the unsorted default path, a 128-beam buffer, the golden
 parity tooling, a 64-vehicle fleet and one grid split over shards, on one
-card.
+card, and holds the captured step (one CUDA graph a scan, ``make_step``)
+to the eager one.
 
     python3 chip_smoke.py
 
@@ -40,13 +41,14 @@ Phases (any failure raises and exits non-zero, printing no result):
    over the stacked tables, timed in turns with the kernel (no one PyTorch
    call computes K1, K3 or K4).
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
-   synthetic scans: per-scan launch counts (K1 x1, K2 x3, K3 x1), no
-   sortedness fallback, every step after the first under
+   synthetic scans: per-scan launch counts (K1 x1, K2 x3, K3 x1; a replay
+   of the captured step adds the launches its capture recorded), no
+   sortedness fallback, every step after the first (every replay) under
    ``torch.cuda.set_sync_debug_mode("error")`` (no device-to-host read),
    labels and outliers bitwise those of the host-read step (the counted
    march and the host sortedness check, as the step ran before it stopped
-   reading the host), labels against the plain-version run on the card
-   (>= 99.9 % agreement), a second kernel run bitwise equal to the first,
+   reading the host; on the eager step, as it reads the host), labels
+   against the plain-version run on the card (>= 99.9 % agreement), a second kernel run bitwise equal to the first,
    ground-vs-truth recall/precision, ms/scan from CUDA events.
 4. The layer-publishing wire path, ``StreamingDriver(GroundGridConfig(
    sorted_scans=True, wire_format=True, fused_detect=True), with_aux=True)``
@@ -99,8 +101,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    3's records from record v mod 32 (backward for v >= 32): per tick K1 x64,
    K2 x192, K3 x64, the step of ticks 2-4 under the sync check (host prep
    and the tick's one fetch outside), the summary equal to the fetched
-   labels' counts; every vehicle's labels and outliers bitwise those of a
-   ``StreamingDriver`` over its stream; a 2-vehicle, 2-tick plain-version
+   labels' counts; every vehicle's labels and outliers (the fleet's one
+   captured vehicle step) bitwise those of an eager ``StreamingDriver``
+   over its stream; a 2-vehicle, 2-tick plain-version
    fleet (>= 99.9 %); tick 1 again with the summary all_reduced through a
    1-rank NCCL group (``parallel/multihost.py``): the local sum, bitwise
    labels; ``bench --batch 64``. Prints ms per tick and scans/s (CUDA
@@ -117,6 +120,21 @@ Phases (any failure raises and exits non-zero, printing no result):
    ground atol 2e-4 / rtol 1e-4, groundpatch 1e-5 / 1e-5 (the JAX spatial
    test's bounds); ms per scan by CUDA events of both modes and of the
    single-grid step. One card: these are no scaling numbers.
+11. The captured step (``pipeline.CapturedStep``) against the eager
+   ``make_step_fn`` step, bitwise: phase 3's path over its 32 scans in four
+   runs in turns (eager, captured, captured, eager; labels, outliers and
+   the four state layers after every scan; two captured runs bitwise;
+   every replay under the sync check), phase 4's path (labels, 11 layers,
+   x/y/z; a checkpoint after scan 8 resumed on a new captured step),
+   phase 6's unsorted path (and its final state), phase 7's 128-beam path
+   (and its marchable counts); phase 9 holds the fleet to eager drivers.
+   Then in turns (eager, captured, captured, eager), by CUDA events: phase
+   3's ms per scan, the streaming bench's device ms per scan
+   (``bench.device_ms_per_step``), the device busy share of 8 warm steps
+   (``bench.profile_steps``), ``bench --batch 64``
+   (``bench.run_fleet_benchmark``); sorted against unsorted ms per scan on
+   the captured step (sorted, unsorted, unsorted, sorted). Each captured
+   path prints its capture time and graph pool bytes.
 
 The line before the last is the kernels' JSON record (``ms`` is the device
 time, ``library_ms`` null where no one PyTorch call computes the function;
@@ -207,17 +225,29 @@ def warm_driver(config, records, device, n_warm: int = 4):
     return driver
 
 
+def scan_scalars(config, driver, scan):
+    """The scan scalars of ``scan`` against the driver's state, on its device,
+    as the step ships them (``core/scalars.py``)."""
+    from groundgrid_torch.core import scalars as scalarlib
+    from groundgrid_torch.pipeline import scan_scalars as host_scalars
+    from groundgrid_torch.pipeline import to_device
+
+    packed, _, _ = host_scalars(config, driver.state.center_np, driver.state.center_lo_np, scan)
+    return scalarlib.view(to_device(packed, driver.device))
+
+
 def prepared(config, driver, rec):
-    """A prepared scan of ``rec``, its binning and accepted points (no march)."""
+    """A prepared scan of ``rec``, its scan scalars, binning and accepted
+    points (no march)."""
     from groundgrid_torch.core import rasterize as rasterlib
 
     scan, _ = driver.make_scan(rec)
-    binning = rasterlib.bin_points(config, scan.center, scan.center_lo, scan.px, scan.py,
-                                   scan.rings, scan.valid > 0, scan.t_map_velo[:3, 3])
+    s = scan_scalars(config, driver, scan)
+    binning = rasterlib.bin_points(config, s, scan.px, scan.py, scan.rings, scan.valid > 0)
     cell = binning.cell
     if not bool((cell[1:] >= cell[:-1]).all()):
         raise AssertionError("prepared scan is not cell-sorted on the device")
-    return scan, binning, binning.inmap & ~binning.ignored
+    return scan, s, binning, binning.inmap & ~binning.ignored
 
 
 def check_raster(config, driver, rec):
@@ -226,10 +256,9 @@ def check_raster(config, driver, rec):
     from groundgrid_torch.ops import raster
     from groundgrid_torch.runtime.kernel_timing import device_ms
 
-    scan, binning, accept = prepared(config, driver, rec)
+    scan, s, binning, accept = prepared(config, driver, rec)
     cell = binning.cell
-    cols, ops = rasterlib.raster_columns(config, binning, scan.pz, scan.t_map_velo[:3, 3],
-                                        accept, scan.center, scan.t_base_map)
+    cols, ops = rasterlib.raster_columns(config, binning, scan.pz, accept, s)
     n2 = config.cell_count ** 2
     got = raster.raster_reduce(cell, cols, ops, n2)
     want = raster.raster_reduce_plain(cell, cols, ops, n2)
@@ -277,29 +306,26 @@ def check_raster(config, driver, rec):
 
 def march_lattice(config, driver, rec):
     """The flat cell ids the occlusion march hands K2 on scan ``rec`` from the
-    driver's state (``core/outliers.py detect_outliers``), one lattice per
-    chunk of candidates, as the step builds them."""
-    from groundgrid_torch.core import grid as gridlib
-    from groundgrid_torch.core import outliers as outlierlib
-    from groundgrid_torch.core import rasterize as rasterlib
+    driver's state, one lattice per chunk of candidates, as the step builds
+    them: an eager step on a copy of the state, its K2 calls recorded (the
+    march's are the ones not over the scan's points)."""
+    from groundgrid_torch.core.grid import GridState
     from groundgrid_torch.ops import lookup
+    from groundgrid_torch.pipeline import make_step_fn
 
-    n2 = config.cell_count ** 2
     scan, _ = driver.make_scan(rec)
-    origin = np.asarray(scan.t_map_velo, np.float32)[:3, 3]
-    moved = gridlib.move(config, driver.state, scan.t_base_map, scan.center, scan.center_lo)
-    center, center_lo = moved.center_np, moved.center_lo_np
-    binning = rasterlib.bin_points(config, center, center_lo, scan.px, scan.py, scan.rings,
-                                   scan.valid > 0, origin)
-    (old_h,) = lookup.lookup_plain(binning.cell, [moved.ground], n2)
-    lattices = []
+    step = make_step_fn(config)
+    calls = []
 
     def keep(cell, tables, n):
-        lattices.append(cell.clone())
+        calls.append(cell.clone())
         return lookup.lookup_plain(cell, tables, n)
 
-    outlierlib.detect_outliers(config, center, center_lo, moved.ground, moved.groundpatch,
-                               binning, scan.px, scan.py, scan.pz, origin, old_h, keep)
+    step._lookup = keep
+    state = driver.state
+    step(GridState(state.ground.clone(), state.groundpatch.clone(), state.center.clone(),
+                   state.center_lo.clone()), scan)
+    lattices = [cell for cell in calls if cell.shape[0] != config.max_points]
     if not lattices:
         raise AssertionError("the march made no lookup on the warm scan")
     return lattices
@@ -396,7 +422,7 @@ def check_spiral(config, driver, rec):
     """K3 on a warm 364^2 state, against its plain version."""
     from groundgrid_torch.ops import spiral
 
-    base_z = float(np.asarray(driver.make_scan(rec)[0].t_map_base)[2, 3])
+    base_z = scan_scalars(config, driver, driver.make_scan(rec)[0]).base_z  # on the card
     ground, conf = driver.state.ground, driver.state.groundpatch
     # both versions work in place: each gets its own copy of the warm layers
     g_k, c_k = spiral.spiral_interpolation(config, ground.clone(), conf.clone(), base_z)
@@ -443,13 +469,14 @@ def check_spiral_global(device, dimension=241.6, resolution=0.1, seed=0):
     conf = np.where(rng.random((n, n)) < 0.4, rng.uniform(0.0, 1.0, (n, n)), 0.0)
     ground = torch.from_numpy(rng.normal(0, 0.5, (n, n)).astype(np.float32)).to(device)
     conf = torch.from_numpy(conf.astype(np.float32)).to(device)
-    g_k, c_k = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
+    base_z = torch.tensor(0.37, dtype=torch.float32, device=device)
+    g_k, c_k = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), base_z)
     g_p, c_p = ground.clone(), conf.clone()
     # the plain walk takes seconds here: the comparison's own call is timed
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    spiral.spiral_interpolation_plain(cfg, g_p, c_p, 0.37)
+    spiral.spiral_interpolation_plain(cfg, g_p, c_p, base_z)
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
@@ -461,7 +488,7 @@ def check_spiral_global(device, dimension=241.6, resolution=0.1, seed=0):
     err = float((g_k - g_p).abs().max())
     h, c = ground.clone(), conf.clone()
     rec = {"max_abs_err": err, "library_ms": None, "n": n}
-    rec.update(kernel_times(lambda: spiral.spiral_interpolation(cfg, h, c, 0.37), 5,
+    rec.update(kernel_times(lambda: spiral.spiral_interpolation(cfg, h, c, base_z), 5,
                             "spiral_global_kernel"))
     rec["plain_ms"] = plain_ms
     visits = (m - 1) * (4 * m + 2) + 1
@@ -553,7 +580,7 @@ def check_spiral_ranges(config, driver, rec, high_driver, device):
     timed alone) and the global-band variant at n = 2416 (random layers)."""
     from groundgrid_torch.config import GroundGridConfig
 
-    base_z = float(np.asarray(driver.make_scan(rec)[0].t_map_base)[2, 3])
+    base_z = scan_scalars(config, driver, driver.make_scan(rec)[0]).base_z
     out = {"364": check_spiral_bands(config, driver.state.ground, driver.state.groundpatch,
                                      base_z, "364^2 warm")}
     high = high_driver.config
@@ -566,7 +593,8 @@ def check_spiral_ranges(config, driver, rec, high_driver, device):
     conf = np.where(rng.random((n, n)) < 0.4, rng.uniform(0.0, 1.0, (n, n)), 0.0)
     out["2416"] = check_spiral_bands(
         cfg, torch.from_numpy(rng.normal(0, 0.5, (n, n)).astype(np.float32)).to(device),
-        torch.from_numpy(conf.astype(np.float32)).to(device), 0.37, "n = 2416 (global band)")
+        torch.from_numpy(conf.astype(np.float32)).to(device),
+        torch.tensor(0.37, dtype=torch.float32, device=device), "n = 2416 (global band)")
     return out
 
 
@@ -577,13 +605,11 @@ def warm_detect_layers(config, driver, rec):
     from groundgrid_torch.core import rasterize as rasterlib
     from groundgrid_torch.ops import raster
 
-    scan, binning, accept = prepared(config, driver, rec)
-    layers = rasterlib.rasterize_sorted(config, binning, scan.pz, scan.t_map_velo[:3, 3],
-                                        accept, scan.center, scan.t_base_map,
+    scan, s, binning, accept = prepared(config, driver, rec)
+    layers = rasterlib.rasterize_sorted(config, binning, scan.pz, accept, s,
                                         raster.raster_reduce)
-    moved = gridlib.move(config, driver.state, scan.t_base_map, scan.center, scan.center_lo)
-    return (layers.points, layers.variance, layers.min_ground_height, moved.ground,
-            moved.groundpatch)
+    ground, groundpatch = gridlib.move(config, driver.state.ground, driver.state.groundpatch, s)
+    return layers.points, layers.variance, layers.min_ground_height, ground, groundpatch
 
 
 def detect_times(config, tabs, args, plain_reps=20):
@@ -711,8 +737,8 @@ def same_as_host_read_step(config, records, device, results, name):
     raster's inputs as they came: the reference trusts the host's order
     (``sorted_fallback_check=False``)."""
     ref_config = dataclasses.replace(config, sorted_fallback_check=False)
-    with counted_march():
-        ref, _, _, _ = run_sequence(ref_config, records, device)
+    with counted_march():  # it reads the host: the eager step
+        ref, _, _, _ = run_sequence(ref_config, records, device, eager=True)
     for a, b in zip(results, ref):
         if not (np.array_equal(a.labels, b.labels) and np.array_equal(a.outlier, b.outlier)):
             raise AssertionError(f"{name}: not bitwise the host-read step (counted march, "
@@ -722,15 +748,20 @@ def same_as_host_read_step(config, records, device, results, name):
 
 
 def run_sequence(config, records, device, with_aux=False, driver=None, per_scan=None,
-                 sync_check=False):
-    """Results (input order) of ``driver`` (a fresh one by default) over
+                 sync_check=False, eager=False):
+    """Results (input order) of ``driver`` (a fresh one by default, on the
+    captured step, or with ``eager`` on ``make_step_fn``'s) over
     ``records``, with the CUDA-event and host-clock ms/scan of the run;
     ``per_scan(driver)`` runs after each scan. With ``sync_check`` every
-    step after the first runs under :class:`SyncChecked`."""
+    step after the first (on the captured step: every replay) runs under
+    :class:`SyncChecked`."""
+    from groundgrid_torch.pipeline import make_step_fn
     from groundgrid_torch.runtime.driver import StreamingDriver
 
     if driver is None:
         driver = StreamingDriver(config, device, with_aux=with_aux)
+        if eager:
+            driver.step = make_step_fn(config, with_aux)
     torch.cuda.synchronize(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -748,6 +779,23 @@ def run_sequence(config, records, device, with_aux=False, driver=None, per_scan=
     wall_ms = (time.perf_counter() - t0) * 1000.0 / len(records)
     event_ms = start.elapsed_time(end) / len(records)
     return results, driver, event_ms, wall_ms
+
+
+def log_capture(name, driver):
+    """The capture time and the graph pool's bytes of ``driver``'s step."""
+    step = driver.step
+    if not step.captured:
+        raise AssertionError(f"{name}: the driver's step was not captured")
+    log(f"{name}: captured step, capture {step.capture_seconds:.3f} s, graph pool "
+        f"{step.pool_bytes} bytes ({step.pool_bytes / 2 ** 20:.1f} MiB)")
+    return {"capture_s": step.capture_seconds, "pool_bytes": step.pool_bytes}
+
+
+def state_record(driver):
+    """Copies of the driver's four state layers (the captured step's are
+    overwritten in place)."""
+    s = driver.state
+    return s.ground.clone(), s.groundpatch.clone(), s.center.clone(), s.center_lo.clone()
 
 
 def path_counts():
@@ -797,6 +845,7 @@ def phase_sequence(config, records, device):
     log(f"main path: {event_ms:.3f} ms/scan (CUDA events, host prep included), "
         f"{1000.0 / event_ms:.2f} scans/s; host clock {wall_ms:.3f} ms/scan; steps 2-{n} under "
         f"the sync check")
+    log_capture("main path", driver)
     same_as_host_read_step(config, records, device, results, "main path")
 
     check_labels(results, records)
@@ -889,7 +938,8 @@ def phase_layers(config, records, device):
         raise AssertionError(f"resume after scan {nxt}: not bitwise the uninterrupted run")
     log(f"determinism: second kernel run bitwise equal (labels and 11 layers); "
         f"checkpoint after scan {nxt} resumed bitwise over scans {nxt + 1}-{n}")
-    return counts
+    log_capture("layers path", driver)
+    return counts, results
 
 
 def phase_layers_highres(config, records, device):
@@ -1098,9 +1148,10 @@ def phase_unsorted(records, sorted_results, device):
     sorted labels and a second kernel run; the device sort's own time."""
     from groundgrid_torch.config import GroundGridConfig
     from groundgrid_torch.core import rasterize as rasterlib
+    from groundgrid_torch.core import scalars as scalarlib
     from groundgrid_torch.core import transforms as tf
     from groundgrid_torch.ops import reset_launch_counts
-    from groundgrid_torch.pipeline import pad_scan
+    from groundgrid_torch.pipeline import pad_scan, to_device
     from groundgrid_torch.runtime.kernel_timing import device_ms
 
     config = GroundGridConfig()
@@ -1144,14 +1195,17 @@ def phase_unsorted(records, sorted_results, device):
     scan = pad_scan(config, rec.points, rec.labels, rec.t_map_velo, device)
     x, y, _ = tf.transform_points_soa(scan.t_map_velo, scan.px, scan.py, scan.pz)
     center = np.asarray(scan.t_map_velo, np.float32)[:2, 3]
-    cell = rasterlib.bin_points(config, center, None, x, y, scan.rings, scan.valid > 0,
-                                scan.t_map_velo[:3, 3]).cell
+    s = scalarlib.view(to_device(scalarlib.pack(config, center, None, (0, 0), scan.t_map_velo,
+                                                scan.t_map_base, scan.t_base_map), device))
+    cell = rasterlib.bin_points(config, s, x, y, scan.rings, scan.valid > 0).cell
     sort_ms, activities = device_ms(lambda: torch.argsort(cell, stable=True), 50)
     log(f"unsorted path: second kernel run bitwise ({again_ms:.3f} ms/scan); device stable "
         f"sort of {cell.shape[0]} cell ids {sort_ms:.4f} device ms ({activities // 50} device "
         f"activities a sort)")
+    log_capture("unsorted path", driver)
     return counts, {"ms_per_scan": event_ms, "again_ms_per_scan": again_ms,
-                    "plain_ms_per_scan": plain_ms, "sort_device_ms": sort_ms}
+                    "plain_ms_per_scan": plain_ms, "sort_device_ms": sort_ms,
+                    "results": results, "state": state_record(driver)}
 
 
 def phase_topk(device):
@@ -1197,8 +1251,10 @@ def phase_topk(device):
         f"{event_ms:.3f} / {again_ms:.3f} ms/scan (CUDA events, two runs, bitwise); host clock "
         f"{wall_ms:.3f} ms/scan; vs plain versions {mism} of {total} points differ "
         f"({1 - mism / total:.6%} agree; plain {plain_ms:.3f} ms/scan)")
+    log_capture("128-beam path", driver)
     return counts, {"ms_per_scan": event_ms, "again_ms_per_scan": again_ms,
-                    "plain_ms_per_scan": plain_ms, "points": points, "candidates": candidates}
+                    "plain_ms_per_scan": plain_ms, "points": points, "candidates": candidates,
+                    "results": results, "config": config, "records": records}
 
 
 def phase_golden(device):
@@ -1288,17 +1344,22 @@ def phase_fleet(config, records, device):
         f"included) {', '.join(f'{t:.1f}' for t in tick_ms)}, "
         f"{1000.0 * b * len(tick_ms) / sum(tick_ms):.2f} scans/s")
 
+    # the reference: one eager StreamingDriver per vehicle (the fleet runs
+    # one captured step: phase 11's fleet check)
     stream_ms = []
     for v, stream in enumerate(streams):
-        results, _, ms, _ = run_sequence(config, stream, device)
+        results, _, ms, _ = run_sequence(config, stream, device, eager=True)
         stream_ms.append(ms)
         for k, res in enumerate(results):
             n = res.n_points
             if not (np.array_equal(ticks[k].labels[v][:n], res.labels)
                     and np.array_equal(ticks[k].outlier[v][:n] > 0, res.outlier)):
                 raise AssertionError(f"fleet vehicle {v} tick {k + 1}: not bitwise streaming")
-    log(f"fleet: labels and outliers of all {b} vehicles bitwise {b} StreamingDrivers over the "
-        f"same streams ({np.mean(stream_ms):.3f} ms/scan streaming, CUDA events)")
+    captured = fleet.step.steps[0]
+    log(f"fleet: labels and outliers of all {b} vehicles (one captured step: capture "
+        f"{captured.capture_seconds:.3f} s, pool {captured.pool_bytes} bytes) bitwise {b} eager "
+        f"StreamingDrivers over the same streams ({np.mean(stream_ms):.3f} ms/scan streaming, "
+        f"CUDA events)")
 
     plain = FleetDriver(dataclasses.replace(config, use_pallas=False), batch=2, device=device)
     reset_launch_counts()
@@ -1393,11 +1454,13 @@ def phase_spatial(config, records, device, n_shards):
     in both spiral modes, against the single-grid step and itself."""
     from groundgrid_torch.ops import reset_launch_counts
     from groundgrid_torch.parallel import spatial
-    from groundgrid_torch.pipeline import make_step
+    from groundgrid_torch.pipeline import make_step_fn
 
     n, name = len(records), f"spatial {config.cell_count}^2 over {n_shards} shards"
     scans, state0 = spatial_scans(config, records, device)
-    single = make_step(config)
+    # the eager single-grid step: the spatial step runs eagerly too, and its
+    # 4 scans would otherwise time a capture (phase 11 holds it to this one)
+    single = make_step_fn(config)
     state = dataclasses.replace(state0, ground=state0.ground.clone(),
                                 groundpatch=state0.groundpatch.clone())
     torch.cuda.synchronize()
@@ -1460,6 +1523,172 @@ def phase_spatial(config, records, device, n_shards):
                        groundpatch_max=worst[1])
 
 
+@contextlib.contextmanager
+def eager_steps():
+    """The drivers and the fleet on ``make_step_fn``'s eager step: the other
+    side of phase 11's turns."""
+    from groundgrid_torch.parallel import sharding
+    from groundgrid_torch.pipeline import make_step_fn
+    from groundgrid_torch.runtime import driver
+
+    saved = driver.make_step, sharding.make_step
+    driver.make_step = sharding.make_step = make_step_fn
+    try:
+        yield
+    finally:
+        driver.make_step, sharding.make_step = saved
+
+
+def bitwise(a, b) -> bool:
+    """Two tensors equal bit for bit (NaN and -0.0 included)."""
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+def same_results(got, want, name, aux=False):
+    """Labels, outliers (and with ``aux`` the 11 layers and x, y, z) bitwise."""
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} results against {len(want)}")
+    for k, (a, b) in enumerate(zip(got, want)):
+        same = np.array_equal(a.labels, b.labels) and np.array_equal(a.outlier, b.outlier)
+        if aux:
+            same = same and all(np.array_equal(a.aux[key].view(np.int32),
+                                               b.aux[key].view(np.int32)) for key in b.aux)
+            same = same and all(np.array_equal(getattr(a, c), getattr(b, c)) for c in "xyz")
+        if not same:
+            raise AssertionError(f"{name}: scan {k + 1} not bitwise")
+
+
+def phase_captured(config, records, device, earlier):
+    """Phase 11: the captured step (``make_step``, one CUDA graph replayed
+    per scan) against the eager ``make_step_fn`` step, bitwise, on the
+    paths of phases 3, 4, 6 and 7 (phase 9 holds the captured fleet to
+    eager streaming drivers); two captured runs bitwise; every replay under
+    the sync check. Then ms per scan in turns (eager, captured, captured,
+    eager) by CUDA events: phase 3's path, the streaming bench, ``bench
+    --batch 64``, the busy share of ``bench --profile``; and sorted against
+    unsorted on the captured step."""
+    from groundgrid_torch.config import GroundGridConfig
+    from groundgrid_torch.runtime import bench
+    from groundgrid_torch.runtime.checkpoint import load_state, save_state
+    from groundgrid_torch.runtime.driver import StreamingDriver
+
+    out = {}
+    # (a) phase 3's main path, four runs in turns, every scan's state kept
+    runs = []
+    for eager in (True, False, False, True):
+        states = []
+        res, driver, ms, _ = run_sequence(config, records, device, eager=eager,
+                                          per_scan=lambda d: states.append(state_record(d)),
+                                          sync_check=True)
+        runs.append((res, states, ms, driver))
+    for (a, sa, _, _), (b, sb, _, _), what in ((runs[1], runs[0], "captured vs eager"),
+                                               (runs[2], runs[1], "two captured runs"),
+                                               (runs[2], runs[3], "captured vs eager again")):
+        same_results(a, b, f"main path, {what}")
+        for k, (x, y) in enumerate(zip(sa, sb)):
+            if not all(bitwise(u, v) for u, v in zip(x, y)):
+                raise AssertionError(f"main path, {what}: scan {k + 1}'s state layers differ")
+    out["main"] = dict(log_capture("main path (phase 3)", runs[1][3]),
+                       eager_ms=[runs[0][2], runs[3][2]], captured_ms=[runs[1][2], runs[2][2]])
+    log(f"phase 11 main path, {len(records)} scans: captured bitwise eager (labels, outliers, "
+        f"ground, groundpatch, center, center_lo every scan), two captured runs bitwise, "
+        f"replays under the sync check; ms per scan (CUDA events, host prep included) in turns: "
+        f"eager {runs[0][2]:.3f}, captured {runs[1][2]:.3f}, captured {runs[2][2]:.3f}, eager "
+        f"{runs[3][2]:.3f}")
+    del runs
+
+    # (b) phase 4's layer path: 11 layers, and a checkpoint resumed on the
+    # captured step
+    layer_cfg, layer_recs, layer_results = earlier["layers"]
+    eager, _, _, _ = run_sequence(layer_cfg, layer_recs, device, with_aux=True, eager=True)
+    same_results(layer_results, eager, "layers path, captured vs eager", aux=True)
+    half = len(layer_recs) // 2
+    _, first, _, _ = run_sequence(layer_cfg, layer_recs[:half], device, with_aux=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/state.npz"
+        save_state(path, first.state, half, layer_cfg, center64=first.center64)
+        state, nxt, extra = load_state(path, layer_cfg, device)
+    resumed = StreamingDriver(layer_cfg, device, with_aux=True)
+    resumed.restore(state, extra["center64"])
+    rest, _, _, _ = run_sequence(layer_cfg, layer_recs[nxt:], device, driver=resumed,
+                                 sync_check=True)
+    same_results(rest, eager[nxt:], "layers path, resumed captured vs eager", aux=True)
+    log(f"phase 11 layers path, {len(layer_recs)} scans: captured bitwise eager (labels, "
+        f"outliers, 11 layers, x/y/z); a checkpoint after scan {nxt} resumed on a new captured "
+        f"step bitwise eager")
+
+    # (c) phase 6, unsorted with the tracker's centers; (d) phase 7, 128 beams
+    unsorted_results, unsorted_state = earlier["unsorted"]
+    eager, driver, _, _ = run_sequence(GroundGridConfig(), records, device, eager=True)
+    same_results(unsorted_results, eager, "unsorted path, captured vs eager")
+    if not all(bitwise(u, v) for u, v in zip(unsorted_state, state_record(driver))):
+        raise AssertionError("unsorted path: the final state differs from the eager step's")
+    topk_cfg, topk_recs, topk_results, topk_candidates = earlier["topk"]
+    marchable = []
+    eager, _, _, _ = run_sequence(topk_cfg, topk_recs, device, eager=True,
+                                  per_scan=lambda d: marchable.append(d.step.marchable))
+    same_results(topk_results, eager, "128-beam path, captured vs eager")
+    if marchable != topk_candidates:
+        raise AssertionError(f"128-beam path: marchable {topk_candidates} (captured) against "
+                             f"{marchable} (eager)")
+    log(f"phase 11 unsorted path ({len(records)} scans, final state too) and 128-beam path "
+        f"({len(topk_recs)} scans, marchable counts too): captured bitwise eager")
+
+    # (e) the streaming bench's device ms per scan, in turns
+    stream_ms = []
+    for eager in (True, False, False, True):
+        with eager_steps() if eager else contextlib.nullcontext():
+            driver = StreamingDriver(config, device)
+        for rec in records[:3]:
+            driver.process(rec)
+        steps, _ = bench.device_ms_per_step(driver, records)
+        stream_ms.append(float(np.mean(steps)))
+    out["stream_device_ms"] = {"eager": [stream_ms[0], stream_ms[3]],
+                               "captured": [stream_ms[1], stream_ms[2]]}
+    log(f"phase 11 streaming bench (device ms per scan, CUDA events over {len(records) - 2} "
+        f"warm steps on prepared scans) in turns: eager {stream_ms[0]:.4f}, captured "
+        f"{stream_ms[1]:.4f}, captured {stream_ms[2]:.4f}, eager {stream_ms[3]:.4f}")
+
+    # (e') the device busy share of 8 warm steps (``bench --profile``), in turns
+    busy = []
+    for eager in (True, False, False, True):
+        with eager_steps() if eager else contextlib.nullcontext():
+            busy.append(bench.profile_steps(device=device).splitlines()[-1])
+    out["profile"] = busy
+    for name, line in zip(("eager", "captured", "captured", "eager"), busy):
+        log(f"phase 11 bench --profile ({name}): {line}")
+
+    # (f) bench --batch 64, in turns
+    fleet = []
+    for eager in (True, False, False, True):
+        with eager_steps() if eager else contextlib.nullcontext():
+            fleet.append(bench.run_fleet_benchmark(config, records[:8], FLEET_BATCH,
+                                                   2 * FLEET_BATCH, 3, device))
+        if fleet[-1]["fallbacks"]:
+            raise AssertionError("fleet bench: sortedness fallbacks")
+    keys = ("device_ms_per_scan", "device_ms_per_tick", "wall_ms_per_tick")
+    out["fleet_bench"] = [{k: f[k] for k in keys} for f in fleet]
+    log(f"phase 11 bench --batch {FLEET_BATCH} in turns (eager, captured, captured, eager): "
+        f"device ms per scan {', '.join(str(f['device_ms_per_scan']) for f in fleet)}; ms per "
+        f"tick {', '.join(str(f['device_ms_per_tick']) for f in fleet)}; wall ms per tick "
+        f"{', '.join(str(f['wall_ms_per_tick']) for f in fleet)}")
+
+    # (g) sorted against unsorted on the captured step, in turns
+    modes = []
+    for cfg in (config, GroundGridConfig(), GroundGridConfig(), config):
+        _, driver, ms, _ = run_sequence(cfg, records, device)
+        modes.append(ms)
+    out["sorted_vs_unsorted_ms"] = {"sorted": [modes[0], modes[3]],
+                                    "unsorted": [modes[1], modes[2]]}
+    log(f"phase 11 captured step, ms per scan (CUDA events, host prep included) in turns: "
+        f"sorted {modes[0]:.3f}, unsorted {modes[1]:.3f}, unsorted {modes[2]:.3f}, sorted "
+        f"{modes[3]:.3f}")
+    log("phase 11 summary: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     phase_environment()
     from groundgrid_torch.config import HIGHRES_CONFIG, GroundGridConfig
@@ -1486,13 +1715,13 @@ def main() -> int:
 
     counts, sorted_results = phase_sequence(config, records, device)
     layer_config = dataclasses.replace(config, wire_format=True, fused_detect=True)
-    layer_counts = phase_layers(layer_config, records[:N_LAYER_SCANS], device)
+    layer_counts, layer_results = phase_layers(layer_config, records[:N_LAYER_SCANS], device)
     high_config = dataclasses.replace(HIGHRES_CONFIG, sorted_scans=True, wire_format=True,
                                       fused_detect=True)
     phase_layers_highres(high_config, records[:N_HIGHRES_SCANS], device)
     phase_entry_point(config, records, device)
-    unsorted_counts, _ = phase_unsorted(records, sorted_results, device)
-    topk_counts, _ = phase_topk(device)
+    unsorted_counts, unsorted = phase_unsorted(records, sorted_results, device)
+    topk_counts, topk = phase_topk(device)
     phase_golden(device)
     fleet_counts, _ = phase_fleet(config, records, device)
     spatial_counts = {}
@@ -1500,6 +1729,10 @@ def main() -> int:
                         (config, 4)):
         counts_s, _ = phase_spatial(cfg, records[:N_SPATIAL_SCANS], device, shards)
         spatial_counts = {k: spatial_counts.get(k, 0) + v for k, v in counts_s.items()}
+    phase_captured(config, records, device, {
+        "layers": (layer_config, records[:N_LAYER_SCANS], layer_results),
+        "unsorted": (unsorted["results"], unsorted["state"]),
+        "topk": (topk["config"], topk["records"], topk["results"], topk["candidates"])})
     # K3 at 1200^2: the full launch alone and the bands of S = 8
     k3.update({k + "_highres": v for k, v in k3r["1200"].items()
                if k in ("device_ms", "wrapper_device_ms", "call_ms", "bound_ms")})

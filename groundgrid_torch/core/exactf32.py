@@ -209,11 +209,12 @@ def two_prod_int_const(m, c, ch, cl):
 def ds_bin(sh, sl, x, rh, rl, inv_res):
     """Faithful cell index floor((s - x) / res), s and res as ds pairs.
 
-    ``sh``/``sl``: np.float32 scalars, the ds image of (center + half) for
-    one axis; ``x``: f32 tensor; ``(rh, rl, inv_res)`` from :func:`res_ds`.
-    Returns int32.
+    ``sh``/``sl``: the ds image of (center + half) for one axis, np.float32
+    scalars (the host prep) or 0-dim f32 tensors on ``x``'s device (the
+    step's scan scalars): the same f32 operations either way; ``x``: f32
+    tensor; ``(rh, rl, inv_res)`` from :func:`res_ds`. Returns int32.
     """
-    relh, rell = ds_add_f32(np.float32(sh), np.float32(sl), -x)
+    relh, rell = ds_add_f32(sh, sl, -x)
     m = torch.floor(relh * inv_res)
     rhh, rhl = split(np.float32(rh))
     rlh, rll = split(np.float32(rl))

@@ -36,7 +36,7 @@ import torch
 
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core import exactf32
-from groundgrid_torch.core.rasterize import Binning, faithful_cells
+from groundgrid_torch.core.rasterize import Binning, ds_cells
 
 U32 = 0xFFFFFFFF
 U32_TOP = 0x80000000
@@ -89,11 +89,12 @@ def occlusion_key_table(config: GroundGridConfig, ground, groundpatch):
     return key.to(torch.int32).view(torch.float32).reshape(-1)
 
 
-def _ray(x, y, z, o):
-    """(dx, dy, dz, length) of the rays from the origin, f64-faithful."""
-    dx = x - float(o[0])
-    dy = y - float(o[1])
-    dz = z - float(o[2])
+def _ray(x, y, z, s):
+    """(dx, dy, dz, length) of the rays from the origin (the scan scalars'
+    ``ox, oy, oz``), f64-faithful."""
+    dx = x - s.ox
+    dy = y - s.oy
+    dz = z - s.oz
     ssh, ssl = exactf32.sumsq3_ds(dx, dy, dz)
     return dx, dy, dz, exactf32.sqrt_rn_ds(ssh, ssl)
 
@@ -115,16 +116,16 @@ def selection_key(budget):
     return (_u32_bits(budget) << 32) | (U32 - idx)
 
 
-def detect_outliers(config: GroundGridConfig, center, center_lo, ground, groundpatch,
-                    binning: Binning, x, y, z, origin, old_h, lookup_fn):
+def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: Binning, x, y,
+                    z, old_h, lookup_fn):
     """``((P,) bool, () int64)``: True for occluded-return outliers, and the
     number of marchable candidates (before the ``max_outlier_candidates``
     cap; 0 when the cap is 0) as a tensor on the points' device, unread.
 
     ``ground``/``groundpatch``: the previous scan's layers (after the move).
-    ``old_h``: per-point ``ground[cell]`` (K2). ``center``/``center_lo``/
-    ``origin``: host f32. ``lookup_fn``: ``ops.lookup.lookup`` or its plain
-    version.
+    ``old_h``: per-point ``ground[cell]`` (K2). ``s``: the scan scalars
+    (the sensor origin and the binning constants, ``core/scalars.py``).
+    ``lookup_fn``: ``ops.lookup.lookup`` or its plain version.
     """
     n = config.cell_count
     p_total = x.shape[0]
@@ -133,11 +134,10 @@ def detect_outliers(config: GroundGridConfig, center, center_lo, ground, groundp
     k_max = min(config.max_outlier_candidates, p_total)
     if k_max == 0:
         return out > 0, torch.zeros((), dtype=torch.int64, device=dev)
-    o = np.asarray(origin, np.float32)
     tol = float(np.float32(config.outlier_tolerance))
 
     cand = binning.inmap & ~binning.ignored & (z < old_h - float(np.float32(0.2)))
-    _, _, dza, length = _ray(x, y, z, o)
+    _, _, dza, length = _ray(x, y, z, s)
     len2 = length * length
     vz = exactf32.div_rn(dza, length)
     budget = torch.where(cand & (vz < float(np.float32(-0.01))), len2, torch.zeros_like(len2))
@@ -153,17 +153,17 @@ def detect_outliers(config: GroundGridConfig, center, center_lo, ground, groundp
     chunk = max(1, LATTICE_ELEMS // max(1, steps.shape[0]))
     for start in range(0, k_max, chunk):
         cp = pidx[start:start + chunk]
-        dx, dy, dz, clen = _ray(x[cp], y[cp], z[cp], o)
+        dx, dy, dz, clen = _ray(x[cp], y[cp], z[cp], s)
         vx = exactf32.div_rn(dx, clen)
         vy = exactf32.div_rn(dy, clen)
         vz_c = exactf32.div_rn(dz, clen)
         within = steps * steps < budget[cp][None, :]
-        sx = float(o[0]) + steps * vx[None, :]
-        sy = float(o[1]) + steps * vy[None, :]
-        i0, i1 = faithful_cells(config, center, center_lo, sx, sy)
+        sx = s.ox + steps * vx[None, :]
+        sy = s.oy + steps * vy[None, :]
+        i0, i1 = ds_cells(config, s.sh0, s.sl0, s.sh1, s.sl1, sx, sy)
         inside = (i0 > 0) & (i1 > 0) & (i0 < n - 1) & (i1 < n - 1)
         flat = torch.clamp(i0, 0, n - 1) * n + torch.clamp(i1, 0, n - 1)
-        thr = _mono_u32((steps * vz_c[None, :] + float(o[2])) + tol)
+        thr = _mono_u32((steps * vz_c[None, :] + s.oz) + tol)
         (vals,) = lookup_fn(flat.reshape(-1), [key_table], n * n)
         key_hit = _u32_bits(vals).reshape(flat.shape) >= thr
         hit = (within & inside & key_hit).any(dim=0).to(torch.int32)

@@ -60,20 +60,17 @@ class Binning(NamedTuple):
         return Binning(*(t[order] for t in self))
 
 
-def faithful_cells(config: GroundGridConfig, center, center_lo, x, y):
+def ds_cells(config: GroundGridConfig, sh0, sl0, sh1, sl1, x, y):
     """(gi0, gi1) int32 cell indices, faithful to the f64 oracle binning.
 
     ``floor((center + half - coord) / res)`` in ds arithmetic
-    (core/exactf32.ds_bin). ``center``/``center_lo``: host (2,) f32 pair
-    (``center_lo`` None = zero tail). The same op sequence runs for the host
-    prep on CPU tensors and for the device step, so the ids agree bitwise.
+    (core/exactf32.ds_bin), ``(sh0, sl0, sh1, sl1)`` the ds image of
+    ``center + half`` per axis (``scalars.binning_constants``): np.float32
+    on the host, 0-dim device tensors in the step (the scan scalars). The
+    same op sequence runs for the host prep on CPU tensors and for the
+    device step, so the ids agree bitwise.
     """
     rh, rl, inv = exactf32.res_ds(config.resolution)
-    hh, hl = exactf32.f64_to_ds(np.float64(config.half_length))
-    c = np.asarray(center, np.float32)
-    cl = np.zeros(2, np.float32) if center_lo is None else np.asarray(center_lo, np.float32)
-    sh0, sl0 = exactf32.ds_add(c[0], cl[0], np.float32(hh), np.float32(hl))
-    sh1, sl1 = exactf32.ds_add(c[1], cl[1], np.float32(hh), np.float32(hl))
     gi0 = exactf32.ds_bin(sh0, sl0, x, rh, rl, inv)
     gi1 = exactf32.ds_bin(sh1, sl1, y, rh, rl, inv)
     return gi0, gi1
@@ -87,19 +84,18 @@ def flat_cells(config: GroundGridConfig, gi0, gi1, valid):
     return cell, inmap
 
 
-def bin_points(config: GroundGridConfig, center, center_lo, x, y, rings, valid,
-               origin) -> Binning:
+def bin_points(config: GroundGridConfig, s, x, y, rings, valid) -> Binning:
     """Assign points to cells and flag ignored points.
 
     Ignore rule (GroundSegmentation.cpp:237-240): ring > max_ring or squared
     xy distance to the sensor below min_dist_squared; such points skip all
-    statistics but are still classified. ``origin``: host (3,) f32.
+    statistics but are still classified. ``s``: the scan scalars (the
+    binning constants and the sensor origin, ``core/scalars.py``).
     """
-    gi0, gi1 = faithful_cells(config, center, center_lo, x, y)
+    gi0, gi1 = ds_cells(config, s.sh0, s.sl0, s.sh1, s.sl1, x, y)
     cell, inmap = flat_cells(config, gi0, gi1, valid)
-    o = np.asarray(origin, np.float32)
-    dx = x - float(o[0])
-    dy = y - float(o[1])
+    dx = x - s.ox
+    dy = y - s.oy
     sqdist = dx * dx + dy * dy
     ignored = inmap & (
         (rings > config.max_ring) | (sqdist < float(np.float32(config.min_dist_squared)))
@@ -107,35 +103,30 @@ def bin_points(config: GroundGridConfig, center, center_lo, x, y, rings, valid,
     return Binning(gi0=gi0, gi1=gi1, cell=cell, inmap=inmap, ignored=ignored, sqdist=sqdist)
 
 
-def _plane_shift_point(config: GroundGridConfig, center, t_base_map, origin, gi0, gi1):
+def _plane_shift_point(config: GroundGridConfig, s, gi0, gi1):
     """Per-point conditioning shift: the ego base-plane pd at the point's CELL.
 
     Constant within a cell, so it leaves m2 invariant in real arithmetic
     while keeping the f32 sums small on graded terrain (see the JAX
-    package's docstring of the same name).
+    package's docstring of the same name). ``s``: the scan scalars.
     """
     res = float(np.float32(config.resolution))
-    half = np.float32(config.half_length)
-    c = np.asarray(center, np.float32)
-    t = np.asarray(t_base_map, np.float32)
-    o = np.asarray(origin, np.float32)
-    xc = float(c[0] + half) - (gi0.to(torch.float32) + 0.5) * res
-    yc = float(c[1] + half) - (gi1.to(torch.float32) + 0.5) * res
-    zb = (float(t[2, 0]) * xc + float(t[2, 1]) * yc) + float(t[2, 3])
-    return (-zb) - float(o[2])
+    xc = s.cxh - (gi0.to(torch.float32) + 0.5) * res
+    yc = s.cyh - (gi1.to(torch.float32) + 0.5) * res
+    zb = (s.b20 * xc + s.b21 * yc) + s.b23
+    return (-zb) - s.oz
 
 
-def _plane_shift_map(config: GroundGridConfig, center, t_base_map, origin, device):
+def _plane_shift_map(config: GroundGridConfig, s, device):
     """(N*N,) flat map of :func:`_plane_shift_point` over all cells."""
     n = config.cell_count
     idx = torch.arange(n, dtype=torch.int32, device=device)
     gi0 = idx[:, None].expand(n, n)
     gi1 = idx[None, :].expand(n, n)
-    return _plane_shift_point(config, center, t_base_map, origin, gi0, gi1).reshape(-1)
+    return _plane_shift_point(config, s, gi0, gi1).reshape(-1)
 
 
-def raster_columns(config: GroundGridConfig, binning: Binning, z, origin, accept,
-                   center, t_base_map):
+def raster_columns(config: GroundGridConfig, binning: Binning, z, accept, s):
     """The seven K1 columns of a scan and their reductions.
 
     In-map count, accepted count, sum z, sum pdc, sum pdc^2 (sums), and the
@@ -143,12 +134,11 @@ def raster_columns(config: GroundGridConfig, binning: Binning, z, origin, accept
     where a point is not accepted). Rounding is monotone, so the per-cell
     minimum of ``z - 1e-4`` (the reference's epsilon) and the extrema of
     ``pd = z - origin.z`` follow bitwise from the z extrema.
-    Returns ``(cols, ops)``.
+    ``s``: the scan scalars. Returns ``(cols, ops)``.
     """
-    o2 = float(np.float32(np.asarray(origin, np.float32)[2]))
-    pd = z - o2
+    pd = z - s.oz
     zero = torch.zeros_like(z)
-    s_pt = _plane_shift_point(config, center, t_base_map, origin, binning.gi0, binning.gi1)
+    s_pt = _plane_shift_point(config, s, binning.gi0, binning.gi1)
     pdc = torch.where(accept, pd - s_pt, zero)
     cols = [
         binning.inmap.to(torch.float32),
@@ -166,16 +156,16 @@ def raster_columns(config: GroundGridConfig, binning: Binning, z, origin, accept
 COLUMN_OPS = ("sum", "sum", "sum", "sum", "sum", "min", "max")
 
 
-def raster_partials(config: GroundGridConfig, binning: Binning, z, origin, accept, center,
-                    t_base_map, reduce_fn) -> list:
+def raster_partials(config: GroundGridConfig, binning: Binning, z, accept, s,
+                    reduce_fn) -> list:
     """One shard's seven (N*N,) K1 columns over its **cell-sorted** points:
     one ``reduce_fn`` call (``ops.raster.raster_reduce``, the kernel on
     CUDA, or its plain version) over :func:`raster_columns`."""
-    cols, ops = raster_columns(config, binning, z, origin, accept, center, t_base_map)
+    cols, ops = raster_columns(config, binning, z, accept, s)
     return reduce_fn(binning.cell, cols, ops, config.cell_count ** 2)
 
 
-def finish_partials(config: GroundGridConfig, partials, origin, center, t_base_map,
+def finish_partials(config: GroundGridConfig, partials, s,
                     with_max: bool = False) -> RasterLayers:
     """The raster layers from the K1 columns of S shards, in shard order.
 
@@ -185,8 +175,8 @@ def finish_partials(config: GroundGridConfig, partials, origin, center, t_base_m
     shard's columns pass through untouched. The pd-spread flag of the exact-zero m2 gate is
     ``min pd < max pd`` over the accepted points, the JAX package's "some pd
     differs from the first" test. The plane shift is per cell (the JAX
-    package's ``center`` / ``t_base_map`` form), so no scalar crosses the
-    shards.
+    package's ``center`` / ``t_base_map`` form, from the scan scalars ``s``),
+    so no scalar crosses the shards.
 
     ``with_max`` fills the aux max layer from the max column: the max of
     the accepted z and the reset value FLT_MIN (the reference's init quirk,
@@ -209,7 +199,7 @@ def finish_partials(config: GroundGridConfig, partials, origin, center, t_base_m
                 total = total + part
             out[j] = total
     raw, zmin, zmax = out[0], out[5], out[6]
-    o2 = float(np.float32(np.asarray(origin, np.float32)[2]))
+    o2 = s.oz
     # cells with no points read 0, all-ignored cells the sentinel
     mins = torch.where((raw > 0) & (zmin < 1e30), zmin - float(np.float32(1e-4)),
                        torch.full_like(raw, FLT_MAX))
@@ -218,19 +208,19 @@ def finish_partials(config: GroundGridConfig, partials, origin, center, t_base_m
         maxs = torch.where(raw > 0, torch.clamp_min(zmax, FLT_TINY), FLT_TINY)
     else:
         maxs = torch.full((n2,), FLT_TINY, dtype=torch.float32, device=raw.device)
-    shift = _plane_shift_map(config, center, t_base_map, origin, raw.device)
+    shift = _plane_shift_map(config, s, raw.device)
     return _finish_layers(
         config, points_raw=raw, count=out[1], sum_z=out[2], sum_pdc=out[3],
         sum_pdc2=out[4], min_gh=mins, max_gh=maxs, shift=shift, has_spread=has_spread,
     )
 
 
-def rasterize_sorted(config: GroundGridConfig, binning: Binning, z, origin, accept,
-                     center, t_base_map, reduce_fn, with_max: bool = False) -> RasterLayers:
+def rasterize_sorted(config: GroundGridConfig, binning: Binning, z, accept, s, reduce_fn,
+                     with_max: bool = False) -> RasterLayers:
     """Rasterization of a **cell-sorted** scan through one K1 call: the
     one-shard case of :func:`raster_partials` and :func:`finish_partials`."""
-    part = raster_partials(config, binning, z, origin, accept, center, t_base_map, reduce_fn)
-    return finish_partials(config, [part], origin, center, t_base_map, with_max=with_max)
+    part = raster_partials(config, binning, z, accept, s, reduce_fn)
+    return finish_partials(config, [part], s, with_max=with_max)
 
 
 def _finish_layers(config, points_raw, count, sum_z, sum_pdc, sum_pdc2, min_gh, max_gh,

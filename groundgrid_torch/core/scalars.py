@@ -1,0 +1,115 @@
+"""The scan scalars: every per-scan value the step takes, in one small tensor.
+
+The JAX step takes its poses and grid center as traced arrays (``Scan``
+fields, ``groundgrid_tpu/pipeline.py:41-61``) and the move's shift as a
+traced ``k`` (``groundgrid_tpu/core/grid.py:180-181``), so one compiled
+program serves every scan. The port's counterpart: the host computes each
+per-scan scalar in NumPy f32, exactly as the step once did from its host
+floats (the ds image of the center plus the half length, ``c + half``, the
+sensor origin, the base plane, the whole-cell shift), and ships all of them
+in one (``SIZE``,) float32 tensor, the integers as int32 bits. The step reads
+each as a 0-dim view on the device (:func:`view`), so a CUDA graph captured
+on one scan replays on any other.
+
+A device op ``t - s.ox`` rounds as ``t - float(v)`` did: both are one IEEE
+f32 operation on the same two f32 values (no per-scan scalar divides).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from groundgrid_torch.config import GroundGridConfig
+from groundgrid_torch.core import exactf32
+
+
+class ScanScalars(NamedTuple):
+    """Named views of the scan scalars: 0-dim tensors on the step's device
+    (:func:`view`), or any scalars that combine with f32 tensors in one
+    IEEE operation."""
+
+    ox: object  # sensor origin, map frame (t_map_velo[:3, 3] as f32)
+    oy: object
+    oz: object
+    base_z: object  # base_link height (t_map_base[2, 3]): K3's center seed
+    sh0: object  # ds image (hi, lo) of center + half length, axis 0: the binning
+    sl0: object
+    sh1: object  # the same, axis 1
+    sl1: object
+    cxh: object  # f32 center + half length per axis: the plane shift
+    cyh: object
+    cx: object  # f32 grid center (hi): exposed cells' base plane, wire dequantization
+    cy: object
+    b20: object  # t_base_map row 2: the base plane
+    b21: object
+    b23: object
+    velo: object  # (3, 4) t_map_velo rows 0-2: unsorted mode's device transform
+    k0: object  # int32 whole-cell shift of the move, per axis
+    k1: object
+    count: object  # int32 valid prefix of a wire scan (0 otherwise)
+
+
+N_FLOATS = 15  # ox .. b23
+VELO = slice(N_FLOATS, N_FLOATS + 12)
+K0, K1, COUNT = N_FLOATS + 12, N_FLOATS + 13, N_FLOATS + 14
+SIZE = N_FLOATS + 15
+
+
+def binning_constants(config: GroundGridConfig, center, center_lo):
+    """Host: ``(sh0, sl0, sh1, sl1)`` np.float32, the ds image of
+    ``center + half_length`` per axis (``center_lo`` None = zero tail)."""
+    hh, hl = exactf32.f64_to_ds(np.float64(config.half_length))
+    c = np.asarray(center, np.float32)
+    cl = np.zeros(2, np.float32) if center_lo is None else np.asarray(center_lo, np.float32)
+    sh0, sl0 = exactf32.ds_add(c[0], cl[0], np.float32(hh), np.float32(hl))
+    sh1, sl1 = exactf32.ds_add(c[1], cl[1], np.float32(hh), np.float32(hl))
+    return sh0, sl0, sh1, sl1
+
+
+def pack(config: GroundGridConfig, center, center_lo, k, t_map_velo, t_map_base, t_base_map,
+         count: int = 0) -> np.ndarray:
+    """Host: the (``SIZE``,) float32 scan scalars of one scan.
+
+    ``center`` / ``center_lo``: the grid center after the move, an f32
+    (hi, lo) pair; ``k``: the move's whole-cell shift (ints), clamped to
+    ``[-n, n]``, since a shift of ``|k| >= n`` exposes every cell whatever
+    its size; the poses as the scan carries them.
+    """
+    n = config.cell_count
+    c = np.asarray(center, np.float32)
+    half = np.float32(config.half_length)
+    velo = np.asarray(t_map_velo, np.float32)
+    tb = np.asarray(t_base_map, np.float32)
+    out = np.empty(SIZE, np.float32)
+    out[:N_FLOATS] = (
+        *velo[:3, 3], np.asarray(t_map_base, np.float32)[2, 3],
+        *binning_constants(config, c, center_lo),
+        c[0] + half, c[1] + half, c[0], c[1], tb[2, 0], tb[2, 1], tb[2, 3],
+    )
+    out[VELO] = velo[:3].reshape(-1)
+    ints = out.view(np.int32)
+    ints[K0], ints[K1] = (min(max(int(v), -n), n) for v in k)
+    ints[COUNT] = int(count)
+    return out
+
+
+def view(t: torch.Tensor) -> ScanScalars:
+    """Named 0-dim views (``velo`` a (3, 4) view) of a packed tensor."""
+    i = t.view(torch.int32)
+    return ScanScalars(*t[:N_FLOATS].unbind(0), velo=t[VELO].view(3, 4), k0=i[K0], k1=i[K1],
+                       count=i[COUNT])
+
+
+def host(config: GroundGridConfig, center, center_lo, t_map_velo, t_map_base=None,
+         t_base_map=None, k=(0, 0), count: int = 0) -> ScanScalars:
+    """The scan scalars as views of a CPU tensor: the host prep's and the
+    tests' form. Missing poses follow ``t_map_velo`` (``transforms.scan_poses``)."""
+    from groundgrid_torch.core import transforms as tf
+
+    if t_map_base is None or t_base_map is None:
+        _, t_map_base, t_base_map = tf.scan_poses(np.asarray(t_map_velo, np.float64))
+    return view(torch.from_numpy(pack(config, center, center_lo, k, t_map_velo, t_map_base,
+                                      t_base_map, count)))

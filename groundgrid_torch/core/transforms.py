@@ -13,6 +13,7 @@ Conventions: ``T_a_b`` maps points from frame ``b`` to frame ``a``
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def transform_points(T, points):
@@ -29,18 +30,22 @@ def transform_points(T, points):
 
 
 def transform_points_soa(T, x, y, z):
-    """Rigid transform of three (P,) f32 tensors (or NumPy arrays) by the
-    (4, 4) f32 ``T``.
+    """Rigid transform of three (P,) f32 tensors (or NumPy arrays) by the f32
+    ``T``: rows 0-2 of a (4, 4) pose, a NumPy array, or a (3, 4) or (4, 4)
+    tensor on the points' device (the step's scan scalars).
 
     The JAX package's ``transform_points_soa`` in its order of operations,
     ``((T00*x + T01*y) + T02*z) + T03``, each product and sum rounded as its
     own f32 op (eager PyTorch and NumPy fuse none); the matrix entries enter
-    as the f32 values they are.
+    as the f32 values they are, as host floats or as 0-dim device tensors.
     """
-    t = np.asarray(T, np.float32)
+    if isinstance(T, torch.Tensor):
+        t = T
+    else:
+        t = [[float(v) for v in r] for r in np.asarray(T, np.float32)[:3]]
 
     def row(i):
-        return ((float(t[i, 0]) * x + float(t[i, 1]) * y) + float(t[i, 2]) * z) + float(t[i, 3])
+        return ((t[i][0] * x + t[i][1] * y) + t[i][2] * z) + t[i][3]
 
     return row(0), row(1), row(2)
 

@@ -490,7 +490,7 @@ __device__ void walk_ring(const Band& B, const Consts& K, const int* plans, int 
 // same layers, give bitwise the one launch over the whole range.
 template <int EM>
 __global__ void __launch_bounds__(1024, 1)
-spiral_kernel(float* h, float* c, Consts K, float base_z, int stride, int d0, int d1,
+spiral_kernel(float* h, float* c, Consts K, const float* base_z, int stride, int d0, int d1,
               int seed) {
   extern __shared__ float2 band[];
   const Band B{band, stride};
@@ -501,7 +501,7 @@ spiral_kernel(float* h, float* c, Consts K, float base_z, int stride, int d0, in
   const int T = blockDim.x, Tc = T - kMemThreads, t = threadIdx.x;
 
   for (int d = d0 - 1; d <= d0 + 1 && d <= m; ++d) fetch_ring(B, K, h, c, d, 0, T);
-  if (seed && t == 0) B.v[buffer(B, 0)] = make_float2(base_z, 1.0f);  // the thread that fetched it
+  if (seed && t == 0) B.v[buffer(B, 0)] = make_float2(*base_z, 1.0f);  // the thread that fetched it
   if (t < kPlan && d0 <= d1) plans[(d0 & 1) * kPlan + t] = plan_entry(B, K, d0, t / 12, t % 12);
   __syncthreads();
 
@@ -534,7 +534,7 @@ spiral_kernel(float* h, float* c, Consts K, float base_z, int stride, int d0, in
 }
 
 template <int EM>
-int launch(float* h, float* c, const Consts& K, float base_z, int stride, int d0, int d1,
+int launch(float* h, float* c, const Consts& K, const float* base_z, int stride, int d0, int d1,
            int seed, int threads, int smem_bytes, cudaStream_t stream) {
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -550,10 +550,12 @@ int launch(float* h, float* c, const Consts& K, float base_z, int stride, int d0
 
 // h, c: (n, n) f32 row-major, updated in place: rings d0 .. d1 walked, the
 // center seeded first when seed is nonzero (1 <= d0, d0 - 1 <= d1 <= m - 1;
-// the whole sweep is 1 .. m-1 seeded). threads and smem_bytes come from
+// the whole sweep is 1 .. m-1 seeded) with the height *base_z, a device
+// f32 read once by the launch (the step's scan scalars: a captured launch
+// reads each replay's value). threads and smem_bytes come from
 // ops/spiral.py band_layout; a launch whose geometry or range does not fit
 // the kernel's limits returns cudaErrorInvalidValue without launching.
-extern "C" int gg_spiral(float* h, float* c, int n, int cidx, float base_z, float res2,
+extern "C" int gg_spiral(float* h, float* c, int n, int cidx, const float* base_z, float res2,
                          float dec, float min_d2, float floor_c, int d0, int d1, int seed,
                          int threads, int smem_bytes, cudaStream_t stream) {
   const int m = cidx > 0 ? cidx : 0;

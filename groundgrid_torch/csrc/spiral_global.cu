@@ -155,7 +155,7 @@ __device__ void segment(float* h, float* c, const Consts& K, int f, int lo, int 
 // up to 1024 threads, so at most 64 registers a thread. Walks rings d0 .. d1
 // (row i = m - D), the center seeded first when `seed` is set.
 __global__ void __launch_bounds__(1024)
-spiral_global_kernel(float* h, float* c, Consts K, float base_z, float* scratch, int d0,
+spiral_global_kernel(float* h, float* c, Consts K, const float* base_z, float* scratch, int d0,
                      int d1, int seed) {
   extern __shared__ float smem[];
   const int n = K.n;
@@ -166,7 +166,7 @@ spiral_global_kernel(float* h, float* c, Consts K, float base_z, float* scratch,
   float* sc = sb + n;
   const int m = K.cidx;
   if (seed && threadIdx.x == 0) {
-    h[(size_t)m * n + m] = base_z;
+    h[(size_t)m * n + m] = *base_z;
     c[(size_t)m * n + m] = 1.0f;
   }
   __syncthreads();
@@ -183,11 +183,12 @@ spiral_global_kernel(float* h, float* c, Consts K, float base_z, float* scratch,
 }  // namespace
 
 // h, c: (n, n) f32 row-major, updated in place: rings d0 .. d1, the center
-// seeded first when seed is nonzero (1 <= d0, d0 - 1 <= d1 <= m - 1).
+// seeded first when seed is nonzero (1 <= d0, d0 - 1 <= d1 <= m - 1) with
+// the height *base_z, a device f32 read once by the launch.
 // threads and smem_bytes come from ops/spiral.py global_layout: smem_bytes
 // holds the scan's 2 threads floats, plus the 3 n per-segment floats when
 // scratch is null.
-extern "C" int gg_spiral_global(float* h, float* c, int n, int cidx, float base_z,
+extern "C" int gg_spiral_global(float* h, float* c, int n, int cidx, const float* base_z,
                                 float res2, float dec, float min_d2, float floor_c, int d0,
                                 int d1, int seed, int threads, int smem_bytes, float* scratch,
                                 cudaStream_t stream) {

@@ -14,7 +14,7 @@ prep (``.native`` is then false); that is host code, never the device.
 
 Each prepared scan is written by the library straight into a fresh host
 buffer (pinned for a CUDA device) and reaches ``device`` in one copy, like
-``pipeline._to_device``; no staging buffer is reused while a copy from it
+``pipeline.to_device``; no staging buffer is reused while a copy from it
 may be in flight.
 """
 

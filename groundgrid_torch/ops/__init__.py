@@ -6,6 +6,10 @@ one above 2415 cells a side), K4 ``detect.detect_fused``. Each wrapper
 counts its kernel launches in a ``launches`` attribute (K3 counts either
 variant there, and the global-band one also in ``global_launches``);
 :func:`launch_counts` reads them and :func:`reset_launch_counts` zeroes them.
+A step captured as a CUDA graph (``pipeline.CapturedStep``) launches its
+kernels by replaying it: it takes the counts its capture recorded
+(:func:`counter_values` before and after) off again, and adds them on each
+replay (:func:`add_launches`), so the counters still count per scan.
 """
 
 from __future__ import annotations
@@ -30,3 +34,25 @@ def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
     _wrappers()["spiral"].global_launches = 0
+
+
+def _counters():
+    """(wrapper, attribute) of every launch counter."""
+    wrappers = _wrappers()
+    return [(fn, "launches") for fn in wrappers.values()] + [(wrappers["spiral"],
+                                                             "global_launches")]
+
+
+def counter_values() -> tuple[int, ...]:
+    """Every launch counter, in a fixed order (for :func:`set_counters`)."""
+    return tuple(getattr(fn, attr) for fn, attr in _counters())
+
+
+def set_counters(values) -> None:
+    for (fn, attr), v in zip(_counters(), values):
+        setattr(fn, attr, v)
+
+
+def add_launches(delta) -> None:
+    """Add ``delta`` (a difference of two :func:`counter_values`) to the counters."""
+    set_counters(v + d for v, d in zip(counter_values(), delta))

@@ -314,10 +314,13 @@ def spiral_interpolation_rings_plain(config: GroundGridConfig, ground, groundpat
                                      d_first: int, d_last: int, seed_center: bool):
     """Plain PyTorch walk of rings ``d_first .. d_last`` (ring D: row and
     column ``center - D`` to ``center + D``), inner to outer, in place; the
-    center seeded first when ``seed_center``. Returns (ground, groundpatch)."""
+    center seeded first when ``seed_center``, with ``base_z``: a 0-dim f32
+    tensor (the kernel's form) or a host float, seeded as the same f32.
+    Returns (ground, groundpatch)."""
     c_idx = config.center_cell
     if seed_center:
-        ground[c_idx, c_idx] = float(np.float32(base_z))
+        ground[c_idx, c_idx] = (base_z if isinstance(base_z, torch.Tensor)
+                                else float(np.float32(base_z)))
         groundpatch[c_idx, c_idx] = 1.0
     for d in range(d_first, d_last + 1):
         i = c_idx - d
@@ -341,10 +344,13 @@ def spiral_interpolation_rings(config: GroundGridConfig, ground, groundpatch, ba
     """Walk rings ``d_first .. d_last`` of the (N, N) float32 layers, inner to
     outer, in place, as the whole sweep walks them; the center seeded with
     ``base_z`` at confidence 1 first when ``seed_center`` (``d_first`` 1
-    only). Ring D's stencils read ring D-1's final values and ring D+1's
-    values before the sweep, so the bands of a partition of ``1 ..
-    center-1`` run in order give bitwise the whole sweep, kernel against
-    kernel and plain against plain (``parallel/spiral_shard.py``).
+    only). ``base_z``: a 0-dim float32 tensor on the layers' device, which
+    the kernel reads when it runs (a launch captured in a CUDA graph seeds
+    each replay's value); the plain version also takes a host float. Ring
+    D's stencils read ring D-1's final values and ring D+1's values before
+    the sweep, so the bands of a partition of ``1 .. center-1`` run in
+    order give bitwise the whole sweep, kernel against kernel and plain
+    against plain (``parallel/spiral_shard.py``).
 
     One launch of K3 for CUDA tensors (the band kernel, or the global-band
     one above 2415 cells a side, with the range), none for an empty range
@@ -366,9 +372,13 @@ def spiral_interpolation_rings(config: GroundGridConfig, ground, groundpatch, ba
         raise RuntimeError(f"spiral_interpolation: unsupported device {ground.device}")
     if not (ground.is_contiguous() and groundpatch.is_contiguous()):
         raise ValueError("spiral_interpolation needs contiguous layers")
+    if not (isinstance(base_z, torch.Tensor) and base_z.numel() == 1
+            and base_z.dtype == torch.float32 and base_z.device == ground.device):
+        raise ValueError("spiral_interpolation: base_z must be a one-element float32 tensor "
+                         f"on {ground.device}")
     if d_first > d_last and not seed_center:
         return ground, groundpatch
-    consts = (n, m, float(np.float32(base_z)), float(np.float32(config.resolution ** 2)),
+    consts = (n, m, base_z.data_ptr(), float(np.float32(config.resolution ** 2)),
               float(np.float32(config.occupied_cells_decrease_factor)),
               float(np.float32(config.min_dist_squared)), float(np.float32(0.001)),
               d_first, d_last, int(seed_center))
@@ -394,8 +404,9 @@ def spiral_interpolation_rings(config: GroundGridConfig, ground, groundpatch, ba
 def spiral_interpolation(config: GroundGridConfig, ground, groundpatch, base_z):
     """Center-outward sweep of the (N, N) float32 layers, in place.
 
-    Seeds the center cell with ``base_z`` (the vehicle base height, a host
-    float) at confidence 1, then walks rings ``1 .. center-1`` (rows
+    Seeds the center cell with ``base_z`` (the vehicle base height, a 0-dim
+    float32 tensor on the layers' device: the step's scan scalars) at
+    confidence 1, then walks rings ``1 .. center-1`` (rows
     ``center-1 .. 1``), updating ``ground`` and ``groundpatch`` where they
     lie (the JAX step donated these buffers): one K3 launch over the whole
     range (:func:`spiral_interpolation_rings`). Returns the two given

@@ -14,10 +14,14 @@ the block's device; NumPy leaves (poses, scan centers) and the grid
 centers, host values by design (``core/grid.py``), stay on the host.
 
 Each device runs its vehicles in order, the counterpart of the ``lax.map``
-the JAX package batches sorted scans with: the step reads nothing back to
-the host, so a tick is one stream of launches per device. The fleet summary
-is summed on the device and, when ``torch.distributed`` is initialized,
-reduced over the group by one ``all_reduce`` (the JAX ``psum``).
+the JAX package batches sorted scans with: one captured vehicle step per
+device (``pipeline.CapturedStep``), and per vehicle its block slices copied
+into the step's static buffers, one replay, its layers and outputs copied
+back. The scan scalars of a block ship in one copy a tick. The step reads
+nothing back to the host, so a tick is one stream of launches and replays
+per device. The fleet summary is summed on the device and, when
+``torch.distributed`` is initialized, reduced over the group by one
+``all_reduce`` (the JAX ``psum``).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch.distributed as dist
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core.classify import LABEL_GROUND, LABEL_NONGROUND
 from groundgrid_torch.core.grid import GridState
-from groundgrid_torch.pipeline import StepOutput, make_step_fn
+from groundgrid_torch.pipeline import StepOutput, make_step, to_device
 
 # leaves that stay on the host whatever the block's device
 _HOST_FIELDS = {GridState: ("center", "center_lo")}
@@ -125,8 +129,9 @@ class FleetStep:
     """``(states, scans) -> (states, outs, summary)`` over the mesh's blocks.
 
     ``states`` and ``scans`` are lists of blocks (:func:`shard_fleet_pytree`).
-    Each device steps its vehicles in order with its own pipeline ``Step``
-    (``steps``), writing each vehicle's new layers and center back into its
+    Each device steps its vehicles in order with its own vehicle step
+    (``steps``, ``pipeline.make_step``'s: captured, or eager for the plain
+    versions), writing each vehicle's new layers and center back into its
     block: ``states`` is updated in place and returned (the JAX fleet step
     donates it). ``outs`` holds one stacked ``StepOutput`` per block; the
     summary's counts are int64 tensors on the mesh's first device.
@@ -135,7 +140,7 @@ class FleetStep:
     def __init__(self, config: GroundGridConfig, mesh: Sequence[torch.device]):
         self.config = config
         self.mesh = tuple(mesh)
-        self.steps = [make_step_fn(config) for _ in self.mesh]
+        self.steps = [make_step(config) for _ in self.mesh]
 
     @property
     def fallbacks(self) -> int:
@@ -147,11 +152,16 @@ class FleetStep:
             raise ValueError(f"need one state and one scan block per device ({len(self.mesh)})")
         outs, totals = [], []
         for step, block, scan in zip(self.steps, states, scans):
+            b = block.ground.shape[0]
+            host = [step.scalars(block.center[i].numpy(), block.center_lo[i].numpy(),
+                                 _vehicle(scan, i)) for i in range(b)]
+            scalars = to_device(np.stack([h[0] for h in host]), block.ground.device)
             per_vehicle = []
-            for i in range(block.ground.shape[0]):
+            for i, (_, center, center_lo) in enumerate(host):
                 vehicle = GridState(ground=block.ground[i], groundpatch=block.groundpatch[i],
                                     center=block.center[i], center_lo=block.center_lo[i])
-                vehicle, out = step(vehicle, _vehicle(scan, i))
+                vehicle, out = step.run(vehicle, _vehicle(scan, i), scalars[i], center,
+                                        center_lo)
                 block.ground[i].copy_(vehicle.ground)
                 block.groundpatch[i].copy_(vehicle.groundpatch)
                 block.center[i], block.center_lo[i] = vehicle.center, vehicle.center_lo

@@ -36,7 +36,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Sequence
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -46,15 +45,15 @@ from groundgrid_torch.core import detect as detectlib
 from groundgrid_torch.core import grid as gridlib
 from groundgrid_torch.core import outliers as outlierlib
 from groundgrid_torch.core import rasterize as rasterlib
+from groundgrid_torch.core import scalars as scalarlib
 from groundgrid_torch.core import transforms as tf
 from groundgrid_torch.core.detect import HALO
-from groundgrid_torch.core.grid import GridState
 from groundgrid_torch.ops import lookup as lookuplib
 from groundgrid_torch.ops import raster as rasterops
 from groundgrid_torch.ops import spiral as spiralops
 from groundgrid_torch.parallel.sharding import _place, make_mesh
 from groundgrid_torch.parallel.spiral_shard import banded_spiral
-from groundgrid_torch.pipeline import Scan, _validate
+from groundgrid_torch.pipeline import Scan, _validate, scan_scalars, to_device
 
 
 class LocalMesh:
@@ -308,30 +307,30 @@ class SpatialStep:
         if not len(g_blocks) == len(c_blocks) == len(scan_blocks) == len(local):
             raise ValueError(f"need one block and one scan chunk per local shard ({len(local)})")
         scan0 = scan_blocks[0]
-        origin = np.asarray(scan0.t_map_velo, np.float32)[:3, 3]
-        new_center = scan0.center if self.with_scan_center else None
-        new_lo = scan0.center_lo if self.with_scan_center else None
-        if self.with_scan_center and new_center is None:
+        if self.with_scan_center and scan0.center is None:
             raise ValueError("with_scan_center: the scans carry no center")
+        if not self.with_scan_center:
+            scan0 = scan0._replace(center=None, center_lo=None)
+        packed, new_center, new_lo = scan_scalars(cfg, center[0].numpy(), center[1].numpy(),
+                                                  scan0)
+        on_device: dict = {}  # the scan scalars, shipped once per device
 
         grounds = [torch.cat(x) for x in mesh.all_gather(list(g_blocks))]
         patches = [torch.cat(x) for x in mesh.all_gather(list(c_blocks))]
         shards, parts = [], []
         for (s, dev), g, c, scan in zip(local, grounds, patches, scan_blocks):
-            state = GridState(ground=g, groundpatch=c, center=center[0], center_lo=center[1])
-            moved = gridlib.move(cfg, state, scan.t_base_map, new_center, new_lo,
-                                 new_position=origin[:2])
-            ctr, ctr_lo = moved.center_np, moved.center_lo_np
+            if dev not in on_device:
+                on_device[dev] = scalarlib.view(to_device(packed, dev))
+            sc = on_device[dev]
+            moved = gridlib.move(cfg, g, c, sc)
             if cfg.sorted_scans:
                 x, y, z = scan.px, scan.py, scan.pz
             else:
-                x, y, z = tf.transform_points_soa(scan.t_map_velo, scan.px, scan.py, scan.pz)
-            binning = rasterlib.bin_points(cfg, ctr, ctr_lo, x, y, scan.rings, scan.valid > 0,
-                                           origin)
-            (old_h,) = self._lookup(binning.cell, [moved.ground], n2)
-            outlier, _ = outlierlib.detect_outliers(cfg, ctr, ctr_lo, moved.ground,
-                                                    moved.groundpatch, binning, x, y, z, origin,
-                                                    old_h, self._lookup)
+                x, y, z = tf.transform_points_soa(sc.velo, scan.px, scan.py, scan.pz)
+            binning = rasterlib.bin_points(cfg, sc, x, y, scan.rings, scan.valid > 0)
+            (old_h,) = self._lookup(binning.cell, [moved[0]], n2)
+            outlier, _ = outlierlib.detect_outliers(cfg, sc, *moved, binning, x, y, z, old_h,
+                                                    self._lookup)
             accept = binning.inmap & ~binning.ignored & ~outlier
             rb, rz, racc = binning, z, accept
             if not cfg.sorted_scans or cfg.sorted_fallback_check:
@@ -341,16 +340,14 @@ class SpatialStep:
                 if dev not in self._fallbacks:
                     self._fallbacks[dev] = torch.zeros((), dtype=torch.int64, device=dev)
                 self._fallbacks[dev] += (binning.cell[1:] < binning.cell[:-1]).any()
-            cols = rasterlib.raster_partials(cfg, rb, rz, origin, racc, ctr, scan.t_base_map,
-                                             self._reduce)
+            cols = rasterlib.raster_partials(cfg, rb, rz, racc, sc, self._reduce)
             parts.append(torch.stack(list(cols)))
             shards.append((moved, binning, z, outlier))
 
         dets = []
-        for (s, dev), gathered, (moved, *_), scan in zip(local, mesh.all_gather(parts), shards,
-                                                         scan_blocks):
-            raster = rasterlib.finish_partials(cfg, [p.unbind(0) for p in gathered], origin,
-                                               moved.center_np, scan.t_base_map)
+        for (s, dev), gathered, (moved, *_) in zip(local, mesh.all_gather(parts), shards):
+            raster = rasterlib.finish_partials(cfg, [p.unbind(0) for p in gathered],
+                                               on_device[dev])
             rows = _rows(n, mesh.size, s)
 
             def halo(full):
@@ -359,16 +356,15 @@ class SpatialStep:
 
             dets.append((raster, detectlib.detect_block(
                 cfg, self._tables.rows(s, dev), halo(raster.points), halo(raster.variance),
-                halo(raster.min_ground_height), moved.ground[rows], moved.groundpatch[rows])))
+                halo(raster.min_ground_height), moved[0][rows], moved[1][rows])))
 
         grounds = [torch.cat(x) for x in mesh.all_gather([g for _, (g, _) in dets])]
         patches = [torch.cat(x) for x in mesh.all_gather([c for _, (_, c) in dets])]
-        base_z = float(np.asarray(scan0.t_map_base, np.float32)[2, 3])
         if self._banded is not None:
-            grounds, patches = self._banded(grounds, patches, base_z)
+            grounds, patches = self._banded(grounds, patches, on_device[local[0][1]].base_z)
         else:
-            for g, c in zip(grounds, patches):
-                self._spiral(cfg, g, c, base_z)
+            for (_, dev), g, c in zip(local, grounds, patches):
+                self._spiral(cfg, g, c, on_device[dev].base_z)
 
         g_out, c_out, labels, outliers = [], [], [], []
         for (s, _), g, c, (raster, _), (moved, binning, z, outlier) in zip(
@@ -379,8 +375,8 @@ class SpatialStep:
             rows = _rows(n, mesh.size, s)
             g_out.append(g[rows].clone())
             c_out.append(c[rows].clone())
-        moved = shards[0][0]
-        return SpatialOutput(g_out, c_out, (moved.center, moved.center_lo), labels, outliers)
+        return SpatialOutput(g_out, c_out, (gridlib.host_pair(new_center),
+                                            gridlib.host_pair(new_lo)), labels, outliers)
 
 
 def make_spatial_step(config: GroundGridConfig, mesh, spiral_mode: str = "replicated",

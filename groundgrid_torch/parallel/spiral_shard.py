@@ -83,7 +83,9 @@ def banded_spiral(config: GroundGridConfig, mesh, rings_fn=None):
     spatial.LocalMesh` or :class:`~groundgrid_torch.parallel.spatial.
     GroupMesh`). Returns ``f(grounds, patches, base_z) -> (grounds,
     patches)``, one full (N, N) copy of each layer per local shard, all
-    equal on entry. Every shard seeds the center; shard s walks its band on
+    equal on entry; ``base_z``, the center's seed, is a 0-dim float32
+    tensor (each shard reads its copy on its device, as K3 reads it). Every
+    shard seeds the center; shard s walks its band on
     its copy (``rings_fn``, by default :func:`spiral_interpolation_rings
     <groundgrid_torch.ops.spiral.spiral_interpolation_rings>`) after it
     receives band s-1's boundary ring, a copy on a local mesh and a
@@ -113,16 +115,16 @@ def banded_spiral(config: GroundGridConfig, mesh, rings_fn=None):
 
     def f(grounds, patches, base_z):
         local = mesh.shards
-        z = float(np.float32(base_z))
-        for g, c in zip(grounds, patches):
-            g[c_idx, c_idx].fill_(z)
+        zs = [base_z.to(g.device) for g in grounds]
+        for g, c, z in zip(grounds, patches, zs):
+            g[c_idx, c_idx].copy_(z)  # on the device: no host value, no sync
             c[c_idx, c_idx].fill_(1.0)
         pre = [(g.clone(), c.clone()) for g, c in zip(grounds, patches)]
         at = {s: k for k, s in enumerate(local)}  # shard -> its local position
         for s, (d0, d1) in enumerate(ranges):
             if s in at and d0 <= d1:
                 k = at[s]
-                rings_fn(config, grounds[k], patches[k], z, d0, d1)
+                rings_fn(config, grounds[k], patches[k], zs[k], d0, d1)
             if s < size - 1 and d0 <= d1:
                 i_b = c_idx - d1  # the band's outermost ring
                 pkg = pack_ring(grounds[at[s]], patches[at[s]], i_b, n2c) if s in at else None

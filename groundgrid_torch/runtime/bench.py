@@ -262,7 +262,9 @@ def run_benchmark(n_scans: int = 64, batch: int = 1, resolution: float = 0.33,
 
 
 def profile_steps(n_steps: int = 8, device="cuda") -> str:
-    """``torch.profiler`` table of warm default-geometry steps, by device time."""
+    """``torch.profiler`` table of warm default-geometry steps (the driver's,
+    captured), by device time; then the device busy ms per step and its
+    share of the steps' CUDA-event span."""
     device = require_cuda(device)
     config = GroundGridConfig(sorted_scans=True)
     records = synthetic_records(config, n_steps + 2)
@@ -272,16 +274,22 @@ def profile_steps(n_steps: int = 8, device="cuda") -> str:
     scans = [driver.make_scan(rec)[0] for rec in records[2:]]
     torch.cuda.synchronize(device)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with torch.profiler.profile(activities=acts) as prof:
         state = driver.state
+        start.record()
         for scan in scans:
             state, _ = driver.step(state, scan)
+        end.record()
         torch.cuda.synchronize(device)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
     busy_us, activities = device_us(prof)
-    return (f"{table}\ndevice busy {busy_us / 1000.0 / len(scans):.4f} ms per step "
+    span_ms = start.elapsed_time(end) / len(scans)
+    busy_ms = busy_us / 1000.0 / len(scans)
+    return (f"{table}\ndevice busy {busy_ms:.4f} ms per step "
             f"({activities / len(scans):.1f} device activities per step) over {len(scans)} "
-            f"warm steps")
+            f"warm steps; span {span_ms:.4f} ms per step (CUDA events, profiler on): busy "
+            f"share {busy_ms / span_ms:.4f}; step {type(driver.step).__name__}")
 
 
 def main() -> None:

@@ -17,10 +17,13 @@ with the last good pose.
 
 :meth:`StreamingDriver.run` can keep ``pipeline_depth`` scans in flight
 beyond the one being fetched: results stay in order and bitwise those of the
-lock-step run. The grid state can be checkpointed at any scan boundary
-(``runtime/checkpoint.py``) and installed again with :meth:`restore`, or by
-assigning ``driver.state``: the resumed stream reproduces the uninterrupted
-one bitwise.
+lock-step run. The step is ``pipeline.make_step``'s: captured as one CUDA
+graph on the card, whose state layers are static buffers that each scan
+updates in place; a state is installed by copying it into them, and the
+outputs come back as clones. The grid state can be checkpointed at any scan
+boundary (``runtime/checkpoint.py``, which copies the layers out) and
+installed again with :meth:`restore`, or by assigning ``driver.state``: the
+resumed stream reproduces the uninterrupted one bitwise.
 """
 
 from __future__ import annotations
@@ -144,9 +147,10 @@ class StreamingDriver:
         resumed stream bins and sorts against the center the uninterrupted
         run would have used. ``center64``: the checkpoint's exact (2,) f64
         tracker center (format v2); without it the tracker resumes from the
-        ds pair ``center + center_lo``.
+        ds pair ``center + center_lo``. The layers are copied into the step's
+        own (the captured step's static buffers), never rebound.
         """
-        self.state = state
+        self.state = self.step.install(state)
         if center64 is None:
             center64 = self._state_center64(state)
         self._tracker = CenterTracker(self.config, np.asarray(center64, np.float64))
@@ -164,7 +168,9 @@ class StreamingDriver:
                       and config.max_points == self.config.max_points)
         self.step = make_step(config, self.with_aux)
         self.config = config
-        if not keep_state:
+        if keep_state:
+            self.state = self.step.install(self.state)
+        else:
             self.state = None
             self._tracker = None
 
@@ -247,7 +253,8 @@ class StreamingDriver:
             # center reconstructs it only to ~2^-48, enough to flip a
             # half-cell snap tie)
             self._ensure_tracker(np.asarray(rec.t_map_velo, np.float64)[:2, 3])
-            self.state = init_state(self.config, rec.t_map_velo, self.device)
+            self.state = self.step.install(init_state(self.config, rec.t_map_velo,
+                                                      self.device))
         prepared = getattr(rec, "scan", None)
         if prepared is not None:
             if not self.config.sorted_scans:

@@ -54,7 +54,7 @@ def keep(result):  # a check's record, without the tensors some checks also retu
 out = {}
 for name in sys.argv[2:]:
     if name == "lookup":
-        cell = cs.prepared(config, driver, records[4])[1].cell
+        cell = cs.prepared(config, driver, records[4])[-2].cell  # the binning
         extra = (records[4],) if len(inspect.signature(cs.check_lookup).parameters) > 3 else ()
         out[name] = keep(cs.check_lookup(config, driver, cell, *extra))
         # the march lattice, measured by the calling tree's probe in every tree

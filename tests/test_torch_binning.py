@@ -22,6 +22,7 @@ from groundgrid_torch import pipeline as tpipe
 from groundgrid_torch.config import GroundGridConfig as TConfig
 from groundgrid_torch.core import grid as tgrid
 from groundgrid_torch.core import rasterize as traster
+from groundgrid_torch.core import scalars as tscalars
 
 # the test workers share the CPU: torch's intra-op thread pools would
 # oversubscribe it and stall on the many small ops of the plain versions
@@ -77,8 +78,8 @@ def test_bin_points_bitwise(small_config, small_scans, jit):
     args = [jnp.asarray(a) for a in (hi, lo, origin, xyz[:, 0], xyz[:, 1], xyz[:, 2], rings)]
     want = (jax.jit(fn) if jit else fn)(*args, jnp.asarray(valid > 0))
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (xyz[:, 0], xyz[:, 1])]
-    got = traster.bin_points(tcfg, hi, lo, t[0], t[1], torch.from_numpy(rings),
-                             torch.from_numpy(valid > 0), origin)
+    got = traster.bin_points(tcfg, tscalars.host(tcfg, hi, lo, mv), t[0], t[1],
+                             torch.from_numpy(rings), torch.from_numpy(valid > 0))
     for name in want._fields:
         a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
         if jit and name == "sqdist":
@@ -134,10 +135,12 @@ def test_move_bitwise(small_config, seed):
                              jnp.asarray(lo0))
     want = jax.jit(lambda s, b, c, l: jgrid.move(jcfg, s, None, b, new_center=c, new_center_lo=l))(
         jstate, bm, hi1, lo1)
-    got = tgrid.move(tcfg, tgrid.state_from_numpy(ground, conf, hi0, lo0, "cpu"), bm, hi1, lo1)
-    for a, b in zip(tgrid.state_to_numpy(got), (want.ground, want.groundpatch, want.center,
-                                                want.center_lo)):
-        np.testing.assert_array_equal(a, np.asarray(b))
+    s = tscalars.host(tcfg, hi1, lo1, T.astype(np.float32), t_map_base=np.eye(4),
+                      t_base_map=bm, k=tgrid.shift_cells(tcfg, hi0, hi1))
+    got = tgrid.move(tcfg, torch.from_numpy(ground), torch.from_numpy(conf), s)
+    for a, b in zip((*got, hi1, lo1), (want.ground, want.groundpatch, want.center,
+                                       want.center_lo)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_state_numpy_round_trip(small_config):

@@ -177,6 +177,11 @@ def test_lookup_kernel_any_count(cuda, p):
     assert lookup.lookup.launches == before + (4 if p else 0)  # nothing to read: no launch
 
 
+def _base_z(device, value=0.37):
+    """K3's seed as the kernel reads it: a 0-dim f32 tensor on the card."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
 def _spiral_layers(n, device):
     rng = np.random.default_rng(n)
     ground = torch.from_numpy(rng.normal(0, 0.5, (n, n)).astype(np.float32)).to(device)
@@ -196,19 +201,22 @@ def test_spiral_kernel_matches_plain(cuda, dimension, resolution):
     largest band that fits, 11 visits per thread)."""
     cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
     ground, conf = _spiral_layers(cfg.cell_count, cuda)
-    g_k, c_k = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
-    g_p, c_p = spiral.spiral_interpolation_plain(cfg, ground.clone(), conf.clone(), 0.37)
+    z = _base_z(cuda)
+    g_k, c_k = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), z)
+    g_p, c_p = spiral.spiral_interpolation_plain(cfg, ground.clone(), conf.clone(), z)
     torch.cuda.synchronize()
     assert torch.equal(c_k, c_p)
     torch.testing.assert_close(g_k, g_p, atol=2e-5, rtol=1e-5)
     with pytest.raises(ValueError):  # the kernel writes in place: no strided views
-        spiral.spiral_interpolation(cfg, ground.t(), conf.t(), 0.37)
+        spiral.spiral_interpolation(cfg, ground.t(), conf.t(), z)
+    with pytest.raises(ValueError):  # the kernel reads base_z from device memory
+        spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
 
 
 def test_spiral_kernel_is_deterministic(cuda):
     cfg = GroundGridConfig()
     ground, conf = _spiral_layers(cfg.cell_count, cuda)
-    runs = [spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
+    runs = [spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), _base_z(cuda))
             for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
@@ -224,7 +232,7 @@ def test_spiral_kernel_refuses_a_band_beyond_shared_memory(cuda, dimension, reso
     assert spiral.spiral_variant(cfg.cell_count) == "global"
     ground, conf = _spiral_layers(cfg.cell_count, cuda)
     reset_launch_counts()
-    runs = [spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
+    runs = [spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), _base_z(cuda))
             for _ in range(2)]
     assert launch_counts()["spiral"] == 2 and spiral.spiral_interpolation.global_launches == 2
     g_p, c_p = spiral.spiral_interpolation_plain(cfg, ground.clone(), conf.clone(), 0.37)
@@ -247,20 +255,21 @@ def test_spiral_bands_in_order_match_one_launch(cuda, dimension, resolution, siz
 
     cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
     ground, conf = _spiral_layers(cfg.cell_count, cuda)
-    full = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), 0.37)
+    z = _base_z(cuda)
+    full = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), z)
     h, c = ground.clone(), conf.clone()
     ranges = band_ranges(cfg, size)
     reset_launch_counts()
     for k, (d0, d1) in enumerate(ranges):
         if k == 1:
             before = (h.clone(), c.clone())
-        spiral.spiral_interpolation_rings(cfg, h, c, 0.37, d0, d1, seed_center=k == 0)
+        spiral.spiral_interpolation_rings(cfg, h, c, z, d0, d1, seed_center=k == 0)
     assert launch_counts()["spiral"] == sum(d1 >= d0 for d0, d1 in ranges)
     torch.cuda.synchronize()
     assert torch.equal(h.view(torch.int32), full[0].view(torch.int32))
     assert torch.equal(c.view(torch.int32), full[1].view(torch.int32))
     d0, d1 = ranges[1]
-    g_k, c_k = spiral.spiral_interpolation_rings(cfg, before[0].clone(), before[1].clone(), 0.37,
+    g_k, c_k = spiral.spiral_interpolation_rings(cfg, before[0].clone(), before[1].clone(), z,
                                                  d0, d1)
     g_p, c_p = spiral.spiral_interpolation_rings_plain(cfg, before[0].clone(),
                                                        before[1].clone(), 0.37, d0, d1, False)
@@ -493,7 +502,8 @@ def test_unsorted_step_on_card_matches_cpu(cuda):
     assert gpu.step.fallbacks == 0
     np.testing.assert_array_equal(gpu.state.center.numpy(), cpu.state.center.numpy())
 
-    step_cpu, step_gpu = pipeline.make_step(cfg), pipeline.make_step(cfg)
+    # center-less scans (the host center recurrence) run on the eager step
+    step_cpu, step_gpu = pipeline.make_step_fn(cfg), pipeline.make_step_fn(cfg)
     s_cpu = pipeline.init_state(cfg, scans[0][2], "cpu")
     s_gpu = pipeline.init_state(cfg, scans[0][2], cuda)
     for pts, labels, T in scans:
@@ -511,7 +521,7 @@ def test_march_shedding_on_card_matches_cpu(cuda, p_total):
     ``max_outlier_candidates`` (450), the cut inside a group of equal
     budgets: the outlier set on the card is bitwise the CPU's, on the
     truncated key (2^17 points) and on the exact-budget key (2^18)."""
-    from groundgrid_torch.core import outliers, rasterize
+    from groundgrid_torch.core import outliers, rasterize, scalars, transforms
 
     cfg = GroundGridConfig(dimension=40.0, resolution=0.5, max_points=p_total, ray_steps=40,
                            max_outlier_candidates=450)
@@ -532,18 +542,20 @@ def test_march_shedding_on_card_matches_cpu(cuda, p_total):
     valid = np.zeros(p_total, bool)
     valid[slots] = True
     center = lo = np.zeros(2, np.float32)
-    origin = np.float32([0.0, 0.0, 1.7])
+    packed = scalars.pack(cfg, center, lo, (0, 0), transforms.translation(0.0, 0.0, 1.7),
+                          np.eye(4), np.eye(4))
 
     def run(dev):
         x, y, z = (torch.from_numpy(a).to(dev) for a in xyz)
+        s = scalars.view(torch.from_numpy(packed).to(dev))
         ground = torch.zeros((n, n), dtype=torch.float32, device=dev)
         conf = torch.ones((n, n), dtype=torch.float32, device=dev)
-        b = rasterize.bin_points(cfg, center, lo, x, y,
+        b = rasterize.bin_points(cfg, s, x, y,
                                  torch.zeros(p_total, dtype=torch.int32, device=dev),
-                                 torch.from_numpy(valid).to(dev), origin)
+                                 torch.from_numpy(valid).to(dev))
         (old_h,) = lookup.lookup(b.cell, [ground], n * n)
-        got, marchable = outliers.detect_outliers(cfg, center, lo, ground, conf, b, x, y, z,
-                                                  origin, old_h, lookup.lookup)
+        got, marchable = outliers.detect_outliers(cfg, s, ground, conf, b, x, y, z, old_h,
+                                                  lookup.lookup)
         return got.cpu().numpy(), marchable
 
     want, want_marchable = run("cpu")
@@ -679,3 +691,117 @@ def test_run_benchmark_fleet_smoke(cuda):
                       n_beams=8, n_azimuth=128, max_points=4096, device=cuda)
     assert r["value"] > 0
     assert r["extra"]["batch"] == 2 and r["extra"]["fallbacks"] == 0
+
+
+def test_spiral_reads_base_z_at_replay(cuda):
+    """K3 captured in a CUDA graph seeds each replay's ``base_z``: the kernel
+    reads it from device memory when it runs, not at the capture."""
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5)
+    m = cfg.center_cell
+    ground, conf = _spiral_layers(cfg.cell_count, cuda)
+    z = _base_z(cuda)
+    g, c = ground.clone(), conf.clone()
+    spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), z)  # build, attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        spiral.spiral_interpolation(cfg, g, c, z)
+    for value in (0.37, -1.25, 7.5):
+        g.copy_(ground)
+        c.copy_(conf)
+        z.fill_(value)
+        graph.replay()
+        want = spiral.spiral_interpolation_plain(cfg, ground.clone(), conf.clone(), value)
+        torch.cuda.synchronize()
+        assert float(g[m, m]) == float(np.float32(value))
+        assert torch.equal(c, want[1])
+        torch.testing.assert_close(g, want[0], atol=2e-5, rtol=1e-5)
+
+
+def _moving_records():
+    """Three forward scans, a still pose, a step back and sideways, and a
+    teleport: shifts of each sign, zero and beyond the grid."""
+    from groundgrid_torch.data.synthetic import synthetic_sequence
+    from groundgrid_torch.runtime.driver import ScanRecord
+
+    scans = list(synthetic_sequence(3, seed=7, n_beams=24, n_azimuth=720, step_m=1.5))
+    back = scans[0][2].copy()
+    back[:2, 3] += (-2.2, 1.7)
+    far = back.copy()
+    far[:2, 3] += (300.0, -250.0)
+    scans += [scans[2], (scans[0][0], scans[0][1], back), (scans[1][0], scans[1][1], far)]
+    return [ScanRecord(index=i, timestamp=0.1 * i, points=p, labels=l, t_map_velo=T)
+            for i, (p, l, T) in enumerate(scans)]
+
+
+@pytest.mark.parametrize("mode", ["sorted", "unsorted", "wire-aux-fused"])
+def test_captured_step_matches_eager_on_card(cuda, mode):
+    """``make_step``'s captured step against ``make_step_fn``'s eager one on
+    the card over a moving sequence: labels, outliers, the four state layers
+    after every scan (and the 11 layers and x, y, z with aux) bitwise, the
+    same launches per scan, every replay under the sync check."""
+    from groundgrid_torch.pipeline import CapturedStep, make_step_fn
+    from groundgrid_torch.runtime.driver import StreamingDriver
+
+    change = {"sorted": dict(sorted_scans=True), "unsorted": dict(sorted_scans=False),
+              "wire-aux-fused": dict(sorted_scans=True, wire_format=True, fused_detect=True)}
+    with_aux = mode.endswith("fused")
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5, max_points=16384, ray_steps=40,
+                           max_outlier_candidates=1024, **change[mode])
+    recs = _moving_records()
+    runs = {}
+    for name in ("captured", "eager"):
+        driver = StreamingDriver(cfg, cuda, with_aux=with_aux)
+        if name == "eager":
+            driver.step = make_step_fn(cfg, with_aux)
+        out, counts = [], []
+        for k, rec in enumerate(recs):
+            reset_launch_counts()
+            torch.cuda.set_sync_debug_mode("error" if k else "default")
+            try:
+                tok = driver.dispatch(rec)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            counts.append(launch_counts())
+            s = driver.state
+            out.append((driver._finalize(tok), s.ground.cpu(), s.groundpatch.cpu(),
+                        s.center.clone(), s.center_lo.clone()))
+        runs[name] = out, counts, driver.step
+    (got, got_counts, step), (want, want_counts, _) = runs["captured"], runs["eager"]
+    assert isinstance(step, CapturedStep) and step.captured
+    assert step.capture_seconds > 0 and step.pool_bytes > 0
+    assert got_counts == want_counts
+    assert got_counts[1]["spiral"] == 1 and got_counts[1]["lookup"] == 3
+    for (a, *sa), (b, *sb) in zip(got, want):
+        np.testing.assert_array_equal(a.labels, b.labels)
+        np.testing.assert_array_equal(a.outlier, b.outlier)
+        for x, y in zip(sa, sb):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+        if with_aux:
+            for name in b.aux:
+                np.testing.assert_array_equal(a.aux[name], b.aux[name], err_msg=name)
+            for c in "xyz":
+                np.testing.assert_array_equal(getattr(a, c), getattr(b, c))
+    assert step.fallbacks == 0
+
+
+def test_captured_fleet_matches_eager_on_card(cuda):
+    """The fleet's captured vehicle step (copies in, a replay, copies out per
+    vehicle) against one eager streaming driver per vehicle, bitwise."""
+    from groundgrid_torch.pipeline import make_step_fn
+    from groundgrid_torch.runtime.driver import StreamingDriver
+    from groundgrid_torch.runtime.fleet import FleetDriver
+
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5, max_points=16384, ray_steps=40,
+                           max_outlier_candidates=1024, sorted_scans=True)
+    streams = _small_fleet_streams(4, 3)
+    fleet = FleetDriver(cfg, batch=4, device=cuda)
+    ticks = [fleet.process([s[k] for s in streams]) for k in range(3)]
+    assert fleet.step.steps[0].captured
+    for v, stream in enumerate(streams):
+        driver = StreamingDriver(cfg, device=cuda)
+        driver.step = make_step_fn(cfg)
+        for k, rec in enumerate(stream):
+            res = driver.process(rec)
+            np.testing.assert_array_equal(ticks[k].labels[v][:res.n_points], res.labels)
+            np.testing.assert_array_equal(ticks[k].outlier[v][:res.n_points] > 0, res.outlier)

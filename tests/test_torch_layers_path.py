@@ -33,6 +33,7 @@ from groundgrid_torch import pipeline as tpipe
 from groundgrid_torch import state_from_numpy, state_to_numpy
 from groundgrid_torch.core import classify as tclassify
 from groundgrid_torch.core import rasterize as traster
+from groundgrid_torch.core import scalars as tscalars
 from groundgrid_torch.data.synthetic import synthetic_sequence
 
 torch.set_num_threads(1)
@@ -100,8 +101,8 @@ def test_nonground_count_plain_form(runs, small_scans):
     scan, _ = driver.make_scan(recs[1])
     deq = tpipe.dequantize_scan(tcfg, scan)
     state, out, aux = driver.step(driver.state, scan)
-    binning = traster.bin_points(tcfg, state.center_np, state.center_lo_np, deq.px, deq.py,
-                                 deq.rings, deq.valid > 0, deq.t_map_velo[:3, 3])
+    s = tscalars.host(tcfg, state.center_np, state.center_lo_np, deq.t_map_velo)
+    binning = traster.bin_points(tcfg, s, deq.px, deq.py, deq.rings, deq.valid > 0)
     want = tclassify.nonground_counts(tcfg, binning, out.labels)
     assert torch.equal(aux.points, want)
     np.testing.assert_array_equal(aux.points.numpy(), tres[1].aux["points"])

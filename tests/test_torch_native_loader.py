@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from groundgrid_torch.config import GroundGridConfig
+from groundgrid_torch.core.grid import state_to_numpy
 from groundgrid_torch.data import native_loader as nl
 from groundgrid_torch.data.semantickitti import SemanticKITTI, write_sequence
 from groundgrid_torch.data.synthetic import synthetic_sequence
@@ -262,9 +263,12 @@ def test_reconfigure_keeps_compatible_state(seq):
     driver = StreamingDriver(CFG, CPU)
     for k in range(2):
         driver.process(seq.read_scan(k))
-    state = driver.state
+    state = state_to_numpy(driver.state)
     driver.reconfigure(dataclasses.replace(CFG, minimum_point_height_obstacle_threshold=0.4))
-    assert driver.state is state and driver.config.minimum_point_height_obstacle_threshold == 0.4
+    # kept: copied into the new step's own layers, values and center unchanged
+    for kept, before in zip(state_to_numpy(driver.state), state):
+        np.testing.assert_array_equal(kept, before)
+    assert driver.config.minimum_point_height_obstacle_threshold == 0.4
     assert driver.process(seq.read_scan(2)) is not None
     driver.reconfigure(dataclasses.replace(CFG, dimension=20.0))
     assert driver.state is None and driver.center64 is None

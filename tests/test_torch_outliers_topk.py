@@ -23,6 +23,8 @@ from groundgrid_tpu.core import rasterize as jraster
 from groundgrid_torch.config import GroundGridConfig as TConfig
 from groundgrid_torch.core import outliers as toutliers
 from groundgrid_torch.core import rasterize as traster
+from groundgrid_torch.core import scalars as tscalars
+from groundgrid_torch.core import transforms as ttf
 from groundgrid_torch.ops import lookup
 
 torch.set_num_threads(1)
@@ -77,11 +79,12 @@ def test_march_selection_bitwise(p_total):
             jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), jnp.asarray(origin),
             center_lo=jnp.asarray(lo)))
     t = [torch.from_numpy(a) for a in (x, y, z)]
-    tb = traster.bin_points(tcfg, center, lo, t[0], t[1], torch.from_numpy(rings),
-                            torch.from_numpy(valid), origin)
+    s = tscalars.host(tcfg, center, lo, ttf.translation(*origin, np.float32))
+    tb = traster.bin_points(tcfg, s, t[0], t[1], torch.from_numpy(rings),
+                            torch.from_numpy(valid))
     (old_h,) = lookup.lookup(tb.cell, [torch.from_numpy(ground)], n * n)
-    got, marchable = toutliers.detect_outliers(tcfg, center, lo, torch.from_numpy(ground),
-                                               torch.from_numpy(conf), tb, *t, origin, old_h,
+    got, marchable = toutliers.detect_outliers(tcfg, s, torch.from_numpy(ground),
+                                               torch.from_numpy(conf), tb, *t, old_h,
                                                lookup.lookup)
     np.testing.assert_array_equal(got.numpy(), want)
     assert marchable == N_LONG + N_TIED + N_SHORT > K_MAX

@@ -32,14 +32,15 @@ import groundgrid_torch
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core import detect as detectlib
 from groundgrid_torch.core import rasterize as rasterlib
+from groundgrid_torch.core import scalars as scalarlib
 from groundgrid_torch.data.synthetic import (adversarial_sequence, make_scene, render_scan,
                                              synthetic_sequence, vehicle_pose)
 from groundgrid_torch.ops import raster as rasterops
 from groundgrid_torch.parallel import spatial
 from groundgrid_torch.parallel.sharding import (make_fleet_step, make_mesh, shard_fleet_pytree,
                                                 stack_fleet_pytree)
-from groundgrid_torch.pipeline import (CenterTracker, init_state, make_step, pad_scan,
-                                       prepare_scan)
+from groundgrid_torch.pipeline import (CenterTracker, init_state, make_step, make_step_fn,
+                                       pad_scan, prepare_scan)
 
 torch.set_num_threads(1)
 
@@ -141,10 +142,10 @@ def _binned(cfg, pts, lbl, T):
     """A cell-sorted scan of ``pts`` with its binning and accepted points."""
     tracker = CenterTracker(cfg, np.asarray(T, np.float64)[:2, 3])
     scan, _ = prepare_scan(cfg, pts, lbl, T, tracker.update(np.asarray(T)[:2, 3]), "cpu")
-    origin = scan.t_map_velo[:3, 3]
-    binning = rasterlib.bin_points(cfg, scan.center, scan.center_lo, scan.px, scan.py,
-                                   scan.rings, scan.valid > 0, origin)
-    return scan, binning, binning.inmap & ~binning.ignored
+    s = scalarlib.host(cfg, scan.center, scan.center_lo, scan.t_map_velo, scan.t_map_base,
+                       scan.t_base_map)
+    binning = rasterlib.bin_points(cfg, s, scan.px, scan.py, scan.rings, scan.valid > 0)
+    return scan, s, binning, binning.inmap & ~binning.ignored
 
 
 @pytest.mark.parametrize("with_max", [False, True])
@@ -154,22 +155,19 @@ def test_raster_partials_fold(with_max):
     bitwise, and the sums within rounding."""
     cfg = GroundGridConfig(**dict(SMALL_KW, sorted_scans=True))
     pts, lbl, T = next(iter(synthetic_sequence(1, seed=7, n_beams=24, n_azimuth=720)))
-    scan, binning, accept = _binned(cfg, pts, lbl, T)
-    origin, reduce_fn = scan.t_map_velo[:3, 3], rasterops.raster_reduce
-    args = (origin, scan.center, scan.t_base_map)
-    want = rasterlib.rasterize_sorted(cfg, binning, scan.pz, origin, accept, scan.center,
-                                      scan.t_base_map, reduce_fn, with_max=with_max)
-    part = rasterlib.raster_partials(cfg, binning, scan.pz, origin, accept, scan.center,
-                                     scan.t_base_map, reduce_fn)
-    one = rasterlib.finish_partials(cfg, [part], *args, with_max=with_max)
+    scan, s, binning, accept = _binned(cfg, pts, lbl, T)
+    reduce_fn = rasterops.raster_reduce
+    want = rasterlib.rasterize_sorted(cfg, binning, scan.pz, accept, s, reduce_fn,
+                                      with_max=with_max)
+    part = rasterlib.raster_partials(cfg, binning, scan.pz, accept, s, reduce_fn)
+    one = rasterlib.finish_partials(cfg, [part], s, with_max=with_max)
     for a, b in zip(one, want):
         assert torch.equal(a, b)
     k = cfg.max_points // 4
     parts = [rasterlib.raster_partials(cfg, binning.permute(slice(i * k, (i + 1) * k)),
-                                       scan.pz[i * k:(i + 1) * k], origin,
-                                       accept[i * k:(i + 1) * k], scan.center, scan.t_base_map,
+                                       scan.pz[i * k:(i + 1) * k], accept[i * k:(i + 1) * k], s,
                                        reduce_fn) for i in range(4)]
-    four = rasterlib.finish_partials(cfg, parts, *args, with_max=with_max)
+    four = rasterlib.finish_partials(cfg, parts, s, with_max=with_max)
     for name in ("points", "points_raw", "min_ground_height", "max_ground_height"):
         assert torch.equal(getattr(four, name), getattr(want, name)), name
     for name in ("ground_candidates", "plane_dist", "m2", "variance"):
@@ -189,11 +187,12 @@ def _gathered(blocks):
 def test_spatial_step_matches_single_grid_and_jax():
     """``tests/test_spatial.py``'s case: small_config (80^2), 3 synthetic
     scans, unsorted, centers on the device. The port's spatial step on
-    ``["cpu"] * 8`` against the port's single-grid step and against the JAX
+    ``["cpu"] * 8`` against the port's single-grid step (the eager one, which
+    steps center-less scans) and against the JAX
     ``make_spatial_step`` on the 8-device mesh: labels >= 99.95 %, ground
     atol 2e-4 / rtol 1e-4, confidence 1e-5 / 1e-5."""
     cfg, jcfg = GroundGridConfig(**SMALL_KW), JConfig(**SMALL_KW)
-    step1, step_s = make_step(cfg), spatial.make_spatial_step(cfg, MESH)
+    step1, step_s = make_step_fn(cfg), spatial.make_spatial_step(cfg, MESH)
     mesh = Mesh(np.array(jax.devices()), ("space",))
     j_step = j_spatial_step(jcfg, mesh)
     grid_sh, pt_sh, rep_sh = (j_spatial_sharding(mesh), NamedSharding(mesh, P("space")),
@@ -285,6 +284,8 @@ def test_dryrun_multichip_checks():
     for k in range(8):
         st, out = step1(dataclasses.replace(states[k], ground=states[k].ground.clone(),
                                             groundpatch=states[k].groundpatch.clone()), scans[k])
+        # the captured step's layers are static: the next call overwrites them
+        st = dataclasses.replace(st, ground=st.ground.clone(), groundpatch=st.groundpatch.clone())
         singles.append((st, out))
         assert torch.equal(outs[k].labels[0], out.labels)
         assert torch.equal(fleet_states[k].ground[0], st.ground)

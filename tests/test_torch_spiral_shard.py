@@ -130,7 +130,8 @@ def test_banded_spiral_on_cpu_mesh(kw, n_shards, base_z):
     mesh = LocalMesh(["cpu"] * n_shards)
     f = banded_spiral(cfg, mesh)
     grounds, patches = f([torch.from_numpy(g.copy()) for _ in range(n_shards)],
-                         [torch.from_numpy(c.copy()) for _ in range(n_shards)], base_z)
+                         [torch.from_numpy(c.copy()) for _ in range(n_shards)],
+                         torch.tensor(base_z, dtype=torch.float32))
     assert len(grounds) == len(patches) == n_shards
     for tg, tc in zip(grounds, patches):
         assert torch.equal(tg, want[0]) and torch.equal(tc, want[1])

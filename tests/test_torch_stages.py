@@ -31,6 +31,7 @@ from groundgrid_torch.core import classify as tclassify
 from groundgrid_torch.core import detect as tdetect
 from groundgrid_torch.core import outliers as toutliers
 from groundgrid_torch.core import rasterize as traster
+from groundgrid_torch.core import scalars as tscalars
 from groundgrid_torch.ops import lookup, raster
 
 # the test workers share the CPU: torch's intra-op thread pools would
@@ -60,6 +61,8 @@ def warm(small_config, small_scans):
     d = {k: np.asarray(v) for k, v in scan._asdict().items()}
     d.update(ground=np.asarray(moved.ground), groundpatch=np.asarray(moved.groundpatch))
     d["origin"] = d["t_map_velo"][:3, 3]
+    d["s"] = tscalars.host(tcfg, d["center"], d["center_lo"], d["t_map_velo"], d["t_map_base"],
+                           d["t_base_map"])
     return jcfg, tcfg, d
 
 
@@ -69,8 +72,8 @@ def _binnings(jcfg, tcfg, d, z_shift=None):
                             jnp.asarray(d["py"]), jnp.asarray(z), jnp.asarray(d["rings"]),
                             jnp.asarray(d["valid"] > 0), jnp.asarray(d["origin"]),
                             center_lo=jnp.asarray(d["center_lo"]))
-    tb = traster.bin_points(tcfg, d["center"], d["center_lo"], _t(d["px"]), _t(d["py"]),
-                            _t(d["rings"]), _t(d["valid"] > 0), d["origin"])
+    tb = traster.bin_points(tcfg, d["s"], _t(d["px"]), _t(d["py"]), _t(d["rings"]),
+                            _t(d["valid"] > 0))
     return jb, tb, z
 
 
@@ -85,9 +88,8 @@ def _outliers(jcfg, tcfg, d, ground, groundpatch, z_shift=None):
             jnp.asarray(d["origin"]), center_lo=jnp.asarray(d["center_lo"]))
     n2 = tcfg.cell_count ** 2
     (old_h,) = lookup.lookup(tb.cell, [_t(ground)], n2)
-    got, _ = toutliers.detect_outliers(tcfg, d["center"], d["center_lo"], _t(ground),
-                                    _t(groundpatch), tb, _t(d["px"]), _t(d["py"]), _t(z),
-                                    d["origin"], old_h, lookup.lookup)
+    got, _ = toutliers.detect_outliers(tcfg, d["s"], _t(ground), _t(groundpatch), tb,
+                                       _t(d["px"]), _t(d["py"]), _t(z), old_h, lookup.lookup)
     return got.numpy(), np.asarray(want)
 
 
@@ -149,8 +151,7 @@ def test_rasterize_sorted_vs_jax(warm):
         want = jraster.rasterize_sorted(jcfg, jb, jnp.asarray(z), jnp.asarray(origin),
                                         jnp.asarray(accept), center=jnp.asarray(center),
                                         t_base_map=jnp.asarray(t_base_map))
-    got = traster.rasterize_sorted(tcfg, tb, _t(z), origin, _t(accept), center, t_base_map,
-                                   raster.raster_reduce)
+    got = traster.rasterize_sorted(tcfg, tb, _t(z), _t(accept), d["s"], raster.raster_reduce)
     for name in want._fields:
         a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
         if name in ("min_ground_height", "max_ground_height", "points", "points_raw"):

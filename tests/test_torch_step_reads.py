@@ -23,6 +23,8 @@ from groundgrid_torch import GroundGridConfig, ScanRecord, StreamingDriver
 from groundgrid_torch import pipeline as tpipe
 from groundgrid_torch.core import outliers as toutliers
 from groundgrid_torch.core import rasterize as traster
+from groundgrid_torch.core import scalars as tscalars
+from groundgrid_torch.core import transforms as ttf
 from groundgrid_torch.core.grid import state_from_numpy, state_to_numpy
 from groundgrid_torch.data.synthetic import adversarial_sequence
 from groundgrid_torch.ops import lookup
@@ -129,14 +131,13 @@ def test_fixed_march_at_the_cap(p_total, cap):
     (x, y, z), valid, _ = _scene(p_total)
     t = [torch.from_numpy(a) for a in (x, y, z)]
     center = lo = np.zeros(2, np.float32)
-    origin = np.float32([0.0, 0.0, 1.7])
+    s = tscalars.host(cfg, center, lo, ttf.translation(0.0, 0.0, 1.7, np.float32))
     ground = torch.zeros((n, n))
     conf = torch.ones((n, n))
-    binning = traster.bin_points(cfg, center, lo, t[0], t[1],
-                                 torch.zeros(p_total, dtype=torch.int32),
-                                 torch.from_numpy(valid), origin)
+    binning = traster.bin_points(cfg, s, t[0], t[1], torch.zeros(p_total, dtype=torch.int32),
+                                 torch.from_numpy(valid))
     (old_h,) = lookup.lookup(binning.cell, [ground], n * n)
-    args = (center, lo, ground, conf, binning, *t, origin, old_h, lookup.lookup)
+    args = (s, ground, conf, binning, *t, old_h, lookup.lookup)
     with host_reads() as reads:
         got, marchable = fixed_detect_outliers(cfg, *args)
     assert reads == []
@@ -164,9 +165,8 @@ def test_device_choice_matches_host_read_version(shuffled, with_aux):
         scan = scan._replace(**{k: getattr(scan, k)[perm]
                                 for k in ("px", "py", "pz", "rings", "valid")})
     start = state_to_numpy(driver.state)
-    cell = traster.bin_points(SMALL, scan.center, scan.center_lo, scan.px, scan.py, scan.rings,
-                              scan.valid > 0,
-                              np.asarray(scan.t_map_velo, np.float32)[:3, 3]).cell
+    s = tscalars.host(SMALL, scan.center, scan.center_lo, scan.t_map_velo)
+    cell = traster.bin_points(SMALL, s, scan.px, scan.py, scan.rings, scan.valid > 0).cell
     assert (host_read_config(SMALL, cell) is SMALL) is shuffled
     runs = []
     for config in (SMALL, host_read_config(SMALL, cell)):

@@ -40,6 +40,7 @@ from groundgrid_torch import ScanRecord, StreamingDriver, state_to_numpy
 from groundgrid_torch import pipeline as tpipe
 from groundgrid_torch.core import grid as tgrid
 from groundgrid_torch.core import rasterize as traster
+from groundgrid_torch.core import scalars as tscalars
 from groundgrid_torch.core import transforms as ttf
 from groundgrid_torch.ops import raster
 from groundgrid_torch.runtime.checkpoint import load_state, save_state
@@ -157,10 +158,12 @@ def test_move_without_center_matches_jax(small_config):
             want = jgrid.move(jcfg, jgrid.GridState(jnp.asarray(ground), jnp.asarray(conf),
                                                     jnp.asarray(center), jnp.asarray(lo)),
                               jnp.asarray(pos), jnp.asarray(t_base_map))
-        got = tgrid.move(tcfg, tgrid.state_from_numpy(ground, conf, center, lo, "cpu"),
-                         t_base_map, new_position=pos)
-        for a, b in zip(state_to_numpy(got), want):
-            np.testing.assert_array_equal(a, np.asarray(b))
+        k, new_center, new_lo = tgrid.index_shift_ds(tcfg, center, lo, pos)
+        s = tscalars.host(tcfg, new_center.numpy(), new_lo.numpy(), T.astype(np.float32),
+                          t_map_base=np.eye(4), t_base_map=t_base_map, k=k)
+        got = tgrid.move(tcfg, torch.from_numpy(ground), torch.from_numpy(conf), s)
+        for a, b in zip((*got, new_center, new_lo), want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_unsorted_scan_bins_and_rasterizes_like_jax(small_config, scans):
@@ -182,7 +185,8 @@ def test_unsorted_scan_bins_and_rasterizes_like_jax(small_config, scans):
                                 center_lo=jnp.asarray(lo))
     for a, b in ((x, jx), (y, jy), (z, jz)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    tb = traster.bin_points(tcfg, center, lo, x, y, scan.rings, scan.valid > 0, origin)
+    s = tscalars.host(tcfg, center, lo, scan.t_map_velo, scan.t_map_base, scan.t_base_map)
+    tb = traster.bin_points(tcfg, s, x, y, scan.rings, scan.valid > 0)
     for f in ("gi0", "gi1", "cell", "inmap", "ignored"):
         np.testing.assert_array_equal(getattr(tb, f).numpy(), np.asarray(getattr(jb, f)), f)
     assert not bool((tb.cell[1:] >= tb.cell[:-1]).all())  # raw scans are unsorted
@@ -192,9 +196,8 @@ def test_unsorted_scan_bins_and_rasterizes_like_jax(small_config, scans):
                              with_max=True, center=jnp.asarray(center),
                              t_base_map=jnp.asarray(scan.t_base_map))
     order = torch.argsort(tb.cell, stable=True)
-    got = traster.rasterize_sorted(tcfg, tb.permute(order), z[order], origin, accept[order],
-                                   center, scan.t_base_map, raster.raster_reduce,
-                                   with_max=True)
+    got = traster.rasterize_sorted(tcfg, tb.permute(order), z[order], accept[order], s,
+                                   raster.raster_reduce, with_max=True)
     for name in want._fields:
         a, b = np.asarray(getattr(want, name)), getattr(got, name).numpy()
         if name in ("min_ground_height", "max_ground_height"):
@@ -223,10 +226,11 @@ def _compare_step_outputs(jstate, jout, tstate, tout, n, totals):
 
 
 def test_unsorted_step_pad_scan_matches_jax(small_config, scans):
-    """``pad_scan`` scans (no center: the device recurrence) through the
-    port's step and the jitted JAX default step."""
+    """``pad_scan`` scans (no center: the center recurrence) through the
+    port's eager step, which steps center-less scans, and the jitted JAX
+    default step."""
     jcfg, tcfg = _configs(small_config)
-    jstep, tstep = jpipe.make_step(jcfg), tpipe.make_step(tcfg)
+    jstep, tstep = jpipe.make_step(jcfg), tpipe.make_step_fn(tcfg)
     T0 = scans[0][2]
     jstate, tstate = jpipe.init_state(jcfg, T0), tpipe.init_state(tcfg, T0, "cpu")
     totals = dict(points=0, labels=0, outliers=0)
