@@ -113,13 +113,26 @@ Phases (any failure raises and exits non-zero, printing no result):
    over an in-process mesh on the one card, sorted scans with their
    centers, both spiral modes: (a) ``HIGHRES_CONFIG`` (1200^2) over
    ``["cuda:0"] * 8``, (b) the default 364^2 over ``["cuda:0"] * 4``, each
-   over the first 4 scans: launches per scan K1 x S, K2 x 3S, K3 x S, steps
-   2-4 under the sync check, banded == replicated bitwise (labels,
-   outliers, ground, groundpatch), a second run of each bitwise the first,
-   against the single-grid ``Step`` over the same scans labels >= 99.95 %,
-   ground atol 2e-4 / rtol 1e-4, groundpatch 1e-5 / 1e-5 (the JAX spatial
-   test's bounds); ms per scan by CUDA events of both modes and of the
-   single-grid step. One card: these are no scaling numbers.
+   over the first 8 scans. The eager ``SpatialStep``: launches per scan K1
+   x S, K2 x 3S, K3 x S, steps 2-8 under the sync check, banded ==
+   replicated bitwise (labels, outliers, ground, groundpatch), a second run
+   of each bitwise the first, against the single-grid ``Step`` over the
+   same scans labels >= 99.95 %, ground atol 2e-4 / rtol 1e-4, groundpatch
+   1e-5 / 1e-5 (the JAX spatial test's bounds). The captured step
+   (``make_spatial_step``, one CUDA graph a scan) bitwise the eager one
+   (ground, groundpatch, labels, outliers, the center pair, every scan),
+   a second captured run bitwise, launches per scan as eager, every replay
+   under the sync check; its capture seconds and graph pool bytes. Then ms
+   per scan by CUDA events in turns (eager, captured, captured, eager),
+   replays only (scans 3-8; the first two are the eager call and the
+   first replay, the capture between them), and the captured single-grid
+   step. With two cards or more (``phase_spatial_cards``): one shard a
+   card on 2 and 4 cards, the in-process mesh (eager, and captured with
+   its collectives between per-card graphs) and NCCL ranks (``GroupMesh``:
+   eager and captured, the NCCL calls between per-rank graphs), each
+   bitwise the same shards on one card, ms per scan in turns; with one
+   card it logs that it did not run.
+   ``python3 chip_smoke.py --spatial`` runs phases 1 and 10 alone.
 11. The captured step (``pipeline.CapturedStep``) against the eager
    ``make_step_fn`` step, bitwise: phase 3's path over its 32 scans in four
    runs in turns (eager, captured, captured, eager; labels, outliers and
@@ -140,9 +153,10 @@ The line before the last is the kernels' JSON record (``ms`` is the device
 time, ``library_ms`` null where no one PyTorch call computes the function;
 K4 adds its ``*_highres`` times and bound at 1200^2; ``launches`` counts phase
 3, ``launches_unsorted`` phase 6, ``launches_topk`` phase 7 and
-``launches_fleet`` phase 9's 4 ticks, ``launches_spatial`` the first run of
-each mode in phase 10; K3 adds ``*_highres`` full-launch times at 1200^2 and
-``band_*_364`` / ``_1200`` / ``_2416`` ring-range results);
+``launches_fleet`` phase 9's 4 ticks, ``launches_spatial`` the captured run
+of each mode in phase 10 (the first scan eager, the rest replays); K3 adds
+``*_highres`` full-launch times at 1200^2 and ``band_*_364`` / ``_1200`` /
+``_2416`` ring-range results);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -168,7 +182,7 @@ N_TOPK_SCANS = 8
 TOPK_POINTS = 262144  # a 128-beam sensor at 2048 azimuths: ~240k points a scan
 FLEET_BATCH = 64  # BASELINE.json config 5: 64 scans a step
 FLEET_TICKS = 4
-N_SPATIAL_SCANS = 4
+N_SPATIAL_SCANS = 8  # the first two untimed in the turns: an eager call, a capture
 AGREE_MIN = 0.999
 GROUND_TRUTH_IDS = (40, 72)  # synthetic road and terrain (SemanticKITTI ids)
 WIRE_BUDGET_PT = 0.1  # the JAX CLI's ``accuracy`` budget (cli.py:539)
@@ -1425,41 +1439,115 @@ def spatial_scans(config, records, device):
     return scans, init_state(config, T0.astype(np.float32), device)
 
 
-def run_spatial(step, state, scans, mesh, sync_check=True):
-    """The spatial step over ``scans`` from ``state``: per scan the gathered
-    (ground, groundpatch, labels, outlier), and the CUDA-event ms per scan
-    (scans prepared beforehand). Steps after the first run under the sync
-    check."""
+def spatial_start(state, scans, mesh):
+    """The row blocks, center pair and scan chunks of ``state`` and ``scans``
+    on ``mesh``."""
     from groundgrid_torch.parallel import spatial
 
-    g, c = spatial.split_rows(state.ground, mesh), spatial.split_rows(state.groundpatch, mesh)
-    center = (state.center, state.center_lo)
-    chunks = [spatial.shard_scan(scan, mesh) for scan in scans]
+    return (spatial.split_rows(state.ground, mesh), spatial.split_rows(state.groundpatch, mesh),
+            (state.center, state.center_lo), [spatial.shard_scan(scan, mesh) for scan in scans])
+
+
+def run_spatial(step, state, scans, mesh, sync_check=True):
+    """The spatial step over ``scans`` from ``state``: per scan a copy of the
+    local shards' (ground, groundpatch, labels, outlier) gathered by shard,
+    and the center pair; per scan the launch counts (``path_counts``); and
+    the CUDA-event ms per scan (scans prepared beforehand). Steps after the
+    first (on a captured step: the replays) run under the sync check."""
+    from groundgrid_torch.ops import reset_launch_counts
+
+    g, c, center, chunks = spatial_start(state, scans, mesh)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    outs = []
+    results, counts = [], []
     for k, chunk in enumerate(chunks):
         run = SyncChecked(step) if sync_check and k else step
+        reset_launch_counts()
         g, c, center, labels, outlier = run(g, c, center, chunk)
-        outs.append((g, c, labels, outlier))
+        counts.append(path_counts())
+        results.append(tuple(torch.cat([b.to(g[0].device) for b in x])
+                             for x in (g, c, labels, outlier)) + tuple(t.clone() for t in center))
     end.record()
     end.synchronize()
-    results = [tuple(torch.cat(x) for x in out) for out in outs]
-    return results, start.elapsed_time(end) / len(scans)
+    return results, counts, start.elapsed_time(end) / len(scans)
+
+
+def time_spatial(step, state, scans, mesh, warm=2):
+    """CUDA-event ms per scan of ``step`` over ``scans[warm:]``, after
+    ``warm`` untimed scans (a captured step's eager call and first replay,
+    with the capture between them): replays only. Across cards the end
+    event waits for every card's stream."""
+    g, c, center, chunks = spatial_start(state, scans, mesh)
+    for chunk in chunks[:warm]:
+        g, c, center, _, _ = step(g, c, center, chunk)
+    devices = list(dict.fromkeys(b.device for b in g))
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    main = torch.cuda.current_stream(devices[0])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(main)
+    for chunk in chunks[warm:]:
+        g, c, center, _, _ = step(g, c, center, chunk)
+    for dev in devices[1:]:
+        main.wait_stream(torch.cuda.current_stream(dev))
+    end.record(main)
+    end.synchronize()
+    return start.elapsed_time(end) / (len(scans) - warm)
+
+
+def time_single(config, state, scans, warm=2):
+    """:func:`time_spatial` for the captured single-grid step (``make_step``)."""
+    from groundgrid_torch.pipeline import make_step
+
+    step = make_step(config)
+    state = dataclasses.replace(state, ground=state.ground.clone(),
+                                groundpatch=state.groundpatch.clone())
+    for scan in scans[:warm]:
+        state, _ = step(state, scan)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for scan in scans[warm:]:
+        state, _ = step(state, scan)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (len(scans) - warm)
+
+
+def same_spatial(got, want, name):
+    """Per scan every gathered layer, label, outlier flag and the center pair
+    bitwise."""
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} scans against {len(want)}")
+    for k, (a, b) in enumerate(zip(got, want)):
+        for field, x, y in zip(("ground", "groundpatch", "labels", "outlier", "center",
+                                "center_lo"), a, b):
+            if not bitwise(x, y):
+                raise AssertionError(f"{name} scan {k + 1}: {field} not bitwise")
+
+
+def spatial_turns(config, state, scans, mesh, make, kinds):
+    """ms per scan of each kind in ``kinds`` (a name -> ``make(name)`` step),
+    in turns: each kind, then each again in reverse."""
+    order = list(kinds) + list(reversed(kinds))
+    out = {kind: [] for kind in kinds}
+    for kind in order:
+        out[kind].append(time_spatial(make(kind), state, scans, mesh))
+    return out
 
 
 def phase_spatial(config, records, device, n_shards):
     """Phase 10: the spatial step on ``["cuda:0"] * n_shards`` over ``records``
-    in both spiral modes, against the single-grid step and itself."""
-    from groundgrid_torch.ops import reset_launch_counts
+    in both spiral modes, eager (``SpatialStep``) against the single-grid
+    step and itself, captured (``make_spatial_step``: one CUDA graph a
+    scan) bitwise eager; then ms per scan in turns."""
     from groundgrid_torch.parallel import spatial
     from groundgrid_torch.pipeline import make_step_fn
 
     n, name = len(records), f"spatial {config.cell_count}^2 over {n_shards} shards"
     scans, state0 = spatial_scans(config, records, device)
-    # the eager single-grid step: the spatial step runs eagerly too, and its
-    # 4 scans would otherwise time a capture (phase 11 holds it to this one)
+    # the eager single-grid step, the reference of the eager spatial step
     single = make_step_fn(config)
     state = dataclasses.replace(state0, ground=state0.ground.clone(),
                                 groundpatch=state0.groundpatch.clone())
@@ -1474,24 +1562,39 @@ def phase_spatial(config, records, device, n_shards):
     end.synchronize()
     single_ms = start.elapsed_time(end) / n
     mesh = [device] * n_shards
-    want = {"raster": n_shards * n, "lookup": 3 * n_shards * n, "spiral": n_shards * n,
-            "detect": 0, "spiral_band": n_shards * n, "spiral_global": 0}
-    runs, ms, total = {}, {}, {}
+    per_scan = {"raster": n_shards, "lookup": 3 * n_shards, "spiral": n_shards, "detect": 0,
+                "spiral_band": n_shards, "spiral_global": 0}
+    runs, ms, total, capture = {}, {}, {}, {}
     for mode in ("replicated", "banded"):
+        eager = spatial.SpatialStep(config, mesh, spiral_mode=mode, with_scan_center=True)
+        runs[mode], counts, ms[mode] = run_spatial(eager, state0, scans, mesh)
+        if counts != [per_scan] * n:
+            raise AssertionError(f"{name} ({mode}): launches per scan {counts} (want {per_scan})")
+        if eager.fallbacks:
+            raise AssertionError(f"{name} ({mode}): {eager.fallbacks} sortedness fallbacks")
+        again, _, ms[mode + "_again"] = run_spatial(eager, state0, scans, mesh)
+        same_spatial(again, runs[mode], f"{name} ({mode}), second eager run")
         step = spatial.make_spatial_step(config, mesh, spiral_mode=mode, with_scan_center=True)
-        reset_launch_counts()
-        runs[mode], ms[mode] = run_spatial(step, state0, scans, mesh)
-        counts = path_counts()
-        if counts != want:
-            raise AssertionError(f"{name} ({mode}): launches {counts} (want {want})")
+        if not isinstance(step, spatial.CapturedSpatialStep) or step.collectives != "inside":
+            raise AssertionError(f"{name}: make_spatial_step gave {step!r}")
+        got, counts_c, ms[mode + "_captured"] = run_spatial(step, state0, scans, mesh)
+        if not step.captured:
+            raise AssertionError(f"{name} ({mode}): the spatial step was not captured")
+        if counts_c != counts:
+            raise AssertionError(f"{name} ({mode}): captured launches per scan {counts_c}, "
+                                 f"eager {counts}")
+        same_spatial(got, runs[mode], f"{name} ({mode}), captured vs eager")
+        for c in counts_c:
+            total = {key: total.get(key, 0) + v for key, v in c.items()}
+        again, _, _ = run_spatial(step, state0, scans, mesh)
+        same_spatial(again, got, f"{name} ({mode}), second captured run")
         if step.fallbacks:
             raise AssertionError(f"{name} ({mode}): {step.fallbacks} sortedness fallbacks")
-        total = {key: total.get(key, 0) + v for key, v in counts.items()}
-        again, ms[mode + "_again"] = run_spatial(step, state0, scans, mesh)
-        for k, (a, b) in enumerate(zip(runs[mode], again)):
-            if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                       for x, y in zip(a, b)):
-                raise AssertionError(f"{name} ({mode}) scan {k + 1}: second run not bitwise")
+        capture[mode] = {"capture_s": step.capture_seconds, "pool_bytes": step.pool_bytes}
+        log(f"{name} ({mode}): captured step bitwise eager (ground, groundpatch, labels, "
+            f"outliers, center pair; {n} scans, a second captured run too), launches per "
+            f"scan as eager, replays under the sync check; capture {step.capture_seconds:.3f} "
+            f"s, graph pool {step.pool_bytes} bytes ({step.pool_bytes / 2 ** 20:.1f} MiB)")
     points = 0
     worst = [0.0, 0.0]
     for k, (r, b, s) in enumerate(zip(runs["replicated"], runs["banded"], ref)):
@@ -1516,11 +1619,228 @@ def phase_spatial(config, records, device, n_shards):
         f"replicated bitwise (labels, outliers, ground, groundpatch); second runs bitwise; vs "
         f"the single-grid step {mism} of {n * config.max_points} labels differ ({points} "
         f"labelled points), ground max {worst[0]:.3g}, groundpatch max {worst[1]:.3g}; ms per "
-        f"scan (CUDA events, scans prepared beforehand): replicated {ms['replicated']:.3f} / "
-        f"{ms['replicated_again']:.3f}, banded {ms['banded']:.3f} / {ms['banded_again']:.3f}, "
-        f"single-grid {single_ms:.3f}")
+        f"scan (CUDA events, scans prepared beforehand, the first scans included): replicated "
+        f"{ms['replicated']:.3f} / {ms['replicated_again']:.3f}, banded {ms['banded']:.3f} / "
+        f"{ms['banded_again']:.3f}, single-grid eager {single_ms:.3f}")
+
+    # ms per scan in turns, replays only (the first two scans untimed)
+    turns = {}
+    for mode in ("replicated", "banded"):
+        def make(kind, mode=mode):
+            if kind == "eager":
+                return spatial.SpatialStep(config, mesh, mode, with_scan_center=True)
+            return spatial.make_spatial_step(config, mesh, mode, with_scan_center=True)
+        turns[mode] = spatial_turns(config, state0, scans, mesh, make, ("eager", "captured"))
+    turns["single_captured"] = [time_single(config, state0, scans)]
+    log(f"{name}: ms per scan in turns over scans 3-{n} (CUDA events; eager, captured, "
+        f"captured, eager): " + "; ".join(
+            f"{mode} eager {t['eager'][0]:.3f} / {t['eager'][1]:.3f}, captured "
+            f"{t['captured'][0]:.3f} / {t['captured'][1]:.3f}"
+            for mode, t in turns.items() if mode != "single_captured")
+        + f"; the captured single-grid step {turns['single_captured'][0]:.3f}")
     return total, dict(ms, single=single_ms, label_mismatch=mism, ground_max=worst[0],
-                       groundpatch_max=worst[1])
+                       groundpatch_max=worst[1], capture=capture, turns=turns)
+
+
+def save_records(path, records):
+    """``records``' points, labels and poses in one ``.npz``, for the ranks."""
+    arrays = {}
+    for k, rec in enumerate(records):
+        arrays.update({f"points{k}": rec.points, f"labels{k}": rec.labels,
+                       f"pose{k}": rec.t_map_velo})
+    np.savez(path, n=len(records), **arrays)
+
+
+def load_records(path):
+    from groundgrid_torch.runtime.driver import ScanRecord
+
+    with np.load(path) as f:
+        return [ScanRecord(index=k, timestamp=0.1 * k, points=f[f"points{k}"],
+                           labels=f[f"labels{k}"], t_map_velo=f[f"pose{k}"])
+                for k in range(int(f["n"]))]
+
+
+SPATIAL_CONFIGS = {"1200": 8, "364": 4}  # phase 10's configurations and shards on one card
+
+
+def spatial_config(label):
+    from groundgrid_torch.config import HIGHRES_CONFIG, GroundGridConfig
+
+    base = HIGHRES_CONFIG if label == "1200" else GroundGridConfig()
+    return dataclasses.replace(base, sorted_scans=True)
+
+
+def spatial_rank(rank, world, store, records_path, out_dir, kinds, device):
+    """One NCCL rank of the multi-card phase, on ``device``: each spiral
+    mode's step of each kind in ``kinds`` (``eager``, or ``captured``, its
+    collectives between the graphs) at both configurations,
+    its outputs (:func:`run_spatial`) and ms per scan in turns, saved to
+    ``out_dir/rank{rank}.npz``."""
+    import torch.distributed as dist
+
+    from groundgrid_torch.parallel import spatial
+    from groundgrid_torch.parallel.multihost import init_multihost
+
+    device = torch.device(device)
+    init_multihost(store, world, rank, device=device)
+    try:
+        records = load_records(records_path)
+        mesh = spatial.GroupMesh(device)
+        out = {}
+        for label in SPATIAL_CONFIGS:
+            config = spatial_config(label)
+            scans, state0 = spatial_scans(config, records, device)
+            for mode in ("replicated", "banded"):
+                def make(kind, mode=mode, config=config):
+                    if kind == "eager":
+                        return spatial.SpatialStep(config, mesh, mode, with_scan_center=True)
+                    return spatial.make_spatial_step(config, mesh, mode, with_scan_center=True)
+                for kind in kinds:
+                    results, counts, _ = run_spatial(make(kind), state0, scans, mesh)
+                    for k, res in enumerate(results):
+                        for field, t in zip(("ground", "groundpatch", "labels", "outlier",
+                                             "center", "center_lo"), res):
+                            out[f"{label}_{mode}_{kind}_{k}_{field}"] = t.cpu().numpy()
+                    out[f"{label}_{mode}_{kind}_counts"] = np.array(
+                        [[c[key] for key in ("raster", "lookup", "spiral")] for c in counts])
+                for kind, times in spatial_turns(config, state0, scans, mesh, make,
+                                                 kinds).items():
+                    out[f"{label}_{mode}_{kind}_ms"] = np.array(times)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(devices, records_path, kinds, timeout_s):
+    """NCCL ranks of :func:`spatial_rank`, rank r on ``devices[r]``; their
+    saved outputs, or the failure as a string (every process stopped either
+    way)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    world = len(devices)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = f"file://{tmp}/store"
+        procs = [ctx.Process(target=spatial_rank,
+                             args=(rank, world, store, records_path, tmp, kinds, str(dev)))
+                 for rank, dev in enumerate(devices)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + timeout_s
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.perf_counter()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            return f"exit codes {codes} (a rank over {timeout_s} s is killed)"
+        return [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(world)]
+
+
+def check_ranks(ranks, want, want_counts, kind, label, mode, world, name):
+    """Each rank's outputs bitwise the shard rank of the one-card mesh
+    ``want`` (:func:`run_spatial` results), and its launches per scan those
+    of one card over the ranks."""
+    per_rank = [[c[key] // world for key in ("raster", "lookup", "spiral")] for c in want_counts]
+    for r, got in enumerate(ranks):
+        if got[f"{label}_{mode}_{kind}_counts"].tolist() != per_rank:
+            raise AssertionError(f"{name}: rank {r} launches per scan "
+                                 f"{got[f'{label}_{mode}_{kind}_counts'].tolist()}, want "
+                                 f"{per_rank}")
+        for k, res in enumerate(want):
+            for field, t in zip(("ground", "groundpatch", "labels", "outlier", "center",
+                                 "center_lo"), res):
+                a = t.cpu().numpy()
+                if field not in ("center", "center_lo"):
+                    part = a.shape[0] // world
+                    a = a[r * part:(r + 1) * part]
+                b = got[f"{label}_{mode}_{kind}_{k}_{field}"]
+                if a.dtype == np.float32:
+                    a, b = a.view(np.int32), b.view(np.int32)
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{name}: rank {r} scan {k + 1} {field} not bitwise "
+                                         f"one card")
+
+
+def phase_spatial_cards(records, devices=None):
+    """Phase 10 across cards (with two cards or more): at both phase-10
+    configurations and spiral modes, one shard a card on 2 and 4 cards:
+    the in-process mesh across the cards (eager, and captured with its
+    collectives between the graphs) and NCCL ranks (``GroupMesh``, one a
+    card: eager and captured, the NCCL calls between the graphs), bitwise
+    the same shards on one card
+    (``["cuda:0"] * S``, captured), launches per scan as on one card; ms
+    per scan in turns. ``devices``: the cards (by default every card)."""
+    from groundgrid_torch.parallel import spatial
+
+    if devices is None:
+        devices = [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
+    if len(devices) < 2:
+        log(f"phase 10 across cards: did not run ({len(devices)} card; it needs 2)")
+        return None
+    out = {}
+    worlds = sorted({2, min(4, len(devices))})
+    for label in SPATIAL_CONFIGS:
+        config = spatial_config(label)
+        for world in worlds:
+            scans, state0 = spatial_scans(config, records, devices[0])
+            one = [devices[0]] * world
+            across = devices[:world]
+            name = f"spatial {config.cell_count}^2 over {world} cards"
+            for mode in ("replicated", "banded"):
+                def make(kind, mode=mode):
+                    if kind == "eager":
+                        return spatial.SpatialStep(config, across, mode, with_scan_center=True)
+                    return spatial.make_spatial_step(config, one if kind == "one card" else across,
+                                                     mode, with_scan_center=True)
+
+                want, want_counts, _ = run_spatial(make("one card"), state0, scans, one)
+                for kind in ("eager", "captured"):
+                    got, counts, _ = run_spatial(make(kind), state0, scans, across)
+                    same_spatial(got, want, f"{name} ({mode}, {kind})")
+                    if counts != want_counts:
+                        raise AssertionError(f"{name} ({mode}, {kind}): launches {counts}")
+                turns = {kind: [] for kind in ("eager", "captured", "one card")}
+                for kind in ("eager", "captured", "one card", "one card", "captured", "eager"):
+                    mesh = one if kind == "one card" else across
+                    turns[kind].append(time_spatial(make(kind), state0, scans, mesh))
+                out[f"{label}_{world}_{mode}_local"] = turns
+                log(f"{name} ({mode}), in-process mesh: eager and captured (collectives "
+                    f"between the graphs) bitwise one card, launches as one card; ms per scan "
+                    f"in turns: " + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}"
+                                              for k, v in turns.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "records.npz")
+        save_records(path, records)
+        kinds = ("eager", "captured")
+        for world in worlds:
+            ranks = spawn_ranks(devices[:world], path, kinds, 300)
+            name = f"spatial over {world} NCCL ranks"
+            if isinstance(ranks, str):
+                raise AssertionError(f"{name}: {ranks}")
+            for label in SPATIAL_CONFIGS:
+                config = spatial_config(label)
+                scans, state0 = spatial_scans(config, records, devices[0])
+                one = [devices[0]] * world
+                for mode in ("replicated", "banded"):
+                    want, want_counts, _ = run_spatial(spatial.make_spatial_step(
+                        config, one, spiral_mode=mode, with_scan_center=True), state0, scans, one)
+                    for kind in kinds:
+                        check_ranks(ranks, want, want_counts, kind, label, mode, world,
+                                    f"{name} {label} {mode} {kind}")
+                    times = {kind: [float(v) for v in ranks[0][f"{label}_{mode}_{kind}_ms"]]
+                             for kind in kinds}
+                    out[f"{label}_{world}_{mode}_nccl"] = times
+                    log(f"{name} {config.cell_count}^2 ({mode}): every rank bitwise its shard "
+                        f"on one card, launches per scan K1 x1, K2 x3, K3 x1 a rank; rank 0's "
+                        f"ms per scan in turns: " + ", ".join(
+                            f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in times.items()))
+    log("phase 10 across cards summary: " + json.dumps(out))
+    return out
 
 
 @contextlib.contextmanager
@@ -1689,6 +2009,18 @@ def phase_captured(config, records, device, earlier):
     return out
 
 
+def run_spatial_phase(records, device) -> dict:
+    """Phase 10 on one card at both configurations, then across cards; the
+    captured runs' launch counts."""
+    counts = {}
+    for label, shards in SPATIAL_CONFIGS.items():
+        counts_s, _ = phase_spatial(spatial_config(label), records[:N_SPATIAL_SCANS], device,
+                                    shards)
+        counts = {k: counts.get(k, 0) + v for k, v in counts_s.items()}
+    phase_spatial_cards(records[:N_SPATIAL_SCANS])
+    return counts
+
+
 def main() -> int:
     phase_environment()
     from groundgrid_torch.config import HIGHRES_CONFIG, GroundGridConfig
@@ -1701,6 +2033,12 @@ def main() -> int:
     log(f"{N_SCANS} synthetic HDL-64E scans rendered in {time.perf_counter() - t0:.1f} s, "
         f"{records[0].points.shape[0]} points in the first")
 
+    if sys.argv[1:] == ["--spatial"]:  # phases 1 and 10 alone
+        run_spatial_phase(records, device)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     driver = warm_driver(config, records, device)
     k1, cell = check_raster(config, driver, records[4])
     k2 = check_lookup(config, driver, cell, records[4])
@@ -1724,11 +2062,7 @@ def main() -> int:
     topk_counts, topk = phase_topk(device)
     phase_golden(device)
     fleet_counts, _ = phase_fleet(config, records, device)
-    spatial_counts = {}
-    for cfg, shards in ((dataclasses.replace(HIGHRES_CONFIG, sorted_scans=True), 8),
-                        (config, 4)):
-        counts_s, _ = phase_spatial(cfg, records[:N_SPATIAL_SCANS], device, shards)
-        spatial_counts = {k: spatial_counts.get(k, 0) + v for k, v in counts_s.items()}
+    spatial_counts = run_spatial_phase(records, device)
     phase_captured(config, records, device, {
         "layers": (layer_config, records[:N_LAYER_SCANS], layer_results),
         "unsorted": (unsorted["results"], unsorted["state"]),

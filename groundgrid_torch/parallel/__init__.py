@@ -5,9 +5,13 @@ a mesh (``spatial.py``), with the spiral as an exact band relay
 (``spiral_shard.py``)."""
 
 from groundgrid_torch.parallel.spatial import (
+    CapturedDetect,
+    CapturedSpatialStep,
     GroupMesh,
     LocalMesh,
+    ShardedDetect,
     SpatialOutput,
+    SpatialStep,
     blocks_from_numpy,
     blocks_to_numpy,
     exchange_halo,
@@ -18,10 +22,13 @@ from groundgrid_torch.parallel.spatial import (
     spatial_sharding,
     split_rows,
 )
-from groundgrid_torch.parallel.spiral_shard import banded_spiral, pack_ring, ring_bands, unpack_ring
+from groundgrid_torch.parallel.spiral_shard import (BandRelay, banded_spiral, pack_ring, ring_bands,
+                                                    unpack_ring)
 
 __all__ = [
-    "GroupMesh", "LocalMesh", "SpatialOutput", "blocks_from_numpy", "blocks_to_numpy",
+    "CapturedDetect", "CapturedSpatialStep", "GroupMesh", "LocalMesh", "ShardedDetect",
+    "SpatialOutput", "SpatialStep", "blocks_from_numpy", "blocks_to_numpy",
     "exchange_halo", "gather_rows", "make_sharded_detect", "make_spatial_step", "shard_scan",
-    "spatial_sharding", "split_rows", "banded_spiral", "pack_ring", "ring_bands", "unpack_ring",
+    "spatial_sharding", "split_rows", "BandRelay", "banded_spiral", "pack_ring", "ring_bands",
+    "unpack_ring",
 ]

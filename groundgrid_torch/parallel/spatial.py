@@ -21,7 +21,24 @@ A mesh is one of two kinds:
     ``all_gather``, ``all_reduce`` and ``broadcast`` on the shard's device.
 
 Both run the same per-shard code and fold what they gather in shard order,
-so every rank of a group is bitwise the local mesh with the same S.
+so every rank of a group is bitwise the local mesh with the same S. The
+per-shard code is a generator that yields at each collective
+(``parallel/collectives.py``), the counterpart of the JAX ``shard_map``
+body.
+
+Captured: :func:`make_spatial_step` and :func:`make_sharded_detect` return
+the captured step and detect (:class:`CapturedSpatialStep`,
+:class:`CapturedDetect`), the counterparts of the JAX package's ``jax.jit``
+over ``shard_map``, bitwise the eager :class:`SpatialStep` and
+:class:`ShardedDetect`. Where every local shard is on one device
+(``["cuda:0"] * S``) the collectives are copies on that device and the whole
+step is one CUDA graph (``"inside"``). Elsewhere (a mesh across cards, a
+``GroupMesh`` rank) each device captures one graph per segment between two
+collectives, and the collectives run between the replays (``"between"``):
+a copy to another card waits on that card's stream, which a capture on one
+stream cannot hold, and NCCL calls captured inside a rank's graph were not
+faster beyond the spread (PERF.md). :func:`default_collectives` makes that
+choice from the mesh; there is no other.
 
 Exactness: the sharded detect (:func:`make_sharded_detect`, and the step's
 detect) is bitwise the single-grid ``detect_ground_patches``: the windows
@@ -51,9 +68,10 @@ from groundgrid_torch.core.detect import HALO
 from groundgrid_torch.ops import lookup as lookuplib
 from groundgrid_torch.ops import raster as rasterops
 from groundgrid_torch.ops import spiral as spiralops
+from groundgrid_torch.parallel.collectives import CapturedShards, Gather, drive
 from groundgrid_torch.parallel.sharding import _place, make_mesh
-from groundgrid_torch.parallel.spiral_shard import banded_spiral
-from groundgrid_torch.pipeline import Scan, _validate, scan_scalars, to_device
+from groundgrid_torch.parallel.spiral_shard import BandRelay
+from groundgrid_torch.pipeline import Scan, _validate, scan_scalars, scan_tensors, to_device
 
 
 class LocalMesh:
@@ -185,20 +203,28 @@ def blocks_to_numpy(g_blocks, c_blocks, center, mesh):
     return ground, groundpatch, center[0].numpy().copy(), center[1].numpy().copy()
 
 
+def _edges(block):
+    """A row block's ``HALO`` top and bottom rows, stacked."""
+    return torch.cat([block[:HALO], block[-HALO:]])
+
+
+def _halo(s: int, size: int, block, edges):
+    """Shard ``s``'s block with its neighbours' edge rows from ``edges``
+    (every shard's :func:`_edges`); zeros at the grid's top and bottom."""
+    zeros = torch.zeros((HALO, block.shape[1]), dtype=block.dtype, device=block.device)
+    above = edges[s - 1][HALO:] if s > 0 else zeros
+    below = edges[s + 1][:HALO] if s < size - 1 else zeros
+    return torch.cat([above, block, below])
+
+
 def exchange_halo(blocks, mesh) -> list:
     """Each local row block with ``HALO`` ghost rows from its grid
     neighbours above and below, ``(rows + 2 HALO, N)``; zeros at the grid's
     top and bottom edges (no wraparound), as the JAX ``_exchange_halo``.
     One ``all_gather`` of every block's edge rows."""
     mesh = as_mesh(mesh)
-    edges = [torch.cat([b[:HALO], b[-HALO:]]) for b in blocks]
-    out = []
-    for s, b, got in zip(mesh.shards, blocks, mesh.all_gather(edges)):
-        zeros = torch.zeros((HALO, b.shape[1]), dtype=b.dtype, device=b.device)
-        above = got[s - 1][HALO:] if s > 0 else zeros
-        below = got[s + 1][:HALO] if s < mesh.size - 1 else zeros
-        out.append(torch.cat([above, b, below]))
-    return out
+    got = mesh.all_gather([_edges(b) for b in blocks])
+    return [_halo(s, mesh.size, b, e) for s, b, e in zip(mesh.shards, blocks, got)]
 
 
 class _ShardTables:
@@ -216,23 +242,92 @@ class _ShardTables:
                                     _rows(self.config.cell_count, self.size, s))
 
 
+def default_collectives(mesh) -> str:
+    """``"inside"`` the capture where every shard is on one device of this
+    process (a ``LocalMesh``), else ``"between"`` the graphs
+    (``parallel/collectives.py``)."""
+    mesh = as_mesh(mesh)
+    return "inside" if isinstance(mesh, LocalMesh) and len(set(mesh.devices)) == 1 else "between"
+
+
+def _one_kind(mesh) -> None:
+    if len({d.type for d in mesh.devices}) > 1:
+        raise ValueError(f"a captured mesh runs on one kind of device, not {mesh.devices}")
+
+
+def _static_blocks(held, blocks):
+    """Static copies of ``blocks`` (allocated like them at first use), with
+    ``blocks`` copied in unless they are the static ones."""
+    if held is None:
+        held = [torch.empty_like(b, memory_format=torch.contiguous_format) for b in blocks]
+    for dst, src in zip(held, blocks, strict=True):
+        if src is not dst:
+            dst.copy_(src)
+    return held
+
+
+class ShardedDetect:
+    """``f(points, variance, min_gh, ground, groundpatch) -> (ground',
+    groundpatch')`` over lists of the local shards' row blocks, eagerly:
+    each shard's :meth:`body` exchanges its stencil inputs' halos
+    (:func:`exchange_halo`) and runs ``detect_block``; bitwise the
+    single-grid sweep."""
+
+    def __init__(self, config: GroundGridConfig, mesh):
+        self.config, self.mesh = config, as_mesh(mesh)
+        _rows(config.cell_count, self.mesh.size, 0)
+        self._tables = _ShardTables(config, self.mesh.size)
+
+    def body(self, s, device, points, variance, min_gh, ground, groundpatch):
+        """Shard ``s``'s body (``parallel/collectives.py``)."""
+        inputs = (points, variance, min_gh)
+        got = yield Gather(tuple(_edges(x) for x in inputs))
+        halos = [_halo(s, self.mesh.size, x, e) for x, e in zip(inputs, got)]
+        return detectlib.detect_block(self.config, self._tables.rows(s, device), *halos, ground,
+                                      groundpatch)
+
+    def bodies(self, blocks) -> list:
+        return [self.body(s, dev, *b) for s, dev, *b in zip(self.mesh.shards, self.mesh.devices,
+                                                             *blocks)]
+
+    def __call__(self, points, variance, min_gh, ground, groundpatch):
+        out = drive(self.mesh, self.bodies((points, variance, min_gh, ground, groundpatch)))
+        return [g for g, _ in out], [c for _, c in out]
+
+
+class CapturedDetect:
+    """:class:`ShardedDetect` captured (``parallel/collectives.py``), the
+    counterpart of the jitted JAX sharded detect: the five inputs' blocks
+    are copied into static blocks, the bodies replay, and the outputs come
+    back as clones."""
+
+    def __init__(self, config: GroundGridConfig, mesh):
+        self.eager = ShardedDetect(config, mesh)
+        self.mesh = self.eager.mesh
+        _one_kind(self.mesh)
+        self._shards = CapturedShards(self.mesh, default_collectives(self.mesh))
+        self._inputs: list | None = None  # static blocks, per input
+
+    @property
+    def captured(self) -> bool:
+        return self._shards.captured
+
+    def __call__(self, *blocks):
+        held = self._inputs or [None] * len(blocks)
+        self._inputs = [_static_blocks(h, b) for h, b in zip(held, blocks, strict=True)]
+        out = self._shards(lambda: self.eager.bodies(self._inputs))
+        return [g.clone() for g, _ in out], [c.clone() for _, c in out]
+
+
 def make_sharded_detect(config: GroundGridConfig, mesh):
     """A row-sharded drop-in for ``detect_ground_patches``: ``f(points,
     variance, min_gh, ground, groundpatch) -> (ground', groundpatch')`` over
-    lists of the local shards' row blocks. The stencil inputs exchange
+    lists of the local shards' row blocks; the stencil inputs exchange
     their halos (:func:`exchange_halo`); bitwise the single-grid sweep.
+    Captured (:class:`CapturedDetect`, its collectives placed by
+    :func:`default_collectives`); :class:`ShardedDetect` is the eager one.
     ``ValueError`` where S does not divide N."""
-    mesh = as_mesh(mesh)
-    _rows(config.cell_count, mesh.size, 0)
-    tables = _ShardTables(config, mesh.size)
-
-    def f(points, variance, min_gh, ground, groundpatch):
-        halos = [exchange_halo(x, mesh) for x in (points, variance, min_gh)]
-        out = [detectlib.detect_block(config, tables.rows(s, g.device), p, v, m, g, c)
-               for s, p, v, m, g, c in zip(mesh.shards, *halos, ground, groundpatch)]
-        return [g for g, _ in out], [c for _, c in out]
-
-    return f
+    return CapturedDetect(config, mesh)
 
 
 class SpatialOutput(NamedTuple):
@@ -246,13 +341,16 @@ class SpatialOutput(NamedTuple):
 
 
 class SpatialStep:
-    """``step(g_blocks, c_blocks, center, scan_blocks) -> SpatialOutput``.
+    """``step(g_blocks, c_blocks, center, scan_blocks) -> SpatialOutput``,
+    run eagerly: the reference the captured step
+    (:class:`CapturedSpatialStep`) is held against.
 
-    Per local shard, as the JAX spatial step's ``local_step``: gather the
-    rows into full layers, ``grid.move`` them (replicated), bin, K2 and
-    march its own points (its own ``max_outlier_candidates`` buffer), its
-    seven K1 columns (:func:`~groundgrid_torch.core.rasterize.
-    raster_partials`); the columns of every shard folded in shard order
+    Per local shard, as the JAX spatial step's ``local_step`` (its
+    :meth:`body`): gather the rows into full layers, ``grid.move`` them
+    (replicated), bin, K2 and march its own points (its own
+    ``max_outlier_candidates`` buffer), its seven K1 columns
+    (:func:`~groundgrid_torch.core.rasterize.raster_partials`); the columns
+    of every shard folded in shard order
     (:func:`~groundgrid_torch.core.rasterize.finish_partials`); detect on
     its rows, halo'd from those layers (:func:`~groundgrid_torch.core.
     detect.detect_block`); the rows gathered; the spiral, a full K3 launch
@@ -261,10 +359,12 @@ class SpatialStep:
 
     ``center`` is the host pair ``(center, center_lo)``: with
     ``with_scan_center`` the scans' centers are the new ones (sorted scans
-    need it), else the device recurrence's (``grid.index_shift_ds``). Kernel
-    launches per scan: K1 x S, K2 x 3 S, K3 x S (one per non-empty band
-    when banded). The step reads nothing back to the host; ``fallbacks``
-    counts the shards' unsorted chunks of sorted scans (a host read).
+    need it), else the host center recurrence's (``grid.index_shift_ds``).
+    The host packs every per-scan value into the scan scalars, shipped once
+    per device. Kernel launches per scan: K1 x S, K2 x 3 S, K3 x S (one per
+    non-empty band when banded). The step reads nothing back to the host;
+    ``fallbacks`` counts the shards' unsorted chunks of sorted scans (a
+    host read).
     """
 
     def __init__(self, config: GroundGridConfig, mesh, spiral_mode: str = "replicated",
@@ -288,11 +388,11 @@ class SpatialStep:
         self._lookup = lookuplib.lookup_plain if plain else lookuplib.lookup
         self._spiral = (spiralops.spiral_interpolation_plain if plain
                         else spiralops.spiral_interpolation)
-        self._banded = None
+        self._band = None
         if spiral_mode == "banded":
             rings = (spiralops.spiral_interpolation_rings_plain if plain
                      else spiralops.spiral_interpolation_rings)
-            self._banded = banded_spiral(config, self.mesh, lambda *a: rings(*a, False))
+            self._band = BandRelay(config, size, lambda *a: rings(*a, False))
         self._tables = _ShardTables(config, size)
         self._fallbacks: dict = {}
 
@@ -300,89 +400,200 @@ class SpatialStep:
     def fallbacks(self) -> int:
         return sum(int(v) for v in self._fallbacks.values())
 
-    def __call__(self, g_blocks, c_blocks, center, scan_blocks) -> SpatialOutput:
-        cfg, mesh = self.config, self.mesh
-        n, n2 = cfg.cell_count, cfg.cell_count ** 2
-        local = list(zip(mesh.shards, mesh.devices))
-        if not len(g_blocks) == len(c_blocks) == len(scan_blocks) == len(local):
-            raise ValueError(f"need one block and one scan chunk per local shard ({len(local)})")
+    def scalars(self, center, scan_blocks):
+        """Host: the scan scalars and the new center pair (``pipeline.
+        scan_scalars``) of the scan whose chunks are ``scan_blocks``."""
+        if len(scan_blocks) != len(self.mesh.shards):
+            raise ValueError(f"need one scan chunk per local shard ({len(self.mesh.shards)})")
         scan0 = scan_blocks[0]
         if self.with_scan_center and scan0.center is None:
             raise ValueError("with_scan_center: the scans carry no center")
         if not self.with_scan_center:
             scan0 = scan0._replace(center=None, center_lo=None)
-        packed, new_center, new_lo = scan_scalars(cfg, center[0].numpy(), center[1].numpy(),
-                                                  scan0)
-        on_device: dict = {}  # the scan scalars, shipped once per device
+        return scan_scalars(self.config, center[0].numpy(), center[1].numpy(), scan0)
 
-        grounds = [torch.cat(x) for x in mesh.all_gather(list(g_blocks))]
-        patches = [torch.cat(x) for x in mesh.all_gather(list(c_blocks))]
-        shards, parts = [], []
-        for (s, dev), g, c, scan in zip(local, grounds, patches, scan_blocks):
-            if dev not in on_device:
-                on_device[dev] = scalarlib.view(to_device(packed, dev))
-            sc = on_device[dev]
-            moved = gridlib.move(cfg, g, c, sc)
-            if cfg.sorted_scans:
-                x, y, z = scan.px, scan.py, scan.pz
-            else:
-                x, y, z = tf.transform_points_soa(sc.velo, scan.px, scan.py, scan.pz)
-            binning = rasterlib.bin_points(cfg, sc, x, y, scan.rings, scan.valid > 0)
-            (old_h,) = self._lookup(binning.cell, [moved[0]], n2)
-            outlier, _ = outlierlib.detect_outliers(cfg, sc, *moved, binning, x, y, z, old_h,
-                                                    self._lookup)
-            accept = binning.inmap & ~binning.ignored & ~outlier
-            rb, rz, racc = binning, z, accept
-            if not cfg.sorted_scans or cfg.sorted_fallback_check:
-                order = torch.argsort(binning.cell, stable=True)
-                rb, rz, racc = binning.permute(order), z[order], accept[order]
-            if cfg.sorted_scans and cfg.sorted_fallback_check:
-                if dev not in self._fallbacks:
-                    self._fallbacks[dev] = torch.zeros((), dtype=torch.int64, device=dev)
-                self._fallbacks[dev] += (binning.cell[1:] < binning.cell[:-1]).any()
-            cols = rasterlib.raster_partials(cfg, rb, rz, racc, sc, self._reduce)
-            parts.append(torch.stack(list(cols)))
-            shards.append((moved, binning, z, outlier))
+    def body(self, s, dev, g_block, c_block, points, sc, write_blocks: bool = False):
+        """Shard ``s``'s step on ``dev`` (``parallel/collectives.py``), from its
+        row blocks, its chunk's point tensors (``pipeline.scan_tensors``) and
+        the scan scalars' views on ``dev``. Returns its new row blocks (clones,
+        or with ``write_blocks`` ``g_block`` and ``c_block`` rewritten), labels
+        and outlier flags."""
+        cfg, size = self.config, self.mesh.size
+        n, n2 = cfg.cell_count, cfg.cell_count ** 2
+        rows = _rows(n, size, s)
+        grounds, patches = yield Gather((g_block, c_block))
+        moved = gridlib.move(cfg, torch.cat(grounds), torch.cat(patches), sc)
+        x, y, z, rings, valid = points
+        if not cfg.sorted_scans:
+            x, y, z = tf.transform_points_soa(sc.velo, x, y, z)
+        binning = rasterlib.bin_points(cfg, sc, x, y, rings, valid > 0)
+        (old_h,) = self._lookup(binning.cell, [moved[0]], n2)
+        outlier, _ = outlierlib.detect_outliers(cfg, sc, *moved, binning, x, y, z, old_h,
+                                                self._lookup)
+        accept = binning.inmap & ~binning.ignored & ~outlier
+        rb, rz, racc = binning, z, accept
+        if not cfg.sorted_scans or cfg.sorted_fallback_check:
+            order = torch.argsort(binning.cell, stable=True)
+            rb, rz, racc = binning.permute(order), z[order], accept[order]
+        if cfg.sorted_scans and cfg.sorted_fallback_check:
+            if dev not in self._fallbacks:
+                self._fallbacks[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+            self._fallbacks[dev] += (binning.cell[1:] < binning.cell[:-1]).any()
+        cols = rasterlib.raster_partials(cfg, rb, rz, racc, sc, self._reduce)
 
-        dets = []
-        for (s, dev), gathered, (moved, *_) in zip(local, mesh.all_gather(parts), shards):
-            raster = rasterlib.finish_partials(cfg, [p.unbind(0) for p in gathered],
-                                               on_device[dev])
-            rows = _rows(n, mesh.size, s)
+        (gathered,) = yield Gather((torch.stack(list(cols)),))
+        raster = rasterlib.finish_partials(cfg, [p.unbind(0) for p in gathered], sc)
 
-            def halo(full):
-                return torch.nn.functional.pad(full, (0, 0, HALO, HALO))[
-                    rows.start:rows.stop + 2 * HALO]
+        def halo(full):
+            return torch.nn.functional.pad(full, (0, 0, HALO, HALO))[
+                rows.start:rows.stop + 2 * HALO]
 
-            dets.append((raster, detectlib.detect_block(
-                cfg, self._tables.rows(s, dev), halo(raster.points), halo(raster.variance),
-                halo(raster.min_ground_height), moved[0][rows], moved[1][rows])))
-
-        grounds = [torch.cat(x) for x in mesh.all_gather([g for _, (g, _) in dets])]
-        patches = [torch.cat(x) for x in mesh.all_gather([c for _, (_, c) in dets])]
-        if self._banded is not None:
-            grounds, patches = self._banded(grounds, patches, on_device[local[0][1]].base_z)
+        det = detectlib.detect_block(
+            cfg, self._tables.rows(s, dev), halo(raster.points), halo(raster.variance),
+            halo(raster.min_ground_height), moved[0][rows], moved[1][rows])
+        grounds, patches = yield Gather(det)
+        g, c = torch.cat(grounds), torch.cat(patches)
+        if self._band is not None:
+            g, c = yield from self._band.shard(s, g, c, sc.base_z)
         else:
-            for (_, dev), g, c in zip(local, grounds, patches):
-                self._spiral(cfg, g, c, on_device[dev].base_z)
+            self._spiral(cfg, g, c, sc.base_z)
 
-        g_out, c_out, labels, outliers = [], [], [], []
-        for (s, _), g, c, (raster, _), (moved, binning, z, outlier) in zip(
-                local, grounds, patches, dets, shards):
-            gh, var = self._lookup(binning.cell, [g, raster.variance], n2)
-            labels.append(classifylib.classify(cfg, binning, z, outlier, gh, var))
-            outliers.append(outlier.to(torch.int32))
-            rows = _rows(n, mesh.size, s)
-            g_out.append(g[rows].clone())
-            c_out.append(c[rows].clone())
+        gh, var = self._lookup(binning.cell, [g, raster.variance], n2)
+        labels = classifylib.classify(cfg, binning, z, outlier, gh, var)
+        if write_blocks:
+            g_block.copy_(g[rows])
+            c_block.copy_(c[rows])
+            g_rows, c_rows = g_block, c_block
+        else:
+            g_rows, c_rows = g[rows].clone(), c[rows].clone()
+        return g_rows, c_rows, labels, outlier.to(torch.int32)
+
+    def bodies(self, g_blocks, c_blocks, points, scalars, write_blocks: bool = False) -> list:
+        """Every local shard's :meth:`body`; ``scalars`` maps each device to
+        the scan scalars' views there."""
+        if not len(g_blocks) == len(c_blocks) == len(points) == len(self.mesh.shards):
+            raise ValueError(f"need one block and one scan chunk per local shard "
+                             f"({len(self.mesh.shards)})")
+        return [self.body(s, dev, g, c, p, scalars[dev], write_blocks)
+                for s, dev, g, c, p in zip(self.mesh.shards, self.mesh.devices, g_blocks,
+                                           c_blocks, points)]
+
+    def __call__(self, g_blocks, c_blocks, center, scan_blocks) -> SpatialOutput:
+        packed, new_center, new_lo = self.scalars(center, scan_blocks)
+        scalars = {dev: scalarlib.view(to_device(packed, dev))
+                   for dev in dict.fromkeys(self.mesh.devices)}
+        out = drive(self.mesh, self.bodies(g_blocks, c_blocks,
+                                           [scan_tensors(scan) for scan in scan_blocks], scalars))
+        g_out, c_out, labels, outliers = (list(x) for x in zip(*out))
         return SpatialOutput(g_out, c_out, (gridlib.host_pair(new_center),
                                             gridlib.host_pair(new_lo)), labels, outliers)
 
 
+class CapturedSpatialStep:
+    """The spatial step captured, the counterpart of the JAX spatial step's
+    ``jax.jit`` over ``shard_map``: the eager :class:`SpatialStep`'s bodies
+    run under ``parallel/collectives.py``'s :class:`~groundgrid_torch.
+    parallel.collectives.CapturedShards` (placed by
+    :func:`default_collectives`: one graph a scan on a one-device mesh).
+
+    Static buffers, as ``pipeline.CapturedStep`` holds: each local shard's
+    two row blocks (a state's blocks are copied in unless they are the
+    static ones: :meth:`install`) and its (5, P/S) point rows, the scan
+    scalars per device (filled from pinned host memory), and the outputs.
+    A call copies its inputs in, replays, and returns the static blocks
+    (the new layers, written in place) with the new host center pair, and
+    *clones* of the labels and outlier flags. The first call runs the
+    bodies eagerly (the lazy set-up: detect tables, band masks, the
+    fallback counter, the kernels' build, NCCL's communicators); the
+    capture follows it; a capture that fails raises, and nothing falls back
+    to the eager step. On the CPU the bodies run where the card replays.
+    Only scans with their center (``with_scan_center``): the host center
+    recurrence belongs to the eager step.
+    """
+
+    def __init__(self, config: GroundGridConfig, mesh, spiral_mode: str = "replicated"):
+        self.eager = SpatialStep(config, mesh, spiral_mode, with_scan_center=True)
+        self.config, self.mesh = config, self.eager.mesh
+        _one_kind(self.mesh)
+        self._shards = CapturedShards(self.mesh, default_collectives(self.mesh))
+        self._blocks: tuple | None = None  # static (ground, groundpatch) row blocks
+        self._points: list | None = None  # static point rows per local shard, body order
+        self._scalars: dict | None = None  # static scan scalars per device
+
+    @property
+    def fallbacks(self) -> int:
+        return self.eager.fallbacks
+
+    @property
+    def collectives(self) -> str:
+        """``"inside"`` the one graph or ``"between"`` the segments."""
+        return self._shards.collectives
+
+    @property
+    def captured(self) -> bool:
+        return self._shards.captured
+
+    @property
+    def capture_seconds(self) -> float | None:
+        return self._shards.capture_seconds
+
+    @property
+    def pool_bytes(self) -> int | None:
+        return self._shards.pool_bytes
+
+    def install(self, g_blocks, c_blocks) -> tuple[list, list]:
+        """The static row blocks (allocated from the first state's), with
+        ``g_blocks`` and ``c_blocks`` copied in unless they are the static
+        ones."""
+        held = self._blocks or (None, None)
+        self._blocks = (_static_blocks(held[0], g_blocks), _static_blocks(held[1], c_blocks))
+        return self._blocks
+
+    def _allocate(self, points) -> None:
+        """The static point rows (one 32-bit buffer per shard, its rows
+        viewed as their dtypes) and scan scalars per device."""
+        self._points = []
+        for p in points:
+            rows = torch.empty((len(p), p[0].shape[0]), dtype=torch.float32, device=p[0].device)
+            self._points.append(tuple(r.view(t.dtype) for r, t in zip(rows.unbind(0), p)))
+        self._scalars = {dev: torch.empty((scalarlib.SIZE,), dtype=torch.float32, device=dev)
+                         for dev in dict.fromkeys(self.mesh.devices)}
+
+    def __call__(self, g_blocks, c_blocks, center, scan_blocks) -> SpatialOutput:
+        if scan_blocks and scan_blocks[0].center is None:
+            raise ValueError("the captured spatial step takes scans with their center; step "
+                             "center-less scans with SpatialStep")
+        packed, new_center, new_lo = self.eager.scalars(center, scan_blocks)
+        g_static, c_static = self.install(g_blocks, c_blocks)
+        points = [scan_tensors(scan) for scan in scan_blocks]
+        if self._points is None:
+            self._allocate(points)
+        for dst, src in zip(self._points, points, strict=True):
+            for d, t in zip(dst, src, strict=True):
+                d.copy_(t)
+        host = torch.from_numpy(packed)
+        if any(dev.type == "cuda" for dev in self._scalars):
+            host = host.pin_memory()  # a fresh buffer: no queued copy reads it again
+        for buf in self._scalars.values():
+            buf.copy_(host, non_blocking=True)
+        views = {dev: scalarlib.view(buf) for dev, buf in self._scalars.items()}
+        out = self._shards(lambda: self.eager.bodies(g_static, c_static, self._points, views,
+                                                     write_blocks=True))
+        return SpatialOutput(list(g_static), list(c_static),
+                             (gridlib.host_pair(new_center), gridlib.host_pair(new_lo)),
+                             [o[2].clone() for o in out], [o[3].clone() for o in out])
+
+
 def make_spatial_step(config: GroundGridConfig, mesh, spiral_mode: str = "replicated",
-                      with_scan_center: bool = False) -> SpatialStep:
+                      with_scan_center: bool = False):
     """The per-scan step with one grid split row-wise over ``mesh`` (a device
-    list, a :class:`LocalMesh` or a :class:`GroupMesh`): a
-    :class:`SpatialStep`. ``ValueError`` where the mesh's S does not divide
+    list, a :class:`LocalMesh` or a :class:`GroupMesh`): captured
+    (:class:`CapturedSpatialStep`, the counterpart of the JAX spatial step's
+    ``jax.jit``); the eager :class:`SpatialStep`, the reference, with
+    ``with_scan_center=False`` (its host center recurrence belongs to the
+    eager step) and with ``config.use_pallas`` False (whose plain K3 is a
+    Python ring loop). ``ValueError`` where the mesh's S does not divide
     the grid's rows or ``max_points``."""
-    return SpatialStep(config, mesh, spiral_mode, with_scan_center)
+    if not with_scan_center or config.use_pallas is False:
+        return SpatialStep(config, mesh, spiral_mode, with_scan_center)
+    return CapturedSpatialStep(config, mesh, spiral_mode)

@@ -28,6 +28,7 @@ import torch
 
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.ops import spiral as spiralops
+from groundgrid_torch.parallel.collectives import Relay, Sum, drive
 
 
 def ring_bands(config: GroundGridConfig, n_shards: int) -> list[np.ndarray]:
@@ -76,6 +77,64 @@ def _ring_ids(n: int, c_idx: int, device) -> torch.Tensor:
     return torch.minimum(torch.minimum(ii, jj), torch.minimum(2 * c_idx - ii, 2 * c_idx - jj))
 
 
+class BandRelay:
+    """The banded sweep's per-shard body over ``size`` shards.
+
+    :meth:`shard` is shard ``s``'s body (a generator, ``parallel/
+    collectives.py``) on its full copies of both layers, all equal on entry;
+    ``base_z``, the center's seed, is a 0-dim float32 tensor on the layers'
+    device (K3 reads it there). Every shard seeds the center; shard s walks
+    its band on its copy (``rings_fn``, by default
+    :func:`spiral_interpolation_rings <groundgrid_torch.ops.spiral.
+    spiral_interpolation_rings>`) after it receives band s-1's boundary ring
+    (a :class:`~groundgrid_torch.parallel.collectives.Relay`: a copy on a
+    local mesh, a ``broadcast`` from rank s on a group). The disjoint annuli
+    are then recombined as the JAX relay does: the sum over the shards of
+    each shard's own cells (zeros elsewhere; a
+    :class:`~groundgrid_torch.parallel.collectives.Sum`, one ``all_reduce``
+    on a group), and the pre-sweep values outside the walked cells. The
+    masked sum is exact in any order, but -0.0 comes back as +0.0 where S >
+    1, as in JAX. Returns a fresh pair.
+    """
+
+    def __init__(self, config: GroundGridConfig, size: int, rings_fn=None):
+        self.config, self.size = config, size
+        self.rings_fn = spiralops.spiral_interpolation_rings if rings_fn is None else rings_fn
+        self.ranges = band_ranges(config, size)
+        self._masks: dict = {}  # per device: (walked, mine per shard)
+
+    def masks(self, device):
+        """(walked, mine per shard) on ``device``, built at first use."""
+        if device not in self._masks:
+            c_idx = self.config.center_cell
+            rid = _ring_ids(self.config.cell_count, c_idx, device)
+            walked = (rid >= 1) & (rid <= c_idx - 1)  # not the center (ring c_idx)
+            mine = [walked & (rid >= c_idx - d1) & (rid <= c_idx - d0) for d0, d1 in self.ranges]
+            self._masks[device] = (walked, mine)
+        return self._masks[device]
+
+    def shard(self, s: int, ground, groundpatch, base_z):
+        cfg = self.config
+        c_idx, n = cfg.center_cell, cfg.cell_count
+        n2c = 2 * c_idx
+        ground[c_idx, c_idx].copy_(base_z)  # on the device: no host value, no sync
+        groundpatch[c_idx, c_idx].fill_(1.0)
+        pre = ground.clone(), groundpatch.clone()
+        for b, (d0, d1) in enumerate(self.ranges):
+            if b == s and d0 <= d1:
+                self.rings_fn(cfg, ground, groundpatch, base_z, d0, d1)
+            if b < self.size - 1 and d0 <= d1:
+                i_b = c_idx - d1  # the band's outermost ring
+                pkg = pack_ring(ground, groundpatch, i_b, n2c) if b == s else None
+                got = yield Relay(pkg, b, (8, n))
+                if s == b + 1:
+                    unpack_ring(ground, groundpatch, got, i_b, n2c)
+        walked, mine = self.masks(ground.device)
+        total = yield Sum(torch.stack([torch.where(mine[s], ground, 0.0),
+                                       torch.where(mine[s], groundpatch, 0.0)]))
+        return torch.where(walked, total[0], pre[0]), torch.where(walked, total[1], pre[1])
+
+
 def banded_spiral(config: GroundGridConfig, mesh, rings_fn=None):
     """Build the banded sweep over ``mesh``'s shards.
 
@@ -83,64 +142,15 @@ def banded_spiral(config: GroundGridConfig, mesh, rings_fn=None):
     spatial.LocalMesh` or :class:`~groundgrid_torch.parallel.spatial.
     GroupMesh`). Returns ``f(grounds, patches, base_z) -> (grounds,
     patches)``, one full (N, N) copy of each layer per local shard, all
-    equal on entry; ``base_z``, the center's seed, is a 0-dim float32
-    tensor (each shard reads its copy on its device, as K3 reads it). Every
-    shard seeds the center; shard s walks its band on
-    its copy (``rings_fn``, by default :func:`spiral_interpolation_rings
-    <groundgrid_torch.ops.spiral.spiral_interpolation_rings>`) after it
-    receives band s-1's boundary ring, a copy on a local mesh and a
-    ``broadcast`` from rank s on a group. The disjoint annuli are then
-    recombined as the JAX relay does: the sum over the shards of each
-    shard's own cells (zeros elsewhere; one ``all_reduce`` on a group), and
-    the pre-sweep values outside the walked cells. The masked sum is exact
-    in any order, but -0.0 comes back as +0.0 where S > 1, as in JAX.
-    Returns a fresh pair per local shard.
+    equal on entry, each shard running :meth:`BandRelay.shard` (``base_z`` a
+    0-dim float32 tensor, copied to each shard's device). Returns a fresh
+    pair per local shard.
     """
-    if rings_fn is None:
-        rings_fn = spiralops.spiral_interpolation_rings
-    c_idx = config.center_cell
-    n = config.cell_count
-    n2c = 2 * c_idx
-    size = mesh.size
-    ranges = band_ranges(config, size)
-    masks: dict = {}  # per device: (walked, mine per shard)
-
-    def shard_masks(device):
-        if device not in masks:
-            rid = _ring_ids(n, c_idx, device)
-            walked = (rid >= 1) & (rid <= c_idx - 1)  # not the center (ring c_idx)
-            mine = [walked & (rid >= c_idx - d1) & (rid <= c_idx - d0) for d0, d1 in ranges]
-            masks[device] = (walked, mine)
-        return masks[device]
+    relay = BandRelay(config, mesh.size, rings_fn)
 
     def f(grounds, patches, base_z):
-        local = mesh.shards
-        zs = [base_z.to(g.device) for g in grounds]
-        for g, c, z in zip(grounds, patches, zs):
-            g[c_idx, c_idx].copy_(z)  # on the device: no host value, no sync
-            c[c_idx, c_idx].fill_(1.0)
-        pre = [(g.clone(), c.clone()) for g, c in zip(grounds, patches)]
-        at = {s: k for k, s in enumerate(local)}  # shard -> its local position
-        for s, (d0, d1) in enumerate(ranges):
-            if s in at and d0 <= d1:
-                k = at[s]
-                rings_fn(config, grounds[k], patches[k], zs[k], d0, d1)
-            if s < size - 1 and d0 <= d1:
-                i_b = c_idx - d1  # the band's outermost ring
-                pkg = pack_ring(grounds[at[s]], patches[at[s]], i_b, n2c) if s in at else None
-                got = mesh.relay(pkg, s, (8, n))
-                if s + 1 in at:
-                    k = at[s + 1]
-                    unpack_ring(grounds[k], patches[k], got, i_b, n2c)
-        masked = []
-        for s, g, c in zip(local, grounds, patches):
-            _, mine = shard_masks(g.device)
-            masked.append(torch.stack([torch.where(mine[s], g, 0.0),
-                                       torch.where(mine[s], c, 0.0)]))
-        out = []
-        for total, (pg, pc) in zip(mesh.all_reduce_sum(masked), pre):
-            walked, _ = shard_masks(pg.device)
-            out.append((torch.where(walked, total[0], pg), torch.where(walked, total[1], pc)))
+        out = drive(mesh, [relay.shard(s, g, c, base_z.to(g.device))
+                           for s, g, c in zip(mesh.shards, grounds, patches)])
         return [g for g, _ in out], [c for _, c in out]
 
     return f

@@ -46,13 +46,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from groundgrid_torch import ops
+from groundgrid_torch.capture import Graph
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core import classify as classifylib
 from groundgrid_torch.core import detect as detectlib
@@ -341,8 +340,9 @@ class CapturedStep:
     The first call runs the eager body (:meth:`Step.body`) on the real scan,
     which advances the state and does the lazy set-up (the detect tables,
     the fallback counter, the kernel build, the kernels' shared-memory
-    attributes); then the body is captured with ``torch.cuda.graph`` and
-    replayed from the next scan on. A capture that fails raises: there is
+    attributes); then the body is captured (``capture.Graph``, the protocol
+    the spatial step shares) and replayed from the next scan on. A capture
+    that fails raises: there is
     no eager fallback. The capture's launches are taken off the launch
     counters and added back on each replay (``ops.add_launches``).
 
@@ -361,11 +361,7 @@ class CapturedStep:
         self._layers: tuple | None = None  # static (ground, groundpatch)
         self._points: tuple | None = None  # static point rows, body order
         self._scalars: torch.Tensor | None = None
-        self._outputs: list | None = None  # static outputs: StepOutput, then AuxLayers
-        self._graph = None
-        self._launches: tuple = ()  # the capture's launch counts, added per replay
-        self.capture_seconds: float | None = None
-        self.pool_bytes: int | None = None
+        self._graph: Graph | None = None  # its outputs: StepOutput, then AuxLayers
 
     @property
     def fallbacks(self) -> int:
@@ -377,7 +373,15 @@ class CapturedStep:
 
     @property
     def captured(self) -> bool:
-        return self._graph is not None
+        return self._graph is not None and self._graph.graph is not None
+
+    @property
+    def capture_seconds(self) -> float | None:
+        return None if self._graph is None else self._graph.seconds
+
+    @property
+    def pool_bytes(self) -> int | None:
+        return None if self._graph is None else self._graph.pool_bytes
 
     def install(self, state: GridState) -> GridState:
         """A state on the static layers (allocated from the first state):
@@ -416,12 +420,12 @@ class CapturedStep:
         for dst, src in zip(self._points, points):
             dst.copy_(src)
         self._scalars.copy_(scalars, non_blocking=True)
-        if self._outputs is None:
+        if self._graph is None:
             result = [t.clone() for t in self._body()]
             self._first(result)
         else:
-            self._replay()
-            result = [t.clone() for t in self._outputs]
+            self._graph.replay(self._body)
+            result = [t.clone() for t in self._graph.outputs]
         state.center, state.center_lo = gridlib.host_pair(center), gridlib.host_pair(center_lo)
         out = StepOutput(*result[:len(StepOutput._fields)])
         if not self.with_aux:
@@ -447,36 +451,15 @@ class CapturedStep:
         return list(out) + ([] if aux is None else list(aux))
 
     def _first(self, result: list) -> None:
-        """After the first (eager) call: capture on the card, or keep the
-        outputs' buffers on the CPU."""
-        device = self._layers[0].device
-        if device.type != "cuda":
-            self._outputs = [t.clone() for t in result]
-            return
+        """After the first (eager) call: capture the body on the card, or keep
+        the outputs' buffers on the CPU (``capture.Graph``)."""
+        graph = Graph(self._layers[0].device)
         marchable = self.eager._marchable
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        before, reserved = ops.counter_values(), torch.cuda.memory_reserved(device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(device), torch.cuda.graph(graph, stream=torch.cuda.Stream(device)):
-            outputs = self._body()
-        torch.cuda.synchronize(device)
-        self.capture_seconds = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        self._launches = tuple(a - b for a, b in zip(ops.counter_values(), before))
-        ops.set_counters(before)  # the capture ran nothing
-        # the capture's marchable holds nothing until the first replay
-        self.eager._marchable.copy_(marchable)
-        self._graph, self._outputs = graph, outputs
-
-    def _replay(self) -> None:
-        if self._graph is None:  # the CPU: the eager body where the card replays
-            for dst, src in zip(self._outputs, self._body()):
-                dst.copy_(src)
-            return
-        self._graph.replay()
-        ops.add_launches(self._launches)
+        graph.capture(self._body, result)
+        if graph.graph is not None:
+            # the capture's marchable holds nothing until the first replay
+            self.eager._marchable.copy_(marchable)
+        self._graph = graph
 
 
 def make_step_fn(config: GroundGridConfig, with_aux: bool = False) -> Step:

@@ -23,7 +23,10 @@ streaming step on the card against the same step on the CPU, on the main
 path and on the fused, aux and wire path; the fleet on the card bitwise
 per-vehicle streaming; a warm step and a fleet tick under
 ``torch.cuda.set_sync_debug_mode("error")``; the fleet bench; the spatial
-step over four shards on the card.
+step over four shards on the card; the captured spatial step (one graph a
+scan, or one per segment between the collectives) bitwise the eager one
+over a moving sequence, the captured sharded detect bitwise the eager
+one, and an empty segment's graph replayed as nothing.
 """
 
 import dataclasses
@@ -805,3 +808,104 @@ def test_captured_fleet_matches_eager_on_card(cuda):
             res = driver.process(rec)
             np.testing.assert_array_equal(ticks[k].labels[v][:res.n_points], res.labels)
             np.testing.assert_array_equal(ticks[k].outlier[v][:res.n_points] > 0, res.outlier)
+
+
+def _spatial_run(step, records, mesh, cfg, device, sync_check=True):
+    """The spatial step over ``records`` (sorted, host-tracked centers): per
+    scan the gathered layers, labels, outliers and center pair (copies) and
+    the launch counts; every call after the first under the sync check."""
+    from groundgrid_torch.parallel import spatial
+    from groundgrid_torch.pipeline import CenterTracker, init_state, prepare_scan
+
+    T0 = np.asarray(records[0].t_map_velo, np.float64)
+    tracker = CenterTracker(cfg, T0[:2, 3])
+    st = init_state(cfg, T0.astype(np.float32), device)
+    g, c = spatial.split_rows(st.ground, mesh), spatial.split_rows(st.groundpatch, mesh)
+    center = (st.center, st.center_lo)
+    out, counts = [], []
+    for k, rec in enumerate(records):
+        T = np.asarray(rec.t_map_velo, np.float64)
+        scan, _ = prepare_scan(cfg, rec.points, rec.labels, T, tracker.update(T[:2, 3]), device)
+        chunks = spatial.shard_scan(scan, mesh)
+        reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error" if sync_check and k else "default")
+        try:
+            g, c, center, labels, outlier = step(g, c, center, chunks)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counts.append(launch_counts())
+        out.append([torch.cat(x).cpu() for x in (g, c, labels, outlier)] + list(center))
+    return out, counts
+
+
+@pytest.mark.parametrize("collectives", ["inside", "between"])
+@pytest.mark.parametrize("mode", ["replicated", "banded"])
+def test_captured_spatial_step_matches_eager_on_card(cuda, mode, collectives):
+    """The captured spatial step over ``["cuda:0"] * 4`` (one graph a scan,
+    or one per segment between the collectives) against the eager one over
+    a moving sequence: layers, labels, outliers and the center pair
+    bitwise, the same launches per scan, every replay under the sync
+    check."""
+    from groundgrid_torch.parallel import spatial
+    from groundgrid_torch.parallel.collectives import CapturedShards
+
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5, max_points=16384, ray_steps=40,
+                           max_outlier_candidates=1024, sorted_scans=True)
+    mesh = [cuda] * 4
+    recs = _moving_records()
+    step = spatial.make_spatial_step(cfg, mesh, mode, with_scan_center=True)
+    if collectives == "between":  # segmented, as a mesh across cards or ranks is
+        step._shards = CapturedShards(step.mesh, "between")
+    got, got_counts = _spatial_run(step, recs, mesh, cfg, cuda)
+    want, want_counts = _spatial_run(spatial.SpatialStep(cfg, mesh, mode, with_scan_center=True),
+                                     recs, mesh, cfg, cuda)
+    assert isinstance(step, spatial.CapturedSpatialStep) and step.captured
+    assert step.capture_seconds > 0 and step.pool_bytes > 0
+    assert got_counts == want_counts
+    assert got_counts[1] == {"raster": 4, "lookup": 12, "spiral": 4, "detect": 0}
+    for k, (a, b) in enumerate(zip(got, want)):
+        for x, y in zip(a, b, strict=True):
+            if x.dtype.is_floating_point:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y), f"scan {k + 1}"
+    assert step.fallbacks == 0
+
+
+@pytest.mark.parametrize("collectives", ["inside", "between"])
+def test_captured_sharded_detect_on_card(cuda, collectives):
+    """The captured sharded detect over ``["cuda:0"] * 4``, three calls on new
+    layers, bitwise the eager one."""
+    from groundgrid_torch.parallel import spatial
+    from groundgrid_torch.parallel.collectives import CapturedShards
+
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5)
+    mesh = [cuda] * 4
+    eager = spatial.ShardedDetect(cfg, mesh)
+    captured = spatial.make_sharded_detect(cfg, mesh)
+    if collectives == "between":
+        captured._shards = CapturedShards(captured.mesh, "between")
+    for seed in range(3):
+        layers = detect_layers(cfg.cell_count, seed)
+        blocks = [spatial.split_rows(torch.from_numpy(a).to(cuda), mesh) for a in layers[:5]]
+        want = eager(*blocks)
+        got = captured(*blocks)
+        for a, b in zip(got, want):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert captured.captured
+
+
+def test_empty_segment_replays(cuda):
+    """A segment in which a card has no work (a band it does not own)
+    captures an empty graph, quietly, and its replay does nothing."""
+    import warnings
+
+    from groundgrid_torch.capture import Graph
+
+    graph = Graph(cuda)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+        assert graph.capture(lambda: []) == []
+    reset_launch_counts()
+    graph.replay(None)
+    torch.cuda.synchronize(cuda)
+    assert not any(launch_counts().values())

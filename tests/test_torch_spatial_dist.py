@@ -5,9 +5,12 @@ of the port's spatial step (``parallel.spatial.GroupMesh``) over 2 scans in
 both spiral modes: every rank's row blocks, labels and outliers are bitwise
 those of the in-process mesh ``["cpu"] * S`` with the same S. The grid is
 ``tests/conftest.py``'s small_config (80^2), unsorted scans with the center
-on the device. On a machine with several cards (marker ``gpu``; this file
-imports no JAX, so ``--noconftest`` runs it there): the in-process mesh
-across cards, and two NCCL ranks, bitwise the same shards on card 0.
+on the device. The captured step (``CapturedSpatialStep``, the scans then
+carrying the host tracker's centers) on 2 and 4 ranks, its collectives
+between the per-rank segments, is bitwise the in-process captured mesh. On a machine with several cards (marker
+``gpu``; this file imports no JAX, so ``--noconftest`` runs it there): the
+in-process mesh across cards, and two NCCL ranks, eager and captured,
+bitwise the same shards on card 0.
 """
 
 import multiprocessing
@@ -19,10 +22,11 @@ import torch
 import torch.distributed as dist
 
 from groundgrid_torch.config import GroundGridConfig
+from groundgrid_torch.core import exactf32
 from groundgrid_torch.data.synthetic import synthetic_sequence
-from groundgrid_torch.parallel import spatial
+from groundgrid_torch.parallel import collectives, spatial
 from groundgrid_torch.parallel.multihost import init_multihost
-from groundgrid_torch.pipeline import init_state, pad_scan
+from groundgrid_torch.pipeline import CenterTracker, init_state, pad_scan
 
 torch.set_num_threads(1)
 
@@ -32,16 +36,28 @@ MODES = ("replicated", "banded")
 SPAWN_TIMEOUT_S = 240
 
 
-def _run(mesh, device="cpu"):
+def _run(mesh, device="cpu", captured=False, segmented=False):
     """Each spiral mode's outputs over 2 scans on ``mesh``, this process's
     shards only (scans and state made on ``device``): a dict of NumPy
-    arrays."""
-    scans = [(pad_scan(CONFIG, p, l, T, device), T)
-             for p, l, T in synthetic_sequence(2, seed=5, n_beams=16, n_azimuth=500)]
+    arrays. The eager step, or ``captured`` (the scans then carry the host
+    tracker's centers), ``segmented`` with its collectives between the
+    per-device graphs even where the mesh would hold them inside one."""
+    seq = list(synthetic_sequence(2, seed=5, n_beams=16, n_azimuth=500))
+    tracker = CenterTracker(CONFIG, np.asarray(seq[0][2], np.float64)[:2, 3])
+    scans = []
+    for p, l, T in seq:
+        scan = pad_scan(CONFIG, p, l, T, device)
+        if captured:
+            hi, lo = exactf32.f64_to_ds(tracker.update(np.asarray(T, np.float64)[:2, 3]))
+            scan = scan._replace(center=hi, center_lo=lo)
+        scans.append((scan, T))
     st = init_state(CONFIG, np.asarray(scans[0][1], np.float32), device)
     out = {}
     for mode in MODES:
-        step = spatial.make_spatial_step(CONFIG, mesh, spiral_mode=mode)
+        step = spatial.make_spatial_step(CONFIG, mesh, spiral_mode=mode,
+                                         with_scan_center=captured)
+        if segmented:
+            step._shards = collectives.CapturedShards(step.mesh, "between")
         g = spatial.split_rows(st.ground, mesh)
         c = spatial.split_rows(st.groundpatch, mesh)
         center = (st.center, st.center_lo)
@@ -54,7 +70,7 @@ def _run(mesh, device="cpu"):
     return out
 
 
-def _rank(rank, world, store, out_dir, on_card=False):
+def _rank(rank, world, store, out_dir, on_card=False, captured=False):
     """One shard per rank: gloo on the CPU, or NCCL with rank r on card r."""
     torch.set_num_threads(1)
     device = torch.device("cuda", rank) if on_card else torch.device("cpu")
@@ -63,15 +79,17 @@ def _rank(rank, world, store, out_dir, on_card=False):
         assert dist.get_backend() == ("nccl" if on_card else "gloo")
         mesh = spatial.GroupMesh(device)
         assert (mesh.size, mesh.shards) == (world, [rank])
-        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **_run(mesh, device))
+        assert spatial.default_collectives(mesh) == "between"
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **_run(mesh, device, captured))
     finally:
         dist.destroy_process_group()
 
 
-def _spawn(world, tmp_path, on_card=False):
+def _spawn(world, tmp_path, on_card=False, captured=False):
     ctx = multiprocessing.get_context("spawn")
     store = f"file://{tmp_path / 'store'}"
-    procs = [ctx.Process(target=_rank, args=(rank, world, store, str(tmp_path), on_card))
+    procs = [ctx.Process(target=_rank, args=(rank, world, store, str(tmp_path), on_card,
+                                             captured))
              for rank in range(world)]
     for p in procs:
         p.start()
@@ -120,6 +138,17 @@ def test_ranks_match_in_process_mesh(world, tmp_path):
     _check_ranks(_spawn(world, tmp_path), want, world)
 
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_captured_ranks_match_in_process_mesh(world, tmp_path):
+    """The captured step on gloo ranks (the collectives between the
+    per-rank segments) bitwise the in-process captured mesh, one graph and
+    segmented alike."""
+    want = _run(spatial.LocalMesh(["cpu"] * world), captured=True)
+    _same(_run(spatial.LocalMesh(["cpu"] * world), captured=True, segmented=True), want,
+          "segmented")
+    _check_ranks(_spawn(world, tmp_path, captured=True), want, world)
+
+
 @pytest.fixture
 def cards():
     if torch.cuda.device_count() < 2:
@@ -148,3 +177,22 @@ def test_group_mesh_needs_a_group():
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="torch.distributed"):
         spatial.GroupMesh("cpu")
+
+
+@pytest.mark.gpu
+def test_captured_mesh_across_cards(cards):
+    """The captured step on the in-process mesh over one shard per card
+    (one graph per card and segment, the copies between cards between the
+    replays) is bitwise the same shards captured on card 0."""
+    shards = min(cards, 4)
+    want = _run(spatial.LocalMesh(["cuda:0"] * shards), "cuda:0", captured=True)
+    _same(_run(spatial.LocalMesh([f"cuda:{k}" for k in range(shards)]), "cuda:0",
+               captured=True), want, f"{shards} cards")
+
+
+@pytest.mark.gpu
+def test_captured_nccl_ranks_match_in_process_mesh(cards, tmp_path):
+    """Two NCCL ranks of the captured step (the NCCL calls between the
+    per-rank graphs) bitwise ``["cuda:0"] * 2`` captured."""
+    want = _run(spatial.LocalMesh(["cuda:0"] * 2), "cuda:0", captured=True)
+    _check_ranks(_spawn(2, tmp_path, on_card=True, captured=True), want, 2)
