@@ -1,9 +1,10 @@
 """GPU smoke test of the PyTorch port: builds and checks its CUDA kernels,
 then drives the sorted-scan streaming path, the layer-publishing wire path,
 the entry point, the unsorted default path, a 128-beam buffer, the golden
-parity tooling, a 64-vehicle fleet and one grid split over shards, on one
-card, and holds the captured step (one CUDA graph a scan, ``make_step``)
-to the eager one.
+parity tooling, a 64-vehicle fleet (sorted, vehicle by vehicle; unsorted,
+as one batched body) and one grid split over shards, on one card, and
+holds the captured step (one CUDA graph a scan, ``make_step``) to the
+eager one.
 
     python3 chip_smoke.py
 
@@ -39,7 +40,14 @@ Phases (any failure raises and exits non-zero, printing no result):
    3.35 TB/s or its f32 operations over 67 TFLOP/s: K2 reads only the
    distinct cells its ids name) and, for K2, one ``torch.index_select``
    over the stacked tables, timed in turns with the kernel (no one PyTorch
-   call computes K1, K3 or K4).
+   call computes K1, K3 or K4). Then the batched launches of the unsorted
+   fleet (``check_batched``): K1, K2 (the points' 2 tables and the march
+   lattice's 1), K3 and K4 on a batch of 64 vehicles at 364^2 (8 warm
+   scans cycled, each vehicle's layers made distinct), each bitwise its
+   64 single launches and against its plain batched version (K3 at its
+   bounds above); the batched launch's device ms against the 64 single
+   launches' summed device ms, both calls' CUDA-event ms, the plain
+   batched call's ms and the bound of the batch's work.
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
    synthetic scans: per-scan launch counts (K1 x1, K2 x3, K3 x1; a replay
    of the captured step adds the launches its capture recorded), no
@@ -108,7 +116,19 @@ Phases (any failure raises and exits non-zero, printing no result):
    1-rank NCCL group (``parallel/multihost.py``): the local sum, bitwise
    labels; ``bench --batch 64``. Prints ms per tick and scans/s (CUDA
    events around the tick, host prep and fetch included) and the bench's
-   metric line.
+   metric line. Then the unsorted fleet (``phase_fleet_unsorted``), the
+   default ``GroundGridConfig()`` with 64 vehicles on the same streams,
+   stepped as one batched body captured as one graph a tick: per tick K1
+   x1, K2 x3, K3 x1, ticks 2-4 under the sync check, the summary, ms per
+   tick with host prep and fetch, the capture's seconds and pool bytes;
+   labels, outliers and the final state bitwise 64 single captured
+   unsorted steps (the same fleet vehicle by vehicle, one replay per
+   vehicle); then the device ms a tick of ``bench --batch``'s measure
+   (scans prepared once) in turns: batched, per vehicle, per vehicle,
+   batched; the sorted config on both branches in turns (per vehicle,
+   batched, batched, per vehicle: timing only, for the open question of
+   the sorted fleet on the batched body); and the device busy ms of a
+   batched tick under ``torch.profiler`` with its heaviest kernels.
 10. The spatial step (``parallel/spatial.py``), one grid split row-wise
    over an in-process mesh on the one card, sorted scans with their
    centers, both spiral modes: (a) ``HIGHRES_CONFIG`` (1200^2) over
@@ -153,7 +173,9 @@ The line before the last is the kernels' JSON record (``ms`` is the device
 time, ``library_ms`` null where no one PyTorch call computes the function;
 K4 adds its ``*_highres`` times and bound at 1200^2; ``launches`` counts phase
 3, ``launches_unsorted`` phase 6, ``launches_topk`` phase 7 and
-``launches_fleet`` phase 9's 4 ticks, ``launches_spatial`` the captured run
+``launches_fleet`` phase 9's 4 sorted ticks, ``launches_fleet_unsorted``
+its 4 unsorted (batched) ticks, ``batched64_*`` phase 2's batched times,
+``launches_spatial`` the captured run
 of each mode in phase 10 (the first scan eager, the rest replays); K3 adds
 ``*_highres`` full-launch times at 1200^2 and ``band_*_364`` / ``_1200`` /
 ``_2416`` ring-range results);
@@ -701,6 +723,170 @@ def check_detect(config, driver, rec, records):
             f"ms, bound {out['bound_ms' + suffix]:.4f} ms ({out['bound_by']})")
     log("K4 detect_fused: bitwise and two runs bitwise at 364^2, 1200^2, n=12 and n=45 "
         "(4 seeds each)")
+    return out
+
+
+def batched_inputs(config, driver, records, b):
+    """Phase 2's batch of ``b`` vehicles at the main path's shapes: the
+    prepared scans of ``records`` (cycled) against the driver's warm state,
+    and its layers made distinct a vehicle (heights offset, confidence
+    rolled, base heights spread), so that a kernel reading another
+    vehicle's data shows. Returns a dict of stacked inputs."""
+    from groundgrid_torch.core import grid as gridlib
+    from groundgrid_torch.core import rasterize as rasterlib
+    from groundgrid_torch.ops import raster
+
+    per_scan = []
+    for rec in records:
+        scan, s, binning, accept = prepared(config, driver, rec)
+        cols, ops = rasterlib.raster_columns(config, binning, scan.pz, accept, s)
+        layers = rasterlib.rasterize_sorted(config, binning, scan.pz, accept, s,
+                                            raster.raster_reduce)
+        moved = gridlib.move(config, driver.state.ground, driver.state.groundpatch, s)
+        per_scan.append((binning.cell, cols, (layers.points, layers.variance,
+                                              layers.min_ground_height, *moved), s.base_z))
+    pick = [per_scan[v % len(per_scan)] for v in range(b)]
+    offset = torch.arange(b, dtype=torch.float32, device=driver.device)[:, None, None] * 1e-3
+    ground, conf = driver.state.ground, driver.state.groundpatch
+    return {
+        "cell": torch.stack([p[0] for p in pick]),
+        "cols": [torch.stack([p[1][j] for p in pick]) for j in range(len(ops))],
+        "ops": ops,
+        "ground": ground[None] + offset,
+        "conf": torch.stack([conf.roll(v, 0) for v in range(b)]),
+        "base_z": torch.stack([p[3] for p in pick]) + offset[:, 0, 0] * 10.0,
+        "detect": [torch.stack([p[2][j] for p in pick]) + (offset if j == 3 else 0.0)
+                   for j in range(5)],
+    }
+
+
+def batched_times(name, batched, singles, plain, kname, b, n_bytes, n_flops, reps=20):
+    """The batched launch's device ms (its kernel's own time per call), the
+    ``b`` single launches' device ms together and both calls' CUDA-event
+    ms, one plain batched call's ms, and the bound of the batch's work."""
+    from groundgrid_torch.runtime.kernel_timing import device_ms, event_ms
+
+    out = {"device_ms": device_ms(batched, reps, kname)[0],
+           "singles_device_ms": device_ms(singles, max(2, reps // 10), kname, per_call=b)[0],
+           "call_ms": event_ms(batched, reps),
+           "singles_call_ms": event_ms(singles, max(2, reps // 10)),
+           "plain_ms": event_ms(plain, 1)}
+    out.update(bound(n_bytes, n_flops))
+    log(f"{name} batched, B = {b}: one launch {out['device_ms']:.4f} device ms (call "
+        f"{out['call_ms']:.4f} ms) against {b} single launches {out['singles_device_ms']:.4f} "
+        f"device ms (calls {out['singles_call_ms']:.4f} ms); plain batched "
+        f"{out['plain_ms']:.1f} ms; bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
+def check_batched(config, driver, records, b=None):
+    """Phase 2's batched kernels, the unsorted fleet's launches: K1, K2 (the
+    points' two tables, and one table over the march lattice), K3 and K4
+    on a batch of ``b`` (FLEET_BATCH) vehicles at the main path's shapes,
+    each bitwise its ``b`` single launches and against its plain batched
+    version (K1, K2, K4 bitwise; K3 confidence bitwise, heights atol 2e-5 /
+    rtol 1e-5); timed against the single launches (``batched_times``)."""
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.ops import detect, lookup, raster, spiral
+
+    b = FLEET_BATCH if b is None else b
+    x = batched_inputs(config, driver, records, b)
+    n, n2, m = config.cell_count, config.cell_count ** 2, config.center_cell
+    cell, cols, ops = x["cell"], x["cols"], x["ops"]
+    out = {}
+
+    # K1: 7 columns of b prepared scans
+    got = raster.raster_reduce(cell, cols, ops, n2)
+    want = raster.raster_reduce_plain(cell, cols, ops, n2)
+    for v in range(b):
+        single = raster.raster_reduce(cell[v], [c[v] for c in cols], ops, n2)
+        if not all(bitwise(g[v], w) for g, w in zip(got, single)):
+            raise AssertionError(f"K1 batched: vehicle {v} differs from its single launch")
+    if not all(bitwise(g, w) for g, w in zip(got, want)):
+        raise AssertionError("K1 batched differs from its plain batched version")
+    real = int((cell < n2).sum())
+    out["raster"] = dict(max_abs_err=0.0, **batched_times(
+        "K1 raster_reduce", lambda: raster.raster_reduce(cell, cols, ops, n2),
+        lambda: [raster.raster_reduce(cell[v], [c[v] for c in cols], ops, n2)
+                 for v in range(b)],
+        lambda: raster.raster_reduce_plain(cell, cols, ops, n2), "raster_reduce_kernel", b,
+        cell.nbytes + 4 * len(cols) * real + 4 * len(cols) * n2 * b, len(cols) * real))
+
+    # K2: the points' two tables, and one table over the march lattice
+    tables = [x["ground"], x["conf"]]
+    lattice = march_lattice(config, driver, records[0])[0]
+    lat = lattice[None].expand(b, -1).contiguous()
+    cases = (("points, 2 tables", cell, tables), ("march lattice, 1 table", lat, tables[1:]))
+    for name, ids, tabs in cases:
+        got = lookup.lookup(ids, tabs, n2)
+        want = lookup.lookup_plain(ids, tabs, n2)
+        for v in range(b):
+            single = lookup.lookup(ids[v], [t[v] for t in tabs], n2)
+            if not all(bitwise(g[v], w) for g, w in zip(got, single)):
+                raise AssertionError(f"K2 batched ({name}): vehicle {v} differs from its single "
+                                     f"launch")
+        if not all(bitwise(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K2 batched ({name}) differs from its plain batched version")
+    touched = sum(int(torch.unique(cell[v][cell[v] < n2]).numel()) for v in range(b))
+    out["lookup"] = dict(max_abs_err=0.0, **batched_times(
+        "K2 lookup (points, 2 tables)", lambda: lookup.lookup(cell, tables, n2),
+        lambda: [lookup.lookup(cell[v], [t[v] for t in tables], n2) for v in range(b)],
+        lambda: lookup.lookup_plain(cell, tables, n2), "lookup_kernel", b,
+        cell.nbytes + 2 * 4 * touched + 2 * 4 * cell.numel(), 0, reps=50))
+    lat_touched = b * int(torch.unique(lattice[lattice < n2]).numel())
+    march = batched_times(
+        "K2 lookup (march lattice, 1 table)", lambda: lookup.lookup(lat, tables[1:], n2),
+        lambda: [lookup.lookup(lat[v], [tables[1][v]], n2) for v in range(b)],
+        lambda: lookup.lookup_plain(lat, tables[1:], n2), "lookup_kernel", b,
+        lat.nbytes + 4 * lat_touched + 4 * lat.numel(), 0)
+    out["lookup"].update({"march_" + k: v for k, v in march.items()})
+
+    # K3: b warm grids, one block each
+    ground, conf, base_z = x["ground"], x["conf"], x["base_z"]
+    g_k, c_k = spiral.spiral_interpolation(config, ground.clone(), conf.clone(), base_z)
+    g_p, c_p = spiral.spiral_interpolation_plain(config, ground.clone(), conf.clone(), base_z)
+    for v in range(b):
+        single = spiral.spiral_interpolation(config, ground[v].clone(), conf[v].clone(),
+                                             base_z[v])
+        if not (bitwise(g_k[v], single[0]) and bitwise(c_k[v], single[1])):
+            raise AssertionError(f"K3 batched: grid {v} differs from its single launch")
+    if not torch.equal(c_k, c_p):
+        raise AssertionError(f"K3 batched confidence differs from its plain version in "
+                             f"{int((c_k != c_p).sum())} cells")
+    if not torch.allclose(g_k, g_p, atol=2e-5, rtol=1e-5):
+        raise AssertionError(f"K3 batched heights beyond atol 2e-5 / rtol 1e-5: max "
+                             f"{float((g_k - g_p).abs().max())}")
+    h, c = ground.clone(), conf.clone()
+    visits = (m - 1) * (4 * m + 2) + 1
+    out["spiral"] = dict(max_abs_err=float((g_k - g_p).abs().max()), **batched_times(
+        "K3 spiral_interpolation", lambda: spiral.spiral_interpolation(config, h, c, base_z),
+        lambda: [spiral.spiral_interpolation(config, h[v], c[v], base_z[v]) for v in range(b)],
+        lambda: spiral.spiral_interpolation_plain(config, h, c, base_z), "spiral_kernel", b,
+        b * 2 * 4 * ((2 * m + 1) ** 2 + (2 * m - 1) ** 2), b * 55 * visits, reps=10))
+
+    # K4: b scans' warm raster layers
+    tabs = detectlib.make_tables(config, driver.device)
+    layers = x["detect"]
+    got = detect.detect_fused(config, tabs, *layers)
+    want = detect.detect_fused_plain(config, tabs, *layers)
+    for v in range(b):
+        single = detect.detect_fused(config, tabs, *(t[v] for t in layers))
+        if not all(bitwise(g[v], w) for g, w in zip(got, single)):
+            raise AssertionError(f"K4 batched: grid {v} differs from its single launch")
+    if not all(bitwise(g, w) for g, w in zip(got, want)):
+        raise AssertionError("K4 batched differs from its plain batched version")
+    use3 = tabs.use3[2:n - 2, 2:n - 2]
+    n3 = int(use3.sum())
+    flops = 6 * (9 * n3 + 25 * (use3.numel() - n3)) + 25 * use3.numel()
+    ins = sum(t.nbytes for t in layers) + sum(
+        t.nbytes for t in (tabs.var_thr_sq, tabs.skip_thr, tabs.min_expected_s, tabs.use3))
+    out["detect"] = dict(max_abs_err=0.0, **batched_times(
+        "K4 detect_fused", lambda: detect.detect_fused(config, tabs, *layers),
+        lambda: [detect.detect_fused(config, tabs, *(t[v] for t in layers)) for v in range(b)],
+        lambda: detect.detect_fused_plain(config, tabs, *layers), "detect_kernel", b,
+        ins + b * 2 * 4 * n2, b * flops))
+    log(f"batched kernels, B = {b} at {n}^2: K1, K2 (points and march lattice), K3 and K4 "
+        f"each bitwise its {b} single launches and against its plain batched version")
     return out
 
 
@@ -1423,6 +1609,160 @@ def phase_fleet(config, records, device):
     return total, {"ms_per_tick": tick_ms, "stream_ms_per_scan": float(np.mean(stream_ms)),
                    "bench": payload}
 
+@contextlib.contextmanager
+def fleet_branch(batched: bool):
+    """The fleet bench's fleets on one branch whatever their config:
+    ``batched`` one batched step a device, else one captured single step
+    replayed per vehicle (the two sides of phase 9's turns)."""
+    from groundgrid_torch.runtime import bench
+
+    made = bench.make_fleet_step
+
+    def make(config, mesh):
+        fleet = made(config, mesh)
+        fleet.batched = batched
+        return fleet
+
+    bench.make_fleet_step = make
+    try:
+        yield
+    finally:
+        bench.make_fleet_step = made
+
+
+def fleet_turns(config, records, device, order):
+    """``bench --batch``'s device ms a tick (scans prepared once) of the
+    fleet of FLEET_BATCH on ``config``, one run per entry of ``order``
+    (True: batched, False: per vehicle), in that order."""
+    from groundgrid_torch.runtime import bench
+
+    turns = []
+    for batched in order:
+        with fleet_branch(batched):
+            res = bench.run_fleet_benchmark(config, records[:8], FLEET_BATCH, 2 * FLEET_BATCH,
+                                            3, device)
+        if res["batched"] != batched or res["fallbacks"]:
+            raise AssertionError(f"fleet bench: branch {res['batched']}, fallbacks "
+                                 f"{res['fallbacks']}")
+        turns.append({k: res[k] for k in ("batched", "device_ms_per_tick", "device_ms_per_scan",
+                                          "wall_ms_per_tick")})
+    return turns
+
+
+def profile_fleet(config, records, device, n_ticks=3):
+    """Device busy ms a tick of the fleet bench's warm ticks under
+    ``torch.profiler``, its share of the ticks' CUDA-event span, and the
+    heaviest kernels by device time."""
+    from groundgrid_torch.runtime import bench
+    from groundgrid_torch.runtime.kernel_timing import device_us, profiled
+
+    mesh, states, scans = bench.fleet_inputs(config, records[:8], FLEET_BATCH, device)
+    fleet = bench.make_fleet_step(config, mesh)
+    for _ in range(3):
+        states, _, _ = fleet(states, scans)
+    torch.cuda.synchronize(device)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profiled() as prof:
+        start.record()
+        for _ in range(n_ticks):
+            states, _, _ = fleet(states, scans)
+        end.record()
+        torch.cuda.synchronize(device)
+    busy_us, activities = device_us(prof)
+    busy_ms, span_ms = busy_us / 1000.0 / n_ticks, start.elapsed_time(end) / n_ticks
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=12)
+    log(f"{table}\nfleet of {FLEET_BATCH} ({'batched' if fleet.batched else 'per vehicle'}): "
+        f"device busy {busy_ms:.4f} ms a tick ({activities / n_ticks:.1f} device activities a "
+        f"tick) over {n_ticks} warm ticks; span {span_ms:.4f} ms a tick (profiler on): busy "
+        f"share {busy_ms / span_ms:.4f}")
+    return {"busy_ms_per_tick": busy_ms, "span_ms_per_tick": span_ms,
+            "activities_per_tick": activities / n_ticks}
+
+
+def phase_fleet_unsorted(records, device):
+    """Phase 9, unsorted: the default config's fleet of FLEET_BATCH vehicles,
+    one batched step captured as one graph a tick (the JAX fleet's
+    ``jax.vmap`` branch)."""
+    from groundgrid_torch.config import GroundGridConfig
+    from groundgrid_torch.ops import reset_launch_counts
+    from groundgrid_torch.runtime.fleet import FleetDriver
+
+    config = GroundGridConfig()
+    b = FLEET_BATCH
+    streams = fleet_streams(records, b, FLEET_TICKS)
+    fleet = FleetDriver(config, batch=b, device=device)
+    if not fleet.step.batched:
+        raise AssertionError("the unsorted fleet does not take the batched step")
+    ticks, tick_ms, total = [], [], {}
+    want = {"raster": 1, "lookup": 3, "spiral": 1, "detect": 0, "spiral_band": 1,
+            "spiral_global": 0}
+    for k in range(FLEET_TICKS):
+        if k == 1:  # ticks 2+: the step under the sync check, prep and fetch outside
+            fleet.step = SyncChecked(fleet.step)
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reset_launch_counts()
+        start.record()
+        tok = fleet.dispatch([s[k] for s in streams])
+        counts = path_counts()
+        ticks.append(fleet.fetch(tok))
+        end.record()
+        end.synchronize()
+        tick_ms.append(start.elapsed_time(end))
+        if counts != want:
+            raise AssertionError(f"unsorted fleet tick {k + 1}: launches {counts} (want {want})")
+        total = {key: total.get(key, 0) + v for key, v in counts.items()}
+        check_summary(ticks[-1], f"unsorted fleet tick {k + 1}")
+    step = fleet.step.steps[0]
+    if not step.captured:
+        raise AssertionError("the unsorted fleet's batched step was not captured")
+    capture = {"capture_s": step.capture_seconds, "pool_bytes": step.pool_bytes}
+    log(f"unsorted fleet of {b}, {FLEET_TICKS} ticks, batched: launches per tick {want}; "
+        f"ticks 2-{FLEET_TICKS} under the sync check; ms per tick (CUDA events, host prep and "
+        f"fetch included) {', '.join(f'{t:.1f}' for t in tick_ms)}; one graph a tick, capture "
+        f"{capture['capture_s']:.3f} s, pool {capture['pool_bytes']} bytes "
+        f"({capture['pool_bytes'] / 2 ** 30:.2f} GiB)")
+
+    # the reference: b single captured unsorted steps, one replayed per vehicle
+    ref = FleetDriver(config, batch=b, device=device)
+    ref.step.batched = False
+    reset_launch_counts()
+    for k in range(FLEET_TICKS):
+        tick = ref.process([s[k] for s in streams])
+        if not (np.array_equal(tick.labels, ticks[k].labels)
+                and np.array_equal(tick.outlier, ticks[k].outlier)):
+            raise AssertionError(f"unsorted fleet tick {k + 1}: batched not bitwise {b} single "
+                                 f"captured steps")
+    if path_counts()["spiral"] != b * FLEET_TICKS:
+        raise AssertionError("the per-vehicle fleet did not replay a step per vehicle")
+    for got, want_block in zip(fleet.states, ref.states):
+        for a, c in ((got.ground, want_block.ground), (got.groundpatch, want_block.groundpatch),
+                     (got.center, want_block.center), (got.center_lo, want_block.center_lo)):
+            if not bitwise(a, c):
+                raise AssertionError("unsorted fleet: the batched state differs from the "
+                                     "single steps'")
+    log(f"unsorted fleet: labels, outliers and the final state of all {b} vehicles bitwise "
+        f"{b} single captured unsorted steps (one replayed per vehicle) over the same streams")
+    del fleet, ref
+
+    # device ms a tick (bench --batch's measure, scans prepared once), in
+    # turns: batched, per vehicle, per vehicle, batched; then the sorted
+    # config on both branches (per vehicle, batched, batched, per vehicle);
+    # then a profile of the batched tick
+    turns = fleet_turns(config, records, device, (True, False, False, True))
+    sorted_turns = fleet_turns(dataclasses.replace(config, sorted_scans=True), records, device,
+                               (False, True, True, False))
+    out = {"ms_per_tick": tick_ms, **capture, "turns": turns, "sorted_turns": sorted_turns,
+           "profile": profile_fleet(config, records, device)}
+    for name, ts in (("unsorted", turns), ("sorted", sorted_turns)):
+        log(f"{name} fleet of {b}, device ms a tick in turns "
+            f"({', '.join('batched' if t['batched'] else 'per vehicle' for t in ts)}): "
+            f"{', '.join(str(t['device_ms_per_tick']) for t in ts)}; wall ms a tick "
+            f"{', '.join(str(t['wall_ms_per_tick']) for t in ts)}")
+    return total, out
+
+
 def spatial_scans(config, records, device):
     """``records`` prepared for the sorted step (host-tracked centers), on
     ``device``, with the state to start from."""
@@ -2049,6 +2389,8 @@ def main() -> int:
     k3r = check_spiral_ranges(config, driver, records[4], high_driver, device)
     del high_driver
     k4 = check_detect(config, driver, records[4], records)
+    batched = check_batched(config, driver, records[4:12])
+    del driver
     torch.cuda.synchronize()
 
     counts, sorted_results = phase_sequence(config, records, device)
@@ -2062,6 +2404,7 @@ def main() -> int:
     topk_counts, topk = phase_topk(device)
     phase_golden(device)
     fleet_counts, _ = phase_fleet(config, records, device)
+    unsorted_fleet_counts, _ = phase_fleet_unsorted(records, device)
     spatial_counts = run_spatial_phase(records, device)
     phase_captured(config, records, device, {
         "layers": (layer_config, records[:N_LAYER_SCANS], layer_results),
@@ -2091,6 +2434,10 @@ def main() -> int:
             "replaces": replaces, "launches": launches[key],
             "launches_unsorted": unsorted_counts[key], "launches_topk": topk_counts[key],
             "launches_fleet": fleet_counts[key], "launches_spatial": spatial_counts[key],
+            "launches_fleet_unsorted": unsorted_fleet_counts[key],
+            **{f"batched{FLEET_BATCH}_{k}": v
+               for k, v in batched.get(key.replace("_band", ""), {}).items()
+               if key != "spiral_global"},
             "max_abs_err": res["max_abs_err"],
             "ms": res["device_ms"], "device_ms": res["device_ms"],
             "wrapper_device_ms": res["wrapper_device_ms"], "call_ms": res["call_ms"],

@@ -14,6 +14,10 @@ Divisions by constants go through ``exactf32.div_const``: a CUDA division
 by a host scalar would multiply by the rounded reciprocal, an ulp off the
 reference's quotient.
 
+Layers may carry leading vehicle axes, ``(..., N, N)`` (the fleet's
+batched step): the windows run over the last two axes and the tables
+broadcast, so each grid is bitwise its own sweep.
+
 The distance-derived tables depend only on the config and are built once on
 the host (:func:`make_tables`), as the reference precomputes its
 ``expectedPoints`` table (``GroundSegmentation.cpp:37-48``).
@@ -71,14 +75,15 @@ def make_tables(config: GroundGridConfig, device) -> DetectTables:
 
 
 def _window(x, size: int, pad_value: float, combine):
-    """SAME window reduction, offsets combined in row-major order."""
-    n0, n1 = x.shape
+    """SAME window reduction over the last two axes, offsets combined in
+    row-major order."""
+    n0, n1 = x.shape[-2:]
     r = size // 2
     p = torch.nn.functional.pad(x, (r, r, r, r), value=pad_value)
     out = None
     for di in range(size):
         for dj in range(size):
-            v = p[di:di + n0, dj:dj + n1]
+            v = p[..., di:di + n0, dj:dj + n1]
             out = v if out is None else combine(out, v)
     return out
 
@@ -131,22 +136,22 @@ def detect_block(config: GroundGridConfig, tables: DetectTables, points_h, varia
 
 def _update(config, tables, points_h, variance_h, min_gh_h, ground, groundpatch, halo):
     cfg = config
-    rows = slice(halo, points_h.shape[0] - halo)
+    rows = slice(halo, points_h.shape[-2] - halo)
     pv = points_h * variance_h
     pm = points_h * min_gh_h  # empty cells: 0 * FLT_MAX == 0
 
     def box(x, size):
-        return _box(x, size)[rows]
+        return _box(x, size)[..., rows, :]
 
     def minpool(x, size):
-        return _minpool(x, size)[rows]
+        return _minpool(x, size)[..., rows, :]
 
     use3 = tables.use3
     psum = torch.where(use3, box(points_h, 3), box(points_h, 5))
     pvsum = torch.where(use3, box(pv, 3), box(pv, 5))
     pmsum = torch.where(use3, box(pm, 3), box(pm, 5))
     localmin = torch.where(use3, minpool(min_gh_h, 3), minpool(min_gh_h, 5))
-    points, variance = points_h[rows], variance_h[rows]
+    points, variance = points_h[..., rows, :], variance_h[..., rows, :]
 
     process = tables.interior & (psum >= tables.skip_thr)
     safe = torch.clamp_min(psum, 1.0)

@@ -28,6 +28,7 @@ import torch
 
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core import exactf32
+from groundgrid_torch.core import scalars as scalarlib
 
 
 @dataclasses.dataclass
@@ -56,10 +57,12 @@ class GridState:
 
 
 def host_pair(v) -> torch.Tensor:
-    """A (2,) f32 CPU tensor of its own from a host pair (array or tensor)."""
+    """A (2,) f32 CPU tensor of its own from a host pair (array or tensor);
+    (B, 2) from a batch of pairs."""
     if isinstance(v, torch.Tensor):
         v = v.numpy()
-    return torch.from_numpy(np.array(v, dtype=np.float32).reshape(2))
+    a = np.array(v, dtype=np.float32)
+    return torch.from_numpy(a.reshape(2) if a.ndim <= 1 else a.reshape(-1, 2))
 
 
 def create(config: GroundGridConfig, center_xy, center_z, device) -> GridState:
@@ -131,18 +134,23 @@ def shift_cells(config: GroundGridConfig, old_center, new_center) -> tuple[int, 
 
 
 def roll_cells(x: torch.Tensor, k0, k1) -> torch.Tensor:
-    """``torch.roll(x, (k0, k1), (0, 1))`` as one gather with device indices
+    """``torch.roll(x, (k0, k1), (-2, -1))`` as one gather with device indices
     ``(arange(n) - k) mod n`` per axis: data moves only, so bitwise the roll,
-    and the shift may be a 0-dim device tensor (the scan scalars)."""
-    n0, n1 = x.shape
+    and the shift may be a 0-dim device tensor (the scan scalars). Of a
+    (B, N, N) batch with (B, 1) shifts, each grid rolls by its own: the
+    indices are (B, N) rows."""
+    n0, n1 = x.shape[-2:]
     i0 = torch.remainder(torch.arange(n0, device=x.device) - k0, n0)
     i1 = torch.remainder(torch.arange(n1, device=x.device) - k1, n1)
-    return x[i0[:, None], i1[None, :]]
+    if x.dim() == 2:
+        return x[i0[:, None], i1[None, :]]
+    b = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    return x[b, i0[:, :, None], i1[:, None, :]]
 
 
 def exposed_mask(n: int, k0, k1, device) -> torch.Tensor:
     """(N, N) bool mask of cells newly exposed by a roll of (k0, k1), 0-dim
-    int tensors on ``device``.
+    int tensors on ``device``; (B, N, N) for (B, 1) shifts.
 
     +k exposes indices [0, k); -k exposes [N-k, N); |k| >= N wipes the grid.
     """
@@ -151,22 +159,22 @@ def exposed_mask(n: int, k0, k1, device) -> torch.Tensor:
     def axis_mask(kk):
         return torch.where(kk >= 0, idx < kk, idx >= n + kk) | (torch.abs(kk) >= n)
 
-    return axis_mask(k0)[:, None] | axis_mask(k1)[None, :]
+    return axis_mask(k0)[..., :, None] | axis_mask(k1)[..., None, :]
 
 
 def cell_positions(config: GroundGridConfig, cx, cy, device):
-    """Map-frame (x, y) of every cell center as two (N, N) tensors.
+    """Map-frame (x, y) of every cell center: (N, 1) and (1, N) tensors
+    that broadcast to the grid.
 
     pos = center + half - (idx + 0.5) * res (axis 0 <-> x, axis 1 <-> y);
-    ``cx``, ``cy``: the f32 center, 0-dim tensors on ``device``.
+    ``cx``, ``cy``: the f32 center, 0-dim tensors on ``device``; (B, 1)
+    columns give (B, N, 1) and (B, 1, N).
     """
     n = config.cell_count
     res = float(np.float32(config.resolution))
     half = float(np.float32(config.half_length))
     coord = half - (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * res
-    px = (cx + coord[:, None]).expand(n, n)
-    py = (cy + coord[None, :]).expand(n, n)
-    return px, py
+    return scalarlib.grid(cx) + coord[:, None], scalarlib.grid(cy) + coord[None, :]
 
 
 def index_shift_ds(config: GroundGridConfig, center, center_lo, new_position):
@@ -215,6 +223,8 @@ def move(config: GroundGridConfig, ground, groundpatch, s):
     reads nothing back. Content shifts by whole cells (:func:`roll_cells`);
     freshly exposed cells are re-initialized to the base_link plane height
     ``ground := -z_base(cell)``, ``groundpatch := 0`` (GroundGrid.cpp:121-133).
+    Layers of (B, N, N) with batched scan scalars move each grid by its
+    own vehicle's shift and plane.
     The move always runs: a zero shift exposes no cell and leaves the
     layers bitwise as they were (GroundGrid.cpp:136-137), where the JAX
     ``move`` rolls by its traced ``k`` (``grid.py:180-181`` there).
@@ -225,7 +235,8 @@ def move(config: GroundGridConfig, ground, groundpatch, s):
     groundpatch = roll_cells(groundpatch, s.k0, s.k1)
     exposed = exposed_mask(n, s.k0, s.k1, dev)
     px, py = cell_positions(config, s.cx, s.cy, dev)
-    z_base = (s.b20 * px + s.b21 * py) + s.b23
+    b20, b21, b23 = (scalarlib.grid(v) for v in (s.b20, s.b21, s.b23))
+    z_base = (b20 * px + b21 * py) + b23
     ground = torch.where(exposed, -z_base, ground)
     groundpatch = torch.where(exposed, torch.zeros_like(groundpatch), groundpatch)
     return ground, groundpatch

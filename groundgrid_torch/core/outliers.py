@@ -27,6 +27,11 @@ lattice, and every key read goes through K2 (``ops/lookup.py``), which
 takes unsorted cells. A candidate with a zero budget never fires
 (``step^2 < 0`` is false), so the padded buffer marks the outliers of the
 marchable ones alone, and the march reads nothing back to the host.
+
+A batch of vehicles, (B, P) points, (B, N, N) layers and (B, 1) scan
+scalars, marches each row against its own grid: the selection takes each
+row's top keys, the lattice is (B, steps, candidates) and its ids go
+through the batched K2; every row is bitwise its vehicle's own march.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ import torch
 
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core import exactf32
-from groundgrid_torch.core.rasterize import Binning, ds_cells
+from groundgrid_torch.core import scalars as scalarlib
+from groundgrid_torch.core.rasterize import Binning, ds_cells, take_points
 
 U32 = 0xFFFFFFFF
 U32_TOP = 0x80000000
@@ -58,19 +64,21 @@ def _u32_bits(f):
 
 
 def box3_sum(x):
-    """3x3 SAME box sum, zero padding, added in row-major window order."""
-    n0, n1 = x.shape
+    """3x3 SAME box sum over the last two axes, zero padding, added in
+    row-major window order."""
+    n0, n1 = x.shape[-2:]
     p = torch.nn.functional.pad(x, (1, 1, 1, 1))
     out = None
     for di in range(3):
         for dj in range(3):
-            v = p[di:di + n0, dj:dj + n1]
+            v = p[..., di:di + n0, dj:dj + n1]
             out = v if out is None else out + v
     return out
 
 
 def occlusion_key_table(config: GroundGridConfig, ground, groundpatch):
-    """Per-cell monotone occlusion key, (N*N,) u32 bits in an f32 tensor.
+    """Per-cell monotone occlusion key, (N*N,) u32 bits in an f32 tensor
+    ((B, N*N) of (B, N, N) layers).
 
     key = mono(ground) where [3x3 confidence block sum > min_conf AND
     confidence > 0.01], else 0. The block sum uses the reference's low-side
@@ -78,15 +86,15 @@ def occlusion_key_table(config: GroundGridConfig, ground, groundpatch):
     row/col-3 block sum. Stored as f32 bits so K2 reads it like any table.
     """
     box = box3_sum(groundpatch)
-    box = torch.cat([box[3:4, :].expand(3, -1), box[3:]], dim=0)
-    box = torch.cat([box[:, 3:4].expand(-1, 3), box[:, 3:]], dim=1)
+    box = torch.cat([box[..., 3:4, :].expand(*box.shape[:-2], 3, -1), box[..., 3:, :]], dim=-2)
+    box = torch.cat([box[..., :, 3:4].expand(*box.shape[:-1], 3), box[..., :, 3:]], dim=-1)
     ok = (box > float(np.float32(config.min_outlier_detection_ground_confidence))) & (
         groundpatch > float(np.float32(0.01))
     )
     key = torch.where(ok, _mono_u32(ground), torch.zeros((), dtype=torch.int64,
                                                          device=ground.device))
     key = torch.where(key > 0x7FFFFFFF, key - (1 << 32), key)  # u32 -> i32 bits
-    return key.to(torch.int32).view(torch.float32).reshape(-1)
+    return key.to(torch.int32).view(torch.float32).flatten(-2)
 
 
 def _ray(x, y, z, s):
@@ -101,7 +109,8 @@ def _ray(x, y, z, s):
 
 def selection_key(budget):
     """(P,) unique int64 keys whose descending order is the JAX package's
-    candidate order over the nonnegative f32 ``budget``.
+    candidate order over the nonnegative f32 ``budget`` (each row of a
+    (B, P) batch keyed as its own).
 
     Up to ``2^IDX_BITS`` points: the truncated monotone budget | index
     (``outliers.py:235-246`` of the JAX package). Above: the exact budget's
@@ -109,7 +118,7 @@ def selection_key(budget):
     equal budgets rank the lower index first, the order of its
     ``lax.top_k`` (``outliers.py:248``).
     """
-    p_total = budget.shape[0]
+    p_total = budget.shape[-1]
     idx = torch.arange(p_total, dtype=torch.int64, device=budget.device)
     if p_total <= 1 << IDX_BITS:
         return (_mono_u32(budget) & ~((1 << IDX_BITS) - 1)) | idx
@@ -121,6 +130,7 @@ def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: B
     """``((P,) bool, () int64)``: True for occluded-return outliers, and the
     number of marchable candidates (before the ``max_outlier_candidates``
     cap; 0 when the cap is 0) as a tensor on the points' device, unread.
+    Of a (B, P) batch: ``((B, P) bool, (B,) int64)``, row by row.
 
     ``ground``/``groundpatch``: the previous scan's layers (after the move).
     ``old_h``: per-point ``ground[cell]`` (K2). ``s``: the scan scalars
@@ -128,12 +138,13 @@ def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: B
     ``lookup_fn``: ``ops.lookup.lookup`` or its plain version.
     """
     n = config.cell_count
-    p_total = x.shape[0]
+    p_total = x.shape[-1]
+    batch = x.shape[:-1]
     dev = x.device
-    out = torch.zeros(p_total, dtype=torch.int32, device=dev)
+    out = torch.zeros(x.shape, dtype=torch.int32, device=dev)
     k_max = min(config.max_outlier_candidates, p_total)
     if k_max == 0:
-        return out > 0, torch.zeros((), dtype=torch.int64, device=dev)
+        return out > 0, torch.zeros(batch, dtype=torch.int64, device=dev)
     tol = float(np.float32(config.outlier_tolerance))
 
     cand = binning.inmap & ~binning.ignored & (z < old_h - float(np.float32(0.2)))
@@ -145,27 +156,31 @@ def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: B
     # candidate selection; a positive budget always outranks a zero one, so
     # the top k_max keys hold the JAX package's marchable buffer, padded
     # with zero budgets that never fire
-    n_marchable = (budget > 0).sum()
-    pidx = torch.topk(selection_key(budget), k_max, sorted=False).indices
+    n_marchable = (budget > 0).sum(-1)
+    pidx = torch.topk(selection_key(budget), k_max, dim=-1, sorted=False).indices
 
     key_table = occlusion_key_table(config, ground, groundpatch)
     steps = torch.arange(3, config.ray_steps, dtype=torch.float32, device=dev)[:, None]
+    # the lattice is (..., steps, candidates): the scan scalars broadcast
+    # as the grid form, the per-candidate values as (..., 1, candidates)
+    ox, oy, oz = (scalarlib.grid(v) for v in (s.ox, s.oy, s.oz))
+    sh0, sl0, sh1, sl1 = (scalarlib.grid(v) for v in (s.sh0, s.sl0, s.sh1, s.sl1))
     chunk = max(1, LATTICE_ELEMS // max(1, steps.shape[0]))
     for start in range(0, k_max, chunk):
-        cp = pidx[start:start + chunk]
-        dx, dy, dz, clen = _ray(x[cp], y[cp], z[cp], s)
-        vx = exactf32.div_rn(dx, clen)
-        vy = exactf32.div_rn(dy, clen)
-        vz_c = exactf32.div_rn(dz, clen)
-        within = steps * steps < budget[cp][None, :]
-        sx = s.ox + steps * vx[None, :]
-        sy = s.oy + steps * vy[None, :]
-        i0, i1 = ds_cells(config, s.sh0, s.sl0, s.sh1, s.sl1, sx, sy)
+        cp = pidx[..., start:start + chunk]
+        dx, dy, dz, clen = _ray(take_points(x, cp), take_points(y, cp), take_points(z, cp), s)
+        vx = exactf32.div_rn(dx, clen)[..., None, :]
+        vy = exactf32.div_rn(dy, clen)[..., None, :]
+        vz_c = exactf32.div_rn(dz, clen)[..., None, :]
+        within = steps * steps < take_points(budget, cp)[..., None, :]
+        sx = ox + steps * vx
+        sy = oy + steps * vy
+        i0, i1 = ds_cells(config, sh0, sl0, sh1, sl1, sx, sy)
         inside = (i0 > 0) & (i1 > 0) & (i0 < n - 1) & (i1 < n - 1)
         flat = torch.clamp(i0, 0, n - 1) * n + torch.clamp(i1, 0, n - 1)
-        thr = _mono_u32((steps * vz_c[None, :] + s.oz) + tol)
-        (vals,) = lookup_fn(flat.reshape(-1), [key_table], n * n)
+        thr = _mono_u32((steps * vz_c + oz) + tol)
+        (vals,) = lookup_fn(flat.reshape(*batch, -1), [key_table], n * n)
         key_hit = _u32_bits(vals).reshape(flat.shape) >= thr
-        hit = (within & inside & key_hit).any(dim=0).to(torch.int32)
-        out.scatter_reduce_(0, cp, hit, reduce="amax")
+        hit = (within & inside & key_hit).any(dim=-2).to(torch.int32)
+        out.scatter_reduce_(-1, cp, hit, reduce="amax")
     return out > 0, n_marchable

@@ -13,7 +13,11 @@ segmented run-end scans (``seg_end_reduce``, ``seg_first_valid``) have no
 counterpart: the min layer and the pd-spread flag both come from a min and
 a max column of the accepted z.
 
-Everything point-indexed is a flat (P,) tensor.
+Everything point-indexed is a flat (P,) tensor, or a (B, P) batch of
+them, one row a vehicle, with the scan scalars as (B, 1) columns
+(``core/scalars.py``): every function here then works row by row, and
+each row is bitwise the vehicle's own (P,) call. Cell-indexed columns are
+(N*N,), or (B, N*N).
 """
 
 from __future__ import annotations
@@ -57,7 +61,15 @@ class Binning(NamedTuple):
     sqdist: torch.Tensor  # f32 squared xy distance to the sensor origin
 
     def permute(self, order) -> "Binning":
-        return Binning(*(t[order] for t in self))
+        return Binning(*(take_points(t, order) for t in self))
+
+
+def take_points(t, order):
+    """``t`` at the point indices ``order`` (or a slice): ``t[order]`` of a
+    (P,) tensor, each row of a (B, P) batch at its own row of ``order``."""
+    if isinstance(order, torch.Tensor) and order.dim() > 1:
+        return torch.take_along_dim(t, order, dim=-1)
+    return t[order]
 
 
 def ds_cells(config: GroundGridConfig, sh0, sl0, sh1, sl1, x, y):
@@ -118,12 +130,13 @@ def _plane_shift_point(config: GroundGridConfig, s, gi0, gi1):
 
 
 def _plane_shift_map(config: GroundGridConfig, s, device):
-    """(N*N,) flat map of :func:`_plane_shift_point` over all cells."""
+    """(N*N,) flat map of :func:`_plane_shift_point` over all cells ((B,
+    N*N) for batched scan scalars)."""
     n = config.cell_count
     idx = torch.arange(n, dtype=torch.int32, device=device)
-    gi0 = idx[:, None].expand(n, n)
-    gi1 = idx[None, :].expand(n, n)
-    return _plane_shift_point(config, s, gi0, gi1).reshape(-1)
+    gi0 = idx[:, None].expand(n, n).reshape(-1)
+    gi1 = idx[None, :].expand(n, n).reshape(-1)
+    return _plane_shift_point(config, s, gi0, gi1)
 
 
 def raster_columns(config: GroundGridConfig, binning: Binning, z, accept, s):
@@ -183,7 +196,6 @@ def finish_partials(config: GroundGridConfig, partials, s,
     GroundSegmentation.cpp:73), FLT_MIN in cells without accepted points.
     Without it the layer holds the reset value.
     """
-    n2 = config.cell_count ** 2
     if len(partials) == 1:
         out = list(partials[0])
     else:
@@ -207,7 +219,7 @@ def finish_partials(config: GroundGridConfig, partials, s,
     if with_max:  # non-accepted points carry -MIN_SENT: they never win
         maxs = torch.where(raw > 0, torch.clamp_min(zmax, FLT_TINY), FLT_TINY)
     else:
-        maxs = torch.full((n2,), FLT_TINY, dtype=torch.float32, device=raw.device)
+        maxs = torch.full_like(raw, FLT_TINY)
     shift = _plane_shift_map(config, s, raw.device)
     return _finish_layers(
         config, points_raw=raw, count=out[1], sum_z=out[2], sum_pdc=out[3],
@@ -234,7 +246,7 @@ def _finish_layers(config, points_raw, count, sum_z, sum_pdc, sum_pdc2, min_gh, 
     n = config.cell_count
 
     def grid(a):
-        return a.reshape(n, n)
+        return a.reshape(*a.shape[:-1], n, n)
 
     points_raw, count, sum_z = grid(points_raw), grid(count), grid(sum_z)
     sum_pdc, sum_pdc2 = grid(sum_pdc), grid(sum_pdc2)

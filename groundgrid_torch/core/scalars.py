@@ -11,6 +11,13 @@ in one (``SIZE``,) float32 tensor, the integers as int32 bits. The step reads
 each as a 0-dim view on the device (:func:`view`), so a CUDA graph captured
 on one scan replays on any other.
 
+A batch of vehicles (the fleet's batched step, ``pipeline.Step.body`` on a
+leading vehicle axis) ships a ``(B, SIZE)`` tensor, one row a vehicle:
+:func:`view` then gives ``(B, 1)`` columns, which broadcast against the
+``(B, P)`` point tensors, and :func:`grid` turns a view into the form that
+broadcasts against ``(..., N, N)`` layers. The single step is the batch's
+body without the vehicle axis.
+
 A device op ``t - s.ox`` rounds as ``t - float(v)`` did: both are one IEEE
 f32 operation on the same two f32 values (no per-scan scalar divides).
 """
@@ -34,7 +41,7 @@ class ScanScalars(NamedTuple):
     ox: object  # sensor origin, map frame (t_map_velo[:3, 3] as f32)
     oy: object
     oz: object
-    base_z: object  # base_link height (t_map_base[2, 3]): K3's center seed
+    base_z: object  # base_link height (t_map_base[2, 3]): K3's center seed, (B,) batched
     sh0: object  # ds image (hi, lo) of center + half length, axis 0: the binning
     sl0: object
     sh1: object  # the same, axis 1
@@ -46,7 +53,7 @@ class ScanScalars(NamedTuple):
     b20: object  # t_base_map row 2: the base plane
     b21: object
     b23: object
-    velo: object  # (3, 4) t_map_velo rows 0-2: unsorted mode's device transform
+    velo: object  # (3, 4) t_map_velo rows 0-2 ((B, 3, 4)): unsorted mode's device transform
     k0: object  # int32 whole-cell shift of the move, per axis
     k1: object
     count: object  # int32 valid prefix of a wire scan (0 otherwise)
@@ -97,10 +104,23 @@ def pack(config: GroundGridConfig, center, center_lo, k, t_map_velo, t_map_base,
 
 
 def view(t: torch.Tensor) -> ScanScalars:
-    """Named 0-dim views (``velo`` a (3, 4) view) of a packed tensor."""
+    """Named views of packed scan scalars: of a (``SIZE``,) tensor 0-dim
+    views (``velo`` a (3, 4) view); of a (B, ``SIZE``) batch (B, 1) columns,
+    ``base_z`` (B,) (K3's per-grid seeds) and ``velo`` (B, 3, 4)."""
     i = t.view(torch.int32)
-    return ScanScalars(*t[:N_FLOATS].unbind(0), velo=t[VELO].view(3, 4), k0=i[K0], k1=i[K1],
-                       count=i[COUNT])
+    if t.dim() == 1:
+        return ScanScalars(*t[:N_FLOATS].unbind(0), velo=t[VELO].view(3, 4), k0=i[K0],
+                           k1=i[K1], count=i[COUNT])
+    cols = t[:, :N_FLOATS].unsqueeze(-1).unbind(1)
+    return ScanScalars(*cols[:3], t[:, 3], *cols[4:], velo=t[:, VELO].view(-1, 3, 4),
+                       k0=i[:, K0:K0 + 1], k1=i[:, K1:K1 + 1], count=i[:, COUNT:COUNT + 1])
+
+
+def grid(v):
+    """A scan scalar's view in the form that broadcasts against ``(..., N,
+    N)`` layers: a 0-dim view as (1,), a (B, 1) column as (B, 1, 1); a host
+    scalar as it is."""
+    return v[..., None] if isinstance(v, torch.Tensor) else v
 
 
 def host(config: GroundGridConfig, center, center_lo, t_map_velo, t_map_base=None,

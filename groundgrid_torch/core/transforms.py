@@ -32,7 +32,9 @@ def transform_points(T, points):
 def transform_points_soa(T, x, y, z):
     """Rigid transform of three (P,) f32 tensors (or NumPy arrays) by the f32
     ``T``: rows 0-2 of a (4, 4) pose, a NumPy array, or a (3, 4) or (4, 4)
-    tensor on the points' device (the step's scan scalars).
+    tensor on the points' device (the step's scan scalars); or of three
+    (B, P) tensors, one row a vehicle, by a (B, 3, 4) tensor of per-vehicle
+    poses (the batched step's scan scalars).
 
     The JAX package's ``transform_points_soa`` in its order of operations,
     ``((T00*x + T01*y) + T02*z) + T03``, each product and sum rounded as its
@@ -40,7 +42,8 @@ def transform_points_soa(T, x, y, z):
     as the f32 values they are, as host floats or as 0-dim device tensors.
     """
     if isinstance(T, torch.Tensor):
-        t = T
+        # a batch of poses as (3, 4, B, 1): t[i][j] is a (B, 1) column
+        t = T if T.dim() == 2 else T[..., None].movedim(0, -2)
     else:
         t = [[float(v) for v in r] for r in np.asarray(T, np.float32)[:3]]
 

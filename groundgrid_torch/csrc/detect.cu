@@ -44,6 +44,11 @@
 // kernel writes it. The library builds with --fmad=false, so no product is
 // fused into an add.
 //
+// A batch of grids (the fleet's batched step) is one launch: blockIdx.z is
+// the grid, whose five layers and two outputs lie n*n words past the
+// previous grid's; the tables are shared. Each grid's blocks do what the
+// single launch does, so each is bitwise its own launch.
+//
 // Only interior cells [2, n-2)^2 are updated, as the reference iterates them;
 // every other cell copies ground and groundpatch through, each by the one
 // block whose rows and columns, widened to the grid's edge for the first
@@ -103,6 +108,9 @@ detect_kernel(Inputs in, int n, int rows, float pccvt, float out_tol, float ocpc
   __shared__ float cols[kColVals][kThreads];
 
   const int j = threadIdx.x;
+  const size_t vo = (size_t)blockIdx.z * n * n;  // this block's grid
+  out_ground += vo;
+  out_conf += vo;
   const int c0 = 2 + blockIdx.x * kTileW, cs = c0 - 2;
   const int tw = min(kTileW, n - 2 - c0);  // output columns of this block
   const int r0 = 2 + blockIdx.y * rows, r1 = min(r0 + rows, n - 2);
@@ -110,11 +118,11 @@ detect_kernel(Inputs in, int n, int rows, float pccvt, float out_tol, float ocpc
   const bool mine = cs + j < n;  // this thread's staged column is on the grid
 
   const unsigned ring_s = static_cast<unsigned>(__cvta_generic_to_shared(ring));
-  const float* lay0 = in.layer[0] + cs + j;
-  const float* lay1 = in.layer[1] + cs + j;
-  const float* lay2 = in.layer[2] + cs + j;
-  const float* cel0 = in.cell[0] + cs + j;
-  const float* cel1 = in.cell[1] + cs + j;
+  const float* lay0 = in.layer[0] + vo + cs + j;
+  const float* lay1 = in.layer[1] + vo + cs + j;
+  const float* lay2 = in.layer[2] + vo + cs + j;
+  const float* cel0 = in.cell[0] + vo + cs + j;
+  const float* cel1 = in.cell[1] + vo + cs + j;
   const float* cel2 = in.cell[2] + cs + j;
   const float* cel3 = in.cell[3] + cs + j;
   const float* cel4 = in.cell[4] + cs + j;
@@ -242,8 +250,8 @@ detect_kernel(Inputs in, int n, int rows, float pccvt, float out_tol, float ocpc
 
   // the border cells this block owns: its rows and columns, the first and
   // last tiles widened to the grid's edges
-  const float* ground = in.cell[0];
-  const float* conf = in.cell[1];
+  const float* ground = in.cell[0] + vo;
+  const float* conf = in.cell[1] + vo;
   const int cl = blockIdx.x == 0 ? 0 : c0;
   const int ch = blockIdx.x == gridDim.x - 1 ? n : c0 + tw;
   const int rl = blockIdx.y == 0 ? 0 : r0;
@@ -263,19 +271,21 @@ detect_kernel(Inputs in, int n, int rows, float pccvt, float out_tol, float ocpc
 
 }  // namespace
 
-// All layers (n, n) f32 row-major, use3 (n, n) bool; outputs (n, n) f32.
-// `rows` is the strip height per block (ops/detect.py tile_plan).
+// The five layers and the outputs (batch, n, n) f32 row-major, the tables
+// (n, n) f32 and use3 (n, n) bool, shared by the batch. `rows` is the strip
+// height per block (ops/detect.py tile_plan). 1 <= batch <= 65535.
 extern "C" int gg_detect(const float* points, const float* variance, const float* min_gh,
                          const float* ground, const float* conf, const float* var_thr_sq,
                          const float* skip_thr, const float* min_expected_s,
-                         const bool* use3, int n, float pccvt, float out_tol, float ocpcf,
-                         float* out_ground, float* out_conf, int rows, cudaStream_t stream) {
-  if (n < 5 || rows < 1) return (int)cudaErrorInvalidValue;
+                         const bool* use3, int n, int batch, float pccvt, float out_tol,
+                         float ocpcf, float* out_ground, float* out_conf, int rows,
+                         cudaStream_t stream) {
+  if (n < 5 || rows < 1 || batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   Inputs in{{points, variance, min_gh},
             {ground, conf, var_thr_sq, skip_thr, min_expected_s},
             use3};
   const int inner = n - 4;
-  dim3 blocks((inner + kTileW - 1) / kTileW, (inner + rows - 1) / rows);
+  dim3 blocks((inner + kTileW - 1) / kTileW, (inner + rows - 1) / rows, batch);
   detect_kernel<<<blocks, kThreads, 0, stream>>>(in, n, rows, pccvt, out_tol, ocpcf,
                                                  out_ground, out_conf);
   return (int)cudaGetLastError();

@@ -50,6 +50,13 @@
 // - The column pointers arrive as one __grid_constant__ struct, read in
 //   place: no stacked copy of the columns.
 //
+// - A batch of vehicles (the fleet's batched step) is one launch:
+//   blockIdx.y is the vehicle, whose ids and column values lie p words
+//   past the previous vehicle's and whose output cells n2 words past
+//   (column j of vehicle b at out + (j * batch + b) * n2). A vehicle's
+//   blocks split and fold its own points and cells as the single launch
+//   does, so each vehicle is bitwise its own launch.
+//
 // Cell id n2 is the overflow bin and is dropped (ids outside [0, n2] count
 // as n2).
 // Empty cells read 0 for every op. Any point count works.
@@ -136,13 +143,14 @@ __device__ __forceinline__ float fold_run(const float* src, int s, int e,
   return acc;
 }
 
-// 0 in every column at the cells of [a, b) whose bit (from base) is clear
+// 0 in every column (`stride` words apart) at the cells of [a, b) whose bit
+// (from base) is clear
 __device__ __forceinline__ void zero_cells(const unsigned* s_bits, int base, int a, int b,
-                                           int k, int n2, float* __restrict__ out) {
+                                           int k, size_t stride, float* __restrict__ out) {
   for (int c = a + threadIdx.x; c < b; c += kThreads) {
     const int o = c - base;
     if (!((s_bits[o >> 5] >> (o & 31)) & 1u)) {
-      for (int j = 0; j < k; ++j) out[(size_t)j * n2 + c] = 0.0f;
+      for (int j = 0; j < k; ++j) out[(size_t)j * stride + c] = 0.0f;
     }
   }
 }
@@ -155,6 +163,11 @@ __device__ __forceinline__ int clamp_id(int c, int n2) {
 __global__ void __launch_bounds__(kThreads)
 raster_reduce_kernel(const int* __restrict__ cell, const __grid_constant__ Cols cols, int p,
                      int k, unsigned ops, int n2, float* __restrict__ out) {
+  // this block's vehicle: its ids, column values and output cells
+  const size_t vp = (size_t)blockIdx.y * p;
+  const size_t stride = (size_t)gridDim.y * n2;  // between two columns of the output
+  cell += vp;
+  out += (size_t)blockIdx.y * n2;
   // ids (from i_b rounded down to 4, with the halo), k rows of column
   // values, the run heads, the bitmap of [j_b & ~31, j_{b+1})
   extern __shared__ int4 smem4[];
@@ -197,7 +210,9 @@ raster_reduce_kernel(const int* __restrict__ cell, const __grid_constant__ Cols 
   // ids and values of the block's points and, where the last run goes on,
   // the halo past them
   stage_async(s_id, cell + a, off + cnt + halo);
-  for (int j = 0; j < k; ++j) stage_async(s_col + (size_t)j * kRow, cols.p[j] + a, off + cnt + halo);
+  for (int j = 0; j < k; ++j) {
+    stage_async(s_col + (size_t)j * kRow, cols.p[j] + vp + a, off + cnt + halo);
+  }
   async_wait();
   __syncthreads();
   auto id = [&](int i) { return clamp_id(s_id[i], n2); };
@@ -276,29 +291,30 @@ raster_reduce_kernel(const int* __restrict__ cell, const __grid_constant__ Cols 
     const int e = tail ? staged : s_head[r + 1];
     const int ce = tail ? cont : e;  // [e, ce) from global memory
     const float* src = s_col + (size_t)j * kRow;
-    const float* col = cols.p[j] + a;
+    const float* col = cols.p[j] + vp + a;
     const unsigned op = (ops >> (2 * j)) & 3u;
     float acc;
     if (op == 0u) acc = fold_run<0u>(src, s, e, col, ce);
     else if (op == 1u) acc = fold_run<1u>(src, s, e, col, ce);
     else acc = fold_run<2u>(src, s, e, col, ce);
-    out[(size_t)j * n2 + c] = acc;
+    out[(size_t)j * stride + c] = acc;
   }
 
   // zeros in the empty cells of [jb, je): 16 B stores where 4 aligned cells
-  // are all empty (each output row is 16 B aligned when n2 % 4 == 0),
+  // are all empty (each output row of each vehicle is 16 B aligned when
+  // n2 % 4 == 0),
   // single words at the ends and beside cells with points
   if ((n2 & 3) != 0) {
-    zero_cells(s_bits, base, jb, je, k, n2, out);
+    zero_cells(s_bits, base, jb, je, k, stride, out);
   } else {
     const int q0 = (jb + 3) >> 2, q1 = max(je >> 2, q0);  // the quads [q0, q1)
-    zero_cells(s_bits, base, jb, min(4 * q0, je), k, n2, out);
-    zero_cells(s_bits, base, 4 * q1, je, k, n2, out);
+    zero_cells(s_bits, base, jb, min(4 * q0, je), k, stride, out);
+    zero_cells(s_bits, base, 4 * q1, je, k, stride, out);
     for (int q = q0 + t; q < q1; q += kThreads) {
       const int o = 4 * q - base;
       const unsigned nib = (s_bits[o >> 5] >> (o & 31)) & 15u;
       for (int j = 0; j < k; ++j) {
-        float* dst = out + (size_t)j * n2 + 4 * q;
+        float* dst = out + (size_t)j * stride + 4 * q;
         if (nib == 0u) {
           *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         } else {
@@ -321,12 +337,16 @@ static_assert(raster_smem_bytes(kMaxCols) <= kSmemLimit, "a block's shared memor
 
 }  // namespace
 
-// cell: (p,) int32 nondecreasing in [0, n2]; cols: a host array of k device
-// pointers to (p,) f32 columns; ops: 2 bits per column (0 sum, 1 min, 2
-// max); out: (k, n2) f32. p >= 1.
-extern "C" int gg_raster_reduce(const int* cell, const float* const* cols, int p, int k,
-                                unsigned int ops, int n2, float* out, cudaStream_t stream) {
-  if (p < 1 || k < 1 || k > kMaxCols || n2 < 1) return (int)cudaErrorInvalidValue;
+// cell: (batch, p) int32, each row nondecreasing in [0, n2]; cols: a host
+// array of k device pointers to (batch, p) f32 columns; ops: 2 bits per
+// column (0 sum, 1 min, 2 max); out: (k, batch, n2) f32. p >= 1,
+// 1 <= batch <= 65535.
+extern "C" int gg_raster_reduce(const int* cell, const float* const* cols, int p, int batch,
+                                int k, unsigned int ops, int n2, float* out,
+                                cudaStream_t stream) {
+  if (p < 1 || batch < 1 || batch > 65535 || k < 1 || k > kMaxCols || n2 < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   const size_t smem = raster_smem_bytes(k);
   Cols c{};
   for (int j = 0; j < k; ++j) c.p[j] = cols[j];
@@ -336,6 +356,7 @@ extern "C" int gg_raster_reduce(const int* cell, const float* const* cols, int p
     if (err != cudaSuccess) return (int)err;
   }
   const long blocks = ((long)p + n2 + kTile - 1) / kTile;
-  raster_reduce_kernel<<<(int)blocks, kThreads, smem, stream>>>(cell, c, p, k, ops, n2, out);
+  raster_reduce_kernel<<<dim3((unsigned)blocks, (unsigned)batch), kThreads, smem, stream>>>(
+      cell, c, p, k, ops, n2, out);
   return (int)cudaGetLastError();
 }

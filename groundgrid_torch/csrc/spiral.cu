@@ -50,6 +50,13 @@
 // (232,448 B), so n <= 2415; the wrapper (ops/spiral.py band_layout) raises
 // above that. A walker keeps up to kMaxPerThread visits (n = 2415: 11).
 //
+// A batch of grids (the fleet's batched step) is one launch of one block a
+// grid: block b walks grid b, n*n words past grid b-1, seeded with
+// base_z[b * zstride]. The walk is one block's whatever the batch, so each
+// grid is bitwise its own launch, and the blocks of a batch (64 at 364^2:
+// 1024 threads and 35.6 KB of shared memory each) run side by side on the
+// card's 132 SMs, where one launch kept one SM busy.
+//
 // Built with --fmad=false and with the coefficient and decay arithmetic op
 // for op that of the plain PyTorch version, so confidence is bitwise. The
 // scan associates the compositions differently from the plain version's
@@ -490,8 +497,13 @@ __device__ void walk_ring(const Band& B, const Consts& K, const int* plans, int 
 // same layers, give bitwise the one launch over the whole range.
 template <int EM>
 __global__ void __launch_bounds__(1024, 1)
-spiral_kernel(float* h, float* c, Consts K, const float* base_z, int stride, int d0, int d1,
-              int seed) {
+spiral_kernel(float* h, float* c, Consts K, const float* base_z, int zstride, int stride,
+              int d0, int d1, int seed) {
+  // this block's grid and seed
+  const size_t grid = (size_t)blockIdx.x * K.n * K.n;
+  h += grid;
+  c += grid;
+  base_z += (size_t)blockIdx.x * zstride;
   extern __shared__ float2 band[];
   const Band B{band, stride};
   float* scratch = reinterpret_cast<float*>(band + 3 * stride + kBandExtra);
@@ -534,36 +546,39 @@ spiral_kernel(float* h, float* c, Consts K, const float* base_z, int stride, int
 }
 
 template <int EM>
-int launch(float* h, float* c, const Consts& K, const float* base_z, int stride, int d0, int d1,
-           int seed, int threads, int smem_bytes, cudaStream_t stream) {
+int launch(float* h, float* c, const Consts& K, const float* base_z, int zstride, int stride,
+           int d0, int d1, int seed, int batch, int threads, int smem_bytes,
+           cudaStream_t stream) {
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         spiral_kernel<EM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  spiral_kernel<EM><<<1, threads, smem_bytes, stream>>>(h, c, K, base_z, stride, d0, d1,
-                                                        seed);
+  spiral_kernel<EM><<<batch, threads, smem_bytes, stream>>>(h, c, K, base_z, zstride, stride,
+                                                            d0, d1, seed);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// h, c: (n, n) f32 row-major, updated in place: rings d0 .. d1 walked, the
-// center seeded first when seed is nonzero (1 <= d0, d0 - 1 <= d1 <= m - 1;
-// the whole sweep is 1 .. m-1 seeded) with the height *base_z, a device
-// f32 read once by the launch (the step's scan scalars: a captured launch
-// reads each replay's value). threads and smem_bytes come from
-// ops/spiral.py band_layout; a launch whose geometry or range does not fit
-// the kernel's limits returns cudaErrorInvalidValue without launching.
-extern "C" int gg_spiral(float* h, float* c, int n, int cidx, const float* base_z, float res2,
-                         float dec, float min_d2, float floor_c, int d0, int d1, int seed,
-                         int threads, int smem_bytes, cudaStream_t stream) {
+// h, c: (batch, n, n) f32 row-major, updated in place: rings d0 .. d1
+// walked, the center seeded first when seed is nonzero (1 <= d0, d0 - 1 <=
+// d1 <= m - 1; the whole sweep is 1 .. m-1 seeded) with the height
+// base_z[b * zstride] for grid b, device f32s read once by the launch (the
+// step's scan scalars: a captured launch reads each replay's values).
+// threads and smem_bytes come from ops/spiral.py band_layout; a launch
+// whose geometry or range does not fit the kernel's limits returns
+// cudaErrorInvalidValue without launching.
+extern "C" int gg_spiral(float* h, float* c, int n, int cidx, const float* base_z, int zstride,
+                         float res2, float dec, float min_d2, float floor_c, int d0, int d1,
+                         int seed, int batch, int threads, int smem_bytes,
+                         cudaStream_t stream) {
   const int m = cidx > 0 ? cidx : 0;
   const int stride = 8 * m + 1;
   const int walkers = threads - kMemThreads;
   const size_t band = (3 * (size_t)stride + kBandExtra) * sizeof(float2) + kScratch * sizeof(float);
   if (threads > 1024 || threads % 32 != 0 || walkers < 32 || (size_t)smem_bytes != band ||
-      d0 < 1 || d1 < d0 - 1 || d1 > m - 1) {
+      d0 < 1 || d1 < d0 - 1 || d1 > m - 1 || batch < 1) {
     return (int)cudaErrorInvalidValue;
   }
   // visits per walker on ring d1, the largest walked (walk_ring's E)
@@ -571,12 +586,19 @@ extern "C" int gg_spiral(float* h, float* c, int n, int cidx, const float* base_
   const int per = d1 >= 2 ? (visits + walkers - 1) / walkers : 1;
   const Consts K{n, cidx, res2, dec, min_d2, floor_c};
   const int s = seed != 0;
-  if (per <= 2) return launch<2>(h, c, K, base_z, stride, d0, d1, s, threads, smem_bytes, stream);
-  if (per <= 4) return launch<4>(h, c, K, base_z, stride, d0, d1, s, threads, smem_bytes, stream);
-  if (per <= 8) return launch<8>(h, c, K, base_z, stride, d0, d1, s, threads, smem_bytes, stream);
+  const int z = zstride;
+  if (per <= 2) {
+    return launch<2>(h, c, K, base_z, z, stride, d0, d1, s, batch, threads, smem_bytes, stream);
+  }
+  if (per <= 4) {
+    return launch<4>(h, c, K, base_z, z, stride, d0, d1, s, batch, threads, smem_bytes, stream);
+  }
+  if (per <= 8) {
+    return launch<8>(h, c, K, base_z, z, stride, d0, d1, s, batch, threads, smem_bytes, stream);
+  }
   if (per <= kMaxPerThread) {
-    return launch<kMaxPerThread>(h, c, K, base_z, stride, d0, d1, s, threads, smem_bytes,
-                                 stream);
+    return launch<kMaxPerThread>(h, c, K, base_z, z, stride, d0, d1, s, batch, threads,
+                                 smem_bytes, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -15,7 +15,10 @@ on the card it agrees with the kernel bitwise. The non-fused stage,
 The kernel gives each block a tile of ``TILE_W`` output columns and a strip
 of rows, which it walks top down through a ring of staged rows.
 :func:`strip_rows` picks the strip height for the grid (the kernel takes it
-as an argument); :func:`tile_plan` is the Python twin of the split.
+as an argument); :func:`tile_plan` is the Python twin of the split. A batch
+of grids, (B, N, N) layers with the tables shared (the fleet's batched
+step), is one launch with a grid axis over them, each grid bitwise its own
+launch; the plain version runs the batch over its leading axes.
 """
 
 from __future__ import annotations
@@ -101,10 +104,15 @@ def _constants(config: GroundGridConfig):
 def _check_args(config, tables, layers):
     n = config.cell_count
     dev = layers[0].device
-    for t in layers + [tables.var_thr_sq, tables.skip_thr, tables.min_expected_s]:
-        if t.shape != (n, n) or t.dtype != torch.float32 or t.device != dev:
-            raise ValueError(f"detect layers and tables must be ({n}, {n}) float32 on one "
-                             f"device, got {tuple(t.shape)} {t.dtype} {t.device}")
+    shape = layers[0].shape
+    if len(shape) not in (2, 3) or shape[-2:] != (n, n):
+        raise ValueError(f"detect layers must be ({n}, {n}) or (B, {n}, {n}), got "
+                         f"{tuple(shape)}")
+    tabs = [tables.var_thr_sq, tables.skip_thr, tables.min_expected_s]
+    for t, want in [(t, shape) for t in layers] + [(t, (n, n)) for t in tabs]:
+        if t.shape != want or t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"detect layers {tuple(shape)} and tables ({n}, {n}) must be "
+                             f"float32 on one device, got {tuple(t.shape)} {t.dtype} {t.device}")
     use3 = tables.use3
     if use3.shape != (n, n) or use3.dtype != torch.bool or use3.device != dev:
         raise ValueError(f"tables.use3 must be ({n}, {n}) bool on {dev}")
@@ -117,20 +125,20 @@ def _min_acc(acc, v):
 
 def _rows(x, h: int, combine):
     """Rows r-h..r+h of every column, folded left to right, for r in [2, n-2)."""
-    n = x.shape[0]
-    acc = x[2 - h:n - 2 - h]
+    n = x.shape[-2]
+    acc = x[..., 2 - h:n - 2 - h, :]
     for i in range(1, 2 * h + 1):
-        acc = combine(acc, x[2 - h + i:n - 2 - h + i])
+        acc = combine(acc, x[..., 2 - h + i:n - 2 - h + i, :])
     return acc
 
 
 def _box(x, h: int):
     """Box sum over the (2h+1)^2 window of each interior cell: rows, then columns."""
     t = _rows(x, h, torch.add)
-    n = t.shape[1]
-    acc = t[:, 2 - h:n - 2 - h]
+    n = t.shape[-1]
+    acc = t[..., 2 - h:n - 2 - h]
     for j in range(1, 2 * h + 1):
-        acc = acc + t[:, 2 - h + j:n - 2 - h + j]
+        acc = acc + t[..., 2 - h + j:n - 2 - h + j]
     return acc
 
 
@@ -138,10 +146,10 @@ def _minpool(x, h: int):
     """Min-pool of each interior cell, the TPU kernel's column order:
     min(min(t[c-1], t[c]), t[c+1]), then min(min(t[c-2], .), t[c+2])."""
     t = _rows(x, h, _min_acc)
-    n = t.shape[1]
+    n = t.shape[-1]
 
     def col(d):
-        return t[:, 2 + d:n - 2 + d]
+        return t[..., 2 + d:n - 2 + d]
 
     m3 = _min_acc(_min_acc(col(-1), col(0)), col(1))
     return m3 if h == 1 else _min_acc(_min_acc(col(-2), m3), col(2))
@@ -160,7 +168,7 @@ def detect_fused_plain(config: GroundGridConfig, tables: DetectTables, points, v
     pccvt, out_tol, ocpcf = _constants(config)
     pv = points * variance
     pm = points * min_gh  # empty cells: 0 * FLT_MAX == 0
-    inner = (slice(2, n - 2), slice(2, n - 2))
+    inner = (..., slice(2, n - 2), slice(2, n - 2))
     use3 = tables.use3[inner]
     psum = torch.where(use3, _box(points, 1), _box(points, 2))
     pvsum = torch.where(use3, _box(pv, 1), _box(pv, 2))
@@ -195,9 +203,10 @@ def detect_fused(config: GroundGridConfig, tables: DetectTables, points, varianc
                  ground, groundpatch):
     """One fused detection sweep; returns new (ground, groundpatch).
 
-    All layers (N, N) float32 on one device, ``tables`` from
-    ``core.detect.make_tables`` on the same device. The inputs are not
-    modified; the outputs are fresh tensors (the spiral writes into them).
+    All layers (N, N) float32 on one device, or all (B, N, N), one grid a
+    vehicle; ``tables`` from ``core.detect.make_tables`` on the same device.
+    The inputs are not modified; the outputs are fresh tensors (the spiral
+    writes into them).
     """
     if points.device.type == "cpu":
         return detect_fused_plain(config, tables, points, variance, min_gh, ground,
@@ -211,8 +220,10 @@ def detect_fused(config: GroundGridConfig, tables: DetectTables, points, varianc
     ins = [t.contiguous() for t in layers + [tables.var_thr_sq, tables.skip_thr,
                                              tables.min_expected_s, tables.use3]]
     out_g, out_c = torch.empty_like(ins[3]), torch.empty_like(ins[4])
-    code = _build.launch("gg_detect", points.device, *(t.data_ptr() for t in ins), n, pccvt,
-                         out_tol, ocpcf, out_g.data_ptr(), out_c.data_ptr(), strip_rows(n))
+    batch = points.shape[0] if points.dim() == 3 else 1
+    code = _build.launch("gg_detect", points.device, *(t.data_ptr() for t in ins), n, batch,
+                         pccvt, out_tol, ocpcf, out_g.data_ptr(), out_c.data_ptr(),
+                         strip_rows(n))
     _build.check(code, "detect_fused")
     detect_fused.launches += 1
     return out_g, out_c

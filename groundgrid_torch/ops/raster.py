@@ -16,6 +16,10 @@ continuation past its points staged too) and writes zeros in the empty
 cells whose ends it holds. :func:`tile_plan` is the Python twin of that
 split.
 
+A batch of vehicles, (B, P) ids and columns (the fleet's batched step),
+is one launch with a grid axis over the vehicles: each vehicle's blocks
+split its own points and cells, so each is bitwise its single launch.
+
 :func:`raster_reduce` launches the kernel for CUDA tensors and takes the
 plain version, :func:`raster_reduce_plain`, only for CPU tensors.
 """
@@ -37,15 +41,16 @@ TILE = 1024
 
 
 def _check_args(cell, cols, ops, n2):
-    if cell.dtype != torch.int32 or cell.dim() != 1:
-        raise ValueError(f"cell must be (P,) int32, got {tuple(cell.shape)} {cell.dtype}")
+    if cell.dtype != torch.int32 or cell.dim() not in (1, 2):
+        raise ValueError(f"cell must be (P,) or (B, P) int32, got {tuple(cell.shape)} "
+                         f"{cell.dtype}")
     if len(cols) != len(ops) or not cols:
         raise ValueError("need one op per column and at least one column")
     if len(cols) > MAX_COLS:
         raise ValueError(f"at most {MAX_COLS} columns")
     for c in cols:
         if c.dtype != torch.float32 or c.shape != cell.shape or c.device != cell.device:
-            raise ValueError("columns must be (P,) float32 on the cell tensor's device")
+            raise ValueError("columns must be float32 of the cell tensor's shape and device")
     bad = [o for o in ops if o not in OPS]
     if bad:
         raise ValueError(f"unknown ops {bad}; expected {sorted(OPS)}")
@@ -60,16 +65,23 @@ def raster_reduce_plain(cell, cols, ops, n2: int):
     ``k``-th point of every run longer than ``k`` into that run's
     accumulators, so each sum is taken in point order from 0.0 and each
     min/max keeps the earlier value on ties, exactly as the kernel's loop.
-    Costs one step per point of the longest run.
+    Costs one step per point of the longest run. A (B, P) batch walks every
+    vehicle's runs together: vehicle b's ids count from ``b (n2 + 1)``, so
+    the ids stay nondecreasing and each run keeps its points, and each
+    vehicle's overflow bin is dropped.
     """
     _check_args(cell, cols, ops, n2)
-    lengths = torch.bincount(cell.to(torch.int64), minlength=n2 + 1)[:n2]
-    starts = torch.cumsum(lengths, 0) - lengths
-    vals = torch.stack(cols)  # (k, P)
+    batch = cell.shape[0] if cell.dim() == 2 else 1
+    offset = torch.arange(batch, dtype=torch.int64, device=cell.device)[:, None] * (n2 + 1)
+    ids = (cell.reshape(batch, -1).to(torch.int64) + offset).reshape(-1)
+    counts = torch.bincount(ids, minlength=batch * (n2 + 1))
+    starts = (torch.cumsum(counts, 0) - counts).view(batch, n2 + 1)[:, :n2].reshape(-1)
+    lengths = counts.view(batch, n2 + 1)[:, :n2].reshape(-1)
+    vals = torch.stack(cols).reshape(len(cols), -1)  # (k, B P)
     p = vals.shape[1]
     code = torch.tensor([OPS[o] for o in ops], device=cell.device)[:, None]
-    acc = torch.zeros((len(cols), n2), dtype=torch.float32, device=cell.device)
-    for k in range(int(lengths.max())):
+    acc = torch.zeros((len(cols), batch * n2), dtype=torch.float32, device=cell.device)
+    for k in range(int(lengths.max()) if lengths.numel() else 0):
         active = lengths > k
         v = vals[:, (starts + k).clamp(max=max(p - 1, 0))]
         folded = torch.where(code == 0, acc + v,
@@ -78,7 +90,7 @@ def raster_reduce_plain(cell, cols, ops, n2: int):
         if k == 0:  # min/max start from the run's first value
             folded = torch.where(code == 0, folded, v)
         acc = torch.where(active, folded, acc)
-    return tuple(acc.unbind(0))
+    return tuple(acc.reshape(len(cols), *cell.shape[:-1], n2).unbind(0))
 
 
 class Tile(NamedTuple):
@@ -128,23 +140,27 @@ def raster_reduce(cell, cols, ops, n2: int):
 
     Args:
       cell: (P,) int32 flat cell ids, **nondecreasing**, in [0, n2]; id n2
-        is the overflow/padding bin and is dropped.
-      cols: list of (P,) float32 columns.
+        is the overflow/padding bin and is dropped. Or (B, P), one vehicle
+        a row, each row nondecreasing.
+      cols: list of float32 columns of ``cell``'s shape.
       ops: one of "sum", "min", "max" per column.
       n2: number of real cells.
 
-    Returns a tuple of (n2,) float32 tensors. Cells without points read 0.
-    Sums are taken in point order within each cell; min and max are exact.
-    The kernel reads each column where it lies (no stacked copy).
+    Returns a tuple of (n2,) float32 tensors ((B, n2) for a batch). Cells
+    without points read 0. Sums are taken in point order within each cell;
+    min and max are exact. The kernel reads each column where it lies (no
+    stacked copy).
     """
     if cell.device.type == "cpu":
         return raster_reduce_plain(cell, cols, ops, n2)
     _check_args(cell, cols, ops, n2)
     if cell.device.type != "cuda":
         raise RuntimeError(f"raster_reduce: unsupported device {cell.device}")
-    out = torch.empty((len(cols), n2), dtype=torch.float32, device=cell.device)
+    out = torch.empty((len(cols), *cell.shape[:-1], n2), dtype=torch.float32,
+                      device=cell.device)
     if cell.numel() == 0:
         return tuple(out.zero_().unbind(0))  # no points: every cell empty, no launch
+    batch = cell.shape[0] if cell.dim() == 2 else 1
     cell = cell.contiguous()
     cols = [c.contiguous() for c in cols]
     ptrs = (ctypes.c_void_p * MAX_COLS)(*[c.data_ptr() for c in cols])
@@ -152,7 +168,7 @@ def raster_reduce(cell, cols, ops, n2: int):
     for j, op in enumerate(ops):
         mask |= OPS[op] << (2 * j)
     code = _build.launch("gg_raster_reduce", cell.device, cell.data_ptr(),
-                         ctypes.addressof(ptrs), cell.shape[0], len(cols), mask, n2,
+                         ctypes.addressof(ptrs), cell.shape[-1], batch, len(cols), mask, n2,
                          out.data_ptr())
     _build.check(code, "raster_reduce")
     raster_reduce.launches += 1

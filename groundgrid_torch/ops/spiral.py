@@ -30,7 +30,12 @@ per-segment arrays in shared memory or, where they do not fit a block
 in device memory runs on the card.
 
 :func:`spiral_interpolation` launches the kernel for CUDA tensors and takes
-the plain version only for CPU tensors. :func:`spiral_interpolation_rings`
+the plain version only for CPU tensors. It also takes a batch, (B, N, N)
+layers and a (B,) ``base_z`` (the fleet's batched step): one launch of B
+blocks, block b walking grid b, each grid bitwise its own launch. Above
+2415 cells a side the global-band kernel is launched once a grid, each
+with its own scratch. The plain version walks the batch over its leading
+axis. :func:`spiral_interpolation_rings`
 walks a range of rings in one launch (the same kernels, their ``d0 .. d1``
 arguments): the banded relay of ``parallel/spiral_shard.py`` runs one band
 a launch, and the whole sweep is the range ``1 .. m-1`` with the center
@@ -219,16 +224,18 @@ def global_layout(n: int) -> GlobalLayout:
 
 
 def _affine_scan(a, b):
-    """h[y] = a[y] + b[y] * h[y-1], h[-1] := 0 (Hillis-Steele, log depth).
+    """h[y] = a[y] + b[y] * h[y-1], h[-1] := 0 (Hillis-Steele, log depth),
+    along the last axis.
 
     Composition of maps h -> a + b*h; positions before the start compose
     with the identity (0, 1).
     """
-    n = a.shape[0]
+    n = a.shape[-1]
+    lead = a.shape[:-1]
     d = 1
     while d < n:
-        a_prev = torch.cat([a.new_zeros(d), a[:-d]])
-        b_prev = torch.cat([b.new_ones(d), b[:-d]])
+        a_prev = torch.cat([a.new_zeros(*lead, d), a[..., :-d]], dim=-1)
+        b_prev = torch.cat([b.new_ones(*lead, d), b[..., :-d]], dim=-1)
         a = a + b * a_prev
         b = b * b_prev
         d *= 2
@@ -239,7 +246,8 @@ def _segment_update(config: GroundGridConfig, h, c, fixed, lo, hi, transposed, d
     """One ring segment exactly as the sequential walk updates it.
 
     Row ``fixed`` (column when ``transposed``), cells [lo, hi), walked
-    descending when ``descending``. Updates ``h``/``c`` in place.
+    descending when ``descending``, of every grid of ``h``/``c`` ((N, N) or
+    (..., N, N)). Updates ``h``/``c`` in place.
     """
     n = config.cell_count
     c_idx = config.center_cell
@@ -247,10 +255,10 @@ def _segment_update(config: GroundGridConfig, h, c, fixed, lo, hi, transposed, d
     dec = float(np.float32(config.occupied_cells_decrease_factor))
     dev = h.device
 
-    h_view = h.t() if transposed else h
-    c_view = c.t() if transposed else c
-    bh = h_view[fixed - 1: fixed + 2].clone()
-    bc = c_view[fixed - 1: fixed + 2].clone()
+    h_view = h.transpose(-1, -2) if transposed else h
+    c_view = c.transpose(-1, -2) if transposed else c
+    bh = h_view[..., fixed - 1: fixed + 2, :].clone()
+    bc = c_view[..., fixed - 1: fixed + 2, :].clone()
 
     ys = torch.arange(n, dtype=torch.int32, device=dev)
     in_seg = (ys >= lo) & (ys < hi)
@@ -261,7 +269,7 @@ def _segment_update(config: GroundGridConfig, h, c, fixed, lo, hi, transposed, d
     yf = (ys - c_idx).to(torch.float32)
     d2 = (fi * fi + yf * yf) * res2
     decay_applies = d2 > float(np.float32(config.min_dist_squared))
-    occ = bc[1]
+    occ = bc[..., 1, :]
     c_dec = torch.where(
         decay_applies, torch.clamp_min(occ - occ / dec, float(np.float32(0.001))), occ
     )
@@ -273,7 +281,7 @@ def _segment_update(config: GroundGridConfig, h, c, fixed, lo, hi, transposed, d
     else:
         in_seg_f, c_new_f, occ_f = in_seg, c_new_row, occ
 
-    hh = bh[1]
+    hh = bh[..., 1, :]
 
     def left(x):  # value at the walk predecessor
         return torch.roll(x, 1, dims=-1)
@@ -282,32 +290,34 @@ def _segment_update(config: GroundGridConfig, h, c, fixed, lo, hi, transposed, d
         return torch.roll(x, -1, dims=-1)
 
     w = bc * bh
+    w0, w1, w2 = w.unbind(-2)
+    c0, c1, c2 = bc.unbind(-2)
     num_known = (
-        left(w[0]) + w[0] + right(w[0])
-        + left(w[2]) + w[2] + right(w[2])
-        + w[1] + right(w[1])
+        left(w0) + w0 + right(w0)
+        + left(w2) + w2 + right(w2)
+        + w1 + right(w1)
     )
     den_known = (
-        left(bc[0]) + bc[0] + right(bc[0])
-        + left(bc[2]) + bc[2] + right(bc[2])
-        + bc[1] + right(bc[1])
+        left(c0) + c0 + right(c0)
+        + left(c2) + c2 + right(c2)
+        + c1 + right(c1)
     )
 
     pred_in_seg = left(in_seg_f)
-    c_pred = torch.where(pred_in_seg, left(c_new_f), left(bc[1]))
+    c_pred = torch.where(pred_in_seg, left(c_new_f), left(c1))
     den = den_known + c_pred + FLT_TINY
 
     zero = torch.zeros_like(occ_f)
     blend = torch.where(in_seg_f, 1.0 - occ_f, zero)
     b_coef = torch.where(pred_in_seg, blend * c_pred / den, zero)
-    num_static = num_known + torch.where(pred_in_seg, zero, c_pred * left(bh[1]))
+    num_static = num_known + torch.where(pred_in_seg, zero, c_pred * left(hh))
     a_coef = torch.where(in_seg_f, blend * num_static / den + occ_f * hh, hh)
 
     h_new = _affine_scan(a_coef, b_coef)
     if descending:
         h_new = h_new.flip(-1)
-    h_view[fixed] = h_new
-    c_view[fixed] = c_new_row
+    h_view[..., fixed, :] = h_new
+    c_view[..., fixed, :] = c_new_row
 
 
 def spiral_interpolation_rings_plain(config: GroundGridConfig, ground, groundpatch, base_z,
@@ -315,13 +325,14 @@ def spiral_interpolation_rings_plain(config: GroundGridConfig, ground, groundpat
     """Plain PyTorch walk of rings ``d_first .. d_last`` (ring D: row and
     column ``center - D`` to ``center + D``), inner to outer, in place; the
     center seeded first when ``seed_center``, with ``base_z``: a 0-dim f32
-    tensor (the kernel's form) or a host float, seeded as the same f32.
+    tensor (the kernel's form) or a host float, seeded as the same f32. A
+    (B, N, N) batch walks every grid at once, seeded from a (B,) ``base_z``.
     Returns (ground, groundpatch)."""
     c_idx = config.center_cell
     if seed_center:
-        ground[c_idx, c_idx] = (base_z if isinstance(base_z, torch.Tensor)
-                                else float(np.float32(base_z)))
-        groundpatch[c_idx, c_idx] = 1.0
+        ground[..., c_idx, c_idx] = (base_z if isinstance(base_z, torch.Tensor)
+                                     else float(np.float32(base_z)))
+        groundpatch[..., c_idx, c_idx] = 1.0
     for d in range(d_first, d_last + 1):
         i = c_idx - d
         outer = 2 * c_idx - i
@@ -334,9 +345,63 @@ def spiral_interpolation_rings_plain(config: GroundGridConfig, ground, groundpat
 
 def spiral_interpolation_plain(config: GroundGridConfig, ground, groundpatch, base_z):
     """Plain PyTorch sweep, in place: the center seeded, rings ``1 ..
-    center-1``; returns (ground, groundpatch)."""
+    center-1``; returns (ground, groundpatch). Takes a (B, N, N) batch with
+    a (B,) ``base_z`` too."""
     return spiral_interpolation_rings_plain(config, ground, groundpatch, base_z, 1,
                                             config.center_cell - 1, True)
+
+
+def _check_layers(config: GroundGridConfig, ground, groundpatch, batched: bool):
+    n = config.cell_count
+    ok = ground.dim() in ((2, 3) if batched else (2,)) and ground.shape[-2:] == (n, n)
+    for t in (ground, groundpatch):
+        if not ok or t.shape != ground.shape or t.dtype != torch.float32:
+            want = f"({n}, {n})" + (f" or (B, {n}, {n})" if batched else "")
+            raise ValueError(f"layers must be {want} float32, got {tuple(t.shape)} {t.dtype}")
+
+
+def _launch(config: GroundGridConfig, ground, groundpatch, base_z, d_first: int, d_last: int,
+            seed_center: bool):
+    """K3 on CUDA layers, (N, N) or a (B, N, N) batch, in place: one launch
+    of the band kernel (B blocks), or the global-band kernel once a grid."""
+    n, m = config.cell_count, config.center_cell
+    if ground.device.type != "cuda" or groundpatch.device != ground.device:
+        raise RuntimeError(f"spiral_interpolation: unsupported device {ground.device}")
+    if not (ground.is_contiguous() and groundpatch.is_contiguous()):
+        raise ValueError("spiral_interpolation needs contiguous layers")
+    batch = ground.shape[0] if ground.dim() == 3 else 1
+    if not (isinstance(base_z, torch.Tensor) and base_z.numel() == batch
+            and base_z.dim() <= 1 and base_z.dtype == torch.float32
+            and base_z.device == ground.device):
+        raise ValueError(f"spiral_interpolation: base_z must be {batch} float32 value(s) "
+                         f"on {ground.device}, one a grid")
+    if d_first > d_last and not seed_center:
+        return
+    zstride = base_z.stride(0) if base_z.dim() == 1 else 0
+    consts = (float(np.float32(config.resolution ** 2)),
+              float(np.float32(config.occupied_cells_decrease_factor)),
+              float(np.float32(config.min_dist_squared)), float(np.float32(0.001)),
+              d_first, d_last, int(seed_center))
+    if spiral_variant(n) == "band":
+        layout = band_layout(n)
+        code = _build.launch("gg_spiral", ground.device, ground.data_ptr(),
+                             groundpatch.data_ptr(), n, m, base_z.data_ptr(), zstride, *consts,
+                             batch, layout.threads, layout.smem_bytes)
+        _build.check(code, "spiral_interpolation")
+        spiral_interpolation.launches += 1
+        return
+    glayout = global_layout(n)
+    grounds = ground.reshape(batch, n, n).unbind(0)
+    patches = groundpatch.reshape(batch, n, n).unbind(0)
+    for g, c, z in zip(grounds, patches, base_z.reshape(batch).unbind(0)):
+        scratch = (torch.empty(glayout.scratch_floats, dtype=torch.float32,
+                               device=ground.device) if glayout.scratch_floats else None)
+        code = _build.launch("gg_spiral_global", ground.device, g.data_ptr(), c.data_ptr(), n,
+                             m, z.data_ptr(), *consts, glayout.threads, glayout.smem_bytes,
+                             None if scratch is None else scratch.data_ptr())
+        _build.check(code, "spiral_interpolation")
+        spiral_interpolation.launches += 1
+        spiral_interpolation.global_launches += 1
 
 
 def spiral_interpolation_rings(config: GroundGridConfig, ground, groundpatch, base_z,
@@ -357,10 +422,8 @@ def spiral_interpolation_rings(config: GroundGridConfig, ground, groundpatch, ba
     without a seed; the plain version for CPU tensors. Returns the two given
     tensors.
     """
-    n, m = config.cell_count, config.center_cell
-    for t in (ground, groundpatch):
-        if t.shape != (n, n) or t.dtype != torch.float32:
-            raise ValueError(f"layers must be ({n}, {n}) float32, got {tuple(t.shape)} {t.dtype}")
+    m = config.center_cell
+    _check_layers(config, ground, groundpatch, batched=False)
     if d_first < 1 or d_last < d_first - 1 or d_last > m - 1:
         raise ValueError(f"rings {d_first} .. {d_last} outside 1 .. {m - 1}")
     if seed_center and d_first != 1:
@@ -368,36 +431,7 @@ def spiral_interpolation_rings(config: GroundGridConfig, ground, groundpatch, ba
     if ground.device.type == "cpu":
         return spiral_interpolation_rings_plain(config, ground, groundpatch, base_z, d_first,
                                                 d_last, seed_center)
-    if ground.device.type != "cuda" or groundpatch.device != ground.device:
-        raise RuntimeError(f"spiral_interpolation: unsupported device {ground.device}")
-    if not (ground.is_contiguous() and groundpatch.is_contiguous()):
-        raise ValueError("spiral_interpolation needs contiguous layers")
-    if not (isinstance(base_z, torch.Tensor) and base_z.numel() == 1
-            and base_z.dtype == torch.float32 and base_z.device == ground.device):
-        raise ValueError("spiral_interpolation: base_z must be a one-element float32 tensor "
-                         f"on {ground.device}")
-    if d_first > d_last and not seed_center:
-        return ground, groundpatch
-    consts = (n, m, base_z.data_ptr(), float(np.float32(config.resolution ** 2)),
-              float(np.float32(config.occupied_cells_decrease_factor)),
-              float(np.float32(config.min_dist_squared)), float(np.float32(0.001)),
-              d_first, d_last, int(seed_center))
-    variant = spiral_variant(n)
-    if variant == "band":
-        layout = band_layout(n)
-        code = _build.launch("gg_spiral", ground.device, ground.data_ptr(),
-                             groundpatch.data_ptr(), *consts, layout.threads, layout.smem_bytes)
-    else:
-        glayout = global_layout(n)
-        scratch = (torch.empty(glayout.scratch_floats, dtype=torch.float32,
-                               device=ground.device) if glayout.scratch_floats else None)
-        code = _build.launch("gg_spiral_global", ground.device, ground.data_ptr(),
-                             groundpatch.data_ptr(), *consts, glayout.threads, glayout.smem_bytes,
-                             None if scratch is None else scratch.data_ptr())
-    _build.check(code, "spiral_interpolation")
-    spiral_interpolation.launches += 1
-    if variant == "global":
-        spiral_interpolation.global_launches += 1
+    _launch(config, ground, groundpatch, base_z, d_first, d_last, seed_center)
     return ground, groundpatch
 
 
@@ -409,11 +443,16 @@ def spiral_interpolation(config: GroundGridConfig, ground, groundpatch, base_z):
     confidence 1, then walks rings ``1 .. center-1`` (rows
     ``center-1 .. 1``), updating ``ground`` and ``groundpatch`` where they
     lie (the JAX step donated these buffers): one K3 launch over the whole
-    range (:func:`spiral_interpolation_rings`). Returns the two given
+    range. A batch, (B, N, N) layers and a (B,) ``base_z`` one a grid, is
+    one launch too, of B blocks (the JAX package's ``jax.vmap`` over its
+    Pallas call, a grid axis over the vehicles). Returns the two given
     tensors.
     """
-    return spiral_interpolation_rings(config, ground, groundpatch, base_z, 1,
-                                      config.center_cell - 1, True)
+    _check_layers(config, ground, groundpatch, batched=True)
+    if ground.device.type == "cpu":
+        return spiral_interpolation_plain(config, ground, groundpatch, base_z)
+    _launch(config, ground, groundpatch, base_z, 1, config.center_cell - 1, True)
+    return ground, groundpatch
 
 
 # launches of either variant, by either entry; global_launches: those of

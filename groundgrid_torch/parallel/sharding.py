@@ -13,15 +13,25 @@ A fleet value is a list with one block per mesh device, each block a
 the block's device; NumPy leaves (poses, scan centers) and the grid
 centers, host values by design (``core/grid.py``), stay on the host.
 
-Each device runs its vehicles in order, the counterpart of the ``lax.map``
-the JAX package batches sorted scans with: one captured vehicle step per
-device (``pipeline.CapturedStep``), and per vehicle its block slices copied
-into the step's static buffers, one replay, its layers and outputs copied
-back. The scan scalars of a block ship in one copy a tick. The step reads
-nothing back to the host, so a tick is one stream of launches and replays
-per device. The fleet summary is summed on the device and, when
-``torch.distributed`` is initialized, reduced over the group by one
-``all_reduce`` (the JAX ``psum``).
+How a device steps its block follows the JAX package's choice
+(``groundgrid_tpu/parallel/sharding.py:58-62``), by ``config.sorted_scans``:
+
+* sorted scans: the vehicles in order, the counterpart of its ``lax.map``:
+  one captured vehicle step per device (``pipeline.CapturedStep``), and
+  per vehicle its block slices copied into the step's static buffers, one
+  replay, its layers and outputs copied back;
+* unsorted scans (the config default): the whole block as one batched
+  body, the counterpart of its ``jax.vmap``: one captured step per device
+  on (B, ...) static buffers, one replay a tick, each kernel launched once
+  for all of the device's vehicles (K3 one block a grid). The block's
+  state is the step's static layers, updated in place.
+
+Either way each vehicle is bitwise its single step, the scan scalars of a
+block ship in one copy a tick, and the step reads nothing back to the
+host, so a tick is one stream of launches and replays per device. The
+fleet summary is summed on the device and, when ``torch.distributed`` is
+initialized, reduced over the group by one ``all_reduce`` (the JAX
+``psum``).
 """
 
 from __future__ import annotations
@@ -129,11 +139,13 @@ class FleetStep:
     """``(states, scans) -> (states, outs, summary)`` over the mesh's blocks.
 
     ``states`` and ``scans`` are lists of blocks (:func:`shard_fleet_pytree`).
-    Each device steps its vehicles in order with its own vehicle step
-    (``steps``, ``pipeline.make_step``'s: captured, or eager for the plain
-    versions), writing each vehicle's new layers and center back into its
-    block: ``states`` is updated in place and returned (the JAX fleet step
-    donates it). ``outs`` holds one stacked ``StepOutput`` per block; the
+    Each device steps its block with its own step (``steps``,
+    ``pipeline.make_step``'s: captured, or eager for the plain versions):
+    vehicle by vehicle for sorted configs, as one batch otherwise
+    (``batched``, from ``config.sorted_scans`` as the JAX fleet step
+    chooses). ``states`` is updated in place and returned (the JAX fleet
+    step donates it): each block's layers and centers are its vehicles'
+    new ones. ``outs`` holds one stacked ``StepOutput`` per block; the
     summary's counts are int64 tensors on the mesh's first device.
     """
 
@@ -141,6 +153,7 @@ class FleetStep:
         self.config = config
         self.mesh = tuple(mesh)
         self.steps = [make_step(config) for _ in self.mesh]
+        self.batched = not config.sorted_scans
 
     @property
     def fallbacks(self) -> int:
@@ -156,17 +169,10 @@ class FleetStep:
             host = [step.scalars(block.center[i].numpy(), block.center_lo[i].numpy(),
                                  _vehicle(scan, i)) for i in range(b)]
             scalars = to_device(np.stack([h[0] for h in host]), block.ground.device)
-            per_vehicle = []
-            for i, (_, center, center_lo) in enumerate(host):
-                vehicle = GridState(ground=block.ground[i], groundpatch=block.groundpatch[i],
-                                    center=block.center[i], center_lo=block.center_lo[i])
-                vehicle, out = step.run(vehicle, _vehicle(scan, i), scalars[i], center,
-                                        center_lo)
-                block.ground[i].copy_(vehicle.ground)
-                block.groundpatch[i].copy_(vehicle.groundpatch)
-                block.center[i], block.center_lo[i] = vehicle.center, vehicle.center_lo
-                per_vehicle.append(out)
-            out = StepOutput(*(torch.stack(field) for field in zip(*per_vehicle)))
+            if self.batched:
+                out = self._batch(step, block, scan, scalars, host)
+            else:
+                out = self._vehicles(step, block, scan, scalars, host)
             outs.append(out)
             totals.append(torch.stack([(out.labels == LABEL_GROUND).sum(),
                                        (out.labels == LABEL_NONGROUND).sum(),
@@ -177,6 +183,30 @@ class FleetStep:
         if dist.is_available() and dist.is_initialized():
             dist.all_reduce(total)
         return states, outs, FleetSummary(*total.unbind(0))
+
+    @staticmethod
+    def _batch(step, block: GridState, scan, scalars, host) -> StepOutput:
+        """The block as one batched step; its layers become the step's
+        (static, on a captured step) new ones."""
+        state, out = step.run(block, scan, scalars, np.stack([h[1] for h in host]),
+                              np.stack([h[2] for h in host]))
+        block.ground, block.groundpatch = state.ground, state.groundpatch
+        block.center, block.center_lo = state.center, state.center_lo
+        return out
+
+    @staticmethod
+    def _vehicles(step, block: GridState, scan, scalars, host) -> StepOutput:
+        """The block vehicle by vehicle, each copied in and out of the step."""
+        per_vehicle = []
+        for i, (_, center, center_lo) in enumerate(host):
+            vehicle = GridState(ground=block.ground[i], groundpatch=block.groundpatch[i],
+                                center=block.center[i], center_lo=block.center_lo[i])
+            vehicle, out = step.run(vehicle, _vehicle(scan, i), scalars[i], center, center_lo)
+            block.ground[i].copy_(vehicle.ground)
+            block.groundpatch[i].copy_(vehicle.groundpatch)
+            block.center[i], block.center_lo[i] = vehicle.center, vehicle.center_lo
+            per_vehicle.append(out)
+        return StepOutput(*(torch.stack(field) for field in zip(*per_vehicle)))
 
 
 def make_fleet_step(config: GroundGridConfig, mesh: Sequence[torch.device]) -> FleetStep:

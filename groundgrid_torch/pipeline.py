@@ -30,6 +30,16 @@ CUDA graph and replays it per scan (:class:`CapturedStep`, the port's
 each scan updates in place (the JAX step donated the state's buffers);
 :func:`make_step_fn` is the eager step, the reference it is held against.
 
+The body also runs on a batch of vehicles, a leading axis of B on every
+device tensor: (B, N, N) layers, (B, P) point rows and (B, ``SIZE``) scan
+scalars, one row a vehicle (the JAX package's ``jax.vmap`` of its step,
+the fleet's unsorted branch, ``parallel/sharding.py``). The core
+functions broadcast the scalars' (B, 1) columns and reduce along the last
+axis, and each kernel takes the batch in one launch, so each vehicle's
+outputs and state are bitwise the single step's. :class:`CapturedStep`
+captures the batched body as it does the single one: one graph, one
+replay a tick.
+
 Kernels: with ``config.use_pallas`` None or True, K1-K4 go through their
 wrappers (``groundgrid_torch/ops``), which launch the CUDA kernels for CUDA
 tensors and take the plain versions for CPU tensors; False takes the plain
@@ -62,6 +72,7 @@ from groundgrid_torch.core import rasterize as rasterlib
 from groundgrid_torch.core import scalars as scalarlib
 from groundgrid_torch.core import transforms as tf
 from groundgrid_torch.core.grid import GridState
+from groundgrid_torch.core.rasterize import take_points
 from groundgrid_torch.ops import detect as detectops
 from groundgrid_torch.ops import lookup as lookuplib
 from groundgrid_torch.ops import raster as rasterops
@@ -156,8 +167,14 @@ class Step:
     as the JAX step does: no check, no fallback, no sort. Unsorted mode
     takes that stable sort on every scan, and counts no fallback. ``marchable``
     is the last scan's count of marchable outlier candidates, before the
-    ``max_outlier_candidates`` cap. Both counts stay on the device until
-    read: reading one waits for the step.
+    ``max_outlier_candidates`` cap (a list, one a vehicle, after a batched
+    step). Both counts stay on the device until read: reading one waits
+    for the step.
+
+    :meth:`run` and :meth:`body` also step a batch of vehicles (a
+    ``GridState`` of (B, N, N) layers and (B, 2) centers, a scan block of
+    (B, P) rows, (B, ``SIZE``) scan scalars stacked from each vehicle's
+    :meth:`scalars`), each vehicle bitwise its own single step.
     """
 
     def __init__(self, config: GroundGridConfig, with_aux: bool = False):
@@ -183,8 +200,11 @@ class Step:
         return sum(int(count) for count in self._fallbacks.values())
 
     @property
-    def marchable(self) -> int:
-        return 0 if self._marchable is None else int(self._marchable)
+    def marchable(self):
+        m = self._marchable
+        if m is None:
+            return 0
+        return m.tolist() if isinstance(m, torch.Tensor) and m.dim() else int(m)
 
     def tables(self, device) -> detectlib.DetectTables:
         device = torch.device(device)
@@ -206,7 +226,8 @@ class Step:
 
     def run(self, state: GridState, scan, scalars: torch.Tensor, center, center_lo):
         """Step ``state`` in place with the shipped scan scalars (a tensor on
-        the state's device) and the host center they were made with."""
+        the state's device) and the host center they were made with; or a
+        batch of vehicles, with (B, ``SIZE``) scalars and (B, 2) centers."""
         ground, groundpatch, out, aux = self.body(state.ground, state.groundpatch,
                                                   scan_tensors(scan), scalars)
         state.ground, state.groundpatch = ground, groundpatch
@@ -218,7 +239,9 @@ class Step:
         None)`` from the layers, the scan's point tensors
         (:func:`scan_tensors`) and the scan scalars, all on one device. Its
         ops depend on the config and shapes alone and it reads nothing back,
-        so one capture serves every scan. The inputs are not modified."""
+        so one capture serves every scan. The inputs are not modified. With
+        a leading vehicle axis on every input it steps the batch, each
+        vehicle as its own single step."""
         cfg = self.config
         n2 = cfg.cell_count ** 2
         s = scalarlib.view(scalars)
@@ -248,14 +271,15 @@ class Step:
         cell = binning.cell
         order = None
         if not cfg.sorted_scans or cfg.sorted_fallback_check:
-            order = torch.argsort(cell, stable=True)
+            order = torch.argsort(cell, dim=-1, stable=True)
         if cfg.sorted_scans and cfg.sorted_fallback_check:
             if cell.device not in self._fallbacks:
                 self._fallbacks[cell.device] = torch.zeros((), dtype=torch.int64,
                                                            device=cell.device)
-            self._fallbacks[cell.device] += (cell[1:] < cell[:-1]).any()
+            unsorted = (cell[..., 1:] < cell[..., :-1]).any(-1)  # a flag a vehicle
+            self._fallbacks[cell.device] += unsorted if unsorted.dim() == 0 else unsorted.sum()
         if order is not None:
-            rb, rz, racc = binning.permute(order), z[order], accept[order]
+            rb, rz, racc = binning.permute(order), take_points(z, order), take_points(accept, order)
         raster = rasterlib.rasterize_sorted(cfg, rb, rz, racc, s, self._reduce,
                                             with_max=self.with_aux)
 
@@ -279,7 +303,8 @@ class Step:
         # non-ground count per cell (cpp:176): a K1 sum over the raster's
         # (sorted) cells, the JAX step's count kernel
         ng = (labels == classifylib.LABEL_NONGROUND).to(torch.float32)
-        (counts,) = self._reduce(rb.cell, [ng if order is None else ng[order]], ["sum"], n2)
+        (counts,) = self._reduce(rb.cell, [ng if order is None else take_points(ng, order)],
+                                 ["sum"], n2)
         aux = AuxLayers(
             points=counts.reshape(ground.shape), points_raw=raster.points_raw,
             ground=ground, groundpatch=groundpatch,
@@ -352,6 +377,11 @@ class CapturedStep:
     :func:`make_step_fn`. ``capture_seconds`` and ``pool_bytes`` (the
     memory the capture reserved for its private pool) are None until the
     capture.
+
+    The batched step is this class on a batch (:meth:`Step.run`): its
+    first :meth:`run` on a (B, ...) state, scan block and (B, ``SIZE``)
+    scalars sizes the static buffers for B vehicles, and each later call
+    is one replay for all of them (the fleet's unsorted tick).
     """
 
     def __init__(self, config: GroundGridConfig, with_aux: bool = False):
@@ -434,9 +464,9 @@ class CapturedStep:
 
     def _allocate(self, points, scalars, device) -> None:
         """The static point rows (one buffer, 32-bit rows viewed as their
-        dtypes) and scan scalars."""
+        dtypes; (B, P) rows for a batch) and scan scalars."""
         wire = points[0].dtype == torch.int16
-        rows = torch.empty((len(points), points[0].shape[0]),
+        rows = torch.empty((len(points), *points[0].shape),
                            dtype=torch.int16 if wire else torch.float32, device=device)
         self._points = tuple(row.view(p.dtype) for row, p in zip(rows.unbind(0), points))
         self._scalars = torch.empty(scalars.shape, dtype=scalars.dtype, device=device)

@@ -50,9 +50,9 @@ from groundgrid_torch.parallel.sharding import (
     shard_fleet_pytree,
     stack_fleet_pytree,
 )
-from groundgrid_torch.pipeline import CenterTracker, init_state, prepare_scan
+from groundgrid_torch.pipeline import CenterTracker, init_state, pad_scan, prepare_scan
 from groundgrid_torch.runtime.driver import ScanRecord, StreamingDriver
-from groundgrid_torch.runtime.kernel_timing import device_us
+from groundgrid_torch.runtime.kernel_timing import device_us, profiled
 
 FLEET_MIN_TICKS = 8  # a fleet tick's span varies by tens of percent between ticks
 
@@ -127,15 +127,25 @@ def device_ms_per_step(driver: StreamingDriver, records: list[ScanRecord]):
 def fleet_inputs(config: GroundGridConfig, records: list[ScanRecord], batch: int, device):
     """The fleet bench's inputs on ``device``: ``(mesh, states, scans)``.
 
-    Each record is prepared once against the stream's f64 center tracker;
-    every vehicle starts at the first record's pose, and vehicle v steps
-    the prepared scan ``v mod len(records)``.
+    Each record is prepared once against the stream's f64 center tracker
+    (sorted and cell-sorted on the host, or, for an unsorted config, padded
+    raw with the tracker's center); every vehicle starts at the first
+    record's pose, and vehicle v steps the prepared scan ``v mod
+    len(records)``.
     """
     mesh = make_mesh([device])
     positions = [np.asarray(r.t_map_velo, np.float64)[:2, 3] for r in records]
     tracker = CenterTracker(config, positions[0])
-    scans = [prepare_scan(config, r.points[:, :3], r.labels, r.t_map_velo, tracker.update(pos),
-                          "cpu")[0] for r, pos in zip(records, positions)]
+    scans = []
+    for r, pos in zip(records, positions):
+        center = tracker.update(pos)
+        if config.sorted_scans:
+            scans.append(prepare_scan(config, r.points[:, :3], r.labels, r.t_map_velo, center,
+                                      "cpu")[0])
+        else:
+            chi, clo = tracker.center_ds()
+            scans.append(pad_scan(config, r.points, r.labels, r.t_map_velo, "cpu")
+                         ._replace(center=chi, center_lo=clo))
     states = stack_fleet_pytree([init_state(config, records[0].t_map_velo, "cpu")] * batch)
     batched = stack_fleet_pytree([scans[v % len(scans)] for v in range(batch)])
     return mesh, shard_fleet_pytree(states, mesh), shard_fleet_pytree(batched, mesh)
@@ -144,7 +154,9 @@ def fleet_inputs(config: GroundGridConfig, records: list[ScanRecord], batch: int
 def run_fleet_benchmark(config: GroundGridConfig, records: list[ScanRecord], batch: int,
                         n_scans: int, warmup: int, device) -> dict:
     """Fleet throughput of ``batch`` vehicles on one CUDA device: the
-    metric line's fleet fields."""
+    metric line's fleet fields. A sorted config steps each device's
+    vehicles one by one, an unsorted one as one batch
+    (``parallel/sharding.py``)."""
     mesh, states, scans = fleet_inputs(config, records, batch, device)
     fleet = make_fleet_step(config, mesh)
     for _ in range(warmup):
@@ -175,6 +187,7 @@ def run_fleet_benchmark(config: GroundGridConfig, records: list[ScanRecord], bat
         "wall_ms_per_scan": round(wall_ms / batch, 4),
         "wall_ms_per_tick": round(wall_ms, 4),
         "fallbacks": fleet.fallbacks,
+        "batched": fleet.batched,
         "methodology": (
             "value = 1000 / device_ms_per_scan; device_ms_per_scan = mean CUDA-event "
             "span of a warm fleet tick over the batch (device waits on the host's "
@@ -273,9 +286,8 @@ def profile_steps(n_steps: int = 8, device="cuda") -> str:
         driver.process(rec)
     scans = [driver.make_scan(rec)[0] for rec in records[2:]]
     torch.cuda.synchronize(device)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiled() as prof:
         state = driver.state
         start.record()
         for scan in scans:

@@ -8,12 +8,37 @@ runs that phase in several source trees, in turns.
 
 from __future__ import annotations
 
+import sys
+import time
+from contextlib import contextmanager
+
 import torch
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside
 # the tensor cores (per millisecond below)
 HBM_BYTES_PER_MS = 3.35e9
 F32_FLOPS_PER_MS = 67e9
+
+# torch.profiler keeps only the device activities whose timestamps lie inside
+# its window on the host's clock, and the card's clock can sit milliseconds
+# off it: an idle pad on each side of the window keeps a short window's
+# launches inside, and a window that kept none of them is run again
+PAD_S = 0.02
+ATTEMPTS = 3
+
+
+@contextmanager
+def profiled():
+    """A ``torch.profiler`` window over CPU and CUDA activity, padded on
+    each side by PAD_S of an idle card; the body's work is synchronized
+    before the window closes."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PAD_S)
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -47,21 +72,24 @@ def device_ms(fn, reps: int, name: str | None = None,
     kernels, copies, sets, if None) and divides by the calls the profiler
     kept, counted as the launches of kernel ``per`` (or ``name``),
     ``per_call`` per call, else taken as ``reps``. The profiler can drop a launch of a long
-    kernel from its window (K3's global-band kernel: 4 of 5 kept). Raises
-    if it kept none.
+    kernel from its window (K3's global-band kernel: 4 of 5 kept). A window
+    that kept none is run again; raises if ATTEMPTS windows kept none.
     """
     fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, seen = device_us(prof, name)
     count = per or name
-    calls = device_us(prof, count)[1] / per_call if count else reps
-    if not seen or not calls:
-        raise RuntimeError(f"torch.profiler recorded no device activity named {count!r}")
+    for attempt in range(1, ATTEMPTS + 1):
+        with profiled() as prof:
+            for _ in range(reps):
+                fn()
+        us, seen = device_us(prof, name)
+        calls = device_us(prof, count)[1] / per_call if count else reps
+        if seen and calls:
+            break
+        print(f"torch.profiler kept no device activity named {count!r} in window {attempt} "
+              f"of {ATTEMPTS} ({device_us(prof)[1]} device activities in all)", file=sys.stderr)
+    else:
+        raise RuntimeError(f"torch.profiler recorded no device activity named {count!r} in "
+                           f"{ATTEMPTS} windows")
     if calls > reps:
         raise RuntimeError(f"torch.profiler recorded {calls * per_call} launches of {count!r} in "
                            f"{reps} calls")

@@ -633,7 +633,9 @@ def _small_fleet_streams(n_vehicles, n_scans):
 @pytest.mark.parametrize("sorted_scans", [True, False])
 def test_fleet_on_card_matches_streaming(cuda, sorted_scans):
     """The fleet on the card equals one StreamingDriver per vehicle on the
-    card, bitwise; each tick launches K1 x1, K2 x3 and K3 x1 per vehicle."""
+    card, bitwise; each tick launches K1 x1, K2 x3 and K3 x1 per vehicle
+    (sorted), or once each for the whole batch (unsorted: one batched step,
+    captured from the second tick on)."""
     from groundgrid_torch.runtime.driver import StreamingDriver
     from groundgrid_torch.runtime.fleet import FleetDriver
 
@@ -642,10 +644,13 @@ def test_fleet_on_card_matches_streaming(cuda, sorted_scans):
     streams = _small_fleet_streams(4, 3)
     fleet = FleetDriver(cfg, batch=4, device=cuda)
     ticks = []
+    per = 4 if sorted_scans else 1
     for k in range(3):
         reset_launch_counts()
         ticks.append(fleet.process([s[k] for s in streams]))
-        assert launch_counts() == {"raster": 4, "lookup": 12, "spiral": 4, "detect": 0}
+        assert launch_counts() == {"raster": per, "lookup": 3 * per, "spiral": per,
+                                   "detect": 0}
+    assert fleet.step.steps[0].captured
     for v, stream in enumerate(streams):
         driver = StreamingDriver(cfg, device=cuda)
         for k, rec in enumerate(stream):
@@ -684,6 +689,60 @@ def test_warm_step_makes_no_sync(cuda, sorted_scans, check):
         torch.cuda.set_sync_debug_mode("default")
     assert fleet.fetch(tick).ground_points > 0
     assert driver.step.fallbacks == fleet.step.fallbacks == 0
+
+
+@pytest.mark.parametrize("dimension,resolution,b", [
+    (12.0, 0.5, 1), (40.0, 0.5, 3), (120.0, 0.33, 4), (241.6, 0.1, 2)])
+def test_batched_kernels_match_single_launches(cuda, dimension, resolution, b):
+    """K1, K2, K3 and K4 on a batch of ``b`` grids (n = 24, 80, 364 and
+    2416, the global-band K3, launched once a grid): each vehicle bitwise
+    its single launch; K3 also against its plain batched walk (confidence
+    bitwise, heights atol 2e-5 / rtol 1e-5)."""
+    cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
+    n, n2 = cfg.cell_count, cfg.cell_count ** 2
+    rng = np.random.default_rng(n + b)
+    p = 4096
+    cell = np.stack([_sorted_cells(rng, p, n2) for _ in range(b)])
+    cell[-1] = n2  # a vehicle with every id in the overflow bin
+    cell = torch.from_numpy(cell).to(cuda)
+    cols = [torch.from_numpy(rng.normal(size=(b, p)).astype(np.float32)).to(cuda)
+            for _ in range(3)]
+    ops = ["sum", "min", "max"]
+    tabs = [torch.from_numpy(rng.normal(size=(b, n, n)).astype(np.float32)).to(cuda)
+            for _ in range(2)]
+    ground, conf = _spiral_layers(n, cuda)
+    ground = torch.stack([ground + 0.1 * v for v in range(b)])
+    conf = torch.stack([conf.roll(v, 0) for v in range(b)])
+    base_z = torch.from_numpy(rng.normal(0.2, 0.3, b).astype(np.float32)).to(cuda)
+    reset_launch_counts()
+    got_r = raster.raster_reduce(cell, cols, ops, n2)
+    got_l = lookup.lookup(cell, tabs, n2)
+    got_s = spiral.spiral_interpolation(cfg, ground.clone(), conf.clone(), base_z)
+    counts = launch_counts()
+    assert counts["raster"] == counts["lookup"] == 1
+    assert counts["spiral"] == (1 if spiral.spiral_variant(n) == "band" else b)
+    for v in range(b):
+        for g, w in zip(got_r, raster.raster_reduce(cell[v], [c[v] for c in cols], ops, n2)):
+            assert torch.equal(g[v].view(torch.int32), w.view(torch.int32))
+        for g, w in zip(got_l, lookup.lookup(cell[v], [t[v] for t in tabs], n2)):
+            assert torch.equal(g[v].view(torch.int32), w.view(torch.int32))
+        single = spiral.spiral_interpolation(cfg, ground[v].clone(), conf[v].clone(), base_z[v])
+        for g, w in zip(got_s, single):
+            assert torch.equal(g[v].view(torch.int32), w.view(torch.int32))
+    if n <= 364:
+        g_p, c_p = spiral.spiral_interpolation_plain(cfg, ground.clone(), conf.clone(), base_z)
+        assert torch.equal(got_s[1], c_p)
+        torch.testing.assert_close(got_s[0], g_p, atol=2e-5, rtol=1e-5)
+        tables = make_tables(cfg, cuda)
+        layers = [torch.from_numpy(np.stack(arrs)).to(cuda) for arrs in
+                  zip(*(detect_layers(n, seed) for seed in range(b)))]
+        got_d = detect.detect_fused(cfg, tables, *layers)
+        for g, w in zip(got_d, detect.detect_fused_plain(cfg, tables, *layers)):
+            assert torch.equal(g, w)
+        for v in range(b):
+            single = detect.detect_fused(cfg, tables, *(t[v] for t in layers))
+            for g, w in zip(got_d, single):
+                assert torch.equal(g[v].view(torch.int32), w.view(torch.int32))
 
 
 def test_run_benchmark_fleet_smoke(cuda):

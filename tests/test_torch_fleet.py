@@ -5,7 +5,10 @@ Eight vehicles, each on its own synthetic stream, on an 8-entry CPU mesh
 the port's ``FleetDriver`` equals 8 of the port's ``StreamingDriver`` s
 bitwise, sorted and unsorted and at the half-cell snap tie, and agrees with
 the JAX ``FleetDriver`` on its 8-device mesh on >= 99.9 % of labels, the bar
-``tests/test_torch_pipeline.py`` holds the step to.
+``tests/test_torch_pipeline.py`` holds the step to. The unsorted fleet
+steps each device's block as one batch: the ``unsorted-16`` case runs 16
+vehicles on ``["cpu"] * 2`` (8 a block) against the JAX ``FleetDriver(
+batch=16)``, 2 vehicles a device of its ``jax.vmap`` branch.
 """
 
 import dataclasses
@@ -36,11 +39,11 @@ TINY = dict(dimension=24.0, resolution=0.5, max_points=4096, ray_steps=28,
             max_outlier_candidates=256)
 
 
-def _sequences(seed0, cls=ScanRecord, n_scans=2):
+def _sequences(seed0, cls=ScanRecord, n_scans=2, n_vehicles=N_VEHICLES):
     """One 2-scan synthetic stream per vehicle (seed ``seed0 + v``), as the
     JAX fleet tests build them."""
     sequences = []
-    for v in range(N_VEHICLES):
+    for v in range(n_vehicles):
         recs = []
         for k, (pts, lbl, T) in enumerate(
                 synthetic_sequence(n_scans, seed=seed0 + v, n_beams=8, n_azimuth=128)):
@@ -51,21 +54,25 @@ def _sequences(seed0, cls=ScanRecord, n_scans=2):
     return sequences
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["sorted", "unsorted"])
+@pytest.fixture(scope="module", params=[(True, N_VEHICLES, MESH), (False, N_VEHICLES, MESH),
+                                        (False, 16, ["cpu"] * 2)],
+                ids=["sorted", "unsorted", "unsorted-16"])
 def fleet_run(request):
-    """Both fleets and the per-vehicle streaming runs over the same streams."""
-    sorted_scans = request.param
+    """Both fleets and the per-vehicle streaming runs over the same streams:
+    ``batch`` vehicles on the port's ``mesh``, on the JAX package's 8
+    devices."""
+    sorted_scans, batch, mesh = request.param
     cfg = GroundGridConfig(**TINY, sorted_scans=sorted_scans)
     seed0 = 40 if sorted_scans else 20
-    sequences = _sequences(seed0)
-    fleet = FleetDriver(cfg, batch=N_VEHICLES, mesh=MESH)
+    sequences = _sequences(seed0, n_vehicles=batch)
+    fleet = FleetDriver(cfg, batch=batch, mesh=mesh)
     ticks = list(fleet.run(sequences))
     streams = []
     for recs in sequences:
         driver = StreamingDriver(cfg, device="cpu")
         streams.append([driver.process(r) for r in recs])
-    jfleet = JFleetDriver(JConfig(**TINY, sorted_scans=sorted_scans), batch=len(jax.devices()))
-    jticks = list(jfleet.run(_sequences(seed0, JRecord)))
+    jfleet = JFleetDriver(JConfig(**TINY, sorted_scans=sorted_scans), batch=batch)
+    jticks = list(jfleet.run(_sequences(seed0, JRecord, n_vehicles=batch)))
     return fleet, ticks, streams, jticks
 
 
@@ -74,9 +81,10 @@ def test_fleet_matches_streaming(fleet_run):
     counts the fleet's own labels."""
     fleet, ticks, streams, _ = fleet_run
     assert len(ticks) == 2
+    assert fleet.step.batched == (not fleet.config.sorted_scans)
     for k, tick in enumerate(ticks):
-        assert tick.labels.shape == (N_VEHICLES, fleet.config.max_points)
-        for v in range(N_VEHICLES):
+        assert tick.labels.shape == (fleet.batch, fleet.config.max_points)
+        for v in range(fleet.batch):
             res = streams[v][k]
             assert tick.n_points[v] == res.n_points
             np.testing.assert_array_equal(tick.labels[v][:res.n_points], res.labels)
@@ -89,8 +97,9 @@ def test_fleet_matches_streaming(fleet_run):
 
 def test_fleet_matches_jax(fleet_run):
     """The port's fleet against the JAX FleetDriver on its 8-device mesh."""
-    _, ticks, _, jticks = fleet_run
+    fleet, ticks, _, jticks = fleet_run
     assert len(jax.devices()) == N_VEHICLES and len(jticks) == len(ticks)
+    assert fleet.states[0].ground.shape[0] == fleet.batch // len(fleet.mesh)
     total = mism = 0
     for tick, jtick in zip(ticks, jticks):
         assert jtick.labels.shape == tick.labels.shape
