@@ -27,7 +27,12 @@ Phases (any failure raises and exits non-zero, printing no result):
    ``HIGHRES_CONFIG`` fused-detect driver warmed on 4 scans, and random
    layers at n = 12 and 45, one seed with low variance so that the main
    update fires: ground and confidence bitwise, two runs bitwise; timed at
-   both grid sizes). K3's ring ranges (``spiral_interpolation_rings``) at
+   both grid sizes), K5 bin_points (a prepared scan: the six outputs
+   bitwise, and the cell ids bitwise the host prep's), K6 march_budget and
+   K7 march (a warm scan's budgets, keys and top-k candidates, as the step
+   builds them by the plain versions; bitwise, and on the scan twice over,
+   262,144 points, the exact-budget key); each of K4-K7 two runs bitwise.
+   K3's ring ranges (``spiral_interpolation_rings``) at
    364^2 and 1200^2 (warm states, ``HIGHRES_CONFIG`` for the latter) and at
    n = 2416 (the global band, random layers): the bands of S = 2 and 8 in
    order bitwise one full launch, one band against its plain version (the
@@ -38,18 +43,19 @@ Phases (any failure raises and exits non-zero, printing no result):
    call (CUDA events around back-to-back calls), the plain version's, the
    least time the card could take (the bytes this run's inputs need over
    3.35 TB/s or its f32 operations over 67 TFLOP/s: K2 reads only the
-   distinct cells its ids name) and, for K2, one ``torch.index_select``
+   distinct cells its ids name, K7 counts the live steps up to each
+   candidate's first hit) and, for K2, one ``torch.index_select``
    over the stacked tables, timed in turns with the kernel (no one PyTorch
    call computes K1, K3 or K4). Then the batched launches of the unsorted
    fleet (``check_batched``): K1, K2 (the points' 2 tables and the march
-   lattice's 1), K3 and K4 on a batch of 64 vehicles at 364^2 (8 warm
+   lattice's 1), K3-K7 on a batch of 64 vehicles at 364^2 (8 warm
    scans cycled, each vehicle's layers made distinct), each bitwise its
    64 single launches and against its plain batched version (K3 at its
    bounds above); the batched launch's device ms against the 64 single
    launches' summed device ms, both calls' CUDA-event ms, the plain
    batched call's ms and the bound of the batch's work.
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
-   synthetic scans: per-scan launch counts (K1 x1, K2 x3, K3 x1; a replay
+   synthetic scans: per-scan launch counts (K1, K3, K5-K7 x1, K2 x2; a replay
    of the captured step adds the launches its capture recorded), no
    sortedness fallback, every step after the first (every replay) under
    ``torch.cuda.set_sync_debug_mode("error")`` (no device-to-host read),
@@ -60,8 +66,8 @@ Phases (any failure raises and exits non-zero, printing no result):
    ground-vs-truth recall/precision, ms/scan from CUDA events.
 4. The layer-publishing wire path, ``StreamingDriver(GroundGridConfig(
    sorted_scans=True, wire_format=True, fused_detect=True), with_aux=True)``
-   over the first 16 scans: per-scan launch counts (K1 x2, K2 x3, K3 x1,
-   K4 x1), no fallback, labels against the plain-version run (>= 99.9 %)
+   over the first 16 scans: per-scan launch counts (K1 x2, K2 x2, K3-K7
+   x1), no fallback, labels against the plain-version run (>= 99.9 %)
    with the points, points_raw, min and max layers bitwise, all 11 layers
    finite, a second kernel run bitwise equal, a checkpoint after scan 8
    (``save_state`` / ``load_state`` / ``restore``) whose resumed scans 9-16
@@ -78,14 +84,14 @@ Phases (any failure raises and exits non-zero, printing no result):
    ``playback --native-loader --pipeline-depth 2`` with layer and HTML
    exports. The C++ loaders must be native; (a)-(d) and the resumed (f)
    print the same statistics block and metrics; (e) is within 0.1 pt of (a)
-   on F1 and IoUg; per scan K1 x1 (x2 for (g)), K2 x3, K3 x1 and no
+   on F1 and IoUg; per scan K1 x1 (x2 for (g)), K2 x2, K3, K5-K7 x1 and no
    sortedness fallback; (g) writes 11 layer PNGs per exported scan and the
    player. Prints ms/scan per variant (the payload's and CUDA events around
    the call) and the host prep p50 of NumPy against the native loader.
 6. Unsorted mode at the config default, ``StreamingDriver(GroundGridConfig())``
    (364^2, 131072 points, raw scans transformed and stable-sorted on the
-   device) over the 32 scans of phase 3: per-scan launch counts (K1 x1, K2
-   x3, K3 x1), the sync check and the host-read step as in phase 3, labels
+   device) over the 32 scans of phase 3: per-scan launch counts (as phase
+   3), the sync check and the host-read step as in phase 3, labels
    against the plain-version run over the first 8 scans
    (the plain K3 takes over a second a scan; >= 99.9 %) and against phase
    3's sorted labels over all 32 (>= 99.9 %, the JAX package's sorted-vs-
@@ -106,8 +112,8 @@ Phases (any failure raises and exits non-zero, printing no result):
    < 2e-3 label mismatch).
 9. BASELINE.json config 5, the fleet: ``FleetDriver(GroundGridConfig(
    sorted_scans=True), batch=64, device)`` for 4 ticks, vehicle v on phase
-   3's records from record v mod 32 (backward for v >= 32): per tick K1 x64,
-   K2 x192, K3 x64, the step of ticks 2-4 under the sync check (host prep
+   3's records from record v mod 32 (backward for v >= 32): per tick K1,
+   K3, K5-K7 x64, K2 x128, the step of ticks 2-4 under the sync check (host prep
    and the tick's one fetch outside), the summary equal to the fetched
    labels' counts; every vehicle's labels and outliers (the fleet's one
    captured vehicle step) bitwise those of an eager ``StreamingDriver``
@@ -118,8 +124,8 @@ Phases (any failure raises and exits non-zero, printing no result):
    events around the tick, host prep and fetch included) and the bench's
    metric line. Then the unsorted fleet (``phase_fleet_unsorted``), the
    default ``GroundGridConfig()`` with 64 vehicles on the same streams,
-   stepped as one batched body captured as one graph a tick: per tick K1
-   x1, K2 x3, K3 x1, ticks 2-4 under the sync check, the summary, ms per
+   stepped as one batched body captured as one graph a tick: per tick K1,
+   K3, K5-K7 x1, K2 x2, ticks 2-4 under the sync check, the summary, ms per
    tick with host prep and fetch, the capture's seconds and pool bytes;
    labels, outliers and the final state bitwise 64 single captured
    unsorted steps (the same fleet vehicle by vehicle, one replay per
@@ -133,8 +139,8 @@ Phases (any failure raises and exits non-zero, printing no result):
    over an in-process mesh on the one card, sorted scans with their
    centers, both spiral modes: (a) ``HIGHRES_CONFIG`` (1200^2) over
    ``["cuda:0"] * 8``, (b) the default 364^2 over ``["cuda:0"] * 4``, each
-   over the first 8 scans. The eager ``SpatialStep``: launches per scan K1
-   x S, K2 x 3S, K3 x S, steps 2-8 under the sync check, banded ==
+   over the first 8 scans. The eager ``SpatialStep``: launches per scan K1,
+   K3, K5-K7 x S, K2 x 2S, steps 2-8 under the sync check, banded ==
    replicated bitwise (labels, outliers, ground, groundpatch), a second run
    of each bitwise the first, against the single-grid ``Step`` over the
    same scans labels >= 99.95 %, ground atol 2e-4 / rtol 1e-4, groundpatch
@@ -164,6 +170,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    Then in turns (eager, captured, captured, eager), by CUDA events: phase
    3's ms per scan, the streaming bench's device ms per scan
    (``bench.device_ms_per_step``), the device busy share of 8 warm steps
+   and the eager step's device ms and launches per stage
    (``bench.profile_steps``), ``bench --batch 64``
    (``bench.run_fleet_benchmark``); sorted against unsorted ms per scan on
    the captured step (sorted, unsorted, unsorted, sorted). Each captured
@@ -340,31 +347,46 @@ def check_raster(config, driver, rec):
     return rec, cell
 
 
-def march_lattice(config, driver, rec):
-    """The flat cell ids the occlusion march hands K2 on scan ``rec`` from the
-    driver's state, one lattice per chunk of candidates, as the step builds
-    them: an eager step on a copy of the state, its K2 calls recorded (the
-    march's are the ones not over the scan's points)."""
-    from groundgrid_torch.core.grid import GridState
+def march_inputs(config, driver, rec):
+    """The march's inputs on scan ``rec`` from the driver's warm state, as
+    the step builds them, by the plain versions: the prepared scan, its scan
+    scalars and binning, the moved layers, ``old_h``, the budgets and keys,
+    the top-k candidates and the occlusion key table."""
+    from groundgrid_torch.core import grid as gridlib
+    from groundgrid_torch.core import outliers
     from groundgrid_torch.ops import lookup
-    from groundgrid_torch.pipeline import make_step_fn
 
-    scan, _ = driver.make_scan(rec)
-    step = make_step_fn(config)
-    calls = []
+    scan, s, binning, _ = prepared(config, driver, rec)
+    ground, conf = gridlib.move(config, driver.state.ground, driver.state.groundpatch, s)
+    (old_h,) = lookup.lookup_plain(binning.cell, [ground], config.cell_count ** 2)
+    budget, key = outliers.march_budget(config, s, binning, scan.px, scan.py, scan.pz, old_h)
+    k = min(config.max_outlier_candidates, scan.px.shape[-1])
+    return {"scan": scan, "s": s, "binning": binning, "ground": ground, "conf": conf,
+            "old_h": old_h, "budget": budget, "key": key,
+            "pidx": torch.topk(key, k, dim=-1, sorted=False).indices,
+            "table": outliers.occlusion_key_table(config, ground, conf)}
+
+
+def march_lattice(config, driver, rec):
+    """The flat cell ids the plain march hands K2 on scan ``rec`` from the
+    driver's state, one lattice per chunk of candidates: the plain march
+    (``core/outliers.py march``) over :func:`march_inputs`, its K2 calls
+    recorded. (The step's march is K7, which reads the keys itself.)"""
+    from groundgrid_torch.core import outliers
+    from groundgrid_torch.ops import lookup
+
+    x = march_inputs(config, driver, rec)
+    scan, calls = x["scan"], []
 
     def keep(cell, tables, n):
         calls.append(cell.clone())
         return lookup.lookup_plain(cell, tables, n)
 
-    step._lookup = keep
-    state = driver.state
-    step(GridState(state.ground.clone(), state.groundpatch.clone(), state.center.clone(),
-                   state.center_lo.clone()), scan)
-    lattices = [cell for cell in calls if cell.shape[0] != config.max_points]
-    if not lattices:
+    outliers.march(config, x["s"], x["table"], x["pidx"], scan.px, scan.py, scan.pz,
+                   x["budget"], keep)
+    if not calls:
         raise AssertionError("the march made no lookup on the warm scan")
-    return lattices
+    return calls
 
 
 def check_lookup_march(config, driver, rec):
@@ -726,6 +748,151 @@ def check_detect(config, driver, rec, records):
     return out
 
 
+# f32 operations (adds, subtracts, multiplies, divides, square roots,
+# floors) of the fused kernels, counted from csrc/exactf32.cuh: two_sum 6,
+# split 4, two_prod 17, ds_add 14, ds_add_f32 13, two_prod_int_const 14,
+# ds_bin 87 (and 8 for the splits of the resolution a thread), sumsq3_ds
+# 79, sqrt_rn_ds 180, div_rn 123, the ray (3 differences, sumsq3_ds,
+# sqrt_rn_ds) 262
+BIN_FLOPS = 2 * 87 + 8 + 5  # a point: both axes, the splits, the squared distance
+BUDGET_FLOPS = 1 + 262 + 1 + 123  # a point: old_h - 0.2, the ray, its square, vz
+MARCH_RAY_FLOPS = 262 + 3 * 123 + 8  # a candidate: its ray, 3 directions, the splits
+MARCH_STEP_FLOPS = 1 + 4 + 2 * 87 + 3  # a live step: step^2, the sample, its cells, thr
+
+
+def host_packed(config, driver, scan):
+    """The (SIZE,) f32 scan scalars of ``scan`` against the driver's state, on the host."""
+    from groundgrid_torch.pipeline import scan_scalars as host_scalars
+
+    return host_scalars(config, driver.state.center_np, driver.state.center_lo_np, scan)[0]
+
+
+def march_work(config, s, table, pidx, x, y, z, budget):
+    """What the march must evaluate on these inputs (one vehicle): the live
+    steps of every candidate up to its first hit (``any`` stops there), and
+    the distinct cells whose keys those steps read. The lattice of the plain
+    march (``core/outliers.py march``), unchunked."""
+    from groundgrid_torch.core import exactf32, outliers
+    from groundgrid_torch.core import rasterize as rasterlib
+    from groundgrid_torch.core import scalars as scalarlib
+
+    n = config.cell_count
+    g = [scalarlib.grid(v) for v in (s.ox, s.oy, s.oz, s.sh0, s.sl0, s.sh1, s.sl1)]
+    dx, dy, dz, clen = outliers._ray(x[pidx], y[pidx], z[pidx], s)
+    vx, vy, vz = (exactf32.div_rn(d, clen)[None, :] for d in (dx, dy, dz))
+    steps = torch.arange(3, config.ray_steps, dtype=torch.float32, device=x.device)[:, None]
+    live = steps * steps < budget[pidx][None, :]
+    i0, i1 = rasterlib.ds_cells(config, *g[3:], g[0] + steps * vx, g[1] + steps * vy)
+    inside = (i0 > 0) & (i1 > 0) & (i0 < n - 1) & (i1 < n - 1)
+    flat = torch.clamp(i0, 0, n - 1) * n + torch.clamp(i1, 0, n - 1)
+    keys = outliers._u32_bits(table.reshape(-1)[flat.reshape(-1)]).reshape(flat.shape)
+    thr = outliers._mono_u32((steps * vz + g[2]) + float(np.float32(config.outlier_tolerance)))
+    hit = live & inside & (keys >= thr)
+    rank = torch.arange(steps.shape[0], device=x.device)[:, None]
+    first = torch.where(hit.any(0), hit.to(torch.int32).argmax(0), steps.shape[0])
+    needed = live & (rank <= first[None, :])
+    read = flat[needed & inside]
+    return {"steps": int(needed.sum()), "live_steps": int(live.sum()),
+            "cells_read": int(torch.unique(read).numel()), "hits": int(hit.any(0).sum())}
+
+
+def check_binning(config, driver, rec):
+    """K5 on a prepared scan (131,072 points) against its plain version on
+    the card and the host prep's ids (the plain version on the CPU):
+    bitwise, two runs bitwise; its times and bound (reads x, y, the ring
+    and the valid flag, writes the six outputs: 31 bytes a point)."""
+    from groundgrid_torch.core import scalars as scalarlib
+    from groundgrid_torch.ops import binning
+
+    scan, s, want, _ = prepared(config, driver, rec)
+    args = (config, s, scan.px, scan.py, scan.rings, scan.valid > 0)
+    got, again = binning.bin_points(*args), binning.bin_points(*args)
+    for field, g, a, w in zip(want._fields, got, again, want):
+        if not bitwise(g, w):
+            raise AssertionError(f"K5 {field} differs from the plain version in "
+                                 f"{int((g != w).sum())} points")
+        if not bitwise(a, g):
+            raise AssertionError(f"K5 {field}: two runs not bitwise equal")
+    host = binning.bin_points_plain(config, scalarlib.view(torch.from_numpy(
+        host_packed(config, driver, scan))), *(t.cpu() for t in args[2:]))
+    if not bitwise(host.cell, got.cell):
+        raise AssertionError("K5 cell ids differ from the host prep's")
+    p = scan.px.shape[0]
+    rec = {"max_abs_err": 0.0, "library_ms": None}
+    rec.update(kernel_times(lambda: binning.bin_points(*args), 100, "binning_kernel",
+                            lambda: binning.bin_points_plain(*args), 20))
+    rec.update(bound(31 * p, BIN_FLOPS * p))
+    log(f"K5 bin_points: {p} points ({int(got.inmap.sum())} in the map): bitwise the plain "
+        f"version and the host prep's ids, two runs bitwise; device {rec['device_ms']:.4f} ms "
+        f"(wrapper {rec['wrapper_device_ms']:.4f} ms), call {rec['call_ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    return rec
+
+
+def check_march(config, driver, rec):
+    """K6 and K7 on a warm scan against their plain versions, bitwise, two
+    runs bitwise; K6 also on the scan twice over (262,144 points: the
+    exact-budget key) and K7 on its candidates. Times and bounds: K6 moves
+    30 bytes a point; K7 reads the candidates (index, x, y, z, budget: 24
+    bytes each) and the keys of the cells its steps read, writes the (P,)
+    flags, and evaluates the live steps up to each candidate's first hit
+    (:func:`march_work`). Returns the two records."""
+    from groundgrid_torch.core.rasterize import Binning
+    from groundgrid_torch.ops import march
+
+    x = march_inputs(config, driver, rec)
+    scan, s, b = x["scan"], x["s"], x["binning"]
+    pts = (scan.px, scan.py, scan.pz)
+    budget_args = (config, s, b, *pts, x["old_h"])
+    march_args = (config, s, x["table"], x["pidx"], *pts, x["budget"])
+    for run in range(2):
+        got = march.march_budget(*budget_args)
+        if not (bitwise(got[0], x["budget"]) and bitwise(got[1], x["key"])):
+            raise AssertionError(f"K6 (run {run + 1}) differs from the plain version")
+    want = march.march_plain(*march_args)
+    for run in range(2):
+        got = march.march(*march_args)
+        if not bitwise(got, want):
+            raise AssertionError(f"K7 (run {run + 1}) differs from the plain version in "
+                                 f"{int((got != want).sum())} points")
+    # the exact-budget key: the scan twice over
+    two = Binning(*(torch.cat([t, t]) for t in b))
+    big = [torch.cat([t, t]) for t in (*pts, x["old_h"])]
+    got = march.march_budget(config, s, two, *big)
+    plain = march.march_budget_plain(config, s, two, *big)
+    if not (bitwise(got[0], plain[0]) and bitwise(got[1], plain[1])):
+        raise AssertionError("K6 on 262,144 points differs from the plain version")
+    pidx = torch.topk(plain[1], config.max_outlier_candidates, sorted=False).indices
+    big_args = (config, s, x["table"], pidx, *big[:3], plain[0])
+    if not bitwise(march.march(*big_args), march.march_plain(*big_args)):
+        raise AssertionError("K7 on 262,144 points differs from the plain version")
+
+    p, k = scan.px.shape[0], x["pidx"].shape[0]
+    k6 = {"max_abs_err": 0.0, "library_ms": None}
+    k6.update(kernel_times(lambda: march.march_budget(*budget_args), 100, "march_budget_kernel",
+                           lambda: march.march_budget_plain(*budget_args), 20))
+    k6.update(bound(30 * p, BUDGET_FLOPS * p))
+    work = march_work(config, s, x["table"], x["pidx"], *pts, x["budget"])
+    if work["hits"] != int(want.sum()):
+        raise AssertionError(f"march_work counts {work['hits']} hits, the march {int(want.sum())}")
+    k7 = {"max_abs_err": 0.0, "library_ms": None, **work,
+          "marchable": int((x["budget"] > 0).sum()), "candidates": k}
+    k7.update(kernel_times(lambda: march.march(*march_args), 100, "march_kernel",
+                           lambda: march.march_plain(*march_args), 10))
+    k7.update(bound(24 * k + 4 * work["cells_read"] + 4 * p,
+                    MARCH_RAY_FLOPS * k + MARCH_STEP_FLOPS * work["steps"]))
+    log(f"K6 march_budget: {p} points ({k7['marchable']} marchable): bitwise the plain "
+        f"version (and at {2 * p} points, the scan twice over), two runs bitwise; device "
+        f"{k6['device_ms']:.4f} ms, call {k6['call_ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms, "
+        f"bound {k6['bound_ms']:.5f} ms ({k6['bound_by']})")
+    log(f"K7 march: {k} candidates ({k7['marchable']} marchable, {work['hits']} hit), "
+        f"{work['steps']} steps to evaluate of {work['live_steps']} live, {work['cells_read']} "
+        f"cells read: bitwise the plain version (and at {2 * p} points), two runs bitwise; "
+        f"device {k7['device_ms']:.4f} ms, call {k7['call_ms']:.4f} ms, plain "
+        f"{k7['plain_ms']:.4f} ms, bound {k7['bound_ms']:.5f} ms ({k7['bound_by']})")
+    return k6, k7
+
+
 def batched_inputs(config, driver, records, b):
     """Phase 2's batch of ``b`` vehicles at the main path's shapes: the
     prepared scans of ``records`` (cycled) against the driver's warm state,
@@ -744,7 +911,9 @@ def batched_inputs(config, driver, records, b):
                                             raster.raster_reduce)
         moved = gridlib.move(config, driver.state.ground, driver.state.groundpatch, s)
         per_scan.append((binning.cell, cols, (layers.points, layers.variance,
-                                              layers.min_ground_height, *moved), s.base_z))
+                                              layers.min_ground_height, *moved), s.base_z,
+                         (scan.px, scan.py, scan.pz, scan.rings, scan.valid > 0),
+                         host_packed(config, driver, scan)))
     pick = [per_scan[v % len(per_scan)] for v in range(b)]
     offset = torch.arange(b, dtype=torch.float32, device=driver.device)[:, None, None] * 1e-3
     ground, conf = driver.state.ground, driver.state.groundpatch
@@ -757,6 +926,8 @@ def batched_inputs(config, driver, records, b):
         "base_z": torch.stack([p[3] for p in pick]) + offset[:, 0, 0] * 10.0,
         "detect": [torch.stack([p[2][j] for p in pick]) + (offset if j == 3 else 0.0)
                    for j in range(5)],
+        "points": [torch.stack([p[4][j] for p in pick]) for j in range(5)],
+        "scalars": torch.from_numpy(np.stack([p[5] for p in pick])).to(driver.device),
     }
 
 
@@ -885,8 +1056,84 @@ def check_batched(config, driver, records, b=None):
         lambda: [detect.detect_fused(config, tabs, *(t[v] for t in layers)) for v in range(b)],
         lambda: detect.detect_fused_plain(config, tabs, *layers), "detect_kernel", b,
         ins + b * 2 * 4 * n2, b * flops))
-    log(f"batched kernels, B = {b} at {n}^2: K1, K2 (points and march lattice), K3 and K4 "
-        f"each bitwise its {b} single launches and against its plain batched version")
+    out.update(check_batched_fused(config, x, b))
+    log(f"batched kernels, B = {b} at {n}^2: K1, K2 (points and march lattice), K3, K4, K5, "
+        f"K6 and K7 each bitwise its {b} single launches and against its plain batched version")
+    return out
+
+
+def check_batched_fused(config, x, b):
+    """K5, K6 and K7 on the batch of :func:`batched_inputs` (each vehicle
+    its scan, scan scalars and moved layers), each bitwise its ``b`` single
+    launches and its plain batched version; timed against the single
+    launches (``batched_times``)."""
+    from groundgrid_torch.core import outliers
+    from groundgrid_torch.core import scalars as scalarlib
+    from groundgrid_torch.core.rasterize import Binning
+    from groundgrid_torch.ops import binning, lookup, march
+
+    n2 = config.cell_count ** 2
+    sb = scalarlib.view(x["scalars"])
+    rows = [scalarlib.view(x["scalars"][v]) for v in range(b)]
+    px, py, pz, rings, valid = x["points"]
+    ground, conf = x["detect"][3], x["detect"][4]
+    p, out = px.shape[-1], {}
+
+    def row(t, v):
+        return Binning(*(f[v] for f in t)) if isinstance(t, Binning) else t[v]
+
+    def check(name, got, want, single):
+        got, want = (got,) if isinstance(got, torch.Tensor) else got, (
+            (want,) if isinstance(want, torch.Tensor) else want)
+        if not all(bitwise(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} batched differs from its plain batched version")
+        for v in range(b):
+            s1 = single(v)
+            s1 = (s1,) if isinstance(s1, torch.Tensor) else s1
+            if not all(bitwise(g[v], w) for g, w in zip(got, s1)):
+                raise AssertionError(f"{name} batched: vehicle {v} differs from its single launch")
+
+    bin_args = (config, sb, px, py, rings, valid)
+    bins = binning.bin_points(*bin_args)
+    check("K5", bins, binning.bin_points_plain(*bin_args),
+          lambda v: binning.bin_points(config, rows[v], px[v], py[v], rings[v], valid[v]))
+    out["bin"] = dict(max_abs_err=0.0, **batched_times(
+        "K5 bin_points", lambda: binning.bin_points(*bin_args),
+        lambda: [binning.bin_points(config, rows[v], px[v], py[v], rings[v], valid[v])
+                 for v in range(b)],
+        lambda: binning.bin_points_plain(*bin_args), "binning_kernel", b, 31 * p * b,
+        BIN_FLOPS * p * b))
+
+    (old_h,) = lookup.lookup(bins.cell, [ground], n2)
+    budget_args = (config, sb, bins, px, py, pz, old_h)
+    budget, key = march.march_budget(*budget_args)
+    check("K6", (budget, key), march.march_budget_plain(*budget_args),
+          lambda v: march.march_budget(config, rows[v], row(bins, v), px[v], py[v], pz[v],
+                                       old_h[v]))
+    out["march_budget"] = dict(max_abs_err=0.0, **batched_times(
+        "K6 march_budget", lambda: march.march_budget(*budget_args),
+        lambda: [march.march_budget(config, rows[v], row(bins, v), px[v], py[v], pz[v],
+                                    old_h[v]) for v in range(b)],
+        lambda: march.march_budget_plain(*budget_args), "march_budget_kernel", b, 30 * p * b,
+        BUDGET_FLOPS * p * b))
+
+    k = min(config.max_outlier_candidates, p)
+    pidx = torch.topk(key, k, dim=-1, sorted=False).indices
+    table = outliers.occlusion_key_table(config, ground, conf)
+    march_args = (config, sb, table, pidx, px, py, pz, budget)
+
+    def single_march(v):
+        return march.march(config, rows[v], table[v], pidx[v], px[v], py[v], pz[v], budget[v])
+
+    check("K7", march.march(*march_args), march.march_plain(*march_args), single_march)
+    work = [march_work(config, rows[v], table[v], pidx[v], px[v], py[v], pz[v], budget[v])
+            for v in range(b)]
+    steps, cells = sum(w["steps"] for w in work), sum(w["cells_read"] for w in work)
+    out["march"] = dict(max_abs_err=0.0, steps=steps, **batched_times(
+        "K7 march", lambda: march.march(*march_args),
+        lambda: [single_march(v) for v in range(b)],
+        lambda: march.march_plain(*march_args), "march_kernel", b,
+        24 * k * b + 4 * cells + 4 * p * b, MARCH_RAY_FLOPS * k * b + MARCH_STEP_FLOPS * steps))
     return out
 
 
@@ -1009,6 +1256,14 @@ def path_counts():
                 spiral_global=spiral_global)
 
 
+def path_launches(steps, raster=None, detect=0):
+    """The main path's launches over ``steps`` steps (or shards, or batched
+    steps): K1 (``raster``: twice a step with the aux count), K2 x2 (the old
+    ground; then ground and variance), K3, K5, K6 and K7 x1, K4 ``detect``."""
+    return {"raster": steps if raster is None else raster, "lookup": 2 * steps, "spiral": steps,
+            "detect": detect, "bin": steps, "march_budget": steps, "march": steps}
+
+
 def check_launches(counts, want, driver, name):
     log(f"{name} over {want['spiral']} scans: launches {counts} (want {want}), "
         f"fallbacks {driver.step.fallbacks}")
@@ -1040,8 +1295,7 @@ def phase_sequence(config, records, device):
     results, driver, event_ms, wall_ms = run_sequence(config, records, device, sync_check=True)
     counts = path_counts()
     n = len(records)
-    check_launches(counts, {"raster": n, "lookup": 3 * n, "spiral": n, "detect": 0}, driver,
-                   "main path")
+    check_launches(counts, path_launches(n), driver, "main path")
     log(f"main path: {event_ms:.3f} ms/scan (CUDA events, host prep included), "
         f"{1000.0 / event_ms:.2f} scans/s; host clock {wall_ms:.3f} ms/scan; steps 2-{n} under "
         f"the sync check")
@@ -1091,8 +1345,7 @@ def phase_layers(config, records, device):
     reset_launch_counts()
     results, driver, event_ms, wall_ms = run_sequence(config, records, device, with_aux=True)
     counts = launch_counts()
-    check_launches(counts, {"raster": 2 * n, "lookup": 3 * n, "spiral": n, "detect": n},
-                   driver, "layers path")
+    check_launches(counts, path_launches(n, raster=2 * n, detect=n), driver, "layers path")
     log(f"layers path: {event_ms:.3f} ms/scan (CUDA events, host prep included), "
         f"{1000.0 / event_ms:.2f} scans/s; host clock {wall_ms:.3f} ms/scan")
     check_labels(results, records)
@@ -1152,8 +1405,8 @@ def phase_layers_highres(config, records, device):
     reset_launch_counts()
     results, driver, event_ms, wall_ms = run_sequence(config, records, device, with_aux=True)
     counts = launch_counts()
-    check_launches(counts, {"raster": 2 * n, "lookup": 3 * n, "spiral": n, "detect": n},
-                   driver, f"layers path at {config.cell_count}^2")
+    check_launches(counts, path_launches(n, raster=2 * n, detect=n), driver,
+                   f"layers path at {config.cell_count}^2")
     check_labels(results, records)
     cells = config.cell_count
     for res in results:
@@ -1220,8 +1473,7 @@ def run_cli(argv, n_scans, device, raster_per_scan=1):
         raise AssertionError(f"{' '.join(argv[:1])}: exit code {rc}")
     if "is not native" in err.getvalue():
         raise AssertionError("the C++ loader did not build: scans were prepared in NumPy")
-    want = {"raster": raster_per_scan * n_scans, "lookup": 3 * n_scans, "spiral": n_scans,
-            "detect": 0}
+    want = path_launches(n_scans, raster=raster_per_scan * n_scans)
     if counts != want or steps.fallbacks:
         raise AssertionError(f"{' '.join(argv)}: launches {counts} (want {want}), "
                              f"{steps.fallbacks} sortedness fallbacks")
@@ -1327,7 +1579,7 @@ def phase_entry_point(config, records, device):
     log(f"entry point: (a)-(d) and resumed (f) bitwise (statistics block and metrics: "
         f"F1 {metrics['a']['f1']:.6f}, IoUg {metrics['a']['ioug']:.6f}); wire (e) "
         f"F1 {metrics['e']['f1']:.6f}, IoUg {metrics['e']['ioug']:.6f}; launches per scan "
-        f"K1 x1 (x2 playback), K2 x3, K3 x1; 0 fallbacks; loaders native; "
+        f"K1 x1 (x2 playback), K2 x2, K3, K5, K6 and K7 x1; 0 fallbacks; loaders native; "
         f"{len(exported)} layer PNGs and the player written")
     names = {"a": "evaluate, NumPy prep", "b": "--native-loader",
              "c": "--native-loader --pipeline-depth 2", "d": "--native-loader --on-device-eval",
@@ -1361,8 +1613,7 @@ def phase_unsorted(records, sorted_results, device):
     reset_launch_counts()
     results, driver, event_ms, wall_ms = run_sequence(config, records, device, sync_check=True)
     counts = path_counts()
-    check_launches(counts, {"raster": n, "lookup": 3 * n, "spiral": n, "detect": 0}, driver,
-                   "unsorted path")
+    check_launches(counts, path_launches(n), driver, "unsorted path")
     check_labels(results, records)
     for t in (driver.state.ground, driver.state.groundpatch):
         if not bool(torch.isfinite(t).all()):
@@ -1435,8 +1686,7 @@ def phase_topk(device):
         config, records, device, per_scan=lambda d: candidates.append(d.step.marchable),
         sync_check=True)
     counts = path_counts()
-    check_launches(counts, {"raster": n, "lookup": 3 * n, "spiral": n, "detect": 0}, driver,
-                   "128-beam path")
+    check_launches(counts, path_launches(n), driver, "128-beam path")
     check_labels(results, records)
     same_as_host_read_step(config, records, device, results, "128-beam path")
     plain, _, plain_ms, _ = run_sequence(dataclasses.replace(config, use_pallas=False),
@@ -1517,8 +1767,7 @@ def phase_fleet(config, records, device):
     streams = fleet_streams(records, b, FLEET_TICKS)
     fleet = FleetDriver(config, batch=b, device=device)
     ticks, tick_ms, total = [], [], {}
-    want = {"raster": b, "lookup": 3 * b, "spiral": b, "detect": 0, "spiral_band": b,
-            "spiral_global": 0}
+    want = dict(path_launches(b), spiral_band=b, spiral_global=0)
     for k in range(FLEET_TICKS):
         if k == 1:  # ticks 2+: the step under the sync check, prep and fetch outside
             fleet.step = SyncChecked(fleet.step)
@@ -1564,7 +1813,7 @@ def phase_fleet(config, records, device):
     plain = FleetDriver(dataclasses.replace(config, use_pallas=False), batch=2, device=device)
     reset_launch_counts()
     plain_ticks = list(plain.run([s[:2] for s in streams[:2]]))
-    if any(path_counts()[key] for key in ("raster", "lookup", "spiral", "detect")):
+    if any(path_counts().values()):
         raise AssertionError("plain-version fleet launched a kernel")
     total_pts = mism = 0
     for k, pt in enumerate(plain_ticks):
@@ -1694,8 +1943,7 @@ def phase_fleet_unsorted(records, device):
     if not fleet.step.batched:
         raise AssertionError("the unsorted fleet does not take the batched step")
     ticks, tick_ms, total = [], [], {}
-    want = {"raster": 1, "lookup": 3, "spiral": 1, "detect": 0, "spiral_band": 1,
-            "spiral_global": 0}
+    want = dict(path_launches(1), spiral_band=1, spiral_global=0)
     for k in range(FLEET_TICKS):
         if k == 1:  # ticks 2+: the step under the sync check, prep and fetch outside
             fleet.step = SyncChecked(fleet.step)
@@ -1902,8 +2150,7 @@ def phase_spatial(config, records, device, n_shards):
     end.synchronize()
     single_ms = start.elapsed_time(end) / n
     mesh = [device] * n_shards
-    per_scan = {"raster": n_shards, "lookup": 3 * n_shards, "spiral": n_shards, "detect": 0,
-                "spiral_band": n_shards, "spiral_global": 0}
+    per_scan = dict(path_launches(n_shards), spiral_band=n_shards, spiral_global=0)
     runs, ms, total, capture = {}, {}, {}, {}
     for mode in ("replicated", "banded"):
         eager = spatial.SpatialStep(config, mesh, spiral_mode=mode, with_scan_center=True)
@@ -1954,8 +2201,8 @@ def phase_spatial(config, records, device, n_shards):
     rate = 1 - mism / (n * config.max_points)
     if rate < 0.9995:
         raise AssertionError(f"{name}: {mism} labels differ from the single-grid step")
-    log(f"{name}, {n} scans: launches per scan K1 x{n_shards}, K2 x{3 * n_shards}, K3 "
-        f"x{n_shards} in both spiral modes; steps 2-{n} under the sync check; banded == "
+    log(f"{name}, {n} scans: launches per scan K1, K3, K5, K6 and K7 x{n_shards}, K2 "
+        f"x{2 * n_shards} in both spiral modes; steps 2-{n} under the sync check; banded == "
         f"replicated bitwise (labels, outliers, ground, groundpatch); second runs bitwise; vs "
         f"the single-grid step {mism} of {n * config.max_points} labels differ ({points} "
         f"labelled points), ground max {worst[0]:.3g}, groundpatch max {worst[1]:.3g}; ms per "
@@ -2176,7 +2423,7 @@ def phase_spatial_cards(records, devices=None):
                              for kind in kinds}
                     out[f"{label}_{world}_{mode}_nccl"] = times
                     log(f"{name} {config.cell_count}^2 ({mode}): every rank bitwise its shard "
-                        f"on one card, launches per scan K1 x1, K2 x3, K3 x1 a rank; rank 0's "
+                        f"on one card, launches per scan K1 x1, K2 x2, K3 x1 a rank; rank 0's "
                         f"ms per scan in turns: " + ", ".join(
                             f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in times.items()))
     log("phase 10 across cards summary: " + json.dumps(out))
@@ -2311,14 +2558,20 @@ def phase_captured(config, records, device, earlier):
         f"warm steps on prepared scans) in turns: eager {stream_ms[0]:.4f}, captured "
         f"{stream_ms[1]:.4f}, captured {stream_ms[2]:.4f}, eager {stream_ms[3]:.4f}")
 
-    # (e') the device busy share of 8 warm steps (``bench --profile``), in turns
-    busy = []
+    # (e') the device busy share of 8 warm steps (``bench --profile``), in
+    # turns; each run also profiles the eager step stage by stage
+    busy, stages = [], []
     for eager in (True, False, False, True):
         with eager_steps() if eager else contextlib.nullcontext():
-            busy.append(bench.profile_steps(device=device).splitlines()[-1])
-    out["profile"] = busy
+            lines = bench.profile_steps(device=device).splitlines()
+        busy.append(lines[-1])
+        stages.append([line for line in lines
+                       if line.startswith(("eager step", "  stage", "  outside"))])
+    out["profile"], out["stages"] = busy, stages
     for name, line in zip(("eager", "captured", "captured", "eager"), busy):
         log(f"phase 11 bench --profile ({name}): {line}")
+    log("phase 11 bench --profile, the eager step by stage (the first and the last run):\n"
+        + "\n".join(stages[0]) + "\n" + "\n".join(stages[-1]))
 
     # (f) bench --batch 64, in turns
     fleet = []
@@ -2389,6 +2642,8 @@ def main() -> int:
     k3r = check_spiral_ranges(config, driver, records[4], high_driver, device)
     del high_driver
     k4 = check_detect(config, driver, records[4], records)
+    k5 = check_binning(config, driver, records[4])
+    k6, k7 = check_march(config, driver, records[4])
     batched = check_batched(config, driver, records[4:12])
     del driver
     torch.cuda.synchronize()
@@ -2428,6 +2683,11 @@ def main() -> int:
          "groundgrid_tpu/ops/pallas_spiral.py:662", "spiral_global", k3g, counts),
         ("detect_ground_patches_fused", "detect.cu", "groundgrid_tpu/ops/pallas_detect.py:157",
          "detect", k4, layer_counts),
+        # XLA's fusions of the JAX step's binning and march (no Pallas kernel)
+        ("bin_points", "binning.cu", "groundgrid_tpu/core/rasterize.py:92", "bin", k5, counts),
+        ("march_budget", "march.cu", "groundgrid_tpu/core/outliers.py:116", "march_budget", k6,
+         counts),
+        ("march", "march.cu", "groundgrid_tpu/core/outliers.py:116", "march", k7, counts),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"groundgrid_torch/csrc/{route_file}",

@@ -23,15 +23,21 @@ What is not: the tier/peel lattice, the while loops, the 2-wide pair table
 and the sort/unsort around the lattice lookups were TPU loop-cost and
 gather workarounds. Here the fixed ``k_max`` buffer of the JAX package
 (``outliers.py:225-246`` there) marches the whole (step x candidate)
-lattice, and every key read goes through K2 (``ops/lookup.py``), which
-takes unsorted cells. A candidate with a zero budget never fires
-(``step^2 < 0`` is false), so the padded buffer marks the outliers of the
-marchable ones alone, and the march reads nothing back to the host.
+lattice. A candidate with a zero budget never fires (``step^2 < 0`` is
+false), so the padded buffer marks the outliers of the marchable ones
+alone, and the march reads nothing back to the host.
+
+:func:`detect_outliers` is three stages: the per-point budgets and keys
+(:func:`march_budget`), ``torch.topk`` over the keys, and the march of the
+selected candidates (:func:`march`). The first and the last are the plain
+versions of K6 and K7 (``ops/march.py``), which fuse each chain into one
+launch on the card, as XLA fuses it for the JAX package; the plain march
+reads the keys through K2's plain version, which takes unsorted cells.
 
 A batch of vehicles, (B, P) points, (B, N, N) layers and (B, 1) scan
 scalars, marches each row against its own grid: the selection takes each
-row's top keys, the lattice is (B, steps, candidates) and its ids go
-through the batched K2; every row is bitwise its vehicle's own march.
+row's top keys, the lattice is (B, steps, candidates); every row is
+bitwise its vehicle's own march.
 """
 
 from __future__ import annotations
@@ -125,41 +131,41 @@ def selection_key(budget):
     return (_u32_bits(budget) << 32) | (U32 - idx)
 
 
-def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: Binning, x, y,
-                    z, old_h, lookup_fn):
-    """``((P,) bool, () int64)``: True for occluded-return outliers, and the
-    number of marchable candidates (before the ``max_outlier_candidates``
-    cap; 0 when the cap is 0) as a tensor on the points' device, unread.
-    Of a (B, P) batch: ``((B, P) bool, (B,) int64)``, row by row.
+def march_budget(config: GroundGridConfig, s, binning: Binning, x, y, z, old_h):
+    """``((P,) f32 budget, (P,) int64 key)``: each point's march budget and
+    its selection key (:func:`selection_key`); of a (B, P) batch, row by row.
 
-    ``ground``/``groundpatch``: the previous scan's layers (after the move).
-    ``old_h``: per-point ``ground[cell]`` (K2). ``s``: the scan scalars
-    (the sensor origin and the binning constants, ``core/scalars.py``).
-    ``lookup_fn``: ``ops.lookup.lookup`` or its plain version.
+    The budget is the squared ray length, f64-faithful, of an in-map,
+    unignored point at least 0.2 m below the previous terrain (``old_h``,
+    ``ground[cell]``) whose ray points down (``vz < -0.01``), else 0. The
+    plain version of K6 (``ops/march.py``). ``s``: the scan scalars.
     """
-    n = config.cell_count
-    p_total = x.shape[-1]
-    batch = x.shape[:-1]
-    dev = x.device
-    out = torch.zeros(x.shape, dtype=torch.int32, device=dev)
-    k_max = min(config.max_outlier_candidates, p_total)
-    if k_max == 0:
-        return out > 0, torch.zeros(batch, dtype=torch.int64, device=dev)
-    tol = float(np.float32(config.outlier_tolerance))
-
     cand = binning.inmap & ~binning.ignored & (z < old_h - float(np.float32(0.2)))
     _, _, dza, length = _ray(x, y, z, s)
     len2 = length * length
     vz = exactf32.div_rn(dza, length)
     budget = torch.where(cand & (vz < float(np.float32(-0.01))), len2, torch.zeros_like(len2))
+    return budget, selection_key(budget)
 
-    # candidate selection; a positive budget always outranks a zero one, so
-    # the top k_max keys hold the JAX package's marchable buffer, padded
-    # with zero budgets that never fire
-    n_marchable = (budget > 0).sum(-1)
-    pidx = torch.topk(selection_key(budget), k_max, dim=-1, sorted=False).indices
 
-    key_table = occlusion_key_table(config, ground, groundpatch)
+def march(config: GroundGridConfig, s, key_table, pidx, x, y, z, budget, lookup_fn):
+    """(P,) int32, 1 at the candidates ``pidx`` (unique point indices, (K,),
+    or (B, K) of a (B, P) batch) whose line of sight crosses an occluding
+    cell, 0 elsewhere.
+
+    Marches the (steps x candidates) lattice, ``LATTICE_ELEMS`` elements a
+    chunk: a step is live while ``step^2 < budget``; a live sample inside
+    the grid hits where its cell's key (``key_table``,
+    :func:`occlusion_key_table`) reaches the monotone image of its height
+    plus the tolerance. Key reads go through ``lookup_fn`` (K2 or its plain
+    version). The plain version of K7 (``ops/march.py``).
+    """
+    n = config.cell_count
+    batch = x.shape[:-1]
+    dev = x.device
+    out = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+    k_max = pidx.shape[-1]
+    tol = float(np.float32(config.outlier_tolerance))
     steps = torch.arange(3, config.ray_steps, dtype=torch.float32, device=dev)[:, None]
     # the lattice is (..., steps, candidates): the scan scalars broadcast
     # as the grid form, the per-candidate values as (..., 1, candidates)
@@ -183,4 +189,35 @@ def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: B
         key_hit = _u32_bits(vals).reshape(flat.shape) >= thr
         hit = (within & inside & key_hit).any(dim=-2).to(torch.int32)
         out.scatter_reduce_(-1, cp, hit, reduce="amax")
-    return out > 0, n_marchable
+    return out
+
+
+def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: Binning, x, y,
+                    z, old_h, budget_fn, march_fn):
+    """``((P,) bool, () int64)``: True for occluded-return outliers, and the
+    number of marchable candidates (before the ``max_outlier_candidates``
+    cap; 0 when the cap is 0) as a tensor on the points' device, unread.
+    Of a (B, P) batch: ``((B, P) bool, (B,) int64)``, row by row.
+
+    ``ground``/``groundpatch``: the previous scan's layers (after the move).
+    ``old_h``: per-point ``ground[cell]`` (K2). ``s``: the scan scalars
+    (the sensor origin and the binning constants, ``core/scalars.py``).
+    ``budget_fn`` / ``march_fn``: ``ops.march.march_budget`` (K6) and
+    ``ops.march.march`` (K7), or their plain versions (:func:`march_budget`,
+    and :func:`march` over the plain K2). Between them, ``torch.topk`` takes
+    the ``k_max`` largest keys (the JAX package's ``lax.top_k``).
+    """
+    p_total = x.shape[-1]
+    batch = x.shape[:-1]
+    k_max = min(config.max_outlier_candidates, p_total)
+    if k_max == 0:
+        return (torch.zeros(x.shape, dtype=torch.bool, device=x.device),
+                torch.zeros(batch, dtype=torch.int64, device=x.device))
+    budget, key = budget_fn(config, s, binning, x, y, z, old_h)
+    # candidate selection; a positive budget always outranks a zero one, so
+    # the top k_max keys hold the JAX package's marchable buffer, padded
+    # with zero budgets that never fire
+    n_marchable = (budget > 0).sum(-1)
+    pidx = torch.topk(key, k_max, dim=-1, sorted=False).indices
+    key_table = occlusion_key_table(config, ground, groundpatch)
+    return march_fn(config, s, key_table, pidx, x, y, z, budget) > 0, n_marchable

@@ -116,6 +116,36 @@ def view(t: torch.Tensor) -> ScanScalars:
                        k0=i[:, K0:K0 + 1], k1=i[:, K1:K1 + 1], count=i[:, COUNT:COUNT + 1])
 
 
+# the fields a kernel reads from device memory, at their offsets in a row
+KERNEL_FIELDS = {"ox": 0, "oy": 1, "oz": 2, "sh0": 4, "sl0": 5, "sh1": 6, "sl1": 7}
+
+
+def device_rows(s: ScanScalars, points: torch.Tensor) -> tuple[int, int]:
+    """For a kernel that reads the scan scalars where they lie (a captured
+    graph then replays on any scan): the address of the first row's ``ox``
+    and the row stride in floats, of :func:`view`'s views of a (``SIZE``,)
+    tensor for (P,) ``points``, or of a (B, ``SIZE``) batch for (B, P).
+    Raises unless :data:`KERNEL_FIELDS` lie at their offsets, as float32
+    on the points' device."""
+    ox = s.ox
+    if not (isinstance(ox, torch.Tensor) and ox.dtype == torch.float32
+            and ox.device == points.device):
+        raise ValueError("the scan scalars must be float32 views on the points' device")
+    shape = () if points.dim() == 1 else (points.shape[0], 1)
+    if tuple(ox.shape) != shape:
+        raise ValueError(f"scan scalars of shape {tuple(ox.shape)} for points of shape "
+                         f"{tuple(points.shape)}")
+    stride = ox.stride(0) if shape else 0
+    base = ox.data_ptr()
+    for name, offset in KERNEL_FIELDS.items():
+        v = getattr(s, name)
+        if (tuple(v.shape) != shape or v.data_ptr() != base + 4 * offset
+                or (shape and v.stride(0) != stride)):
+            raise ValueError(f"scan scalar {name}: not at offset {offset} of a packed row of "
+                             f"the points' batch (shape {tuple(v.shape)})")
+    return base, stride
+
+
 def grid(v):
     """A scan scalar's view in the form that broadcasts against ``(..., N,
     N)`` layers: a 0-dim view as (1,), a (B, 1) column as (B, 1, 1); a host

@@ -9,11 +9,14 @@ library with a plain C interface in ``groundgrid_torch/_build/`` (listed in
          -Xcompiler -fPIC -c -o <tmp>/<source>.o csrc/<source>.cu   (each source)
     nvcc -shared -o _build/libgroundgrid_kernels_<hash>.so <tmp>/*.o
 
-The file name carries a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads the existing library. ``--fmad=false``
-keeps every ``a*b+c`` separately rounded, as the plain PyTorch versions
-round it: the spiral's confidence is held bitwise, and its decay test
-``d2 > min_dist_squared`` hangs on the last ulp.
+The file name carries a hash of the sources, the headers beside them
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one loads the existing library. ``--fmad=false`` keeps every
+``a*b+c`` separately rounded, as the plain PyTorch versions round it: the
+spiral's confidence is held bitwise, and its decay test ``d2 >
+min_dist_squared`` hangs on the last ulp; the binning and the march
+(``binning.cu``, ``march.cu``) round each step with the ``_rn`` intrinsics
+of ``exactf32.cuh`` besides.
 
 No C++ of PyTorch is included, so a build takes seconds. A failed build or
 load raises; there is no fallback. Each C entry point returns
@@ -50,6 +53,9 @@ _SIGNATURES = {
     "gg_spiral": [_P, _P, _I, _I, _P, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P],
     "gg_spiral_global": [_P, _P, _I, _I, _P, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P, _P],
     "gg_detect": [_P] * 9 + [_I, _I, _F, _F, _F, _P, _P, _I, _P],
+    "gg_bin": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _F, _F, _F, _I, _F] + [_P] * 7,
+    "gg_march_budget": [_P] * 6 + [_I, _I, _P, _I, _P, _P, _P],
+    "gg_march": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _F, _F, _F, _F, _I, _P, _P],
 }
 
 
@@ -78,8 +84,9 @@ def _sources() -> list[Path]:
 
 
 def _digest(sources: list[Path]) -> str:
+    """The hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
+    for path in sources + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]

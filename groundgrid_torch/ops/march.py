@@ -1,0 +1,116 @@
+"""K6 and K7: the occlusion march in two launches (``csrc/march.cu``).
+
+Replace what XLA fuses for the JAX package of its outlier rejection,
+``groundgrid_tpu/core/outliers.py:detect_outliers``: K6 :func:`march_budget`
+the per-point budgets and selection keys before the ``torch.topk`` that
+picks the candidates (the JAX package's ``lax.top_k``), K7 :func:`march`
+the walk of the selected candidates' rays over the grid, with the key reads
+that K2 made over the (steps x candidates) lattice. Eager PyTorch runs the
+two chains as ~1,450 elementwise kernels and one K2 launch a scan.
+
+Each wrapper launches its kernel for CUDA tensors and takes its plain
+version (:func:`march_budget_plain`, :func:`march_plain`: ``core/
+outliers.py``'s ``march_budget`` and ``march``, the latter over K2's plain
+version) only for CPU tensors. Kernel and plain version agree bitwise: the
+kernels round every operation as its PyTorch kernel does
+(``csrc/exactf32.cuh``). Both kernels read the scan scalars where they lie
+(``scalars.device_rows``) and take a batch of vehicles, (B, P) points, (B,
+K) candidates and (B, N*N) keys, in one launch, each row bitwise its
+single call.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from groundgrid_torch.config import GroundGridConfig
+from groundgrid_torch.core import exactf32
+from groundgrid_torch.core import outliers
+from groundgrid_torch.core import scalars as scalarlib
+from groundgrid_torch.core.rasterize import Binning
+from groundgrid_torch.ops import _build
+from groundgrid_torch.ops.lookup import lookup_plain
+
+march_budget_plain = outliers.march_budget
+
+
+def march_plain(config: GroundGridConfig, s, key_table, pidx, x, y, z, budget):
+    """Plain version of :func:`march`: ``core/outliers.py march`` with its
+    key reads through K2's plain version."""
+    return outliers.march(config, s, key_table, pidx, x, y, z, budget, lookup_plain)
+
+
+def _check_points(*tensors):
+    x = tensors[0]
+    if x.dim() not in (1, 2) or x.dtype != torch.float32:
+        raise ValueError(f"points must be (P,) or (B, P) float32, got {tuple(x.shape)} {x.dtype}")
+    for t in tensors[1:]:
+        if t.shape != x.shape or t.device != x.device:
+            raise ValueError("every per-point tensor must have the points' shape and device")
+
+
+def march_budget(config: GroundGridConfig, s, binning: Binning, x, y, z, old_h):
+    """``(budget, key)``: ``core/outliers.py march_budget`` of (P,) or (B,
+    P) points, the f32 march budget and the unique int64 selection key of
+    every point. ``old_h``: ``ground[cell]`` of the moved ground (K2)."""
+    if x.device.type == "cpu":
+        return march_budget_plain(config, s, binning, x, y, z, old_h)
+    _check_points(x, y, z, old_h, binning.inmap, binning.ignored)
+    if any(t.dtype != torch.float32 for t in (y, z, old_h)) or any(
+            t.dtype != torch.bool for t in (binning.inmap, binning.ignored)):
+        raise ValueError("march_budget takes float32 coordinates and heights, bool flags")
+    if x.device.type != "cuda":
+        raise RuntimeError(f"march_budget: unsupported device {x.device}")
+    base, stride = scalarlib.device_rows(s, x)
+    ins = [t.contiguous() for t in (x, y, z, old_h, binning.inmap, binning.ignored)]
+    budget = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    key = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    if x.numel() == 0:
+        return budget, key
+    code = _build.launch("gg_march_budget", x.device, *(t.data_ptr() for t in ins),
+                         x.shape[-1], math.prod(x.shape[:-1]), base, stride, budget.data_ptr(),
+                         key.data_ptr())
+    _build.check(code, "march_budget")
+    march_budget.launches += 1
+    return budget, key
+
+
+def march(config: GroundGridConfig, s, key_table, pidx, x, y, z, budget):
+    """``core/outliers.py march``: (P,) (or (B, P)) int32, 1 at the
+    candidates ``pidx`` (unique int64 point indices a row, (K,) or (B, K))
+    whose ray crosses an occluding cell (``key_table``, the (N*N,) or (B,
+    N*N) u32 keys of ``occlusion_key_table`` in f32 bits), 0 elsewhere."""
+    if x.device.type == "cpu":
+        return march_plain(config, s, key_table, pidx, x, y, z, budget)
+    _check_points(x, y, z, budget)
+    n = config.cell_count
+    batch = math.prod(x.shape[:-1])
+    if (pidx.dtype != torch.int64 or pidx.dim() != x.dim() or pidx.shape[:-1] != x.shape[:-1]
+            or pidx.device != x.device):
+        raise ValueError(f"pidx must be int64 candidates a row of the points, got "
+                         f"{tuple(pidx.shape)} {pidx.dtype}")
+    if (key_table.dtype != torch.float32 or key_table.numel() != batch * n * n
+            or key_table.device != x.device):
+        raise ValueError(f"key_table must hold {n * n} float32 words a vehicle")
+    if x.device.type != "cuda":
+        raise RuntimeError(f"march: unsupported device {x.device}")
+    base, stride = scalarlib.device_rows(s, x)
+    ins = [t.contiguous() for t in (pidx, x, y, z, budget, key_table)]
+    out = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    if pidx.shape[-1] == 0 or x.numel() == 0:
+        return out  # no candidate marches
+    rh, rl, inv = exactf32.res_ds(config.resolution)
+    code = _build.launch(
+        "gg_march", x.device, ins[0].data_ptr(), pidx.shape[-1], *(t.data_ptr() for t in ins[1:5]),
+        x.shape[-1], batch, ins[5].data_ptr(), n, base, stride, float(rh), float(rl), float(inv),
+        float(np.float32(config.outlier_tolerance)), int(config.ray_steps), out.data_ptr())
+    _build.check(code, "march")
+    march.launches += 1
+    return out
+
+
+march_budget.launches = 0
+march.launches = 0

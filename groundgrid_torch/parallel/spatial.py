@@ -65,7 +65,9 @@ from groundgrid_torch.core import rasterize as rasterlib
 from groundgrid_torch.core import scalars as scalarlib
 from groundgrid_torch.core import transforms as tf
 from groundgrid_torch.core.detect import HALO
+from groundgrid_torch.ops import binning as binops
 from groundgrid_torch.ops import lookup as lookuplib
+from groundgrid_torch.ops import march as marchops
 from groundgrid_torch.ops import raster as rasterops
 from groundgrid_torch.ops import spiral as spiralops
 from groundgrid_torch.parallel.collectives import CapturedShards, Gather, drive
@@ -386,6 +388,9 @@ class SpatialStep:
         plain = config.use_pallas is False
         self._reduce = rasterops.raster_reduce_plain if plain else rasterops.raster_reduce
         self._lookup = lookuplib.lookup_plain if plain else lookuplib.lookup
+        self._bin = binops.bin_points_plain if plain else binops.bin_points
+        self._budget = marchops.march_budget_plain if plain else marchops.march_budget
+        self._march = marchops.march_plain if plain else marchops.march
         self._spiral = (spiralops.spiral_interpolation_plain if plain
                         else spiralops.spiral_interpolation)
         self._band = None
@@ -426,10 +431,10 @@ class SpatialStep:
         x, y, z, rings, valid = points
         if not cfg.sorted_scans:
             x, y, z = tf.transform_points_soa(sc.velo, x, y, z)
-        binning = rasterlib.bin_points(cfg, sc, x, y, rings, valid > 0)
+        binning = self._bin(cfg, sc, x, y, rings, valid > 0)
         (old_h,) = self._lookup(binning.cell, [moved[0]], n2)
         outlier, _ = outlierlib.detect_outliers(cfg, sc, *moved, binning, x, y, z, old_h,
-                                                self._lookup)
+                                                self._budget, self._march)
         accept = binning.inmap & ~binning.ignored & ~outlier
         rb, rz, racc = binning, z, accept
         if not cfg.sorted_scans or cfg.sorted_fallback_check:

@@ -27,8 +27,9 @@ sorted-scan configuration, and the same metric name,
 
 Run on the card: ``python -m groundgrid_torch.runtime.bench`` prints one
 JSON line; ``--profile`` prints instead a ``torch.profiler`` table of eight
-warm steps by device time, then the device busy ms per step (the sum of the
-device activities' durations over the steps). A device that is not CUDA raises: this bench
+warm steps by device time, the eager step's device ms and launches stage
+by stage (``pipeline.STAGES``), then the device busy ms per step (the sum of
+the device activities' durations over the steps). A device that is not CUDA raises: this bench
 gives no CPU number.
 """
 
@@ -50,9 +51,16 @@ from groundgrid_torch.parallel.sharding import (
     shard_fleet_pytree,
     stack_fleet_pytree,
 )
-from groundgrid_torch.pipeline import CenterTracker, init_state, pad_scan, prepare_scan
+from groundgrid_torch.pipeline import (
+    STAGES,
+    CenterTracker,
+    init_state,
+    make_step_fn,
+    pad_scan,
+    prepare_scan,
+)
 from groundgrid_torch.runtime.driver import ScanRecord, StreamingDriver
-from groundgrid_torch.runtime.kernel_timing import device_us, profiled
+from groundgrid_torch.runtime.kernel_timing import device_us, profiled, stage_us
 
 FLEET_MIN_TICKS = 8  # a fleet tick's span varies by tens of percent between ticks
 
@@ -298,10 +306,41 @@ def profile_steps(n_steps: int = 8, device="cuda") -> str:
     busy_us, activities = device_us(prof)
     span_ms = start.elapsed_time(end) / len(scans)
     busy_ms = busy_us / 1000.0 / len(scans)
-    return (f"{table}\ndevice busy {busy_ms:.4f} ms per step "
+    stages = stage_lines(config, records, device)
+    return (f"{table}\n{stages}\ndevice busy {busy_ms:.4f} ms per step "
             f"({activities / len(scans):.1f} device activities per step) over {len(scans)} "
             f"warm steps; span {span_ms:.4f} ms per step (CUDA events, profiler on): busy "
             f"share {busy_ms / span_ms:.4f}; step {type(driver.step).__name__}")
+
+
+def stage_lines(config: GroundGridConfig, records: list[ScanRecord], device) -> str:
+    """The eager step's device ms and launches a step, stage by stage (its
+    ``record_function`` ranges, ``pipeline.STAGES``; a replayed graph has
+    none), over ``records[2:]`` after two warm steps, as lines."""
+    driver = StreamingDriver(config, device=device)
+    driver.step = make_step_fn(config)
+    for rec in records[:2]:
+        driver.process(rec)
+    scans = [driver.make_scan(rec)[0] for rec in records[2:]]
+    torch.cuda.synchronize(device)
+    with profiled() as prof:
+        state = driver.state
+        for scan in scans:
+            state, _ = driver.step(state, scan)
+    busy_us, activities = device_us(prof)
+    stages = stage_us(prof, STAGES)
+    n = len(scans)
+    lines = [f"eager step by stage ({n} warm steps, a step): device {busy_us / 1000.0 / n:.4f} "
+             f"ms, {activities / n:.1f} device activities"]
+    for name, (us, count) in stages.items():
+        if count:
+            lines.append(f"  stage {name}: {us / 1000.0 / n:.4f} device ms, {count / n:.1f} "
+                         f"launches")
+    us = busy_us - sum(v[0] for v in stages.values())
+    count = activities - sum(v[1] for v in stages.values())
+    lines.append(f"  outside the stages: {us / 1000.0 / n:.4f} device ms, {count / n:.1f} "
+                 f"device activities")
+    return "\n".join(lines)
 
 
 def main() -> None:

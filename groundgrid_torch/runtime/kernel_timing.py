@@ -8,6 +8,7 @@ runs that phase in several source trees, in turns.
 
 from __future__ import annotations
 
+import bisect
 import sys
 import time
 from contextlib import contextmanager
@@ -98,8 +99,37 @@ def device_ms(fn, reps: int, name: str | None = None,
 
 def device_us(prof, name: str | None = None) -> tuple[float, int]:
     """Summed microseconds and count of the device activities in a finished
-    ``torch.profiler`` run whose name contains ``name`` (every one if None)."""
+    ``torch.profiler`` run whose name contains ``name`` (every one if None).
+    A ``record_function`` range's own span on the device timeline is no
+    activity."""
     cuda = torch.autograd.DeviceType.CUDA
     seen = [e for e in prof.events()
-            if e.device_type == cuda and (name is None or name in e.name)]
+            if e.device_type == cuda and not e.is_user_annotation
+            and (name is None or name in e.name)]
     return sum(e.time_range.end - e.time_range.start for e in seen), len(seen)
+
+
+def stage_us(prof, names) -> dict[str, tuple[float, int]]:
+    """Summed microseconds and count of the device activities launched
+    inside each ``record_function`` range named in ``names``
+    (``pipeline.STAGES``) in a finished ``torch.profiler`` run. An activity
+    belongs to the range whose host-clock span holds the CUDA runtime call
+    that launched it (the call of the same correlation id), so a kernel
+    launched outside any PyTorch op (the port's ctypes launches) counts."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.device_type == cpu and e.is_user_annotation and e.name in names)
+    starts = [span[0] for span in spans]
+    launched_at = {e.id: e.time_range.start for e in events
+                   if e.device_type == cpu and e.name.startswith("cu")}  # runtime calls
+    out = {name: (0.0, 0) for name in names}
+    for e in events:
+        at = launched_at.get(e.id)
+        if e.device_type != cuda or e.is_user_annotation or at is None:
+            continue
+        k = bisect.bisect_right(starts, at) - 1
+        if k >= 0 and at <= spans[k][1]:
+            us, count = out[spans[k][2]]
+            out[spans[k][2]] = (us + e.time_range.end - e.time_range.start, count + 1)
+    return out

@@ -2,6 +2,7 @@
 
     python3 kernel_turns.py _archive/parent .                  # parent, tree, tree, parent
     python3 kernel_turns.py _archive/parent . --kernels spiral
+    python3 kernel_turns.py _archive/parent . --kernels step lookup
 
 Each tree is the repository root or an unpacked ``git archive`` of a commit
 (``_archive/`` is gitignored). The trees run in the given order, then in
@@ -17,7 +18,12 @@ warm scan by this script's own ``chip_smoke.check_lookup_march`` (the
 same measurement in every tree, older trees having none). A turn prints the
 tree's environment lines and, last, one JSON line with what each check
 returned; this script echoes them and ends with one JSON line of all turns.
-It fails if a turn fails.
+It fails if a turn fails. ``binning`` and ``march`` (K5-K7) exist only in
+trees that have them. ``step`` times the whole step in each tree on 32
+rendered scans: the streaming bench's device ms a scan (the captured
+step), ``bench --profile``'s busy ms and device activities a step (and,
+where the tree has them, the eager step's stages), and the unsorted fleet
+of 64's device ms a tick.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import os
 import subprocess
 import sys
 
-KERNELS = ("raster", "lookup", "spiral", "detect")
+KERNELS = ("raster", "lookup", "spiral", "detect", "binning", "march", "step")
 
 # run with the tree's root as the working directory: ``python -c`` puts it
 # first on sys.path
@@ -40,9 +46,30 @@ from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.runtime.bench import synthetic_records
 
 cs.phase_environment()
+device = torch.device("cuda", 0)
 config = GroundGridConfig(sorted_scans=True)
-records = synthetic_records(config, 5)
-driver = cs.warm_driver(config, records, torch.device("cuda", 0))
+records = synthetic_records(config, 32 if "step" in sys.argv[2:] else 5)
+driver = cs.warm_driver(config, records, device)
+
+
+def step_turn():
+    # the step end to end: the streaming bench's device ms a scan (the
+    # captured step), bench --profile's summary lines and the unsorted
+    # fleet of 64's device ms a tick (one batched step)
+    from groundgrid_torch.runtime import bench
+    from groundgrid_torch.runtime.driver import StreamingDriver
+
+    streaming = StreamingDriver(config, device)
+    for rec in records[:3]:
+        streaming.process(rec)
+    steps, _ = bench.device_ms_per_step(streaming, records)
+    profile = bench.profile_steps(device=device).splitlines()
+    keep = ("eager step", "  stage", "  outside", "device busy")
+    fleet = bench.run_fleet_benchmark(GroundGridConfig(), records[:8], 64, 128, 3, device)
+    return {"device_ms_per_scan": sum(steps) / len(steps),
+            "profile": [line for line in profile if line.startswith(keep)],
+            "fleet_unsorted_device_ms_per_tick": fleet["device_ms_per_tick"],
+            "fleet_unsorted_batched": fleet["batched"]}
 
 
 def keep(result):  # a check's record, without the tensors some checks also return
@@ -53,7 +80,9 @@ def keep(result):  # a check's record, without the tensors some checks also retu
 
 out = {}
 for name in sys.argv[2:]:
-    if name == "lookup":
+    if name == "step":
+        out[name] = step_turn()
+    elif name == "lookup":
         cell = cs.prepared(config, driver, records[4])[-2].cell  # the binning
         extra = (records[4],) if len(inspect.signature(cs.check_lookup).parameters) > 3 else ()
         out[name] = keep(cs.check_lookup(config, driver, cell, *extra))
@@ -89,7 +118,7 @@ def turn(tree: str, kernels: list[str]) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("trees", nargs="+", help="source trees, in the order of the first pass")
-    parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
+    parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS[:4]))
     args = parser.parse_args(argv)
     for tree in args.trees:
         if not os.path.isfile(os.path.join(tree, "chip_smoke.py")):

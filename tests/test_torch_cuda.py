@@ -18,7 +18,11 @@ bitwise; its ring ranges over the bands of ``ring_bands`` bitwise one full
 launch, n = 10 to 2416), K4 bitwise (n = 12 to 1200, grids that cut its tiles raggedly and
 one where the use3 disc's edge crosses a tile; two runs bitwise; border
 cells passed through); the occlusion march shedding candidates at the
-cap, on both selection keys, bitwise the CPU's; plus the small-config
+cap, on both selection keys, bitwise the CPU's; K5, K6 and K7 (the fused
+binning and march) bitwise their plain versions on a warm scan, on random
+points (cell edges and +-1 ulp from them, -0.0, both selection keys), on
+a batch of 64 against 64 single launches, in two runs, and replayed from a
+CUDA graph on another scan's scalars; plus the small-config
 streaming step on the card against the same step on the CPU, on the main
 path and on the fused, aux and wire path; the fleet on the card bitwise
 per-vehicle streaming; a warm step and a fleet tick under
@@ -38,9 +42,19 @@ import torch
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core.detect import make_tables
 from groundgrid_torch.data.synthetic import detect_layers
-from groundgrid_torch.ops import detect, launch_counts, lookup, raster, reset_launch_counts, spiral
+from groundgrid_torch.ops import (binning, detect, launch_counts, lookup, march, raster,
+                                  reset_launch_counts, spiral)
 
 pytestmark = pytest.mark.gpu
+
+
+def _path(steps, detect, raster=None):
+    """The launch counts of ``steps`` single steps (or shards, or batched
+    steps) on the main path: K1 (``raster`` if the aux count adds one), K2
+    x2 (the old ground, then ground and variance), K3, K5, K6 and K7 x1,
+    K4 ``detect``."""
+    return {"raster": steps if raster is None else raster, "lookup": 2 * steps, "spiral": steps,
+            "detect": detect, "bin": steps, "march_budget": steps, "march": steps}
 
 
 @pytest.fixture
@@ -310,7 +324,7 @@ def test_spatial_step_on_card(cuda):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             if on_card:
-                assert launch_counts() == {"raster": 4, "lookup": 12, "spiral": 4, "detect": 0}
+                assert launch_counts() == _path(4, detect=0)
             labels.append(torch.cat(lab).cpu())
         outs[(str(dev), mode)] = (torch.cat(g).cpu(), torch.cat(c).cpu(), labels)
     rep, band = outs[(str(cuda), "replicated")], outs[(str(cuda), "banded")]
@@ -436,7 +450,7 @@ def test_small_step_on_card_matches_cpu(cuda):
         a, b = cpu.process(rec), gpu.process(rec)
         total += a.labels.size
         mism += int((a.labels != b.labels).sum())
-    assert launch_counts() == {"raster": 3, "lookup": 9, "spiral": 3, "detect": 0}
+    assert launch_counts() == _path(3, detect=0)
     assert mism <= 0.001 * total
     assert gpu.step.fallbacks == 0
     np.testing.assert_array_equal(gpu.state.center.numpy(), cpu.state.center.numpy())
@@ -444,7 +458,7 @@ def test_small_step_on_card_matches_cpu(cuda):
     reset_launch_counts()
     for rec in recs:
         plain.process(rec)
-    assert launch_counts() == {"raster": 0, "lookup": 0, "spiral": 0, "detect": 0}
+    assert not any(launch_counts().values())
 
 
 def test_layers_path_step_on_card_matches_cpu(cuda):
@@ -469,7 +483,7 @@ def test_layers_path_step_on_card_matches_cpu(cuda):
         for name in ("points_raw", "min_ground_height", "max_ground_height"):
             np.testing.assert_array_equal(b.aux[name], a.aux[name], err_msg=name)
         np.testing.assert_array_equal(b.x, a.x)
-    assert launch_counts() == {"raster": 6, "lookup": 9, "spiral": 3, "detect": 3}
+    assert launch_counts() == _path(3, detect=3, raster=6)
     assert mism <= 0.001 * total
     assert gpu.step.fallbacks == 0
 
@@ -500,7 +514,7 @@ def test_unsorted_step_on_card_matches_cpu(cuda):
         for k in "xyz":
             np.testing.assert_array_equal(getattr(b, k), getattr(a, k), err_msg=k)
         assert b.aux["points"].sum() == (b.labels == 99).sum()
-    assert launch_counts() == {"raster": 6, "lookup": 9, "spiral": 3, "detect": 0}
+    assert launch_counts() == _path(3, detect=0, raster=6)
     assert mism <= 0.001 * total
     assert gpu.step.fallbacks == 0
     np.testing.assert_array_equal(gpu.state.center.numpy(), cpu.state.center.numpy())
@@ -558,13 +572,13 @@ def test_march_shedding_on_card_matches_cpu(cuda, p_total):
                                  torch.from_numpy(valid).to(dev))
         (old_h,) = lookup.lookup(b.cell, [ground], n * n)
         got, marchable = outliers.detect_outliers(cfg, s, ground, conf, b, x, y, z, old_h,
-                                                  lookup.lookup)
+                                                  march.march_budget, march.march)
         return got.cpu().numpy(), marchable
 
     want, want_marchable = run("cpu")
-    before = lookup.lookup.launches
+    before = march.march.launches
     got, marchable = run(cuda)
-    assert lookup.lookup.launches > before
+    assert march.march.launches > before
     assert marchable == want_marchable == 800
     assert int(want.sum()) == 450
     np.testing.assert_array_equal(got, want)
@@ -633,9 +647,9 @@ def _small_fleet_streams(n_vehicles, n_scans):
 @pytest.mark.parametrize("sorted_scans", [True, False])
 def test_fleet_on_card_matches_streaming(cuda, sorted_scans):
     """The fleet on the card equals one StreamingDriver per vehicle on the
-    card, bitwise; each tick launches K1 x1, K2 x3 and K3 x1 per vehicle
-    (sorted), or once each for the whole batch (unsorted: one batched step,
-    captured from the second tick on)."""
+    card, bitwise; each tick launches K1, K3, K5, K6 and K7 x1 and K2 x2
+    per vehicle (sorted), or once each for the whole batch (unsorted: one
+    batched step, captured from the second tick on)."""
     from groundgrid_torch.runtime.driver import StreamingDriver
     from groundgrid_torch.runtime.fleet import FleetDriver
 
@@ -648,8 +662,7 @@ def test_fleet_on_card_matches_streaming(cuda, sorted_scans):
     for k in range(3):
         reset_launch_counts()
         ticks.append(fleet.process([s[k] for s in streams]))
-        assert launch_counts() == {"raster": per, "lookup": 3 * per, "spiral": per,
-                                   "detect": 0}
+        assert launch_counts() == _path(per, detect=0)
     assert fleet.step.steps[0].captured
     for v, stream in enumerate(streams):
         driver = StreamingDriver(cfg, device=cuda)
@@ -833,7 +846,7 @@ def test_captured_step_matches_eager_on_card(cuda, mode):
     assert isinstance(step, CapturedStep) and step.captured
     assert step.capture_seconds > 0 and step.pool_bytes > 0
     assert got_counts == want_counts
-    assert got_counts[1]["spiral"] == 1 and got_counts[1]["lookup"] == 3
+    assert got_counts[1] == _path(1, detect=int(with_aux), raster=1 + int(with_aux))
     for (a, *sa), (b, *sb) in zip(got, want):
         np.testing.assert_array_equal(a.labels, b.labels)
         np.testing.assert_array_equal(a.outlier, b.outlier)
@@ -921,7 +934,7 @@ def test_captured_spatial_step_matches_eager_on_card(cuda, mode, collectives):
     assert isinstance(step, spatial.CapturedSpatialStep) and step.captured
     assert step.capture_seconds > 0 and step.pool_bytes > 0
     assert got_counts == want_counts
-    assert got_counts[1] == {"raster": 4, "lookup": 12, "spiral": 4, "detect": 0}
+    assert got_counts[1] == _path(4, detect=0)
     for k, (a, b) in enumerate(zip(got, want)):
         for x, y in zip(a, b, strict=True):
             if x.dtype.is_floating_point:
@@ -968,3 +981,244 @@ def test_empty_segment_replays(cuda):
     graph.replay(None)
     torch.cuda.synchronize(cuda)
     assert not any(launch_counts().values())
+
+
+SMALL_SORTED = dict(dimension=40.0, resolution=0.5, max_points=16384, ray_steps=40,
+                    max_outlier_candidates=1024)
+
+
+def _bitwise(a, b):
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+def _march_inputs(cfg, s, binning, x, y, z, ground, conf, budget_fn):
+    """The march's inputs as the step builds them: old_h (K2), budgets and
+    keys (``budget_fn``), the top-k candidates and the key table."""
+    from groundgrid_torch.core import outliers
+
+    n2 = cfg.cell_count ** 2
+    (old_h,) = lookup.lookup(binning.cell, [ground], n2)
+    budget, key = budget_fn(cfg, s, binning, x, y, z, old_h)
+    pidx = torch.topk(key, min(cfg.max_outlier_candidates, x.shape[-1]), dim=-1,
+                      sorted=False).indices
+    return old_h, budget, key, pidx, outliers.occlusion_key_table(cfg, ground, conf)
+
+
+def _check_fused(cfg, s, x, y, z, rings, valid, ground, conf):
+    """K5, K6 and K7 against their plain versions on the card, bitwise, two
+    runs bitwise; returns the plain binning and the kernel march's hits."""
+    want_b = binning.bin_points_plain(cfg, s, x, y, rings, valid)
+    got_b = binning.bin_points(cfg, s, x, y, rings, valid)
+    again_b = binning.bin_points(cfg, s, x, y, rings, valid)
+    for f, g, a, w in zip(want_b._fields, got_b, again_b, want_b):
+        assert _bitwise(g, w), f"K5 {f}"
+        assert _bitwise(a, g), f"K5 {f}: two runs"
+    old_h, budget, key, pidx, table = _march_inputs(cfg, s, want_b, x, y, z, ground, conf,
+                                                    march.march_budget_plain)
+    for run in range(2):
+        got = march.march_budget(cfg, s, want_b, x, y, z, old_h)
+        assert _bitwise(got[0], budget) and _bitwise(got[1], key), f"K6, run {run + 1}"
+    want_m = march.march_plain(cfg, s, table, pidx, x, y, z, budget)
+    got_m = march.march(cfg, s, table, pidx, x, y, z, budget)
+    assert _bitwise(got_m, want_m), f"K7: {int((got_m != want_m).sum())} of {int(want_m.sum())}"
+    assert _bitwise(march.march(cfg, s, table, pidx, x, y, z, budget), got_m), "K7: two runs"
+    return want_b, got_m
+
+
+@pytest.mark.parametrize("sorted_scans", [True, False])
+def test_fused_kernels_match_plain_on_warm_scan(cuda, sorted_scans):
+    """K5, K6 and K7 on the third scan of the adversarial world (where
+    outliers fire) from the warm state of a driver on the card: bitwise their plain versions on the
+    card, and K5's ids bitwise the host prep's (the CPU plain version)."""
+    from groundgrid_torch.core import grid as gridlib
+    from groundgrid_torch.core import scalars
+    from groundgrid_torch.core import transforms as tf
+    from groundgrid_torch.pipeline import scan_scalars, to_device
+    from groundgrid_torch.runtime.driver import StreamingDriver
+
+    cfg = GroundGridConfig(**SMALL_SORTED, sorted_scans=sorted_scans)
+    recs = _adversarial_records(3)
+    driver = StreamingDriver(cfg, cuda)
+    for rec in recs[:2]:
+        driver.process(rec)
+    scan, _ = driver.make_scan(recs[2])
+    packed, _, _ = scan_scalars(cfg, driver.state.center_np, driver.state.center_lo_np, scan)
+    s = scalars.view(to_device(packed, cuda))
+    x, y, z = scan.px, scan.py, scan.pz
+    if not sorted_scans:
+        x, y, z = tf.transform_points_soa(s.velo, x, y, z)
+    ground, conf = gridlib.move(cfg, driver.state.ground, driver.state.groundpatch, s)
+    reset_launch_counts()
+    plain_b, hits = _check_fused(cfg, s, x, y, z, scan.rings, scan.valid > 0, ground, conf)
+    counts = launch_counts()
+    assert (counts["bin"], counts["march_budget"], counts["march"]) == (2, 2, 2)
+    host = binning.bin_points_plain(cfg, scalars.view(torch.from_numpy(packed)), x.cpu(), y.cpu(),
+                                    scan.rings.cpu(), scan.valid.cpu() > 0)
+    assert _bitwise(host.cell, plain_b.cell)
+    assert int(hits.sum()) > 0
+
+
+def _adversarial_records(n):
+    from groundgrid_torch.data.synthetic import adversarial_sequence
+    from groundgrid_torch.runtime.driver import ScanRecord
+
+    return [ScanRecord(index=k, timestamp=0.1 * k, points=p, labels=l, t_map_velo=T)
+            for k, (p, l, T) in enumerate(
+                adversarial_sequence(n, seed=3, n_beams=24, n_azimuth=600, step_m=1.5))]
+
+
+def _random_points(rng, cfg, p):
+    """(x, y, z, rings, valid) of ``p`` points: a third uniform over the
+    grid and beyond it, a third on cell edges and +-1 ulp from them, the
+    rest at -0.0 and below the sensor; the ds edges from ``binning_constants``."""
+    from groundgrid_torch.core import scalars
+
+    n, res = cfg.cell_count, np.float32(cfg.resolution)
+    sh0 = scalars.binning_constants(cfg, np.zeros(2, np.float32), np.zeros(2, np.float32))[0]
+    x = rng.uniform(-1.2, 1.2, p).astype(np.float32) * np.float32(cfg.half_length)
+    y = rng.uniform(-1.2, 1.2, p).astype(np.float32) * np.float32(cfg.half_length)
+    k = rng.integers(-2, n + 2, p).astype(np.float32)
+    edge = (np.float32(sh0) - k * res).astype(np.float32)
+    toward = np.where(rng.random(p) < 0.5, np.inf, -np.inf).astype(np.float32)
+    edge = np.where(rng.random(p) < 0.5, edge, np.nextafter(edge, toward))
+    third = p // 3
+    x[third:2 * third] = edge[:third]
+    y[third:2 * third] = edge[third:2 * third]
+    x[2 * third:2 * third + 7] = -0.0
+    y[2 * third:2 * third + 7] = -0.0
+    z = rng.uniform(-3.0, 1.0, p).astype(np.float32)
+    rings = rng.integers(0, 70, p).astype(np.int32)
+    valid = rng.random(p) < 0.95
+    return x, y, z, rings, valid
+
+
+@pytest.mark.parametrize("p", [4097, 1 << 17, (1 << 17) + 640])
+def test_fused_kernels_match_plain_on_random_points(cuda, p):
+    """K5, K6 and K7 on random points (cell edges, +-1 ulp, -0.0, off the
+    grid; both selection keys, split at 2^17 points) and random layers,
+    bitwise their plain versions."""
+    from groundgrid_torch.core import scalars, transforms
+
+    cfg = GroundGridConfig(**dict(SMALL_SORTED, max_points=p, max_outlier_candidates=700),
+                           max_ring=60, sorted_scans=True)
+    n = cfg.cell_count
+    rng = np.random.default_rng(p)
+    x, y, z, rings, valid = (torch.from_numpy(a).to(cuda) for a in _random_points(rng, cfg, p))
+    packed = scalars.pack(cfg, np.zeros(2, np.float32), np.zeros(2, np.float32), (0, 0),
+                          transforms.translation(0.3, -0.2, 1.7), np.eye(4), np.eye(4))
+    s = scalars.view(torch.from_numpy(packed).to(cuda))
+    ground = torch.from_numpy(rng.normal(-1.0, 0.5, (n, n)).astype(np.float32)).to(cuda)
+    conf = torch.from_numpy(rng.uniform(0.0, 1.0, (n, n)).astype(np.float32)).to(cuda)
+    plain_b, hits = _check_fused(cfg, s, x, y, z, rings, valid, ground, conf)
+    assert 0 < int(plain_b.inmap.sum()) < p and int(plain_b.ignored.sum()) > 0
+    assert int(hits.sum()) > 0
+
+
+def test_fused_kernels_batched_match_single_launches(cuda):
+    """K5, K6 and K7 on a batch of 64 vehicles (random points and layers,
+    each its own scan scalars) in one launch each: every row bitwise its
+    single launch, and the batch bitwise the plain batched versions."""
+    from groundgrid_torch.core import scalars, transforms
+
+    b, p = 64, 2048
+    cfg = GroundGridConfig(**dict(SMALL_SORTED, max_points=p, max_outlier_candidates=300),
+                           max_ring=60)
+    n = cfg.cell_count
+    rng = np.random.default_rng(64)
+    pts = [_random_points(rng, cfg, p) for _ in range(b)]
+    x, y, z, rings, valid = (torch.from_numpy(np.stack(a)).to(cuda) for a in zip(*pts))
+    packed = np.stack([scalars.pack(cfg, rng.normal(0, 0.2, 2).astype(np.float32),
+                                    np.zeros(2, np.float32), (0, 0),
+                                    transforms.translation(*rng.normal(0, 0.5, 2), 1.7),
+                                    np.eye(4), np.eye(4)) for _ in range(b)])
+    sb = scalars.view(torch.from_numpy(packed).to(cuda))
+    ground = torch.from_numpy(rng.normal(-1.0, 0.5, (b, n, n)).astype(np.float32)).to(cuda)
+    conf = torch.from_numpy(rng.uniform(0.0, 1.0, (b, n, n)).astype(np.float32)).to(cuda)
+    reset_launch_counts()
+    plain_b, hits = _check_fused(cfg, sb, x, y, z, rings, valid, ground, conf)
+    counts = launch_counts()
+    assert (counts["bin"], counts["march_budget"], counts["march"]) == (2, 2, 2)
+    old_h, budget, key, pidx, table = _march_inputs(cfg, sb, plain_b, x, y, z, ground, conf,
+                                                    march.march_budget)
+    for v in range(b):
+        s = scalars.view(torch.from_numpy(packed[v]).to(cuda))
+        single = binning.bin_points(cfg, s, x[v], y[v], rings[v], valid[v])
+        assert all(_bitwise(g[v], w) for g, w in zip(plain_b, single)), f"K5 vehicle {v}"
+        bv = type(plain_b)(*(t[v] for t in plain_b))
+        got = march.march_budget(cfg, s, bv, x[v], y[v], z[v], old_h[v])
+        assert _bitwise(got[0], budget[v]) and _bitwise(got[1], key[v]), f"K6 vehicle {v}"
+        single_m = march.march(cfg, s, table[v], pidx[v], x[v], y[v], z[v], budget[v])
+        assert _bitwise(single_m, hits[v]), f"K7 vehicle {v}"
+    assert int(hits.sum()) > 0
+
+
+def test_fused_kernels_read_scalars_at_replay(cuda):
+    """K5, K6 and K7 captured in one CUDA graph on scan A's scan scalars and
+    replayed after scan B's are copied in: bitwise the eager calls on B
+    (the kernels read the scalars when they run, not at the capture)."""
+    from groundgrid_torch.core import outliers, scalars
+    from groundgrid_torch.pipeline import scan_scalars, to_device
+    from groundgrid_torch.runtime.driver import StreamingDriver
+
+    cfg = GroundGridConfig(**SMALL_SORTED, sorted_scans=True)
+    recs = _moving_records()
+    driver = StreamingDriver(cfg, cuda)
+    driver.process(recs[0])
+    state = driver.state
+    scans = [driver.make_scan(rec)[0] for rec in (recs[1], recs[5])]  # a step, a teleport
+    packed = [scan_scalars(cfg, state.center_np, state.center_lo_np, sc)[0] for sc in scans]
+    buf = to_device(packed[0], cuda)
+    points = [tuple(t.clone() for t in (sc.px, sc.py, sc.pz, sc.rings, sc.valid)) for sc in scans]
+    x, y, z, rings, valid = (t.clone() for t in points[0])
+    ground, conf = state.ground.clone(), state.groundpatch.clone()
+
+    def fused(s):
+        b = binning.bin_points(cfg, s, x, y, rings, valid > 0)
+        _, budget, _, pidx, table = _march_inputs(cfg, s, b, x, y, z, ground, conf,
+                                                  march.march_budget)
+        return b, budget, march.march(cfg, s, table, pidx, x, y, z, budget)
+
+    fused(scalars.view(buf))  # build and warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused(scalars.view(buf))
+    for k in (1, 0):
+        buf.copy_(to_device(packed[k], cuda))
+        for dst, src in zip((x, y, z, rings, valid), points[k]):
+            dst.copy_(src)
+        graph.replay()
+        want = fused(scalars.view(to_device(packed[k], cuda)))
+        torch.cuda.synchronize()
+        assert all(_bitwise(g, w) for g, w in zip(out[0], want[0])), f"K5, scan {k}"
+        assert _bitwise(out[1], want[1]), f"K6, scan {k}"
+        assert _bitwise(out[2], want[2]), f"K7, scan {k}"
+    assert outliers.IDX_BITS == 17
+
+
+def test_fused_wrappers_reject_bad_input(cuda):
+    """K5-K7 refuse scan scalars that are not views of a packed row on the
+    points' device, and mismatched shapes or dtypes."""
+    from groundgrid_torch.core import scalars, transforms
+
+    cfg = GroundGridConfig(**SMALL_SORTED)
+    packed = scalars.pack(cfg, np.zeros(2, np.float32), None, (0, 0),
+                          transforms.translation(0.0, 0.0, 1.7), np.eye(4), np.eye(4))
+    x = torch.zeros(64, device=cuda)
+    rings, valid = torch.zeros(64, dtype=torch.int32, device=cuda), torch.ones(64, dtype=torch.bool,
+                                                                              device=cuda)
+    with pytest.raises(ValueError):  # scalars on the host
+        binning.bin_points(cfg, scalars.view(torch.from_numpy(packed)), x, x, rings, valid)
+    s = scalars.view(torch.from_numpy(packed).to(cuda))
+    with pytest.raises(ValueError):  # a (B, P) batch against one row of scalars
+        binning.bin_points(cfg, s, x[None], x[None], rings[None], valid[None])
+    with pytest.raises(ValueError):
+        binning.bin_points(cfg, s, x, x, rings.float(), valid)
+    b = binning.bin_points(cfg, s, x, x, rings, valid)
+    with pytest.raises(ValueError):
+        march.march_budget(cfg, s, b, x, x, x[:32], x)
+    with pytest.raises(ValueError):
+        march.march(cfg, s, torch.zeros(7, device=cuda), torch.zeros(4, dtype=torch.int64,
+                                                                      device=cuda), x, x, x, x)

@@ -32,7 +32,7 @@ from groundgrid_torch.core import detect as tdetect
 from groundgrid_torch.core import outliers as toutliers
 from groundgrid_torch.core import rasterize as traster
 from groundgrid_torch.core import scalars as tscalars
-from groundgrid_torch.ops import lookup, raster
+from groundgrid_torch.ops import lookup, march, raster
 
 # the test workers share the CPU: torch's intra-op thread pools would
 # oversubscribe it and stall on the many small ops of the plain versions
@@ -89,7 +89,8 @@ def _outliers(jcfg, tcfg, d, ground, groundpatch, z_shift=None):
     n2 = tcfg.cell_count ** 2
     (old_h,) = lookup.lookup(tb.cell, [_t(ground)], n2)
     got, _ = toutliers.detect_outliers(tcfg, d["s"], _t(ground), _t(groundpatch), tb,
-                                       _t(d["px"]), _t(d["py"]), _t(z), old_h, lookup.lookup)
+                                       _t(d["px"]), _t(d["py"]), _t(z), old_h,
+                                       march.march_budget, march.march)
     return got.numpy(), np.asarray(want)
 
 
