@@ -29,9 +29,12 @@ Phases (any failure raises and exits non-zero, printing no result):
    update fires: ground and confidence bitwise, two runs bitwise; timed at
    both grid sizes), K5 bin_points (a prepared scan: the six outputs
    bitwise, and the cell ids bitwise the host prep's), K6 march_budget and
-   K7 march (a warm scan's budgets, keys and top-k candidates, as the step
-   builds them by the plain versions; bitwise, and on the scan twice over,
-   262,144 points, the exact-budget key); each of K4-K7 two runs bitwise.
+   K7 march (a warm scan's budgets, keys, directions and top-k candidates,
+   as the step builds them by the plain versions, K7 walking K6's own
+   outputs over the moved layers; bitwise, and on the scan twice over,
+   262,144 points, the exact-budget key; the occlusion key table K7 folds
+   in timed alone, device ms and launches; both kernels' registers and
+   spills by ``nvcc -Xptxas -v``); each of K4-K7 two runs bitwise.
    K3's ring ranges (``spiral_interpolation_rings``) at
    364^2 and 1200^2 (warm states, ``HIGHRES_CONFIG`` for the latter) and at
    n = 2416 (the global band, random layers): the bands of S = 2 and 8 in
@@ -43,8 +46,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    call (CUDA events around back-to-back calls), the plain version's, the
    least time the card could take (the bytes this run's inputs need over
    3.35 TB/s or its f32 operations over 67 TFLOP/s: K2 reads only the
-   distinct cells its ids name, K7 counts the live steps up to each
-   candidate's first hit) and, for K2, one ``torch.index_select``
+   distinct cells its ids name, K6 computes rays for candidates alone, K7
+   counts the live steps up to each candidate's first hit and the cells
+   they read in both layers) and, for K2, one ``torch.index_select``
    over the stacked tables, timed in turns with the kernel (no one PyTorch
    call computes K1, K3 or K4). Then the batched launches of the unsorted
    fleet (``check_batched``): K1, K2 (the points' 2 tables and the march
@@ -196,6 +200,8 @@ import dataclasses
 import io
 import json
 import os
+import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -350,8 +356,8 @@ def check_raster(config, driver, rec):
 def march_inputs(config, driver, rec):
     """The march's inputs on scan ``rec`` from the driver's warm state, as
     the step builds them, by the plain versions: the prepared scan, its scan
-    scalars and binning, the moved layers, ``old_h``, the budgets and keys,
-    the top-k candidates and the occlusion key table."""
+    scalars and binning, the moved layers, ``old_h``, the budgets, keys and
+    directions, and the top-k candidates."""
     from groundgrid_torch.core import grid as gridlib
     from groundgrid_torch.core import outliers
     from groundgrid_torch.ops import lookup
@@ -359,20 +365,23 @@ def march_inputs(config, driver, rec):
     scan, s, binning, _ = prepared(config, driver, rec)
     ground, conf = gridlib.move(config, driver.state.ground, driver.state.groundpatch, s)
     (old_h,) = lookup.lookup_plain(binning.cell, [ground], config.cell_count ** 2)
-    budget, key = outliers.march_budget(config, s, binning, scan.px, scan.py, scan.pz, old_h)
+    budget, key, dirs = outliers.march_budget(config, s, binning, scan.px, scan.py, scan.pz,
+                                              old_h)
     k = min(config.max_outlier_candidates, scan.px.shape[-1])
     return {"scan": scan, "s": s, "binning": binning, "ground": ground, "conf": conf,
-            "old_h": old_h, "budget": budget, "key": key,
-            "pidx": torch.topk(key, k, dim=-1, sorted=False).indices,
-            "table": outliers.occlusion_key_table(config, ground, conf)}
+            "old_h": old_h, "budget": budget, "key": key, "dirs": dirs,
+            "pidx": torch.topk(key, k, dim=-1, sorted=False).indices}
 
 
 def march_lattice(config, driver, rec):
     """The flat cell ids the plain march hands K2 on scan ``rec`` from the
     driver's state, one lattice per chunk of candidates: the plain march
-    (``core/outliers.py march``) over :func:`march_inputs`, its K2 calls
-    recorded. (The step's march is K7, which reads the keys itself.)"""
-    from groundgrid_torch.core import outliers
+    (``core/outliers.py march``, over the occlusion key table) over
+    :func:`march_inputs`, its K2 calls recorded, every candidate walking its
+    own ray (the zero-budget ones too, whose directions K6 leaves 0). The
+    step's march is K7, which reads neither K2 nor the table: the lattice is
+    on no path, a K2 measurement."""
+    from groundgrid_torch.core import exactf32, outliers
     from groundgrid_torch.ops import lookup
 
     x = march_inputs(config, driver, rec)
@@ -382,8 +391,9 @@ def march_lattice(config, driver, rec):
         calls.append(cell.clone())
         return lookup.lookup_plain(cell, tables, n)
 
-    outliers.march(config, x["s"], x["table"], x["pidx"], scan.px, scan.py, scan.pz,
-                   x["budget"], keep)
+    *d, length = outliers._ray(scan.px, scan.py, scan.pz, x["s"])
+    rays = torch.stack([exactf32.div_rn(v, length) for v in d])
+    outliers.march(config, x["s"], x["ground"], x["conf"], x["pidx"], x["budget"], rays, keep)
     if not calls:
         raise AssertionError("the march made no lookup on the warm scan")
     return calls
@@ -411,8 +421,10 @@ def check_lookup_march(config, driver, rec):
 
 
 def check_lookup(config, driver, cell, rec_scan):
-    """K2 on sorted point cells (1 and 2 tables), a uniform random
-    lattice-sized vector and the march lattice of scan ``rec_scan``."""
+    """K2 on sorted point cells (1 and 2 tables: the step's two calls, the
+    old ground before K6, and ground and variance for classify), a uniform
+    random lattice-sized vector and the march lattice of scan ``rec_scan``
+    (on no path since K7 reads its keys itself: a K2 measurement)."""
     from groundgrid_torch.ops import lookup
 
     n2 = config.cell_count ** 2
@@ -457,6 +469,17 @@ def check_lookup(config, driver, cell, rec_scan):
     # name (ids at n2 read nothing), writes one word per id and table
     touched = int(torch.unique(cell[cell < n2]).numel())
     rec.update(bound(cell.nbytes + 2 * 4 * touched + 2 * 4 * cell.shape[0], 0))
+    # the main path's one-table call (the old ground before K6), beside
+    # index_select over the table with a zero word at n2
+    one = kernel_times(lambda: lookup.lookup(cell, [ground], n2), 100, "lookup_kernel",
+                       lambda: lookup.lookup_plain(cell, [ground], n2), 20)
+    padded1 = padded[0].contiguous()
+    if not torch.equal(lookup.lookup(cell, [ground], n2)[0].view(torch.int32),
+                       torch.index_select(padded1, 0, cell).view(torch.int32)):
+        raise AssertionError("K2: index_select differs from the kernel (1 table)")
+    one["library_ms"] = device_ms(lambda: torch.index_select(padded1, 0, cell), 100)[0]
+    one.update(bound(cell.nbytes + 4 * touched + 4 * cell.shape[0], 0))
+    rec.update({"one_table_" + k: v for k, v in one.items()})
     lat = kernel_times(lambda: lookup.lookup(lattice, [conf], n2), 100, "lookup_kernel",
                        lambda: lookup.lookup_plain(lattice, [conf], n2), 20)
     lat_touched = int(torch.unique(lattice[lattice < n2]).numel())
@@ -467,7 +490,11 @@ def check_lookup(config, driver, cell, rec_scan):
         f"({touched} distinct cells): device {dev_runs[0]:.4f} / {dev_runs[1]:.4f} ms, "
         f"index_select {lib_runs[0]:.4f} / {lib_runs[1]:.4f} ms (in turns), call "
         f"{rec['call_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} "
-        f"ms; 1 table x {lattice.shape[0]} uniform random ({lat_touched} distinct cells): "
+        f"ms; 1 table x {cell.shape[0]} sorted points (the old ground): device "
+        f"{one['device_ms']:.4f} ms, index_select {one['library_ms']:.4f} ms, call "
+        f"{one['call_ms']:.4f} ms, plain {one['plain_ms']:.4f} ms, bound "
+        f"{one['bound_ms']:.5f} ms; 1 table x {lattice.shape[0]} uniform random "
+        f"({lat_touched} distinct cells): "
         f"device {lat['device_ms']:.4f} ms, call {lat['call_ms']:.4f} ms, plain "
         f"{lat['plain_ms']:.4f} ms, bound {lat['bound_ms']:.5f} ms; 1 table x {march['ids']} "
         f"ids of the march lattice ({march['distinct_cells']} distinct cells): device "
@@ -755,9 +782,31 @@ def check_detect(config, driver, rec, records):
 # 79, sqrt_rn_ds 180, div_rn 123, the ray (3 differences, sumsq3_ds,
 # sqrt_rn_ds) 262
 BIN_FLOPS = 2 * 87 + 8 + 5  # a point: both axes, the splits, the squared distance
-BUDGET_FLOPS = 1 + 262 + 1 + 123  # a point: old_h - 0.2, the ray, its square, vz
-MARCH_RAY_FLOPS = 262 + 3 * 123 + 8  # a candidate: its ray, 3 directions, the splits
+BUDGET_POINT_FLOPS = 1  # a point: old_h - 0.2
+BUDGET_CAND_FLOPS = 262 + 123 + 1  # a candidate: the ray, vz, its square
+BUDGET_DIR_FLOPS = 2 * 123  # a marchable point: vx and vy
 MARCH_STEP_FLOPS = 1 + 4 + 2 * 87 + 3  # a live step: step^2, the sample, its cells, thr
+MARCH_BLOCK_FLOPS = 8  # a 3x3 confidence block summed
+
+
+def budget_cost(p, candidates, marchable):
+    """K6's (bytes, f32 operations) on these inputs: 22 bytes a point (z,
+    old_h and the two flags read, budget and key written), 8 a candidate
+    (x and y, which only a candidate's ray reads) and 12 a marchable point
+    (its directions); the candidates' rays and the marchable points' vx, vy."""
+    return (22 * p + 8 * candidates + 12 * marchable, BUDGET_POINT_FLOPS * p
+            + BUDGET_CAND_FLOPS * candidates + BUDGET_DIR_FLOPS * marchable)
+
+
+def march_cost(k, work):
+    """K7's (bytes, f32 operations) on one or more vehicles' :func:`march_work`:
+    12 bytes a candidate (index, budget), 12 a marching one (its
+    directions), 4 a ground cell and 4 a confidence cell its samples read,
+    4 a hit written (the wrapper zeroes the flags before the launch); 182
+    operations a step evaluated, 8 a block summed."""
+    return (12 * k + 12 * work["marching"] + 4 * work["ground_cells"] + 4 * work["conf_cells"]
+            + 4 * work["hits"], MARCH_STEP_FLOPS * work["steps"]
+            + MARCH_BLOCK_FLOPS * work["blocks"])
 
 
 def host_packed(config, driver, scan):
@@ -767,33 +816,86 @@ def host_packed(config, driver, scan):
     return host_scalars(config, driver.state.center_np, driver.state.center_lo_np, scan)[0]
 
 
-def march_work(config, s, table, pidx, x, y, z, budget):
-    """What the march must evaluate on these inputs (one vehicle): the live
-    steps of every candidate up to its first hit (``any`` stops there), and
-    the distinct cells whose keys those steps read. The lattice of the plain
-    march (``core/outliers.py march``), unchunked."""
-    from groundgrid_torch.core import exactf32, outliers
+# the kernels line's further keys: K6 and K7's registers and spills, and
+# the key table K7 folds in
+EXTRA_KEYS = ("registers", "spill_store_bytes", "spill_load_bytes", "key_table_device_ms",
+              "key_table_launches")
+
+
+def march_work(config, s, ground, conf, pidx, budget, dirs):
+    """What the march must evaluate on these inputs (one vehicle): the
+    candidates with a live step (``marching``: they read their directions),
+    the live steps of each up to its first hit (``any`` stops there), the
+    distinct cells those steps read in the ground layer (``ground_cells``)
+    and in the confidence layer (``conf_cells``: the cell itself, and the
+    3x3 block where the cell's key could reach the threshold: ``blocks``
+    samples), and the hits. The lattice of the plain march (``core/
+    outliers.py march``), unchunked."""
+    from groundgrid_torch.core import outliers
     from groundgrid_torch.core import rasterize as rasterlib
     from groundgrid_torch.core import scalars as scalarlib
 
     n = config.cell_count
     g = [scalarlib.grid(v) for v in (s.ox, s.oy, s.oz, s.sh0, s.sl0, s.sh1, s.sl1)]
-    dx, dy, dz, clen = outliers._ray(x[pidx], y[pidx], z[pidx], s)
-    vx, vy, vz = (exactf32.div_rn(d, clen)[None, :] for d in (dx, dy, dz))
-    steps = torch.arange(3, config.ray_steps, dtype=torch.float32, device=x.device)[:, None]
+    vx, vy, vz = (d[pidx][None, :] for d in dirs)
+    steps = torch.arange(3, config.ray_steps, dtype=torch.float32, device=budget.device)[:, None]
     live = steps * steps < budget[pidx][None, :]
     i0, i1 = rasterlib.ds_cells(config, *g[3:], g[0] + steps * vx, g[1] + steps * vy)
     inside = (i0 > 0) & (i1 > 0) & (i0 < n - 1) & (i1 < n - 1)
     flat = torch.clamp(i0, 0, n - 1) * n + torch.clamp(i1, 0, n - 1)
+    table = outliers.occlusion_key_table(config, ground, conf)
     keys = outliers._u32_bits(table.reshape(-1)[flat.reshape(-1)]).reshape(flat.shape)
     thr = outliers._mono_u32((steps * vz + g[2]) + float(np.float32(config.outlier_tolerance)))
     hit = live & inside & (keys >= thr)
-    rank = torch.arange(steps.shape[0], device=x.device)[:, None]
+    rank = torch.arange(steps.shape[0], device=budget.device)[:, None]
     first = torch.where(hit.any(0), hit.to(torch.int32).argmax(0), steps.shape[0])
-    needed = live & (rank <= first[None, :])
-    read = flat[needed & inside]
-    return {"steps": int(needed.sum()), "live_steps": int(live.sum()),
-            "cells_read": int(torch.unique(read).numel()), "hits": int(hit.any(0).sum())}
+    read = live & (rank <= first[None, :]) & inside
+    cells = flat[read]
+    # K7 sums the block only where thr > 0 and the cell's own tests pass
+    boxed = read & (thr > 0) & (outliers._mono_u32(ground.reshape(-1)[flat]) >= thr) & (
+        conf.reshape(-1)[flat] > float(np.float32(0.01)))
+    r, c = (torch.clamp(i, min=3)[boxed][:, None] for i in (i0, i1))
+    window = torch.arange(-1, 2, device=budget.device)
+    block = ((r + window.repeat_interleave(3)) * n + (c + window.repeat(3))).reshape(-1)
+    return {"marching": int(live.any(0).sum()), "steps": int((live & (rank <= first)).sum()),
+            "live_steps": int(live.sum()), "ground_cells": int(torch.unique(cells).numel()),
+            "conf_cells": int(torch.unique(torch.cat([cells, block])).numel()),
+            "blocks": int(boxed.sum()), "hits": int(hit.any(0).sum())}
+
+
+def ptxas_usage(source, kernels):
+    """``{kernel: (registers, spill store bytes, spill load bytes)}`` of the
+    named kernels of ``csrc/<source>``, as ``nvcc -Xptxas -v`` reports them
+    under the build's flags (a compile of its own, into the build
+    directory)."""
+    from groundgrid_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+               os.path.join(tmp, "usage.o"), str(_build.CSRC / source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed ({proc.returncode}):\n{proc.stderr}")
+    out, name, spills = {}, None, (None, None)
+    # longest names first: march_kernel is no part of march_budget_kernel,
+    # but a later kernel's name may hold an earlier one's
+    names = sorted(kernels, key=len, reverse=True)
+    for line in (proc.stdout + proc.stderr).splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = next((k for k in names if k in entry.group(1)), None)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name is not None:
+            out[name] = (int(used.group(1)), *spills)
+            name, spills = None, (None, None)
+    missing = [k for k in kernels if k not in out]
+    if missing:
+        raise RuntimeError(f"nvcc -Xptxas -v reported no registers for {missing}")
+    return out
 
 
 def check_binning(config, driver, rec):
@@ -829,27 +931,39 @@ def check_binning(config, driver, rec):
     return rec
 
 
+def same_budgets(got, want):
+    """K6's outputs bitwise: budget and key everywhere, the directions where
+    the budget is positive (K6 writes them nowhere else)."""
+    pos = want[0] > 0
+    return (bitwise(got[0], want[0]) and bitwise(got[1], want[1])
+            and bitwise(got[2][:, pos], want[2][:, pos]))
+
+
 def check_march(config, driver, rec):
     """K6 and K7 on a warm scan against their plain versions, bitwise, two
-    runs bitwise; K6 also on the scan twice over (262,144 points: the
-    exact-budget key) and K7 on its candidates. Times and bounds: K6 moves
-    30 bytes a point; K7 reads the candidates (index, x, y, z, budget: 24
-    bytes each) and the keys of the cells its steps read, writes the (P,)
-    flags, and evaluates the live steps up to each candidate's first hit
-    (:func:`march_work`). Returns the two records."""
+    runs bitwise, K7 walking K6's own outputs; K6 also on the scan twice
+    over (262,144 points: the exact-budget key) and K7 on its candidates.
+    Times and bounds (:func:`budget_cost`, :func:`march_cost` of
+    :func:`march_work`); the occlusion key table, the work K7 folds in,
+    timed alone (device ms and launches); both kernels' registers and
+    spills (:func:`ptxas_usage`). Returns the two records."""
+    from groundgrid_torch.core import outliers
     from groundgrid_torch.core.rasterize import Binning
+    from groundgrid_torch.runtime.kernel_timing import device_ms
     from groundgrid_torch.ops import march
 
     x = march_inputs(config, driver, rec)
     scan, s, b = x["scan"], x["s"], x["binning"]
+    ground, conf = x["ground"], x["conf"]
     pts = (scan.px, scan.py, scan.pz)
     budget_args = (config, s, b, *pts, x["old_h"])
-    march_args = (config, s, x["table"], x["pidx"], *pts, x["budget"])
+    want6 = (x["budget"], x["key"], x["dirs"])
     for run in range(2):
-        got = march.march_budget(*budget_args)
-        if not (bitwise(got[0], x["budget"]) and bitwise(got[1], x["key"])):
+        got6 = march.march_budget(*budget_args)
+        if not same_budgets(got6, want6):
             raise AssertionError(f"K6 (run {run + 1}) differs from the plain version")
-    want = march.march_plain(*march_args)
+    march_args = (config, s, ground, conf, x["pidx"], got6[0], got6[2])
+    want = march.march_plain(config, s, ground, conf, x["pidx"], x["budget"], x["dirs"])
     for run in range(2):
         got = march.march(*march_args)
         if not bitwise(got, want):
@@ -860,36 +974,54 @@ def check_march(config, driver, rec):
     big = [torch.cat([t, t]) for t in (*pts, x["old_h"])]
     got = march.march_budget(config, s, two, *big)
     plain = march.march_budget_plain(config, s, two, *big)
-    if not (bitwise(got[0], plain[0]) and bitwise(got[1], plain[1])):
+    if not same_budgets(got, plain):
         raise AssertionError("K6 on 262,144 points differs from the plain version")
     pidx = torch.topk(plain[1], config.max_outlier_candidates, sorted=False).indices
-    big_args = (config, s, x["table"], pidx, *big[:3], plain[0])
-    if not bitwise(march.march(*big_args), march.march_plain(*big_args)):
+    if not bitwise(march.march(config, s, ground, conf, pidx, got[0], got[2]),
+                   march.march_plain(config, s, ground, conf, pidx, plain[0], plain[2])):
         raise AssertionError("K7 on 262,144 points differs from the plain version")
 
     p, k = scan.px.shape[0], x["pidx"].shape[0]
-    k6 = {"max_abs_err": 0.0, "library_ms": None}
+    candidates = int((b.inmap & ~b.ignored & (scan.pz < x["old_h"] - float(np.float32(0.2))))
+                     .sum())
+    marchable = int((x["budget"] > 0).sum())
+    usage = ptxas_usage("march.cu", ("march_budget_kernel", "march_kernel"))
+    k6 = {"max_abs_err": 0.0, "library_ms": None, "candidates": candidates,
+          "marchable": marchable}
     k6.update(kernel_times(lambda: march.march_budget(*budget_args), 100, "march_budget_kernel",
                            lambda: march.march_budget_plain(*budget_args), 20))
-    k6.update(bound(30 * p, BUDGET_FLOPS * p))
-    work = march_work(config, s, x["table"], x["pidx"], *pts, x["budget"])
+    k6.update(bound(*budget_cost(p, candidates, marchable)))
+    work = march_work(config, s, ground, conf, x["pidx"], x["budget"], x["dirs"])
     if work["hits"] != int(want.sum()):
         raise AssertionError(f"march_work counts {work['hits']} hits, the march {int(want.sum())}")
-    k7 = {"max_abs_err": 0.0, "library_ms": None, **work,
-          "marchable": int((x["budget"] > 0).sum()), "candidates": k}
+    k7 = {"max_abs_err": 0.0, "library_ms": None, **work, "marchable": marchable,
+          "candidates": k}
     k7.update(kernel_times(lambda: march.march(*march_args), 100, "march_kernel",
                            lambda: march.march_plain(*march_args), 10))
-    k7.update(bound(24 * k + 4 * work["cells_read"] + 4 * p,
-                    MARCH_RAY_FLOPS * k + MARCH_STEP_FLOPS * work["steps"]))
-    log(f"K6 march_budget: {p} points ({k7['marchable']} marchable): bitwise the plain "
-        f"version (and at {2 * p} points, the scan twice over), two runs bitwise; device "
-        f"{k6['device_ms']:.4f} ms, call {k6['call_ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms, "
-        f"bound {k6['bound_ms']:.5f} ms ({k6['bound_by']})")
-    log(f"K7 march: {k} candidates ({k7['marchable']} marchable, {work['hits']} hit), "
-        f"{work['steps']} steps to evaluate of {work['live_steps']} live, {work['cells_read']} "
-        f"cells read: bitwise the plain version (and at {2 * p} points), two runs bitwise; "
-        f"device {k7['device_ms']:.4f} ms, call {k7['call_ms']:.4f} ms, plain "
-        f"{k7['plain_ms']:.4f} ms, bound {k7['bound_ms']:.5f} ms ({k7['bound_by']})")
+    k7.update(bound(*march_cost(k, work)))
+    # the key table K7 folds in, as the step built it before (every device
+    # activity of one call; launches a call)
+    reps = 50
+    table_ms, table_acts = device_ms(lambda: outliers.occlusion_key_table(config, ground, conf),
+                                     reps)
+    k7.update(key_table_device_ms=table_ms, key_table_launches=table_acts / reps)
+    for out, kname in ((k6, "march_budget_kernel"), (k7, "march_kernel")):
+        out["registers"], out["spill_store_bytes"], out["spill_load_bytes"] = usage[kname]
+    log(f"K6 march_budget: {p} points ({candidates} candidates, {marchable} marchable): bitwise "
+        f"the plain version (and at {2 * p} points, the scan twice over), two runs bitwise; "
+        f"device {k6['device_ms']:.4f} ms, call {k6['call_ms']:.4f} ms, plain "
+        f"{k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.5f} ms ({k6['bound_by']}); "
+        f"{k6['registers']} registers, spills {k6['spill_store_bytes']} / "
+        f"{k6['spill_load_bytes']} bytes")
+    log(f"K7 march: {k} candidates ({work['marching']} marching, {work['hits']} hit), "
+        f"{work['steps']} steps to evaluate of {work['live_steps']} live, "
+        f"{work['ground_cells']} ground and {work['conf_cells']} confidence cells read, "
+        f"{work['blocks']} blocks summed: bitwise the plain version (and at {2 * p} points), two "
+        f"runs bitwise; device {k7['device_ms']:.4f} ms, call {k7['call_ms']:.4f} ms, plain "
+        f"{k7['plain_ms']:.4f} ms, bound {k7['bound_ms']:.5f} ms ({k7['bound_by']}); "
+        f"{k7['registers']} registers, spills {k7['spill_store_bytes']} / "
+        f"{k7['spill_load_bytes']} bytes; the occlusion key table it folds in: "
+        f"{table_ms:.4f} device ms, {table_acts / reps:g} launches a call")
     return k6, k7
 
 
@@ -1067,7 +1199,6 @@ def check_batched_fused(config, x, b):
     its scan, scan scalars and moved layers), each bitwise its ``b`` single
     launches and its plain batched version; timed against the single
     launches (``batched_times``)."""
-    from groundgrid_torch.core import outliers
     from groundgrid_torch.core import scalars as scalarlib
     from groundgrid_torch.core.rasterize import Binning
     from groundgrid_torch.ops import binning, lookup, march
@@ -1106,34 +1237,39 @@ def check_batched_fused(config, x, b):
 
     (old_h,) = lookup.lookup(bins.cell, [ground], n2)
     budget_args = (config, sb, bins, px, py, pz, old_h)
-    budget, key = march.march_budget(*budget_args)
-    check("K6", (budget, key), march.march_budget_plain(*budget_args),
-          lambda v: march.march_budget(config, rows[v], row(bins, v), px[v], py[v], pz[v],
-                                       old_h[v]))
+    budget, key, dirs = march.march_budget(*budget_args)
+    plain6 = march.march_budget_plain(*budget_args)
+    if not same_budgets((budget, key, dirs), plain6):
+        raise AssertionError("K6 batched differs from its plain batched version")
+    for v in range(b):
+        single = march.march_budget(config, rows[v], row(bins, v), px[v], py[v], pz[v], old_h[v])
+        if not same_budgets((budget[v], key[v], dirs[:, v]), single):
+            raise AssertionError(f"K6 batched: vehicle {v} differs from its single launch")
+    cand = bins.inmap & ~bins.ignored & (pz < old_h - float(np.float32(0.2)))
     out["march_budget"] = dict(max_abs_err=0.0, **batched_times(
         "K6 march_budget", lambda: march.march_budget(*budget_args),
         lambda: [march.march_budget(config, rows[v], row(bins, v), px[v], py[v], pz[v],
                                     old_h[v]) for v in range(b)],
-        lambda: march.march_budget_plain(*budget_args), "march_budget_kernel", b, 30 * p * b,
-        BUDGET_FLOPS * p * b))
+        lambda: march.march_budget_plain(*budget_args), "march_budget_kernel", b,
+        *budget_cost(p * b, int(cand.sum()), int((budget > 0).sum()))))
 
     k = min(config.max_outlier_candidates, p)
     pidx = torch.topk(key, k, dim=-1, sorted=False).indices
-    table = outliers.occlusion_key_table(config, ground, conf)
-    march_args = (config, sb, table, pidx, px, py, pz, budget)
+    march_args = (config, sb, ground, conf, pidx, budget, dirs)
 
     def single_march(v):
-        return march.march(config, rows[v], table[v], pidx[v], px[v], py[v], pz[v], budget[v])
+        return march.march(config, rows[v], ground[v], conf[v], pidx[v], budget[v], dirs[:, v])
 
-    check("K7", march.march(*march_args), march.march_plain(*march_args), single_march)
-    work = [march_work(config, rows[v], table[v], pidx[v], px[v], py[v], pz[v], budget[v])
-            for v in range(b)]
-    steps, cells = sum(w["steps"] for w in work), sum(w["cells_read"] for w in work)
-    out["march"] = dict(max_abs_err=0.0, steps=steps, **batched_times(
+    want = march.march_plain(config, sb, ground, conf, pidx, plain6[0], plain6[2])
+    check("K7", march.march(*march_args), want, single_march)
+    work = [march_work(config, rows[v], ground[v], conf[v], pidx[v], plain6[0][v],
+                       plain6[2][:, v]) for v in range(b)]
+    total = {key_: sum(w[key_] for w in work) for key_ in work[0]}
+    out["march"] = dict(max_abs_err=0.0, steps=total["steps"], **batched_times(
         "K7 march", lambda: march.march(*march_args),
         lambda: [single_march(v) for v in range(b)],
         lambda: march.march_plain(*march_args), "march_kernel", b,
-        24 * k * b + 4 * cells + 4 * p * b, MARCH_RAY_FLOPS * k * b + MARCH_STEP_FLOPS * steps))
+        *march_cost(k * b, total)))
     return out
 
 
@@ -2704,7 +2840,8 @@ def main() -> int:
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
             **{k: v for k, v in res.items()
-               if k.endswith(("_highres", "_364", "_1200", "_2416"))},
+               if k.endswith(("_highres", "_364", "_1200", "_2416")) or k in EXTRA_KEYS
+               or k.startswith("one_table_")},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,12 +27,16 @@ lattice. A candidate with a zero budget never fires (``step^2 < 0`` is
 false), so the padded buffer marks the outliers of the marchable ones
 alone, and the march reads nothing back to the host.
 
-:func:`detect_outliers` is three stages: the per-point budgets and keys
-(:func:`march_budget`), ``torch.topk`` over the keys, and the march of the
-selected candidates (:func:`march`). The first and the last are the plain
-versions of K6 and K7 (``ops/march.py``), which fuse each chain into one
-launch on the card, as XLA fuses it for the JAX package; the plain march
-reads the keys through K2's plain version, which takes unsorted cells.
+:func:`detect_outliers` is three stages: the per-point budgets, keys and
+ray directions (:func:`march_budget`), ``torch.topk`` over the keys, and
+the march of the selected candidates along those directions
+(:func:`march`) against the moved ground and groundpatch. The first and
+the last are the plain versions of K6 and K7 (``ops/march.py``), which
+fuse each chain into one launch on the card, as XLA fuses it for the JAX
+package; K7 folds the occlusion key of each cell it reads into the walk,
+where the plain march builds the whole key table
+(:func:`occlusion_key_table`) and reads it through K2's plain version,
+which takes unsorted cells.
 
 A batch of vehicles, (B, P) points, (B, N, N) layers and (B, 1) scan
 scalars, marches each row against its own grid: the selection takes each
@@ -132,38 +136,48 @@ def selection_key(budget):
 
 
 def march_budget(config: GroundGridConfig, s, binning: Binning, x, y, z, old_h):
-    """``((P,) f32 budget, (P,) int64 key)``: each point's march budget and
-    its selection key (:func:`selection_key`); of a (B, P) batch, row by row.
+    """``((P,) f32 budget, (P,) int64 key, (3, P) f32 directions)``: each
+    point's march budget, its selection key (:func:`selection_key`) and its
+    ray's unit direction ``(vx, vy, vz)`` where the budget is positive (0
+    elsewhere); of a (B, P) batch, row by row ((3, B, P) directions).
 
     The budget is the squared ray length, f64-faithful, of an in-map,
     unignored point at least 0.2 m below the previous terrain (``old_h``,
-    ``ground[cell]``) whose ray points down (``vz < -0.01``), else 0. The
-    plain version of K6 (``ops/march.py``). ``s``: the scan scalars.
+    ``ground[cell]``) whose ray points down (``vz < -0.01``), else 0. Each
+    direction is the ray's difference over its length, correctly rounded
+    (``exactf32.div_rn``). The plain version of K6 (``ops/march.py``).
+    ``s``: the scan scalars.
     """
     cand = binning.inmap & ~binning.ignored & (z < old_h - float(np.float32(0.2)))
-    _, _, dza, length = _ray(x, y, z, s)
+    dxa, dya, dza, length = _ray(x, y, z, s)
     len2 = length * length
     vz = exactf32.div_rn(dza, length)
-    budget = torch.where(cand & (vz < float(np.float32(-0.01))), len2, torch.zeros_like(len2))
-    return budget, selection_key(budget)
+    zero = torch.zeros_like(len2)
+    budget = torch.where(cand & (vz < float(np.float32(-0.01))), len2, zero)
+    marchable = budget > 0
+    dirs = torch.stack([torch.where(marchable, v, zero) for v in (
+        exactf32.div_rn(dxa, length), exactf32.div_rn(dya, length), vz)])
+    return budget, selection_key(budget), dirs
 
 
-def march(config: GroundGridConfig, s, key_table, pidx, x, y, z, budget, lookup_fn):
+def march(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs, lookup_fn):
     """(P,) int32, 1 at the candidates ``pidx`` (unique point indices, (K,),
     or (B, K) of a (B, P) batch) whose line of sight crosses an occluding
     cell, 0 elsewhere.
 
     Marches the (steps x candidates) lattice, ``LATTICE_ELEMS`` elements a
-    chunk: a step is live while ``step^2 < budget``; a live sample inside
-    the grid hits where its cell's key (``key_table``,
-    :func:`occlusion_key_table`) reaches the monotone image of its height
-    plus the tolerance. Key reads go through ``lookup_fn`` (K2 or its plain
-    version). The plain version of K7 (``ops/march.py``).
+    chunk, along each candidate's direction (``dirs``, :func:`march_budget`'s):
+    a step is live while ``step^2 < budget``; a live sample inside the grid
+    hits where its cell's key (:func:`occlusion_key_table` of ``ground`` and
+    ``groundpatch``, the moved layers) reaches the monotone image of its
+    height plus the tolerance. Key reads go through ``lookup_fn`` (K2 or
+    its plain version). The plain version of K7 (``ops/march.py``).
     """
     n = config.cell_count
-    batch = x.shape[:-1]
-    dev = x.device
-    out = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+    batch = budget.shape[:-1]
+    dev = budget.device
+    key_table = occlusion_key_table(config, ground, groundpatch)
+    out = torch.zeros(budget.shape, dtype=torch.int32, device=dev)
     k_max = pidx.shape[-1]
     tol = float(np.float32(config.outlier_tolerance))
     steps = torch.arange(3, config.ray_steps, dtype=torch.float32, device=dev)[:, None]
@@ -174,10 +188,7 @@ def march(config: GroundGridConfig, s, key_table, pidx, x, y, z, budget, lookup_
     chunk = max(1, LATTICE_ELEMS // max(1, steps.shape[0]))
     for start in range(0, k_max, chunk):
         cp = pidx[..., start:start + chunk]
-        dx, dy, dz, clen = _ray(take_points(x, cp), take_points(y, cp), take_points(z, cp), s)
-        vx = exactf32.div_rn(dx, clen)[..., None, :]
-        vy = exactf32.div_rn(dy, clen)[..., None, :]
-        vz_c = exactf32.div_rn(dz, clen)[..., None, :]
+        vx, vy, vz_c = (take_points(d, cp)[..., None, :] for d in dirs)
         within = steps * steps < take_points(budget, cp)[..., None, :]
         sx = ox + steps * vx
         sy = oy + steps * vy
@@ -205,7 +216,9 @@ def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: B
     ``budget_fn`` / ``march_fn``: ``ops.march.march_budget`` (K6) and
     ``ops.march.march`` (K7), or their plain versions (:func:`march_budget`,
     and :func:`march` over the plain K2). Between them, ``torch.topk`` takes
-    the ``k_max`` largest keys (the JAX package's ``lax.top_k``).
+    the ``k_max`` largest keys (the JAX package's ``lax.top_k``); the march
+    reads the occlusion keys of ``ground`` and ``groundpatch`` (K7 cell by
+    cell, the plain march through the whole key table).
     """
     p_total = x.shape[-1]
     batch = x.shape[:-1]
@@ -213,11 +226,10 @@ def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: B
     if k_max == 0:
         return (torch.zeros(x.shape, dtype=torch.bool, device=x.device),
                 torch.zeros(batch, dtype=torch.int64, device=x.device))
-    budget, key = budget_fn(config, s, binning, x, y, z, old_h)
+    budget, key, dirs = budget_fn(config, s, binning, x, y, z, old_h)
     # candidate selection; a positive budget always outranks a zero one, so
     # the top k_max keys hold the JAX package's marchable buffer, padded
     # with zero budgets that never fire
     n_marchable = (budget > 0).sum(-1)
     pidx = torch.topk(key, k_max, dim=-1, sorted=False).indices
-    key_table = occlusion_key_table(config, ground, groundpatch)
-    return march_fn(config, s, key_table, pidx, x, y, z, budget) > 0, n_marchable
+    return march_fn(config, s, ground, groundpatch, pidx, budget, dirs) > 0, n_marchable

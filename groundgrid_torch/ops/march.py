@@ -2,21 +2,23 @@
 
 Replace what XLA fuses for the JAX package of its outlier rejection,
 ``groundgrid_tpu/core/outliers.py:detect_outliers``: K6 :func:`march_budget`
-the per-point budgets and selection keys before the ``torch.topk`` that
-picks the candidates (the JAX package's ``lax.top_k``), K7 :func:`march`
-the walk of the selected candidates' rays over the grid, with the key reads
-that K2 made over the (steps x candidates) lattice. Eager PyTorch runs the
-two chains as ~1,450 elementwise kernels and one K2 launch a scan.
+the per-point budgets, selection keys and ray directions before the
+``torch.topk`` that picks the candidates (the JAX package's ``lax.top_k``),
+K7 :func:`march` the walk of the selected candidates' rays over the grid,
+with the occlusion key of each cell it reads computed from the moved
+ground and groundpatch (the JAX package reads a key table through its
+sorted-lookup kernel). Eager PyTorch runs the two chains and the key table
+as ~1,480 elementwise kernels and one K2 launch a scan.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (:func:`march_budget_plain`, :func:`march_plain`: ``core/
-outliers.py``'s ``march_budget`` and ``march``, the latter over K2's plain
-version) only for CPU tensors. Kernel and plain version agree bitwise: the
-kernels round every operation as its PyTorch kernel does
-(``csrc/exactf32.cuh``). Both kernels read the scan scalars where they lie
-(``scalars.device_rows``) and take a batch of vehicles, (B, P) points, (B,
-K) candidates and (B, N*N) keys, in one launch, each row bitwise its
-single call.
+outliers.py``'s ``march_budget`` and ``march``, the latter over the key
+table and K2's plain version) only for CPU tensors. Kernel and plain
+version agree bitwise: the kernels round every operation as its PyTorch
+kernel does (``csrc/exactf32.cuh``). Both kernels read the scan scalars
+where they lie (``scalars.device_rows``) and take a batch of vehicles, (B,
+P) points, (B, K) candidates and (B, N, N) layers, in one launch, each row
+bitwise its single call.
 """
 
 from __future__ import annotations
@@ -37,10 +39,10 @@ from groundgrid_torch.ops.lookup import lookup_plain
 march_budget_plain = outliers.march_budget
 
 
-def march_plain(config: GroundGridConfig, s, key_table, pidx, x, y, z, budget):
-    """Plain version of :func:`march`: ``core/outliers.py march`` with its
-    key reads through K2's plain version."""
-    return outliers.march(config, s, key_table, pidx, x, y, z, budget, lookup_plain)
+def march_plain(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs):
+    """Plain version of :func:`march`: ``core/outliers.py march``, its
+    occlusion key table read through K2's plain version."""
+    return outliers.march(config, s, ground, groundpatch, pidx, budget, dirs, lookup_plain)
 
 
 def _check_points(*tensors):
@@ -53,9 +55,11 @@ def _check_points(*tensors):
 
 
 def march_budget(config: GroundGridConfig, s, binning: Binning, x, y, z, old_h):
-    """``(budget, key)``: ``core/outliers.py march_budget`` of (P,) or (B,
-    P) points, the f32 march budget and the unique int64 selection key of
-    every point. ``old_h``: ``ground[cell]`` of the moved ground (K2)."""
+    """``(budget, key, dirs)``: ``core/outliers.py march_budget`` of (P,) or
+    (B, P) points, the f32 march budget and the unique int64 selection key
+    of every point, and the (3, ...) f32 ray directions, defined where the
+    budget is positive (the kernel writes nothing elsewhere). ``old_h``:
+    ``ground[cell]`` of the moved ground (K2)."""
     if x.device.type == "cpu":
         return march_budget_plain(config, s, binning, x, y, z, old_h)
     _check_points(x, y, z, old_h, binning.inmap, binning.ignored)
@@ -68,45 +72,58 @@ def march_budget(config: GroundGridConfig, s, binning: Binning, x, y, z, old_h):
     ins = [t.contiguous() for t in (x, y, z, old_h, binning.inmap, binning.ignored)]
     budget = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     key = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    dirs = torch.empty((3, *x.shape), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
-        return budget, key
+        return budget, key, dirs
     code = _build.launch("gg_march_budget", x.device, *(t.data_ptr() for t in ins),
                          x.shape[-1], math.prod(x.shape[:-1]), base, stride, budget.data_ptr(),
-                         key.data_ptr())
+                         key.data_ptr(), dirs.data_ptr())
     _build.check(code, "march_budget")
     march_budget.launches += 1
-    return budget, key
+    return budget, key, dirs
 
 
-def march(config: GroundGridConfig, s, key_table, pidx, x, y, z, budget):
+def march(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs):
     """``core/outliers.py march``: (P,) (or (B, P)) int32, 1 at the
     candidates ``pidx`` (unique int64 point indices a row, (K,) or (B, K))
-    whose ray crosses an occluding cell (``key_table``, the (N*N,) or (B,
-    N*N) u32 keys of ``occlusion_key_table`` in f32 bits), 0 elsewhere."""
-    if x.device.type == "cpu":
-        return march_plain(config, s, key_table, pidx, x, y, z, budget)
-    _check_points(x, y, z, budget)
+    whose ray, along ``dirs`` (:func:`march_budget`'s) for ``budget``,
+    crosses an occluding cell of the moved ``ground`` and ``groundpatch``
+    ((N, N) or (B, N, N) f32), 0 elsewhere."""
+    if budget.device.type == "cpu":
+        return march_plain(config, s, ground, groundpatch, pidx, budget, dirs)
+    _check_points(budget)
     n = config.cell_count
-    batch = math.prod(x.shape[:-1])
-    if (pidx.dtype != torch.int64 or pidx.dim() != x.dim() or pidx.shape[:-1] != x.shape[:-1]
-            or pidx.device != x.device):
+    batch = budget.shape[:-1]
+    if n < 5:
+        raise ValueError(f"march: cell_count {n} < 5 (the clamped 3x3 block would leave the "
+                         f"grid)")
+    if (pidx.dtype != torch.int64 or pidx.dim() != budget.dim()
+            or pidx.shape[:-1] != batch or pidx.device != budget.device):
         raise ValueError(f"pidx must be int64 candidates a row of the points, got "
                          f"{tuple(pidx.shape)} {pidx.dtype}")
-    if (key_table.dtype != torch.float32 or key_table.numel() != batch * n * n
-            or key_table.device != x.device):
-        raise ValueError(f"key_table must hold {n * n} float32 words a vehicle")
-    if x.device.type != "cuda":
-        raise RuntimeError(f"march: unsupported device {x.device}")
-    base, stride = scalarlib.device_rows(s, x)
-    ins = [t.contiguous() for t in (pidx, x, y, z, budget, key_table)]
-    out = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
-    if pidx.shape[-1] == 0 or x.numel() == 0:
+    if dirs.dtype != torch.float32 or dirs.shape != (3, *budget.shape) or (
+            dirs.device != budget.device):
+        raise ValueError(f"dirs must be (3, *budget.shape) float32, got {tuple(dirs.shape)} "
+                         f"{dirs.dtype}")
+    for layer in (ground, groundpatch):
+        if (layer.dtype != torch.float32 or layer.shape != (*batch, n, n)
+                or layer.device != budget.device):
+            raise ValueError(f"ground and groundpatch must be {(*batch, n, n)} float32 layers "
+                             f"on the points' device, got {tuple(layer.shape)} {layer.dtype}")
+    if budget.device.type != "cuda":
+        raise RuntimeError(f"march: unsupported device {budget.device}")
+    base, stride = scalarlib.device_rows(s, budget)
+    ins = [t.contiguous() for t in (pidx, budget, dirs, ground, groundpatch)]
+    out = torch.zeros(budget.shape, dtype=torch.int32, device=budget.device)
+    if pidx.shape[-1] == 0 or budget.numel() == 0:
         return out  # no candidate marches
     rh, rl, inv = exactf32.res_ds(config.resolution)
     code = _build.launch(
-        "gg_march", x.device, ins[0].data_ptr(), pidx.shape[-1], *(t.data_ptr() for t in ins[1:5]),
-        x.shape[-1], batch, ins[5].data_ptr(), n, base, stride, float(rh), float(rl), float(inv),
-        float(np.float32(config.outlier_tolerance)), int(config.ray_steps), out.data_ptr())
+        "gg_march", budget.device, ins[0].data_ptr(), pidx.shape[-1],
+        *(t.data_ptr() for t in ins[1:]), budget.shape[-1], math.prod(batch), n, base, stride,
+        float(rh), float(rl), float(inv), float(np.float32(config.outlier_tolerance)),
+        float(np.float32(config.min_outlier_detection_ground_confidence)),
+        int(config.ray_steps), out.data_ptr())
     _build.check(code, "march")
     march.launches += 1
     return out

@@ -15,7 +15,8 @@ that takes a fourth argument, as ``check_detect`` does for its 1200^2
 case, gets the five rendered scans). With
 ``lookup``, every turn also times its tree's K2 on the march lattice of a
 warm scan by this script's own ``chip_smoke.check_lookup_march`` (the
-same measurement in every tree, older trees having none). A turn prints the
+same measurement in every tree whose plain march takes the moved layers
+and K6's directions, as this one does). A turn prints the
 tree's environment lines and, last, one JSON line with what each check
 returned; this script echoes them and ends with one JSON line of all turns.
 It fails if a turn fails. ``binning`` and ``march`` (K5-K7) exist only in
@@ -23,7 +24,10 @@ trees that have them. ``step`` times the whole step in each tree on 32
 rendered scans: the streaming bench's device ms a scan (the captured
 step), ``bench --profile``'s busy ms and device activities a step (and,
 where the tree has them, the eager step's stages), and the unsorted fleet
-of 64's device ms a tick.
+of 64's device ms a tick; it also digests the captured step's outputs on
+those scans, sorted and unsorted (labels, outlier flags, marchable counts,
+the last state), and the last line says whether every turn's digest is
+the same (``same_outputs``).
 """
 
 from __future__ import annotations
@@ -52,10 +56,29 @@ records = synthetic_records(config, 32 if "step" in sys.argv[2:] else 5)
 driver = cs.warm_driver(config, records, device)
 
 
+def outputs_digest():
+    # sha256 of what the captured step gives over the rendered scans, sorted
+    # and unsorted: labels, outlier flags and marchable counts a scan, the
+    # last state's layers
+    import hashlib
+    from groundgrid_torch.runtime.driver import StreamingDriver
+
+    h = hashlib.sha256()
+    for cfg in (config, GroundGridConfig()):
+        d = StreamingDriver(cfg, device)
+        for rec in records:
+            res = d.process(rec)
+            h.update(res.labels.tobytes() + res.outlier.tobytes())
+            h.update(str(d.step.marchable).encode())
+        h.update(d.state.ground.cpu().numpy().tobytes())
+        h.update(d.state.groundpatch.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def step_turn():
     # the step end to end: the streaming bench's device ms a scan (the
-    # captured step), bench --profile's summary lines and the unsorted
-    # fleet of 64's device ms a tick (one batched step)
+    # captured step), bench --profile's summary lines, the unsorted fleet
+    # of 64's device ms a tick (one batched step) and the outputs' digest
     from groundgrid_torch.runtime import bench
     from groundgrid_torch.runtime.driver import StreamingDriver
 
@@ -69,7 +92,7 @@ def step_turn():
     return {"device_ms_per_scan": sum(steps) / len(steps),
             "profile": [line for line in profile if line.startswith(keep)],
             "fleet_unsorted_device_ms_per_tick": fleet["device_ms_per_tick"],
-            "fleet_unsorted_batched": fleet["batched"]}
+            "fleet_unsorted_batched": fleet["batched"], "outputs_digest": outputs_digest()}
 
 
 def keep(result):  # a check's record, without the tensors some checks also return
@@ -127,7 +150,8 @@ def main(argv=None) -> int:
     for tree in args.trees + args.trees[::-1]:
         turns.append(turn(tree, args.kernels))
         print(json.dumps(turns[-1]), flush=True)
-    print(json.dumps({"turns": turns}))
+    digests = {t["checks"]["step"]["outputs_digest"] for t in turns if "step" in t["checks"]}
+    print(json.dumps({"turns": turns, "same_outputs": len(digests) == 1 if digests else None}))
     return 0
 
 

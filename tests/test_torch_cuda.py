@@ -993,37 +993,45 @@ def _bitwise(a, b):
     return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
 
 
-def _march_inputs(cfg, s, binning, x, y, z, ground, conf, budget_fn):
-    """The march's inputs as the step builds them: old_h (K2), budgets and
-    keys (``budget_fn``), the top-k candidates and the key table."""
-    from groundgrid_torch.core import outliers
-
+def _march_inputs(cfg, s, binning, x, y, z, ground, budget_fn):
+    """The march's inputs as the step builds them: old_h (K2), budgets,
+    keys and directions (``budget_fn``), and the top-k candidates."""
     n2 = cfg.cell_count ** 2
     (old_h,) = lookup.lookup(binning.cell, [ground], n2)
-    budget, key = budget_fn(cfg, s, binning, x, y, z, old_h)
+    budget, key, dirs = budget_fn(cfg, s, binning, x, y, z, old_h)
     pidx = torch.topk(key, min(cfg.max_outlier_candidates, x.shape[-1]), dim=-1,
                       sorted=False).indices
-    return old_h, budget, key, pidx, outliers.occlusion_key_table(cfg, ground, conf)
+    return old_h, budget, key, dirs, pidx
+
+
+def _same_budgets(got, want):
+    """K6's outputs bitwise: budget and key everywhere, the directions
+    where the budget is positive (the kernel writes nothing elsewhere)."""
+    pos = want[0] > 0
+    return (_bitwise(got[0], want[0]) and _bitwise(got[1], want[1])
+            and _bitwise(got[2][:, pos], want[2][:, pos]))
 
 
 def _check_fused(cfg, s, x, y, z, rings, valid, ground, conf):
     """K5, K6 and K7 against their plain versions on the card, bitwise, two
-    runs bitwise; returns the plain binning and the kernel march's hits."""
+    runs bitwise (K7 on K6's own outputs); returns the plain binning and
+    the kernel march's hits."""
     want_b = binning.bin_points_plain(cfg, s, x, y, rings, valid)
     got_b = binning.bin_points(cfg, s, x, y, rings, valid)
     again_b = binning.bin_points(cfg, s, x, y, rings, valid)
     for f, g, a, w in zip(want_b._fields, got_b, again_b, want_b):
         assert _bitwise(g, w), f"K5 {f}"
         assert _bitwise(a, g), f"K5 {f}: two runs"
-    old_h, budget, key, pidx, table = _march_inputs(cfg, s, want_b, x, y, z, ground, conf,
-                                                    march.march_budget_plain)
+    old_h, budget, key, dirs, pidx = _march_inputs(cfg, s, want_b, x, y, z, ground,
+                                                   march.march_budget_plain)
     for run in range(2):
         got = march.march_budget(cfg, s, want_b, x, y, z, old_h)
-        assert _bitwise(got[0], budget) and _bitwise(got[1], key), f"K6, run {run + 1}"
-    want_m = march.march_plain(cfg, s, table, pidx, x, y, z, budget)
-    got_m = march.march(cfg, s, table, pidx, x, y, z, budget)
+        assert _same_budgets(got, (budget, key, dirs)), f"K6, run {run + 1}"
+    want_m = march.march_plain(cfg, s, ground, conf, pidx, budget, dirs)
+    got_m = march.march(cfg, s, ground, conf, pidx, got[0], got[2])
     assert _bitwise(got_m, want_m), f"K7: {int((got_m != want_m).sum())} of {int(want_m.sum())}"
-    assert _bitwise(march.march(cfg, s, table, pidx, x, y, z, budget), got_m), "K7: two runs"
+    again_m = march.march(cfg, s, ground, conf, pidx, got[0], got[2])
+    assert _bitwise(again_m, got_m), "K7: two runs"
     return want_b, got_m
 
 
@@ -1140,18 +1148,98 @@ def test_fused_kernels_batched_match_single_launches(cuda):
     plain_b, hits = _check_fused(cfg, sb, x, y, z, rings, valid, ground, conf)
     counts = launch_counts()
     assert (counts["bin"], counts["march_budget"], counts["march"]) == (2, 2, 2)
-    old_h, budget, key, pidx, table = _march_inputs(cfg, sb, plain_b, x, y, z, ground, conf,
-                                                    march.march_budget)
-    for v in range(b):
-        s = scalars.view(torch.from_numpy(packed[v]).to(cuda))
+    _check_rows(cfg, packed, plain_b, x, y, z, rings, valid, ground, conf, hits)
+    assert int(hits.sum()) > 0
+
+
+def _check_rows(cfg, packed, plain_b, x, y, z, rings, valid, ground, conf, hits):
+    """Every row of the batched K5, K6 and K7 bitwise its vehicle's single
+    launch."""
+    from groundgrid_torch.core import scalars
+
+    dev = x.device
+    old_h, budget, key, dirs, pidx = _march_inputs(cfg, scalars.view(torch.from_numpy(
+        packed).to(dev)), plain_b, x, y, z, ground, march.march_budget)
+    for v in range(x.shape[0]):
+        s = scalars.view(torch.from_numpy(packed[v]).to(dev))
         single = binning.bin_points(cfg, s, x[v], y[v], rings[v], valid[v])
         assert all(_bitwise(g[v], w) for g, w in zip(plain_b, single)), f"K5 vehicle {v}"
         bv = type(plain_b)(*(t[v] for t in plain_b))
         got = march.march_budget(cfg, s, bv, x[v], y[v], z[v], old_h[v])
-        assert _bitwise(got[0], budget[v]) and _bitwise(got[1], key[v]), f"K6 vehicle {v}"
-        single_m = march.march(cfg, s, table[v], pidx[v], x[v], y[v], z[v], budget[v])
+        assert _same_budgets(got, (budget[v], key[v], dirs[:, v])), f"K6 vehicle {v}"
+        single_m = march.march(cfg, s, ground[v], conf[v], pidx[v], budget[v], dirs[:, v])
         assert _bitwise(single_m, hits[v]), f"K7 vehicle {v}"
+
+
+EDGE_CASES = {"edge-0": (0, {}), "edge-1": (1, {}),
+              # the cap below the marchable count: every candidate marches
+              "all-marchable": (2, {"max_outlier_candidates": 1000}),
+              "262144-points": (3, {"max_points": 1 << 18})}
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_fused_kernels_match_plain_on_edge_grid(cuda, case):
+    """K5, K6 and K7 on the clamp-edge grid (``tests/march_scenes.py``: rays
+    ending on rows and columns 1, 2, 3 and n - 2, block sums equal to
+    ``min_conf``, cells at exactly 0.01), on a buffer where every candidate
+    is marchable and at 262,144 points (the exact-budget key): bitwise
+    their plain versions, two runs bitwise."""
+    import march_scenes
+    from groundgrid_torch.core import scalars
+
+    seed, kw = EDGE_CASES[case]
+    cfg = GroundGridConfig(**{**march_scenes.EDGE, **kw})
+    sc = march_scenes.Scene(*(torch.from_numpy(a).to(cuda)
+                              for a in march_scenes.edge_scene(cfg, seed)))
+    s = scalars.view(sc.packed)
+    plain_b, hits = _check_fused(cfg, s, sc.x, sc.y, sc.z, sc.rings, sc.valid, sc.ground,
+                                 sc.conf)
     assert int(hits.sum()) > 0
+    if case == "all-marchable":
+        _, budget, _, _, pidx = _march_inputs(cfg, s, plain_b, sc.x, sc.y, sc.z, sc.ground,
+                                              march.march_budget)
+        assert bool((budget[pidx] > 0).all())
+
+
+def test_fused_kernels_batched_edge_grids_match_single_launches(cuda):
+    """K5, K6 and K7 on 64 clamp-edge grids in one launch each: every row
+    bitwise its single launch, the batch bitwise the plain batched
+    versions."""
+    import march_scenes
+    from groundgrid_torch.core import scalars
+
+    cfg = GroundGridConfig(**dict(march_scenes.EDGE, max_points=1024, max_outlier_candidates=400))
+    scenes = [march_scenes.edge_scene(cfg, 100 + v) for v in range(64)]
+    sc = march_scenes.Scene(*(torch.from_numpy(np.stack(a)).to(cuda) for a in zip(*scenes)))
+    packed = np.stack([scene.packed for scene in scenes])
+    plain_b, hits = _check_fused(cfg, scalars.view(sc.packed), sc.x, sc.y, sc.z, sc.rings,
+                                 sc.valid, sc.ground, sc.conf)
+    _check_rows(cfg, packed, plain_b, *sc[:5], sc.ground, sc.conf, hits)
+    assert int((hits.sum(-1) > 0).sum()) == 64
+
+
+@pytest.mark.parametrize("eager", [False, True])
+def test_card_step_never_builds_the_key_table(cuda, monkeypatch, eager):
+    """The card's step (captured, or eager) reads the occlusion keys in K7
+    alone: ``occlusion_key_table`` made to raise, it steps a moving
+    adversarial sequence, one K7 launch a scan, and marks outliers."""
+    from groundgrid_torch.core import outliers
+    from groundgrid_torch.pipeline import make_step_fn
+    from groundgrid_torch.runtime.driver import StreamingDriver
+
+    def refuse(*args):
+        raise AssertionError("the card's step built the occlusion key table")
+
+    monkeypatch.setattr(outliers, "occlusion_key_table", refuse)
+    cfg = GroundGridConfig(**SMALL_SORTED, sorted_scans=True)
+    driver = StreamingDriver(cfg, cuda)
+    if eager:
+        driver.step = make_step_fn(cfg)
+    recs = _adversarial_records(4)
+    reset_launch_counts()
+    fired = sum(int(driver.process(rec).outlier.sum()) for rec in recs)
+    assert launch_counts()["march"] == len(recs)
+    assert fired > 0
 
 
 def test_fused_kernels_read_scalars_at_replay(cuda):
@@ -1176,9 +1264,8 @@ def test_fused_kernels_read_scalars_at_replay(cuda):
 
     def fused(s):
         b = binning.bin_points(cfg, s, x, y, rings, valid > 0)
-        _, budget, _, pidx, table = _march_inputs(cfg, s, b, x, y, z, ground, conf,
-                                                  march.march_budget)
-        return b, budget, march.march(cfg, s, table, pidx, x, y, z, budget)
+        _, budget, _, dirs, pidx = _march_inputs(cfg, s, b, x, y, z, ground, march.march_budget)
+        return b, budget, march.march(cfg, s, ground, conf, pidx, budget, dirs)
 
     fused(scalars.view(buf))  # build and warm
     torch.cuda.synchronize()
@@ -1219,6 +1306,13 @@ def test_fused_wrappers_reject_bad_input(cuda):
     b = binning.bin_points(cfg, s, x, x, rings, valid)
     with pytest.raises(ValueError):
         march.march_budget(cfg, s, b, x, x, x[:32], x)
+    n = cfg.cell_count
+    layer = torch.zeros((n, n), device=cuda)
+    pidx, dirs = torch.zeros(4, dtype=torch.int64, device=cuda), torch.zeros((3, 64), device=cuda)
+    with pytest.raises(ValueError):  # a layer of the wrong shape
+        march.march(cfg, s, torch.zeros(7, device=cuda), layer, pidx, x, dirs)
+    with pytest.raises(ValueError):  # directions without the leading 3
+        march.march(cfg, s, layer, layer, pidx, x, dirs[0])
+    tiny = GroundGridConfig(dimension=2.0, resolution=0.5)  # 4^2 cells: the block leaves the grid
     with pytest.raises(ValueError):
-        march.march(cfg, s, torch.zeros(7, device=cuda), torch.zeros(4, dtype=torch.int64,
-                                                                      device=cuda), x, x, x, x)
+        march.march(tiny, s, layer[:4, :4], layer[:4, :4], pidx, x, dirs)

@@ -244,7 +244,7 @@ def test_budget_keys_at_the_boundary(p_total):
     b = binning.bin_points(cfg, s, t[0], t[1], torch.zeros(p_total, dtype=torch.int32),
                            torch.from_numpy(valid))
     (old_h,) = lookup.lookup(b.cell, [torch.from_numpy(ground)], cfg.cell_count ** 2)
-    budget, key = march.march_budget(cfg, s, b, *t, old_h)
+    budget, key, _ = march.march_budget(cfg, s, b, *t, old_h)
     assert torch.equal(key, toutliers.selection_key(budget))
     assert torch.unique(key).numel() == p_total
     order = torch.argsort(key, descending=True)
@@ -291,15 +291,16 @@ def test_batch_of_three_is_three_single_calls():
     (old_h,) = lookup.lookup(bb.cell, [ground], n * n)
     got, marchable = toutliers.detect_outliers(cfg, sb, ground, conf, bb, x, y, z, old_h,
                                                march.march_budget, march.march)
-    budget, key = march.march_budget(cfg, sb, bb, x, y, z, old_h)
+    budget, key, dirs = march.march_budget(cfg, sb, bb, x, y, z, old_h)
     for v in range(3):
         s = tscalars.view(torch.from_numpy(packed[v]))
         b1 = binning.bin_points(cfg, s, x[v], y[v], rings[v], valid[v])
         for field, a, w in zip(Binning._fields, bb, b1):
             assert torch.equal(_t_bits(a[v]), _t_bits(w)), (v, field)
         (old1,) = lookup.lookup(b1.cell, [ground[v]], n * n)
-        budget1, key1 = march.march_budget(cfg, s, b1, x[v], y[v], z[v], old1)
+        budget1, key1, dirs1 = march.march_budget(cfg, s, b1, x[v], y[v], z[v], old1)
         assert torch.equal(_t_bits(budget[v]), _t_bits(budget1)) and torch.equal(key[v], key1)
+        assert torch.equal(_t_bits(dirs[:, v]), _t_bits(dirs1))
         out1, m1 = toutliers.detect_outliers(cfg, s, ground[v], conf[v], b1, x[v], y[v], z[v],
                                              old1, march.march_budget, march.march)
         assert torch.equal(got[v], out1)
