@@ -34,7 +34,14 @@ Phases (any failure raises and exits non-zero, printing no result):
    outputs over the moved layers; bitwise, and on the scan twice over,
    262,144 points, the exact-budget key; the occlusion key table K7 folds
    in timed alone, device ms and launches; both kernels' registers and
-   spills by ``nvcc -Xptxas -v``); each of K4-K7 two runs bitwise.
+   spills by ``nvcc -Xptxas -v``), K8 detect_stage (``check_detect_stage``:
+   the main path's detect stage against ``core/detect.py`` on the same
+   CUDA tensors, K4's cases and the seam layers of ``detect_seam_layers``
+   at n = 45 and 80, bitwise with NaN and -0.0; the halo'd row blocks of
+   S = 4 at 364^2 and S = 8 at 1200^2 bitwise ``detect_block`` and,
+   together, the full sweep; the plain stage's device ms and device
+   activities by ``torch.profiler`` beside its call ms); each of K4-K8 two
+   runs bitwise.
    K3's ring ranges (``spiral_interpolation_rings``) at
    364^2 and 1200^2 (warm states, ``HIGHRES_CONFIG`` for the latter) and at
    n = 2416 (the global band, random layers): the bands of S = 2 and 8 in
@@ -52,14 +59,14 @@ Phases (any failure raises and exits non-zero, printing no result):
    over the stacked tables, timed in turns with the kernel (no one PyTorch
    call computes K1, K3 or K4). Then the batched launches of the unsorted
    fleet (``check_batched``): K1, K2 (the points' 2 tables and the march
-   lattice's 1), K3-K7 on a batch of 64 vehicles at 364^2 (8 warm
+   lattice's 1), K3-K8 on a batch of 64 vehicles at 364^2 (8 warm
    scans cycled, each vehicle's layers made distinct), each bitwise its
    64 single launches and against its plain batched version (K3 at its
    bounds above); the batched launch's device ms against the 64 single
    launches' summed device ms, both calls' CUDA-event ms, the plain
    batched call's ms and the bound of the batch's work.
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
-   synthetic scans: per-scan launch counts (K1, K3, K5-K7 x1, K2 x2; a replay
+   synthetic scans: per-scan launch counts (K1, K3, K5-K8 x1, K2 x2; a replay
    of the captured step adds the launches its capture recorded), no
    sortedness fallback, every step after the first (every replay) under
    ``torch.cuda.set_sync_debug_mode("error")`` (no device-to-host read),
@@ -88,7 +95,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    ``playback --native-loader --pipeline-depth 2`` with layer and HTML
    exports. The C++ loaders must be native; (a)-(d) and the resumed (f)
    print the same statistics block and metrics; (e) is within 0.1 pt of (a)
-   on F1 and IoUg; per scan K1 x1 (x2 for (g)), K2 x2, K3, K5-K7 x1 and no
+   on F1 and IoUg; per scan K1 x1 (x2 for (g)), K2 x2, K3, K5-K8 x1 and no
    sortedness fallback; (g) writes 11 layer PNGs per exported scan and the
    player. Prints ms/scan per variant (the payload's and CUDA events around
    the call) and the host prep p50 of NumPy against the native loader.
@@ -117,7 +124,7 @@ Phases (any failure raises and exits non-zero, printing no result):
 9. BASELINE.json config 5, the fleet: ``FleetDriver(GroundGridConfig(
    sorted_scans=True), batch=64, device)`` for 4 ticks, vehicle v on phase
    3's records from record v mod 32 (backward for v >= 32): per tick K1,
-   K3, K5-K7 x64, K2 x128, the step of ticks 2-4 under the sync check (host prep
+   K3, K5-K8 x64, K2 x128, the step of ticks 2-4 under the sync check (host prep
    and the tick's one fetch outside), the summary equal to the fetched
    labels' counts; every vehicle's labels and outliers (the fleet's one
    captured vehicle step) bitwise those of an eager ``StreamingDriver``
@@ -129,7 +136,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    metric line. Then the unsorted fleet (``phase_fleet_unsorted``), the
    default ``GroundGridConfig()`` with 64 vehicles on the same streams,
    stepped as one batched body captured as one graph a tick: per tick K1,
-   K3, K5-K7 x1, K2 x2, ticks 2-4 under the sync check, the summary, ms per
+   K3, K5-K8 x1, K2 x2, ticks 2-4 under the sync check, the summary, ms per
    tick with host prep and fetch, the capture's seconds and pool bytes;
    labels, outliers and the final state bitwise 64 single captured
    unsorted steps (the same fleet vehicle by vehicle, one replay per
@@ -144,7 +151,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    centers, both spiral modes: (a) ``HIGHRES_CONFIG`` (1200^2) over
    ``["cuda:0"] * 8``, (b) the default 364^2 over ``["cuda:0"] * 4``, each
    over the first 8 scans. The eager ``SpatialStep``: launches per scan K1,
-   K3, K5-K7 x S, K2 x 2S, steps 2-8 under the sync check, banded ==
+   K3, K5-K8 x S, K2 x 2S, steps 2-8 under the sync check, banded ==
    replicated bitwise (labels, outliers, ground, groundpatch), a second run
    of each bitwise the first, against the single-grid ``Step`` over the
    same scans labels >= 99.95 %, ground atol 2e-4 / rtol 1e-4, groundpatch
@@ -182,7 +189,8 @@ Phases (any failure raises and exits non-zero, printing no result):
 
 The line before the last is the kernels' JSON record (``ms`` is the device
 time, ``library_ms`` null where no one PyTorch call computes the function;
-K4 adds its ``*_highres`` times and bound at 1200^2; ``launches`` counts phase
+K4 and K8 add their ``*_highres`` times and bound at 1200^2, K8 its plain
+stage's ``plain_device_ms`` and ``plain_launches``; ``launches`` counts phase
 3, ``launches_unsorted`` phase 6, ``launches_topk`` phase 7 and
 ``launches_fleet`` phase 9's 4 sorted ticks, ``launches_fleet_unsorted``
 its 4 unsorted (batched) ticks, ``batched64_*`` phase 2's batched times,
@@ -697,21 +705,30 @@ def warm_detect_layers(config, driver, rec):
     return layers.points, layers.variance, layers.min_ground_height, ground, groundpatch
 
 
+def detect_cost(tabs, layers, interior=True):
+    """Bytes and f32 operations of one detect sweep over ``layers`` (the
+    five inputs, (N, N) or (B, N, N)): each input read once, the tables
+    once (``interior`` too: K8 reads it, K4 does not), two layers written;
+    per interior cell 6 operations per window cell (2 products, 3 sums, a
+    min) over its 3x3 or 5x5 window and ~25 for the branch ladder."""
+    n = tabs.use3.shape[-1]
+    grids = layers[0].numel() // (n * n)
+    use3 = tabs.use3[2:n - 2, 2:n - 2]
+    n3 = int(use3.sum())
+    flops = 6 * (9 * n3 + 25 * (use3.numel() - n3)) + 25 * use3.numel()
+    read = [tabs.var_thr_sq, tabs.skip_thr, tabs.min_expected_s, tabs.use3]
+    n_bytes = sum(t.nbytes for t in list(layers) + read + [tabs.interior] * interior)
+    return n_bytes + grids * 2 * 4 * n * n, grids * flops
+
+
 def detect_times(config, tabs, args, plain_reps=20):
-    """K4's times on one case and its bound: reads 5 layers, 3 float tables
-    and use3 once, writes 2 layers; per interior cell 6 operations per
-    window cell (2 products, 3 sums, a min) over its 3x3 or 5x5 window, ~25
-    for the branch ladder."""
+    """K4's times on one case and its bound (``detect_cost``; K4 reads no
+    ``interior``)."""
     from groundgrid_torch.ops import detect
 
     rec = kernel_times(lambda: detect.detect_fused(config, tabs, *args), 100, "detect_kernel",
                        lambda: detect.detect_fused_plain(config, tabs, *args), plain_reps)
-    n = config.cell_count
-    ins = list(args) + [tabs.var_thr_sq, tabs.skip_thr, tabs.min_expected_s, tabs.use3]
-    use3 = tabs.use3[2:n - 2, 2:n - 2]
-    n3 = int(use3.sum())
-    flops = 6 * (9 * n3 + 25 * (use3.numel() - n3)) + 25 * use3.numel()
-    rec.update(bound(sum(t.nbytes for t in ins) + 2 * 4 * n * n, flops))
+    rec.update(bound(*detect_cost(tabs, args, interior=False)))
     return rec
 
 
@@ -775,6 +792,136 @@ def check_detect(config, driver, rec, records):
     return out
 
 
+def stage_times(config, tabs, args, plain_reps=20):
+    """K8's times on one case, its plain version's (call ms by CUDA
+    events; device ms and device activities a call by ``torch.profiler``)
+    and its bound (``detect_cost``)."""
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.ops.detect_stage import detect_stage
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    def plain():
+        return detectlib.detect_ground_patches(config, tabs, *args)
+
+    rec = kernel_times(lambda: detect_stage(config, tabs, *args), 100, "detect_stage_kernel",
+                       plain, plain_reps)
+    reps = max(2, plain_reps // 4)
+    ms, seen = device_ms(plain, reps)
+    rec.update(plain_device_ms=ms, plain_launches=seen / reps)
+    rec.update(bound(*detect_cost(tabs, args)))
+    return rec
+
+
+def halo_blocks(layers, n_shards):
+    """The row blocks of ``n_shards`` shards, as the spatial step gives them
+    to K8: each shard's stencil inputs with ``HALO`` rows of its neighbours
+    (zeros at the grid's top and bottom), its ground and groundpatch rows."""
+    from groundgrid_torch.core.detect import HALO
+
+    n = layers[0].shape[-1]
+    rows = n // n_shards
+    for s in range(n_shards):
+        at = slice(s * rows, (s + 1) * rows)
+        halos = [torch.nn.functional.pad(t, (0, 0, HALO, HALO))[at.start:at.stop + 2 * HALO]
+                 for t in layers[:3]]
+        yield at, halos, layers[3][at], layers[4][at]
+
+
+def check_detect_stage(config, driver, rec, records):
+    """K8 against its plain version, ``core/detect.py`` on the same CUDA
+    tensors: the warm raster layers of one real scan at 364^2 and at 1200^2
+    (``HIGHRES_CONFIG``, a driver warmed on ``records[:4]``), random layers
+    at n = 12 and 45 (seed 3 with variance x0.01: the main update fires),
+    the seam layers (``detect_seam_layers``: +-0.0, FLT_MAX and NaN in
+    min_gh and points inside windows, ties of the ladder) at n = 45 and 80;
+    ground and confidence bitwise (NaN and -0.0 included), two runs
+    bitwise. The halo'd row blocks of S = 4 shards at 364^2 and S = 8 at
+    1200^2 (``halo=2``), each bitwise ``detect_block`` and together bitwise
+    the full sweep. Timed at both grid sizes (``stage_times``)."""
+    from groundgrid_torch.config import HIGHRES_CONFIG, GroundGridConfig
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.data.synthetic import detect_layers, detect_seam_layers
+    from groundgrid_torch.ops.detect_stage import detect_stage
+
+    device = driver.device
+    high = dataclasses.replace(HIGHRES_CONFIG, sorted_scans=True)
+    high_driver = warm_driver(high, records, device)
+    cases = [("364^2 warm scan", config, detectlib.make_tables(config, device),
+              warm_detect_layers(config, driver, rec)),
+             ("1200^2 warm scan", high, detectlib.make_tables(high, device),
+              warm_detect_layers(high, high_driver, rec))]
+    del high_driver
+    for dim, res, scale in ((6.0, 0.5, 10.0), (16.65, 0.37, 1.0)):
+        cfg = GroundGridConfig(dimension=dim, resolution=res)
+        tabs = detectlib.make_tables(cfg, device)
+        for seed in range(4):
+            arrs = list(detect_layers(cfg.cell_count, seed))
+            arrs[0] = arrs[0] * np.float32(scale)
+            if seed == 3:
+                arrs[1] = arrs[1] * np.float32(0.01)
+            cases.append((f"n={cfg.cell_count} seed {seed}", cfg, tabs,
+                          tuple(torch.from_numpy(a).to(device) for a in arrs)))
+    for dim, res in ((16.65, 0.37), (40.0, 0.5)):
+        cfg = GroundGridConfig(dimension=dim, resolution=res)
+        tabs = detectlib.make_tables(cfg, device)
+        for seed in range(2):
+            cases.append((f"n={cfg.cell_count} seam seed {seed}", cfg, tabs, tuple(
+                torch.from_numpy(a).to(device) for a in detect_seam_layers(cfg.cell_count, seed))))
+    changed, full = [], {}
+    for name, cfg, tabs, args in cases:
+        got = detect_stage(cfg, tabs, *args)
+        again = detect_stage(cfg, tabs, *args)
+        want = detectlib.detect_ground_patches(cfg, tabs, *args)
+        for g, a, w, what in zip(got, again, want, ("ground", "confidence")):
+            if not bitwise(g, w):
+                diff = g.view(torch.int32) != w.view(torch.int32)
+                raise AssertionError(f"K8 ({name}) {what} differs in {int(diff.sum())} cells: "
+                                     f"{g[diff][:4].tolist()} against {w[diff][:4].tolist()}")
+            if not bitwise(g, a):
+                raise AssertionError(f"K8 ({name}) {what}: two runs not bitwise equal")
+        changed.append(int((got[1] != args[4]).sum()))
+        if not changed[-1]:
+            raise AssertionError(f"K8 ({name}): the sweep changed no cell")
+        if "seam" in name:
+            zeros = [int(((got[0] == 0) & (got[0].signbit() == neg)).sum()) for neg in (0, 1)]
+            log(f"K8 {name}: {changed[-1]} cells updated, ground +0.0 in {zeros[0]} cells and "
+                f"-0.0 in {zeros[1]}, NaN in {int(got[0].isnan().sum())}")
+        full[name] = want
+    for (name, cfg, tabs, args), n_shards in zip(cases[:2], (4, 8)):
+        blocks = []
+        for at, halos, g, c in halo_blocks(args, n_shards):
+            rt = detectlib.row_tables(tabs, at)
+            got = detect_stage(cfg, rt, *halos, g, c, halo=detectlib.HALO)
+            want = detectlib.detect_block(cfg, rt, *halos, g, c)
+            if not all(bitwise(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"K8 ({name}, rows {at.start}-{at.stop - 1} of {n_shards} "
+                                     f"shards) differs from detect_block")
+            blocks.append(got)
+        for i, what in enumerate(("ground", "confidence")):
+            if not bitwise(torch.cat([b[i] for b in blocks]), full[name][i]):
+                raise AssertionError(f"K8 ({name}): the {n_shards} halo'd blocks' {what} is not "
+                                     f"the full sweep's")
+    out = {"max_abs_err": 0.0, "library_ms": None}
+    out.update(stage_times(*cases[0][1:]))
+    high_times = stage_times(*cases[1][1:], plain_reps=5)
+    for key in ("device_ms", "wrapper_device_ms", "call_ms", "plain_ms", "plain_device_ms",
+                "plain_launches", "bound_ms"):
+        out[key + "_highres"] = high_times[key]
+    for i, suffix in ((0, ""), (1, "_highres")):
+        n = cases[i][1].cell_count
+        log(f"K8 detect_stage {n}^2 warm scan ({changed[i]} cells updated): device "
+            f"{out['device_ms' + suffix]:.4f} ms (wrapper {out['wrapper_device_ms' + suffix]:.4f} "
+            f"ms), call {out['call_ms' + suffix]:.4f} ms, plain {out['plain_ms' + suffix]:.4f} "
+            f"ms (device {out['plain_device_ms' + suffix]:.4f} ms in "
+            f"{out['plain_launches' + suffix]:.0f} device activities), bound "
+            f"{out['bound_ms' + suffix]:.4f} ms ({out['bound_by']})")
+    log("K8 detect_stage: bitwise core/detect.py and two runs bitwise at 364^2, 1200^2, n=12 "
+        "and n=45 (4 seeds each), the seam layers at n=45 and 80 (2 seeds each); the halo'd "
+        "blocks of S=4 at 364^2 and S=8 at 1200^2 bitwise detect_block and, together, the "
+        "full sweep")
+    return out
+
+
 # f32 operations (adds, subtracts, multiplies, divides, square roots,
 # floors) of the fused kernels, counted from csrc/exactf32.cuh: two_sum 6,
 # split 4, two_prod 17, ds_add 14, ds_add_f32 13, two_prod_int_const 14,
@@ -816,10 +963,10 @@ def host_packed(config, driver, scan):
     return host_scalars(config, driver.state.center_np, driver.state.center_lo_np, scan)[0]
 
 
-# the kernels line's further keys: K6 and K7's registers and spills, and
-# the key table K7 folds in
+# the kernels line's further keys: K6 and K7's registers and spills, the
+# key table K7 folds in, K8's plain stage on the profiler
 EXTRA_KEYS = ("registers", "spill_store_bytes", "spill_load_bytes", "key_table_device_ms",
-              "key_table_launches")
+              "key_table_launches", "plain_device_ms", "plain_launches")
 
 
 def march_work(config, s, ground, conf, pidx, budget, dirs):
@@ -1084,13 +1231,15 @@ def batched_times(name, batched, singles, plain, kname, b, n_bytes, n_flops, rep
 
 def check_batched(config, driver, records, b=None):
     """Phase 2's batched kernels, the unsorted fleet's launches: K1, K2 (the
-    points' two tables, and one table over the march lattice), K3 and K4
-    on a batch of ``b`` (FLEET_BATCH) vehicles at the main path's shapes,
-    each bitwise its ``b`` single launches and against its plain batched
-    version (K1, K2, K4 bitwise; K3 confidence bitwise, heights atol 2e-5 /
-    rtol 1e-5); timed against the single launches (``batched_times``)."""
+    points' two tables, and one table over the march lattice), K3, K4 and
+    K8 on a batch of ``b`` (FLEET_BATCH) vehicles at the main path's
+    shapes, each bitwise its ``b`` single launches and against its plain
+    batched version (K1, K2, K4, K8 bitwise; K3 confidence bitwise, heights
+    atol 2e-5 / rtol 1e-5); timed against the single launches
+    (``batched_times``)."""
     from groundgrid_torch.core import detect as detectlib
     from groundgrid_torch.ops import detect, lookup, raster, spiral
+    from groundgrid_torch.ops.detect_stage import detect_stage
 
     b = FLEET_BATCH if b is None else b
     x = batched_inputs(config, driver, records, b)
@@ -1178,19 +1327,30 @@ def check_batched(config, driver, records, b=None):
             raise AssertionError(f"K4 batched: grid {v} differs from its single launch")
     if not all(bitwise(g, w) for g, w in zip(got, want)):
         raise AssertionError("K4 batched differs from its plain batched version")
-    use3 = tabs.use3[2:n - 2, 2:n - 2]
-    n3 = int(use3.sum())
-    flops = 6 * (9 * n3 + 25 * (use3.numel() - n3)) + 25 * use3.numel()
-    ins = sum(t.nbytes for t in layers) + sum(
-        t.nbytes for t in (tabs.var_thr_sq, tabs.skip_thr, tabs.min_expected_s, tabs.use3))
     out["detect"] = dict(max_abs_err=0.0, **batched_times(
         "K4 detect_fused", lambda: detect.detect_fused(config, tabs, *layers),
         lambda: [detect.detect_fused(config, tabs, *(t[v] for t in layers)) for v in range(b)],
         lambda: detect.detect_fused_plain(config, tabs, *layers), "detect_kernel", b,
-        ins + b * 2 * 4 * n2, b * flops))
+        *detect_cost(tabs, layers, interior=False)))
+
+    # K8: the same layers through the main path's stage
+    got = detect_stage(config, tabs, *layers)
+    want = detectlib.detect_ground_patches(config, tabs, *layers)
+    for v in range(b):
+        single = detect_stage(config, tabs, *(t[v] for t in layers))
+        if not all(bitwise(g[v], w) for g, w in zip(got, single)):
+            raise AssertionError(f"K8 batched: grid {v} differs from its single launch")
+    if not all(bitwise(g, w) for g, w in zip(got, want)):
+        raise AssertionError("K8 batched differs from its plain batched version")
+    out["detect_stage"] = dict(max_abs_err=0.0, **batched_times(
+        "K8 detect_stage", lambda: detect_stage(config, tabs, *layers),
+        lambda: [detect_stage(config, tabs, *(t[v] for t in layers)) for v in range(b)],
+        lambda: detectlib.detect_ground_patches(config, tabs, *layers), "detect_stage_kernel",
+        b, *detect_cost(tabs, layers)))
     out.update(check_batched_fused(config, x, b))
-    log(f"batched kernels, B = {b} at {n}^2: K1, K2 (points and march lattice), K3, K4, K5, "
-        f"K6 and K7 each bitwise its {b} single launches and against its plain batched version")
+    log(f"batched kernels, B = {b} at {n}^2: K1, K2 (points and march lattice), K3, K4, K8, "
+        f"K5, K6 and K7 each bitwise its {b} single launches and against its plain batched "
+        f"version")
     return out
 
 
@@ -1395,9 +1555,11 @@ def path_counts():
 def path_launches(steps, raster=None, detect=0):
     """The main path's launches over ``steps`` steps (or shards, or batched
     steps): K1 (``raster``: twice a step with the aux count), K2 x2 (the old
-    ground; then ground and variance), K3, K5, K6 and K7 x1, K4 ``detect``."""
+    ground; then ground and variance), K3, K5, K6 and K7 x1, K4 ``detect``
+    (the fused detect, ``steps`` or 0) and K8 the other steps."""
     return {"raster": steps if raster is None else raster, "lookup": 2 * steps, "spiral": steps,
-            "detect": detect, "bin": steps, "march_budget": steps, "march": steps}
+            "detect": detect, "bin": steps, "march_budget": steps, "march": steps,
+            "detect_stage": steps - detect}
 
 
 def check_launches(counts, want, driver, name):
@@ -1715,7 +1877,7 @@ def phase_entry_point(config, records, device):
     log(f"entry point: (a)-(d) and resumed (f) bitwise (statistics block and metrics: "
         f"F1 {metrics['a']['f1']:.6f}, IoUg {metrics['a']['ioug']:.6f}); wire (e) "
         f"F1 {metrics['e']['f1']:.6f}, IoUg {metrics['e']['ioug']:.6f}; launches per scan "
-        f"K1 x1 (x2 playback), K2 x2, K3, K5, K6 and K7 x1; 0 fallbacks; loaders native; "
+        f"K1 x1 (x2 playback), K2 x2, K3, K5-K8 x1; 0 fallbacks; loaders native; "
         f"{len(exported)} layer PNGs and the player written")
     names = {"a": "evaluate, NumPy prep", "b": "--native-loader",
              "c": "--native-loader --pipeline-depth 2", "d": "--native-loader --on-device-eval",
@@ -2337,7 +2499,7 @@ def phase_spatial(config, records, device, n_shards):
     rate = 1 - mism / (n * config.max_points)
     if rate < 0.9995:
         raise AssertionError(f"{name}: {mism} labels differ from the single-grid step")
-    log(f"{name}, {n} scans: launches per scan K1, K3, K5, K6 and K7 x{n_shards}, K2 "
+    log(f"{name}, {n} scans: launches per scan K1, K3, K5-K8 x{n_shards}, K2 "
         f"x{2 * n_shards} in both spiral modes; steps 2-{n} under the sync check; banded == "
         f"replicated bitwise (labels, outliers, ground, groundpatch); second runs bitwise; vs "
         f"the single-grid step {mism} of {n * config.max_points} labels differ ({points} "
@@ -2778,6 +2940,7 @@ def main() -> int:
     k3r = check_spiral_ranges(config, driver, records[4], high_driver, device)
     del high_driver
     k4 = check_detect(config, driver, records[4], records)
+    k8 = check_detect_stage(config, driver, records[4], records)
     k5 = check_binning(config, driver, records[4])
     k6, k7 = check_march(config, driver, records[4])
     batched = check_batched(config, driver, records[4:12])
@@ -2824,6 +2987,9 @@ def main() -> int:
         ("march_budget", "march.cu", "groundgrid_tpu/core/outliers.py:116", "march_budget", k6,
          counts),
         ("march", "march.cu", "groundgrid_tpu/core/outliers.py:116", "march", k7, counts),
+        # and of its non-fused detect stage
+        ("detect_ground_patches", "detect_stage.cu", "groundgrid_tpu/core/detect.py:93",
+         "detect_stage", k8, counts),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"groundgrid_torch/csrc/{route_file}",

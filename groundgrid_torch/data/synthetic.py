@@ -344,3 +344,56 @@ def detect_layers(n: int, seed: int):
     ground = rng.normal(-1.7, 0.3, (n, n)).astype(np.float32)
     conf = rng.random((n, n)).astype(np.float32)
     return points, variance, min_gh, ground, conf
+
+
+def detect_seam_layers(n: int, seed: int):
+    """Detect-stage inputs that reach the ladder's seams, float32 NumPy:
+    :func:`detect_layers` with dense points, cut into five column bands.
+
+    0. min_gh >= 0 with +0.0 and -0.0 among it, ground 1, high variance:
+       the local-min branch takes a signed zero (which zero a min keeps).
+    1. min_gh and ground -0.0, low variance: the main update on a window
+       sum of -0.0 (a chain started at 0 would give +0.0).
+    2. As band 0 with NaN in min_gh and points and FLT_MAX in min_gh under
+       nonzero points: NaN windows keep the cell, inf sums.
+    3. Ties: variance 0 on stripes of 6 rows (``max_var > 0`` at 0: the
+       windows inside a stripe sum no variance), confidence 0.5 on a third
+       of the cells (``groundpatch > 0.5`` at 0.5), ground the 3x3 or 5x5
+       minimum of min_gh (``localmin < ground`` at equality), points 1 so
+       that window counts meet the skip thresholds.
+    4. Low variance: the main update.
+    """
+    points, variance, min_gh, ground, conf = detect_layers(n, seed)
+    rng = np.random.default_rng(seed + 1000)
+    points = points * np.float32(10.0)
+    bands = np.minimum(np.arange(n) * 5 // n, 4)[None, :].repeat(n, 0)
+    occupied = points > 0
+    signed = np.abs(min_gh)
+    zeros = occupied & (rng.random((n, n)) < 0.4)
+    signed[zeros] = np.where(rng.random(int(zeros.sum())) < 0.5, 0.0, -0.0)
+    for band in (0, 2):
+        at = bands == band
+        min_gh[at], ground[at] = signed[at], 1.0
+        variance[at] *= np.float32(10.0)
+    at = bands == 1
+    min_gh[at], ground[at] = -0.0, -0.0
+    variance[(bands == 1) | (bands == 4)] *= np.float32(0.01)
+    at = bands == 2
+    min_gh[at & (rng.random((n, n)) < 0.05)] = np.nan
+    points[at & (rng.random((n, n)) < 0.02)] = np.nan
+    min_gh[at & occupied & (rng.random((n, n)) < 0.05)] = np.finfo(np.float32).max
+    at = bands == 3
+    points[at & occupied] = 1.0
+    variance[at & (np.arange(n)[:, None] // 6 % 2 == 0)] = 0.0
+    conf[at & (rng.random((n, n)) < 0.33)] = 0.5
+    pad = np.pad(min_gh, 2, constant_values=np.inf)
+
+    def window_min(size):
+        r = size // 2
+        return np.min([pad[2 - r + i:2 - r + i + n, 2 - r + j:2 - r + j + n]
+                       for i in range(size) for j in range(size)], axis=0)
+
+    win = np.where(rng.random((n, n)) < 0.5, window_min(3), window_min(5))
+    take = at & np.isfinite(win)
+    ground[take] = win[take]
+    return points, variance, min_gh, ground, conf

@@ -4,8 +4,9 @@ K1 ``raster.raster_reduce``, K2 ``lookup.lookup``, K3
 ``spiral.spiral_interpolation`` (its ring-band kernel, or the global-band
 one above 2415 cells a side), K4 ``detect.detect_fused``: the ports of the
 JAX package's Pallas kernels. K5 ``binning.bin_points``, K6
-``march.march_budget`` and K7 ``march.march``: the ports of what XLA fuses
-of its binning and occlusion march. Each wrapper
+``march.march_budget``, K7 ``march.march`` and K8
+``detect_stage.detect_stage``: the ports of what XLA fuses of its binning,
+occlusion march and detect stage. Each wrapper
 counts its kernel launches in a ``launches`` attribute (K3 counts either
 variant there, and the global-band one also in ``global_launches``);
 :func:`launch_counts` reads them and :func:`reset_launch_counts` zeroes them.
@@ -21,6 +22,7 @@ from __future__ import annotations
 def _wrappers():
     from groundgrid_torch.ops.binning import bin_points
     from groundgrid_torch.ops.detect import detect_fused
+    from groundgrid_torch.ops.detect_stage import detect_stage
     from groundgrid_torch.ops.lookup import lookup
     from groundgrid_torch.ops.march import march, march_budget
     from groundgrid_torch.ops.raster import raster_reduce
@@ -28,7 +30,7 @@ def _wrappers():
 
     return {"raster": raster_reduce, "lookup": lookup, "spiral": spiral_interpolation,
             "detect": detect_fused, "bin": bin_points, "march_budget": march_budget,
-            "march": march}
+            "march": march, "detect_stage": detect_stage}
 
 
 def launch_counts() -> dict[str, int]:

@@ -66,6 +66,7 @@ from groundgrid_torch.core import scalars as scalarlib
 from groundgrid_torch.core import transforms as tf
 from groundgrid_torch.core.detect import HALO
 from groundgrid_torch.ops import binning as binops
+from groundgrid_torch.ops import detect_stage as stageops
 from groundgrid_torch.ops import lookup as lookuplib
 from groundgrid_torch.ops import march as marchops
 from groundgrid_torch.ops import raster as rasterops
@@ -229,6 +230,14 @@ def exchange_halo(blocks, mesh) -> list:
     return [_halo(s, mesh.size, b, e) for s, b, e in zip(mesh.shards, blocks, got)]
 
 
+def _block_detect(config: GroundGridConfig):
+    """A row block's detect: ``detect_block``, K8 on the halo'd block (its
+    plain version with ``use_pallas=False``)."""
+    if config.use_pallas is False:
+        return detectlib.detect_block
+    return lambda *args: stageops.detect_stage(*args, halo=HALO)
+
+
 class _ShardTables:
     """The detect tables per device, and each shard's rows of them."""
 
@@ -272,21 +281,22 @@ class ShardedDetect:
     """``f(points, variance, min_gh, ground, groundpatch) -> (ground',
     groundpatch')`` over lists of the local shards' row blocks, eagerly:
     each shard's :meth:`body` exchanges its stencil inputs' halos
-    (:func:`exchange_halo`) and runs ``detect_block``; bitwise the
-    single-grid sweep."""
+    (:func:`exchange_halo`) and runs ``detect_block`` (K8, one launch a
+    shard); bitwise the single-grid sweep."""
 
     def __init__(self, config: GroundGridConfig, mesh):
         self.config, self.mesh = config, as_mesh(mesh)
         _rows(config.cell_count, self.mesh.size, 0)
         self._tables = _ShardTables(config, self.mesh.size)
+        self._detect = _block_detect(config)
 
     def body(self, s, device, points, variance, min_gh, ground, groundpatch):
         """Shard ``s``'s body (``parallel/collectives.py``)."""
         inputs = (points, variance, min_gh)
         got = yield Gather(tuple(_edges(x) for x in inputs))
         halos = [_halo(s, self.mesh.size, x, e) for x, e in zip(inputs, got)]
-        return detectlib.detect_block(self.config, self._tables.rows(s, device), *halos, ground,
-                                      groundpatch)
+        return self._detect(self.config, self._tables.rows(s, device), *halos, ground,
+                            groundpatch)
 
     def bodies(self, blocks) -> list:
         return [self.body(s, dev, *b) for s, dev, *b in zip(self.mesh.shards, self.mesh.devices,
@@ -355,18 +365,18 @@ class SpatialStep:
     of every shard folded in shard order
     (:func:`~groundgrid_torch.core.rasterize.finish_partials`); detect on
     its rows, halo'd from those layers (:func:`~groundgrid_torch.core.
-    detect.detect_block`); the rows gathered; the spiral, a full K3 launch
-    per shard (``"replicated"``) or the band relay (``"banded"``,
+    detect.detect_block`, K8); the rows gathered; the spiral, a full K3
+    launch per shard (``"replicated"``) or the band relay (``"banded"``,
     ``parallel/spiral_shard.py``); K2 and classify on its own points.
 
     ``center`` is the host pair ``(center, center_lo)``: with
     ``with_scan_center`` the scans' centers are the new ones (sorted scans
     need it), else the host center recurrence's (``grid.index_shift_ds``).
     The host packs every per-scan value into the scan scalars, shipped once
-    per device. Kernel launches per scan: K1 x S, K2 x 3 S, K3 x S (one per
-    non-empty band when banded). The step reads nothing back to the host;
-    ``fallbacks`` counts the shards' unsorted chunks of sorted scans (a
-    host read).
+    per device. Kernel launches per scan: K1, K3, K5, K6, K7 and K8 x S
+    (K3 one per non-empty band when banded), K2 x 2 S. The step reads
+    nothing back to the host; ``fallbacks`` counts the shards' unsorted
+    chunks of sorted scans (a host read).
     """
 
     def __init__(self, config: GroundGridConfig, mesh, spiral_mode: str = "replicated",
@@ -399,6 +409,7 @@ class SpatialStep:
                      else spiralops.spiral_interpolation_rings)
             self._band = BandRelay(config, size, lambda *a: rings(*a, False))
         self._tables = _ShardTables(config, size)
+        self._detect = _block_detect(config)
         self._fallbacks: dict = {}
 
     @property
@@ -453,7 +464,7 @@ class SpatialStep:
             return torch.nn.functional.pad(full, (0, 0, HALO, HALO))[
                 rows.start:rows.stop + 2 * HALO]
 
-        det = detectlib.detect_block(
+        det = self._detect(
             cfg, self._tables.rows(s, dev), halo(raster.points), halo(raster.variance),
             halo(raster.min_ground_height), moved[0][rows], moved[1][rows])
         grounds, patches = yield Gather(det)

@@ -40,12 +40,13 @@ outputs and state are bitwise the single step's. :class:`CapturedStep`
 captures the batched body as it does the single one: one graph, one
 replay a tick.
 
-Kernels: with ``config.use_pallas`` None or True, K1-K7 go through their
+Kernels: with ``config.use_pallas`` None or True, K1-K8 go through their
 wrappers (``groundgrid_torch/ops``), which launch the CUDA kernels for CUDA
 tensors and take the plain versions for CPU tensors; False takes the plain
-versions on every device. ``config.fused_detect`` runs detection through
-K4 instead of ``core/detect.py``. K1-K4 port the JAX package's Pallas
-kernels; K5-K7 port what XLA fuses of its binning and occlusion march.
+versions on every device. Detection runs through K8 (``core/detect.py``'s
+stage in one launch), or K4 with ``config.fused_detect``. K1-K4 port the
+JAX package's Pallas kernels; K5-K8 port what XLA fuses of its binning,
+occlusion march and detect stage.
 Each stage of the body is a ``torch.profiler.record_function`` range
 (:data:`STAGES`), which ``runtime/bench.py`` reads for the eager step.
 
@@ -79,6 +80,7 @@ from groundgrid_torch.core.grid import GridState
 from groundgrid_torch.core.rasterize import take_points
 from groundgrid_torch.ops import binning as binops
 from groundgrid_torch.ops import detect as detectops
+from groundgrid_torch.ops import detect_stage as stageops
 from groundgrid_torch.ops import lookup as lookuplib
 from groundgrid_torch.ops import march as marchops
 from groundgrid_torch.ops import raster as rasterops
@@ -210,15 +212,15 @@ class Step:
             self._spiral = spiralops.spiral_interpolation_plain
             self._bin = binops.bin_points_plain
             self._budget, self._march = marchops.march_budget_plain, marchops.march_plain
-            fused = detectops.detect_fused_plain
+            fused, detect = detectops.detect_fused_plain, detectlib.detect_ground_patches
         else:
             self._reduce = rasterops.raster_reduce
             self._lookup = lookuplib.lookup
             self._spiral = spiralops.spiral_interpolation
             self._bin = binops.bin_points
             self._budget, self._march = marchops.march_budget, marchops.march
-            fused = detectops.detect_fused
-        self._detect = fused if config.fused_detect else detectlib.detect_ground_patches
+            fused, detect = detectops.detect_fused, stageops.detect_stage
+        self._detect = fused if config.fused_detect else detect
 
     @property
     def fallbacks(self) -> int:

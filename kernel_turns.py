@@ -19,9 +19,10 @@ same measurement in every tree whose plain march takes the moved layers
 and K6's directions, as this one does). A turn prints the
 tree's environment lines and, last, one JSON line with what each check
 returned; this script echoes them and ends with one JSON line of all turns.
-It fails if a turn fails. ``binning`` and ``march`` (K5-K7) exist only in
-trees that have them. ``step`` times the whole step in each tree on 32
-rendered scans: the streaming bench's device ms a scan (the captured
+It fails if a turn fails. ``binning``, ``march`` (K5-K7) and
+``detect_stage`` (K8) exist only in trees that have them: a tree without
+the check records null for it. ``step`` times the whole step in each tree
+on 32 rendered scans: the streaming bench's device ms a scan (the captured
 step), ``bench --profile``'s busy ms and device activities a step (and,
 where the tree has them, the eager step's stages), and the unsorted fleet
 of 64's device ms a tick; it also digests the captured step's outputs on
@@ -38,7 +39,7 @@ import os
 import subprocess
 import sys
 
-KERNELS = ("raster", "lookup", "spiral", "detect", "binning", "march", "step")
+KERNELS = ("raster", "lookup", "spiral", "detect", "binning", "march", "detect_stage", "step")
 
 # run with the tree's root as the working directory: ``python -c`` puts it
 # first on sys.path
@@ -114,6 +115,8 @@ for name in sys.argv[2:]:
         probe = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(probe)
         out["lookup_march"] = probe.check_lookup_march(config, driver, records[4])
+    elif not hasattr(cs, "check_" + name):
+        out[name] = None  # the tree has no such kernel
     else:
         check = getattr(cs, "check_" + name)
         extra = (records,) if len(inspect.signature(check).parameters) > 3 else ()

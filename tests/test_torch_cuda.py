@@ -17,8 +17,11 @@ K3 confidence bitwise and heights within atol 2e-5 / rtol 1e-5 (up to n =
 bitwise; its ring ranges over the bands of ``ring_bands`` bitwise one full
 launch, n = 10 to 2416), K4 bitwise (n = 12 to 1200, grids that cut its tiles raggedly and
 one where the use3 disc's edge crosses a tile; two runs bitwise; border
-cells passed through); the occlusion march shedding candidates at the
-cap, on both selection keys, bitwise the CPU's; K5, K6 and K7 (the fused
+cells passed through); K8 bitwise the plain detect stage (n = 12 to
+1200, the seam layers' signed zeros, NaN and ties; the spatial step's
+halo'd row blocks; a batch of 3 against single launches; two runs
+bitwise; and each of ``STAGE_MUTATIONS`` built alone fails a case); the
+occlusion march shedding candidates at the cap, on both selection keys, bitwise the CPU's; K5, K6 and K7 (the fused
 binning and march) bitwise their plain versions on a warm scan, on random
 points (cell edges and +-1 ulp from them, -0.0, both selection keys), on
 a batch of 64 against 64 single launches, in two runs, and replayed from a
@@ -52,9 +55,10 @@ def _path(steps, detect, raster=None):
     """The launch counts of ``steps`` single steps (or shards, or batched
     steps) on the main path: K1 (``raster`` if the aux count adds one), K2
     x2 (the old ground, then ground and variance), K3, K5, K6 and K7 x1,
-    K4 ``detect``."""
+    K4 ``detect`` (the fused detect, ``steps`` or 0), K8 the other steps."""
     return {"raster": steps if raster is None else raster, "lookup": 2 * steps, "spiral": steps,
-            "detect": detect, "bin": steps, "march_budget": steps, "march": steps}
+            "detect": detect, "bin": steps, "march_budget": steps, "march": steps,
+            "detect_stage": steps - detect}
 
 
 @pytest.fixture
@@ -420,6 +424,162 @@ def test_plain_detect_on_card_matches_cpu(cuda):
             for d in ("cpu", cuda)}
         for a, b in zip(got["cpu"], got[cuda]):
             assert torch.equal(a, b.cpu())
+
+
+def _stage_cases(cuda):
+    """K8's cases: (name, config, tables, five layers on the card)."""
+    from groundgrid_torch.data.synthetic import detect_seam_layers
+
+    for dimension, resolution, scale in (
+            (6.0, 0.5, 10.0), (22.0, 0.5, 1.0), (16.65, 0.37, 1.0), (40.0, 0.5, 1.0),
+            (120.0, 0.33, 1.0), (63.5, 0.5, 1.0), (64.5, 0.5, 1.0), (120.0, 0.1, 1.0)):
+        cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
+        n = cfg.cell_count
+        tables = make_tables(cfg, cuda)
+        for seed, quiet in ((0, False), (1, False), (0, True)):
+            layers = list(detect_layers(n, seed))
+            layers[0] = layers[0] * np.float32(scale)
+            if quiet:  # variance x0.01: cells take the main update
+                layers[1] = layers[1] * np.float32(0.01)
+            yield (f"n={n} seed {seed}{' quiet' if quiet else ''}", cfg, tables,
+                   [torch.from_numpy(a).to(cuda) for a in layers])
+        if n >= 40:
+            yield (f"n={n} seam", cfg, tables,
+                   [torch.from_numpy(a).to(cuda) for a in detect_seam_layers(n, 1)])
+
+
+def test_detect_stage_kernel_matches_plain(cuda):
+    """K8 against the plain stage (``core/detect.py``) on the same CUDA
+    tensors, n = 12 (points x10) to 1200, the seam layers (+-0.0, FLT_MAX,
+    NaN, the ladder's ties) from n = 44: ground and confidence bitwise, NaN
+    and -0.0 included; two runs bitwise; one launch a call."""
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.ops.detect_stage import detect_stage
+
+    for name, cfg, tables, ts in _stage_cases(cuda):
+        before = detect_stage.launches
+        got = detect_stage(cfg, tables, *ts)
+        again = detect_stage(cfg, tables, *ts)
+        assert detect_stage.launches == before + 2
+        want = detectlib.detect_ground_patches(cfg, tables, *ts)
+        for g, a, w in zip(got, again, want):
+            assert _bitwise(g, w), name
+            assert _bitwise(g, a), name
+        assert (got[1] != ts[4]).any(), name
+
+
+@pytest.mark.parametrize("dimension,resolution,shards", [
+    (40.0, 0.5, 2), (40.0, 0.5, 4), (120.0, 0.33, 4), (120.0, 0.1, 8)])
+def test_detect_stage_halo_blocks_on_card(cuda, dimension, resolution, shards):
+    """K8 with ``halo=2`` on the spatial step's row blocks: each bitwise
+    ``detect_block``, together bitwise the full sweep."""
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.ops.detect_stage import detect_stage
+
+    cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
+    n = cfg.cell_count
+    tables = make_tables(cfg, cuda)
+    layers = list(detect_layers(n, 3))
+    layers[1] = layers[1] * np.float32(0.01)
+    ts = [torch.from_numpy(a).to(cuda) for a in layers]
+    full = detectlib.detect_ground_patches(cfg, tables, *ts)
+    rows, blocks = n // shards, []
+    for s in range(shards):
+        at = slice(s * rows, (s + 1) * rows)
+        halos = [torch.nn.functional.pad(t, (0, 0, 2, 2))[at.start:at.stop + 4] for t in ts[:3]]
+        rt = detectlib.row_tables(tables, at)
+        got = detect_stage(cfg, rt, *halos, ts[3][at], ts[4][at], halo=2)
+        want = detectlib.detect_block(cfg, rt, *halos, ts[3][at], ts[4][at])
+        assert all(_bitwise(g, w) for g, w in zip(got, want)), s
+        blocks.append(got)
+    for i in range(2):
+        assert _bitwise(torch.cat([b[i] for b in blocks]), full[i])
+
+
+def test_detect_stage_batch_matches_single_launches(cuda):
+    """K8 on B = 3 grids: one launch, each grid bitwise its single launch and
+    the batch bitwise the plain stage's batched sweep."""
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.ops.detect_stage import detect_stage
+
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5)
+    n = cfg.cell_count
+    tables = make_tables(cfg, cuda)
+    layers = [torch.from_numpy(np.stack(arrs)).to(cuda) for arrs in
+              zip(*(detect_layers(n, seed) for seed in range(3)))]
+    layers[1] = layers[1] * 0.01
+    before = detect_stage.launches
+    got = detect_stage(cfg, tables, *layers)
+    assert detect_stage.launches == before + 1
+    for g, w in zip(got, detectlib.detect_ground_patches(cfg, tables, *layers)):
+        assert _bitwise(g, w)
+    for v in range(3):
+        single = detect_stage(cfg, tables, *(t[v] for t in layers))
+        for g, w in zip(got, single):
+            assert _bitwise(g[v], w)
+
+
+# mutations of detect_stage.cu that the cases above must catch
+STAGE_MUTATIONS = {
+    "process >": ("w.psum >= a.skip_thr[cell]", "w.psum > a.skip_thr[cell]"),
+    "max_var >= 0": ("(max_var > 0.0f)", "(max_var >= 0.0f)"),
+    "localmin <=": ("w.localmin < g)", "w.localmin <= g)"),
+    "groundpatch >= 0.5": ("(cf > 0.5f)", "(cf >= 0.5f)"),
+    "chain from 0": ("Window w{s.p[at], s.pv[at], s.pm[at], s.m[at]};\n#pragma unroll\n"
+                     "  for (int d = 1;",
+                     "Window w{0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000)};\n"
+                     "#pragma unroll\n  for (int d = 0;"),
+    "column-major": ("at + (d / kSize) * kStagedW + d % kSize",
+                     "at + (d % kSize) * kStagedW + d / kSize"),
+    "min drops NaN": ("  if (a != a) return a;\n  if (b != b) return b;\n", ""),
+    "new_c unclamped": ("clamp_max(gg::div(w.psum, a.ocpcf), 1.0f)", "gg::div(w.psum, a.ocpcf)"),
+}
+
+
+def test_mutated_detect_stage_kernels_fail(cuda, tmp_path):
+    """Each mutation of ``STAGE_MUTATIONS`` (a tie flipped, a chain started
+    at 0, the window folded column-major, the min losing NaN, a clamp
+    missed), built alone with the library's flags, differs from the plain
+    stage on at least one of ``test_detect_stage_kernel_matches_plain``'s
+    cases; the source unmutated, built and called the same way, on none."""
+    import ctypes
+    import subprocess
+
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.ops import _build
+    from groundgrid_torch.ops.detect import _constants
+
+    source = (_build.CSRC / "detect_stage.cu").read_text()
+    (tmp_path / "exactf32.cuh").write_text((_build.CSRC / "exactf32.cuh").read_text())
+    jobs = {}
+    for k, (name, (old, new)) in enumerate([("none", ("", ""))] + list(STAGE_MUTATIONS.items())):
+        assert name == "none" or source.count(old) == 1, name
+        (tmp_path / f"m{k}.cu").write_text(source.replace(old, new))
+        jobs[name] = (tmp_path / f"m{k}.so", subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(tmp_path / f"m{k}.so"),
+             str(tmp_path / f"m{k}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    cases = list(_stage_cases(cuda))
+    wants = [detectlib.detect_ground_patches(cfg, tables, *ts) for _, cfg, tables, ts in cases]
+    for name, (lib_path, proc) in jobs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, (name, out)
+        entry = ctypes.CDLL(str(lib_path)).gg_detect_stage
+        entry.argtypes = _build._SIGNATURES["gg_detect_stage"]
+        caught = []
+        for (case, cfg, tables, ts), want in zip(cases, wants):
+            out_g, out_c = torch.empty_like(ts[3]), torch.empty_like(ts[4])
+            pccvt, out_tol, ocpcf = _constants(cfg)
+            ins = [*ts, tables.var_thr_sq, tables.skip_thr, tables.min_expected_s, tables.use3,
+                   tables.interior]
+            assert entry(*(t.data_ptr() for t in ins), cfg.cell_count, cfg.cell_count, 0, 1,
+                         pccvt, out_tol, ocpcf, ocpcf * 2.0, out_g.data_ptr(), out_c.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream) == 0
+            if not (_bitwise(out_g, want[0]) and _bitwise(out_c, want[1])):
+                caught.append(case)
+        if name == "none":
+            assert not caught, f"the unmutated source failed {caught}"
+        else:
+            assert caught, f"mutation {name!r} passed every case"
 
 
 def test_wrappers_reject_bad_input(cuda):
