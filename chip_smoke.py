@@ -18,9 +18,10 @@ Phases (any failure raises and exits non-zero, printing no result):
    K1 raster (7 columns of a prepared scan: counts, sums, min and max all
    bitwise, the plain version folding each run in the kernel's order; its
    run count and longest run, and for context ``torch.segment_reduce`` over
-   the same runs), K2 lookup (sorted point cells with 1 and 2 tables, a
-   uniform random lattice-sized vector and the march lattice of a warm scan,
-   the ids ``detect_outliers`` hands it: bitwise), K3 spiral (a warm state:
+   the same runs), K2 lookup (sorted point cells with 2 tables, the
+   classify gather, and with 1, the old ground K6 now reads itself, a
+   uniform random lattice-sized vector and the march lattice of a warm scan:
+   bitwise; all but the first on no path, K2 measurements), K3 spiral (a warm state:
    confidence bitwise, heights atol 2e-5 / rtol 1e-5; and its global-band
    variant at n = 2416 on random layers, the same bounds), K4 fused detect
    (the warm raster layers of a real scan at 364^2 and at 1200^2, from a
@@ -30,18 +31,21 @@ Phases (any failure raises and exits non-zero, printing no result):
    both grid sizes), K5 bin_points (a prepared scan: the six outputs
    bitwise, and the cell ids bitwise the host prep's), K6 march_budget and
    K7 march (a warm scan's budgets, keys, directions and top-k candidates,
-   as the step builds them by the plain versions, K7 walking K6's own
-   outputs over the moved layers; bitwise, and on the scan twice over,
-   262,144 points, the exact-budget key; the occlusion key table K7 folds
-   in timed alone, device ms and launches; both kernels' registers and
+   as the step builds them by the plain versions, K6 reading each point's
+   old ground from the moved grid, bitwise K2's plain gather and the plain
+   budget, K7 walking K6's own outputs over the moved layers; bitwise,
+   and on the scan twice over, 262,144 points, the exact-budget key; the
+   occlusion key table K7 folds in timed alone, device ms and launches;
+   both kernels' registers and
    spills by ``nvcc -Xptxas -v``), K8 detect_stage (``check_detect_stage``:
    the main path's detect stage against ``core/detect.py`` on the same
    CUDA tensors, K4's cases and the seam layers of ``detect_seam_layers``
    at n = 45 and 80, bitwise with NaN and -0.0; the halo'd row blocks of
    S = 4 at 364^2 and S = 8 at 1200^2 bitwise ``detect_block`` and,
    together, the full sweep; the plain stage's device ms and device
-   activities by ``torch.profiler`` beside its call ms); each of K4-K8 two
-   runs bitwise.
+   activities by ``torch.profiler`` beside its call ms; timed at 364^2,
+   1200^2 and on a batch of 64 grids, with its registers and spills by
+   ``nvcc -Xptxas -v``); each of K4-K8 two runs bitwise.
    K3's ring ranges (``spiral_interpolation_rings``) at
    364^2 and 1200^2 (warm states, ``HIGHRES_CONFIG`` for the latter) and at
    n = 2416 (the global band, random layers): the bands of S = 2 and 8 in
@@ -66,7 +70,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    launches' summed device ms, both calls' CUDA-event ms, the plain
    batched call's ms and the bound of the batch's work.
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
-   synthetic scans: per-scan launch counts (K1, K3, K5-K8 x1, K2 x2; a replay
+   synthetic scans: per-scan launch counts (K1, K2, K3, K5-K8 x1; a replay
    of the captured step adds the launches its capture recorded), no
    sortedness fallback, every step after the first (every replay) under
    ``torch.cuda.set_sync_debug_mode("error")`` (no device-to-host read),
@@ -77,8 +81,8 @@ Phases (any failure raises and exits non-zero, printing no result):
    ground-vs-truth recall/precision, ms/scan from CUDA events.
 4. The layer-publishing wire path, ``StreamingDriver(GroundGridConfig(
    sorted_scans=True, wire_format=True, fused_detect=True), with_aux=True)``
-   over the first 16 scans: per-scan launch counts (K1 x2, K2 x2, K3-K7
-   x1), no fallback, labels against the plain-version run (>= 99.9 %)
+   over the first 16 scans: per-scan launch counts (K1 x2, K2-K7 x1), no
+   fallback, labels against the plain-version run (>= 99.9 %)
    with the points, points_raw, min and max layers bitwise, all 11 layers
    finite, a second kernel run bitwise equal, a checkpoint after scan 8
    (``save_state`` / ``load_state`` / ``restore``) whose resumed scans 9-16
@@ -95,7 +99,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    ``playback --native-loader --pipeline-depth 2`` with layer and HTML
    exports. The C++ loaders must be native; (a)-(d) and the resumed (f)
    print the same statistics block and metrics; (e) is within 0.1 pt of (a)
-   on F1 and IoUg; per scan K1 x1 (x2 for (g)), K2 x2, K3, K5-K8 x1 and no
+   on F1 and IoUg; per scan K1 x1 (x2 for (g)), K2, K3, K5-K8 x1 and no
    sortedness fallback; (g) writes 11 layer PNGs per exported scan and the
    player. Prints ms/scan per variant (the payload's and CUDA events around
    the call) and the host prep p50 of NumPy against the native loader.
@@ -124,7 +128,7 @@ Phases (any failure raises and exits non-zero, printing no result):
 9. BASELINE.json config 5, the fleet: ``FleetDriver(GroundGridConfig(
    sorted_scans=True), batch=64, device)`` for 4 ticks, vehicle v on phase
    3's records from record v mod 32 (backward for v >= 32): per tick K1,
-   K3, K5-K8 x64, K2 x128, the step of ticks 2-4 under the sync check (host prep
+   K2, K3, K5-K8 x64, the step of ticks 2-4 under the sync check (host prep
    and the tick's one fetch outside), the summary equal to the fetched
    labels' counts; every vehicle's labels and outliers (the fleet's one
    captured vehicle step) bitwise those of an eager ``StreamingDriver``
@@ -136,7 +140,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    metric line. Then the unsorted fleet (``phase_fleet_unsorted``), the
    default ``GroundGridConfig()`` with 64 vehicles on the same streams,
    stepped as one batched body captured as one graph a tick: per tick K1,
-   K3, K5-K8 x1, K2 x2, ticks 2-4 under the sync check, the summary, ms per
+   K2, K3, K5-K8 x1, ticks 2-4 under the sync check, the summary, ms per
    tick with host prep and fetch, the capture's seconds and pool bytes;
    labels, outliers and the final state bitwise 64 single captured
    unsorted steps (the same fleet vehicle by vehicle, one replay per
@@ -151,7 +155,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    centers, both spiral modes: (a) ``HIGHRES_CONFIG`` (1200^2) over
    ``["cuda:0"] * 8``, (b) the default 364^2 over ``["cuda:0"] * 4``, each
    over the first 8 scans. The eager ``SpatialStep``: launches per scan K1,
-   K3, K5-K8 x S, K2 x 2S, steps 2-8 under the sync check, banded ==
+   K2, K3, K5-K8 x S, steps 2-8 under the sync check, banded ==
    replicated bitwise (labels, outliers, ground, groundpatch), a second run
    of each bitwise the first, against the single-grid ``Step`` over the
    same scans labels >= 99.95 %, ground atol 2e-4 / rtol 1e-4, groundpatch
@@ -170,6 +174,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    bitwise the same shards on one card, ms per scan in turns; with one
    card it logs that it did not run.
    ``python3 chip_smoke.py --spatial`` runs phases 1 and 10 alone.
+   ``python3 chip_smoke.py --k8-tiles`` runs phase 1 and K8's tile
+   candidates (``K8_TILES``) alone: each built alone, bitwise the plain
+   stage at 364^2, 1200^2 and on 64 grids, timed there in turns.
 11. The captured step (``pipeline.CapturedStep``) against the eager
    ``make_step_fn`` step, bitwise: phase 3's path over its 32 scans in four
    runs in turns (eager, captured, captured, eager; labels, outliers and
@@ -207,6 +214,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -363,9 +371,10 @@ def check_raster(config, driver, rec):
 
 def march_inputs(config, driver, rec):
     """The march's inputs on scan ``rec`` from the driver's warm state, as
-    the step builds them, by the plain versions: the prepared scan, its scan
-    scalars and binning, the moved layers, ``old_h``, the budgets, keys and
-    directions, and the top-k candidates."""
+    the step builds them, by the plain versions (the budgets from K2's plain
+    gather of the old ground): the prepared scan, its scan scalars and
+    binning, the moved layers, the budgets, keys and directions, and the
+    top-k candidates."""
     from groundgrid_torch.core import grid as gridlib
     from groundgrid_torch.core import outliers
     from groundgrid_torch.ops import lookup
@@ -377,7 +386,7 @@ def march_inputs(config, driver, rec):
                                               old_h)
     k = min(config.max_outlier_candidates, scan.px.shape[-1])
     return {"scan": scan, "s": s, "binning": binning, "ground": ground, "conf": conf,
-            "old_h": old_h, "budget": budget, "key": key, "dirs": dirs,
+            "budget": budget, "key": key, "dirs": dirs,
             "pidx": torch.topk(key, k, dim=-1, sorted=False).indices}
 
 
@@ -429,10 +438,11 @@ def check_lookup_march(config, driver, rec):
 
 
 def check_lookup(config, driver, cell, rec_scan):
-    """K2 on sorted point cells (1 and 2 tables: the step's two calls, the
-    old ground before K6, and ground and variance for classify), a uniform
-    random lattice-sized vector and the march lattice of scan ``rec_scan``
-    (on no path since K7 reads its keys itself: a K2 measurement)."""
+    """K2 on sorted point cells with 2 tables (ground and variance: the
+    step's one call, for classify) and with 1 (the old ground, which K6
+    reads itself: on no path, a K2 measurement), a uniform random
+    lattice-sized vector and the march lattice of scan ``rec_scan`` (on no
+    path since K7 reads its keys itself: a K2 measurement)."""
     from groundgrid_torch.ops import lookup
 
     n2 = config.cell_count ** 2
@@ -477,8 +487,8 @@ def check_lookup(config, driver, cell, rec_scan):
     # name (ids at n2 read nothing), writes one word per id and table
     touched = int(torch.unique(cell[cell < n2]).numel())
     rec.update(bound(cell.nbytes + 2 * 4 * touched + 2 * 4 * cell.shape[0], 0))
-    # the main path's one-table call (the old ground before K6), beside
-    # index_select over the table with a zero word at n2
+    # one table, the old ground (K6 reads it itself: a K2 measurement),
+    # beside index_select over the table with a zero word at n2
     one = kernel_times(lambda: lookup.lookup(cell, [ground], n2), 100, "lookup_kernel",
                        lambda: lookup.lookup_plain(cell, [ground], n2), 20)
     padded1 = padded[0].contiguous()
@@ -498,7 +508,7 @@ def check_lookup(config, driver, cell, rec_scan):
         f"({touched} distinct cells): device {dev_runs[0]:.4f} / {dev_runs[1]:.4f} ms, "
         f"index_select {lib_runs[0]:.4f} / {lib_runs[1]:.4f} ms (in turns), call "
         f"{rec['call_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} "
-        f"ms; 1 table x {cell.shape[0]} sorted points (the old ground): device "
+        f"ms; 1 table x {cell.shape[0]} sorted points (the old ground, on no path): device "
         f"{one['device_ms']:.4f} ms, index_select {one['library_ms']:.4f} ms, call "
         f"{one['call_ms']:.4f} ms, plain {one['plain_ms']:.4f} ms, bound "
         f"{one['bound_ms']:.5f} ms; 1 table x {lattice.shape[0]} uniform random "
@@ -827,6 +837,34 @@ def halo_blocks(layers, n_shards):
         yield at, halos, layers[3][at], layers[4][at]
 
 
+def stage_batch(config, driver, records, b=None, layers=None):
+    """K8 on a batch of ``b`` (FLEET_BATCH) grids at the main path's shapes,
+    ``layers`` or :func:`batched_inputs`' of ``records[4:12]`` (warm raster
+    layers, each vehicle's ground offset): one launch bitwise its ``b``
+    single launches and the plain batched stage; timed against the single
+    launches (``batched_times``)."""
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.ops.detect_stage import detect_stage
+
+    b = FLEET_BATCH if b is None else b
+    if layers is None:
+        layers = batched_inputs(config, driver, records[4:12], b)["detect"]
+    tabs = detectlib.make_tables(config, driver.device)
+    got = detect_stage(config, tabs, *layers)
+    want = detectlib.detect_ground_patches(config, tabs, *layers)
+    for v in range(b):
+        single = detect_stage(config, tabs, *(t[v] for t in layers))
+        if not all(bitwise(g[v], w) for g, w in zip(got, single)):
+            raise AssertionError(f"K8 batched: grid {v} differs from its single launch")
+    if not all(bitwise(g, w) for g, w in zip(got, want)):
+        raise AssertionError("K8 batched differs from its plain batched version")
+    return dict(max_abs_err=0.0, **batched_times(
+        "K8 detect_stage", lambda: detect_stage(config, tabs, *layers),
+        lambda: [detect_stage(config, tabs, *(t[v] for t in layers)) for v in range(b)],
+        lambda: detectlib.detect_ground_patches(config, tabs, *layers), "detect_stage_kernel",
+        b, *detect_cost(tabs, layers)))
+
+
 def check_detect_stage(config, driver, rec, records):
     """K8 against its plain version, ``core/detect.py`` on the same CUDA
     tensors: the warm raster layers of one real scan at 364^2 and at 1200^2
@@ -837,7 +875,9 @@ def check_detect_stage(config, driver, rec, records):
     ground and confidence bitwise (NaN and -0.0 included), two runs
     bitwise. The halo'd row blocks of S = 4 shards at 364^2 and S = 8 at
     1200^2 (``halo=2``), each bitwise ``detect_block`` and together bitwise
-    the full sweep. Timed at both grid sizes (``stage_times``)."""
+    the full sweep. Timed at both grid sizes (``stage_times``) and on a
+    batch of FLEET_BATCH grids at 364^2 (:func:`stage_batch`, ``b64_*``);
+    the kernel's registers and spills (:func:`ptxas_usage`)."""
     from groundgrid_torch.config import HIGHRES_CONFIG, GroundGridConfig
     from groundgrid_torch.core import detect as detectlib
     from groundgrid_torch.data.synthetic import detect_layers, detect_seam_layers
@@ -907,6 +947,11 @@ def check_detect_stage(config, driver, rec, records):
     for key in ("device_ms", "wrapper_device_ms", "call_ms", "plain_ms", "plain_device_ms",
                 "plain_launches", "bound_ms"):
         out[key + "_highres"] = high_times[key]
+    batch = stage_batch(config, driver, records)
+    out.update({f"b{FLEET_BATCH}_{k}": v for k, v in batch.items()
+                if k in ("device_ms", "singles_device_ms", "call_ms", "bound_ms")})
+    usage = ptxas_usage("detect_stage.cu", ("detect_stage_kernel",))["detect_stage_kernel"]
+    out["registers"], out["spill_store_bytes"], out["spill_load_bytes"] = usage
     for i, suffix in ((0, ""), (1, "_highres")):
         n = cases[i][1].cell_count
         log(f"K8 detect_stage {n}^2 warm scan ({changed[i]} cells updated): device "
@@ -915,6 +960,9 @@ def check_detect_stage(config, driver, rec, records):
             f"ms (device {out['plain_device_ms' + suffix]:.4f} ms in "
             f"{out['plain_launches' + suffix]:.0f} device activities), bound "
             f"{out['bound_ms' + suffix]:.4f} ms ({out['bound_by']})")
+    log(f"K8 detect_stage at B = {FLEET_BATCH}, {config.cell_count}^2: device "
+        f"{out[f'b{FLEET_BATCH}_device_ms']:.4f} ms, bound {out[f'b{FLEET_BATCH}_bound_ms']:.4f} "
+        f"ms; {usage[0]} registers, spills {usage[1]} / {usage[2]} bytes")
     log("K8 detect_stage: bitwise core/detect.py and two runs bitwise at 364^2, 1200^2, n=12 "
         "and n=45 (4 seeds each), the seam layers at n=45 and 80 (2 seeds each); the halo'd "
         "blocks of S=4 at 364^2 and S=8 at 1200^2 bitwise detect_block and, together, the "
@@ -929,20 +977,41 @@ def check_detect_stage(config, driver, rec, records):
 # 79, sqrt_rn_ds 180, div_rn 123, the ray (3 differences, sumsq3_ds,
 # sqrt_rn_ds) 262
 BIN_FLOPS = 2 * 87 + 8 + 5  # a point: both axes, the splits, the squared distance
-BUDGET_POINT_FLOPS = 1  # a point: old_h - 0.2
+BUDGET_POINT_FLOPS = 1  # an in-map, unignored point: old_h - 0.2
 BUDGET_CAND_FLOPS = 262 + 123 + 1  # a candidate: the ray, vz, its square
 BUDGET_DIR_FLOPS = 2 * 123  # a marchable point: vx and vy
 MARCH_STEP_FLOPS = 1 + 4 + 2 * 87 + 3  # a live step: step^2, the sample, its cells, thr
 MARCH_BLOCK_FLOPS = 8  # a 3x3 confidence block summed
 
 
-def budget_cost(p, candidates, marchable):
-    """K6's (bytes, f32 operations) on these inputs: 22 bytes a point (z,
-    old_h and the two flags read, budget and key written), 8 a candidate
-    (x and y, which only a candidate's ray reads) and 12 a marchable point
-    (its directions); the candidates' rays and the marchable points' vx, vy."""
-    return (22 * p + 8 * candidates + 12 * marchable, BUDGET_POINT_FLOPS * p
-            + BUDGET_CAND_FLOPS * candidates + BUDGET_DIR_FLOPS * marchable)
+def budget_work(config, binning, z, ground):
+    """What K6 must read of the moved ``ground`` on these points (one
+    vehicle, or a batch row by row): the in-map, unignored points (``read``:
+    they read their cell id and then the ground word), the distinct ground
+    cells those ids name inside the grid (``cells``) and the candidates
+    (``candidates``: at least 0.2 below that word)."""
+    from groundgrid_torch.ops.lookup import lookup_plain
+
+    n2 = config.cell_count ** 2
+    live = binning.inmap & ~binning.ignored
+    (old_h,) = lookup_plain(binning.cell, [ground], n2)
+    row = torch.arange(math.prod(binning.cell.shape[:-1]), device=z.device).view(
+        *binning.cell.shape[:-1], 1) * (n2 + 1)
+    named = (binning.cell.long() + row)[live & (binning.cell < n2)]
+    return {"read": int(live.sum()), "cells": int(torch.unique(named).numel()),
+            "candidates": int((live & (z < old_h - float(np.float32(0.2)))).sum())}
+
+
+def budget_cost(p, work, marchable):
+    """K6's (bytes, f32 operations) on these inputs (:func:`budget_work`):
+    18 bytes a point (z and the two flags read, budget and key written), 4
+    a point that reads its cell id and 4 a distinct ground cell those ids
+    name, 8 a candidate (x and y, which only a candidate's ray reads) and
+    12 a marchable point (its directions); the candidate tests, the
+    candidates' rays and the marchable points' vx, vy."""
+    return (18 * p + 4 * work["read"] + 4 * work["cells"] + 8 * work["candidates"]
+            + 12 * marchable, BUDGET_POINT_FLOPS * work["read"]
+            + BUDGET_CAND_FLOPS * work["candidates"] + BUDGET_DIR_FLOPS * marchable)
 
 
 def march_cost(k, work):
@@ -1024,11 +1093,16 @@ def ptxas_usage(source, kernels):
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc -Xptxas -v failed ({proc.returncode}):\n{proc.stderr}")
+    return parse_ptxas(proc.stdout + proc.stderr, kernels)
+
+
+def parse_ptxas(text, kernels):
+    """:func:`ptxas_usage`'s record from ``nvcc -Xptxas -v`` output."""
     out, name, spills = {}, None, (None, None)
     # longest names first: march_kernel is no part of march_budget_kernel,
     # but a later kernel's name may hold an earlier one's
     names = sorted(kernels, key=len, reverse=True)
-    for line in (proc.stdout + proc.stderr).splitlines():
+    for line in text.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
             name = next((k for k in names if k in entry.group(1)), None)
@@ -1043,6 +1117,136 @@ def ptxas_usage(source, kernels):
     if missing:
         raise RuntimeError(f"nvcc -Xptxas -v reported no registers for {missing}")
     return out
+
+
+# K8's tile candidates (kTileH, kTileW, kStrip): output rows and columns a
+# block, cells a thread; the first is the one csrc/detect_stage.cu builds
+K8_TILES = ((8, 64, 2), (8, 64, 4), (16, 64, 4))
+
+
+def stage_variants(tiles, tmp):
+    """``{tile: (entry point, ptxas record, SASS mix)}``:
+    ``csrc/detect_stage.cu`` with each tile's constants, built alone with
+    the library's flags (one nvcc a tile, all started together) and loaded
+    with ctypes."""
+    import ctypes
+
+    from groundgrid_torch.ops import _build
+
+    text = (_build.CSRC / "detect_stage.cu").read_text()
+    with open(os.path.join(tmp, "exactf32.cuh"), "w") as f:
+        f.write((_build.CSRC / "exactf32.cuh").read_text())
+    jobs = {}
+    for k, tile in enumerate(tiles):
+        src = text
+        for name, value in zip(("kTileH", "kTileW", "kStrip"), tile):
+            src, found = re.subn(rf"constexpr int {name} = \d+;",
+                                 f"constexpr int {name} = {value};", src)
+            if found != 1:
+                raise RuntimeError(f"detect_stage.cu: no single {name}")
+        path = os.path.join(tmp, f"k8_{k}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
+               path[:-3] + ".so", path]
+        jobs[tile] = (path[:-3] + ".so", subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                          stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for tile, (lib, proc) in jobs.items():
+        text_out, _ = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"K8 tile {tile}: nvcc failed\n{text_out}")
+        entry = ctypes.CDLL(lib).gg_detect_stage
+        entry.argtypes = _build._SIGNATURES["gg_detect_stage"]
+        entry.restype = ctypes.c_int
+        out[tile] = (entry, parse_ptxas(text_out, ("detect_stage_kernel",))["detect_stage_kernel"],
+                     sass_mix(lib, "detect_stage_kernel"))
+    return out
+
+
+def sass_mix(lib, kernel):
+    """``{"instructions": n, opcode: count, ...}`` of ``kernel``'s SASS in
+    the shared library ``lib`` (``cuobjdump -sass``): the static
+    instruction count and its loads, stores, adds, mins, tests and
+    barriers (the opcode's first word, e.g. LDS for LDS.128)."""
+    from groundgrid_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          timeout=120).stdout
+    mix, inside = {}, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if inside and op:
+            mix["instructions"] = mix.get("instructions", 0) + 1
+            mix[op.group(1)] = mix.get(op.group(1), 0) + 1
+    keep = ("instructions", "LDS", "LDG", "STS", "STG", "FADD", "FMNMX", "FSETP", "FSEL", "SEL",
+            "BAR", "BRA")
+    return {k: mix.get(k, 0) for k in keep}
+
+
+def call_variant(entry, config, tabs, layers):
+    """One launch of a K8 variant's entry point on ``layers`` (the whole
+    grid, halo 0, one grid or a batch); its fresh outputs."""
+    from groundgrid_torch.ops import _build
+    from groundgrid_torch.ops.detect import _constants
+
+    g = layers[3]
+    out_g, out_c = torch.empty_like(g), torch.empty_like(layers[4])
+    pccvt, out_tol, ocpcf = _constants(config)
+    batch = g.shape[0] if g.dim() == 3 else 1
+    _build.check(entry(*(t.data_ptr() for t in [*layers, tabs.records]), g.shape[-2],
+                       config.cell_count, 0, batch, pccvt, out_tol, ocpcf, ocpcf * 2.0,
+                       out_g.data_ptr(), out_c.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream), "detect_stage variant")
+    return out_g, out_c
+
+
+def phase_k8_tiles(config, records, device):
+    """K8's tile candidates (:data:`K8_TILES`) on the warm layers of one
+    scan at 364^2 and at 1200^2 and on a batch of FLEET_BATCH grids at
+    364^2: each variant bitwise the plain stage, then its device ms by
+    ``torch.profiler`` in turns (the candidates in order, then reversed),
+    its registers and spills. Returns ``{tile: record}``."""
+    from groundgrid_torch.config import HIGHRES_CONFIG
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    driver = warm_driver(config, records, device)
+    high = dataclasses.replace(HIGHRES_CONFIG, sorted_scans=True)
+    cases = {"364": (config, warm_detect_layers(config, driver, records[4])),
+             "1200": (high, warm_detect_layers(high, warm_driver(high, records, device),
+                                               records[4])),
+             f"b{FLEET_BATCH}": (config, batched_inputs(config, driver, records[4:12],
+                                                         FLEET_BATCH)["detect"])}
+    tabs = {key: detectlib.make_tables(cfg, device) for key, (cfg, _) in cases.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        variants = stage_variants(K8_TILES, tmp)
+        out = {tile: {"registers": usage[0], "spill_store_bytes": usage[1],
+                      "spill_load_bytes": usage[2], "sass": mix}
+               for tile, (_, usage, mix) in variants.items()}
+        for key, (cfg, layers) in cases.items():
+            want = detectlib.detect_ground_patches(cfg, tabs[key], *layers)
+            for tile, (entry, _, _) in variants.items():
+                got = call_variant(entry, cfg, tabs[key], layers)
+                if not all(bitwise(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"K8 tile {tile} ({key}) differs from the plain stage")
+        for tile in list(K8_TILES) + list(K8_TILES)[::-1]:
+            entry = variants[tile][0]
+            for key, (cfg, layers) in cases.items():
+                ms = device_ms(lambda: call_variant(entry, cfg, tabs[key], layers), 50,
+                               "detect_stage_kernel")[0]
+                out[tile].setdefault(f"device_ms_{key}", []).append(ms)
+    for tile, rec in out.items():
+        log(f"K8 tile {tile[0]} x {tile[1]}, {tile[2]} cells a thread: bitwise at 364^2, 1200^2 "
+            f"and B = {FLEET_BATCH}; device ms in turns " + ", ".join(
+                f"{key} " + " / ".join(f"{v:.4f}" for v in rec[f"device_ms_{key}"])
+                for key in cases) + f"; {rec['registers']} registers, spills "
+            f"{rec['spill_store_bytes']} / {rec['spill_load_bytes']} bytes; SASS {rec['sass']}")
+    return {f"{t[0]}x{t[1]}/{t[2]}": rec for t, rec in out.items()}
 
 
 def check_binning(config, driver, rec):
@@ -1088,9 +1292,11 @@ def same_budgets(got, want):
 
 def check_march(config, driver, rec):
     """K6 and K7 on a warm scan against their plain versions, bitwise, two
-    runs bitwise, K7 walking K6's own outputs; K6 also on the scan twice
-    over (262,144 points: the exact-budget key) and K7 on its candidates.
-    Times and bounds (:func:`budget_cost`, :func:`march_cost` of
+    runs bitwise: K6 reading each point's old ground from the moved grid
+    against K2's plain gather and the plain budget, K7 walking K6's own
+    outputs; K6 also on the scan twice over (262,144 points: the
+    exact-budget key) and K7 on its candidates. Times and bounds
+    (:func:`budget_cost` of :func:`budget_work`, :func:`march_cost` of
     :func:`march_work`); the occlusion key table, the work K7 folds in,
     timed alone (device ms and launches); both kernels' registers and
     spills (:func:`ptxas_usage`). Returns the two records."""
@@ -1103,8 +1309,11 @@ def check_march(config, driver, rec):
     scan, s, b = x["scan"], x["s"], x["binning"]
     ground, conf = x["ground"], x["conf"]
     pts = (scan.px, scan.py, scan.pz)
-    budget_args = (config, s, b, *pts, x["old_h"])
+    budget_args = (config, s, b, *pts, ground)
     want6 = (x["budget"], x["key"], x["dirs"])
+    if not same_budgets(march.march_budget_plain(*budget_args), want6):
+        raise AssertionError("K6's plain route differs from K2's plain gather and the plain "
+                             "budget")
     for run in range(2):
         got6 = march.march_budget(*budget_args)
         if not same_budgets(got6, want6):
@@ -1118,9 +1327,9 @@ def check_march(config, driver, rec):
                                  f"{int((got != want).sum())} points")
     # the exact-budget key: the scan twice over
     two = Binning(*(torch.cat([t, t]) for t in b))
-    big = [torch.cat([t, t]) for t in (*pts, x["old_h"])]
-    got = march.march_budget(config, s, two, *big)
-    plain = march.march_budget_plain(config, s, two, *big)
+    big = [torch.cat([t, t]) for t in pts]
+    got = march.march_budget(config, s, two, *big, ground)
+    plain = march.march_budget_plain(config, s, two, *big, ground)
     if not same_budgets(got, plain):
         raise AssertionError("K6 on 262,144 points differs from the plain version")
     pidx = torch.topk(plain[1], config.max_outlier_candidates, sorted=False).indices
@@ -1129,15 +1338,16 @@ def check_march(config, driver, rec):
         raise AssertionError("K7 on 262,144 points differs from the plain version")
 
     p, k = scan.px.shape[0], x["pidx"].shape[0]
-    candidates = int((b.inmap & ~b.ignored & (scan.pz < x["old_h"] - float(np.float32(0.2))))
-                     .sum())
+    reads = budget_work(config, b, scan.pz, ground)
+    candidates = reads["candidates"]
     marchable = int((x["budget"] > 0).sum())
     usage = ptxas_usage("march.cu", ("march_budget_kernel", "march_kernel"))
     k6 = {"max_abs_err": 0.0, "library_ms": None, "candidates": candidates,
-          "marchable": marchable}
+          "marchable": marchable, "ground_reads": reads["read"],
+          "ground_cells": reads["cells"]}
     k6.update(kernel_times(lambda: march.march_budget(*budget_args), 100, "march_budget_kernel",
                            lambda: march.march_budget_plain(*budget_args), 20))
-    k6.update(bound(*budget_cost(p, candidates, marchable)))
+    k6.update(bound(*budget_cost(p, reads, marchable)))
     work = march_work(config, s, ground, conf, x["pidx"], x["budget"], x["dirs"])
     if work["hits"] != int(want.sum()):
         raise AssertionError(f"march_work counts {work['hits']} hits, the march {int(want.sum())}")
@@ -1154,8 +1364,10 @@ def check_march(config, driver, rec):
     k7.update(key_table_device_ms=table_ms, key_table_launches=table_acts / reps)
     for out, kname in ((k6, "march_budget_kernel"), (k7, "march_kernel")):
         out["registers"], out["spill_store_bytes"], out["spill_load_bytes"] = usage[kname]
-    log(f"K6 march_budget: {p} points ({candidates} candidates, {marchable} marchable): bitwise "
-        f"the plain version (and at {2 * p} points, the scan twice over), two runs bitwise; "
+    log(f"K6 march_budget: {p} points ({reads['read']} reading the old ground from "
+        f"{reads['cells']} distinct cells, {candidates} candidates, {marchable} marchable): "
+        f"bitwise the plain route, K2's plain gather and the plain budget (and at {2 * p} "
+        f"points, the scan twice over), two runs bitwise; "
         f"device {k6['device_ms']:.4f} ms, call {k6['call_ms']:.4f} ms, plain "
         f"{k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.5f} ms ({k6['bound_by']}); "
         f"{k6['registers']} registers, spills {k6['spill_store_bytes']} / "
@@ -1239,7 +1451,6 @@ def check_batched(config, driver, records, b=None):
     (``batched_times``)."""
     from groundgrid_torch.core import detect as detectlib
     from groundgrid_torch.ops import detect, lookup, raster, spiral
-    from groundgrid_torch.ops.detect_stage import detect_stage
 
     b = FLEET_BATCH if b is None else b
     x = batched_inputs(config, driver, records, b)
@@ -1334,19 +1545,7 @@ def check_batched(config, driver, records, b=None):
         *detect_cost(tabs, layers, interior=False)))
 
     # K8: the same layers through the main path's stage
-    got = detect_stage(config, tabs, *layers)
-    want = detectlib.detect_ground_patches(config, tabs, *layers)
-    for v in range(b):
-        single = detect_stage(config, tabs, *(t[v] for t in layers))
-        if not all(bitwise(g[v], w) for g, w in zip(got, single)):
-            raise AssertionError(f"K8 batched: grid {v} differs from its single launch")
-    if not all(bitwise(g, w) for g, w in zip(got, want)):
-        raise AssertionError("K8 batched differs from its plain batched version")
-    out["detect_stage"] = dict(max_abs_err=0.0, **batched_times(
-        "K8 detect_stage", lambda: detect_stage(config, tabs, *layers),
-        lambda: [detect_stage(config, tabs, *(t[v] for t in layers)) for v in range(b)],
-        lambda: detectlib.detect_ground_patches(config, tabs, *layers), "detect_stage_kernel",
-        b, *detect_cost(tabs, layers)))
+    out["detect_stage"] = stage_batch(config, driver, records, b, layers)
     out.update(check_batched_fused(config, x, b))
     log(f"batched kernels, B = {b} at {n}^2: K1, K2 (points and march lattice), K3, K4, K8, "
         f"K5, K6 and K7 each bitwise its {b} single launches and against its plain batched "
@@ -1361,9 +1560,8 @@ def check_batched_fused(config, x, b):
     launches (``batched_times``)."""
     from groundgrid_torch.core import scalars as scalarlib
     from groundgrid_torch.core.rasterize import Binning
-    from groundgrid_torch.ops import binning, lookup, march
+    from groundgrid_torch.ops import binning, march
 
-    n2 = config.cell_count ** 2
     sb = scalarlib.view(x["scalars"])
     rows = [scalarlib.view(x["scalars"][v]) for v in range(b)]
     px, py, pz, rings, valid = x["points"]
@@ -1395,23 +1593,22 @@ def check_batched_fused(config, x, b):
         lambda: binning.bin_points_plain(*bin_args), "binning_kernel", b, 31 * p * b,
         BIN_FLOPS * p * b))
 
-    (old_h,) = lookup.lookup(bins.cell, [ground], n2)
-    budget_args = (config, sb, bins, px, py, pz, old_h)
+    budget_args = (config, sb, bins, px, py, pz, ground)
     budget, key, dirs = march.march_budget(*budget_args)
     plain6 = march.march_budget_plain(*budget_args)
     if not same_budgets((budget, key, dirs), plain6):
         raise AssertionError("K6 batched differs from its plain batched version")
     for v in range(b):
-        single = march.march_budget(config, rows[v], row(bins, v), px[v], py[v], pz[v], old_h[v])
+        single = march.march_budget(config, rows[v], row(bins, v), px[v], py[v], pz[v],
+                                    ground[v])
         if not same_budgets((budget[v], key[v], dirs[:, v]), single):
             raise AssertionError(f"K6 batched: vehicle {v} differs from its single launch")
-    cand = bins.inmap & ~bins.ignored & (pz < old_h - float(np.float32(0.2)))
     out["march_budget"] = dict(max_abs_err=0.0, **batched_times(
         "K6 march_budget", lambda: march.march_budget(*budget_args),
         lambda: [march.march_budget(config, rows[v], row(bins, v), px[v], py[v], pz[v],
-                                    old_h[v]) for v in range(b)],
+                                    ground[v]) for v in range(b)],
         lambda: march.march_budget_plain(*budget_args), "march_budget_kernel", b,
-        *budget_cost(p * b, int(cand.sum()), int((budget > 0).sum()))))
+        *budget_cost(p * b, budget_work(config, bins, pz, ground), int((budget > 0).sum()))))
 
     k = min(config.max_outlier_candidates, p)
     pidx = torch.topk(key, k, dim=-1, sorted=False).indices
@@ -1554,10 +1751,11 @@ def path_counts():
 
 def path_launches(steps, raster=None, detect=0):
     """The main path's launches over ``steps`` steps (or shards, or batched
-    steps): K1 (``raster``: twice a step with the aux count), K2 x2 (the old
-    ground; then ground and variance), K3, K5, K6 and K7 x1, K4 ``detect``
-    (the fused detect, ``steps`` or 0) and K8 the other steps."""
-    return {"raster": steps if raster is None else raster, "lookup": 2 * steps, "spiral": steps,
+    steps): K1 (``raster``: twice a step with the aux count), K2 (ground and
+    variance for classify; K6 reads the old ground itself), K3, K5, K6 and
+    K7 x1, K4 ``detect`` (the fused detect, ``steps`` or 0) and K8 the other
+    steps."""
+    return {"raster": steps if raster is None else raster, "lookup": steps, "spiral": steps,
             "detect": detect, "bin": steps, "march_budget": steps, "march": steps,
             "detect_stage": steps - detect}
 
@@ -1877,7 +2075,7 @@ def phase_entry_point(config, records, device):
     log(f"entry point: (a)-(d) and resumed (f) bitwise (statistics block and metrics: "
         f"F1 {metrics['a']['f1']:.6f}, IoUg {metrics['a']['ioug']:.6f}); wire (e) "
         f"F1 {metrics['e']['f1']:.6f}, IoUg {metrics['e']['ioug']:.6f}; launches per scan "
-        f"K1 x1 (x2 playback), K2 x2, K3, K5-K8 x1; 0 fallbacks; loaders native; "
+        f"K1 x1 (x2 playback), K2, K3, K5-K8 x1; 0 fallbacks; loaders native; "
         f"{len(exported)} layer PNGs and the player written")
     names = {"a": "evaluate, NumPy prep", "b": "--native-loader",
              "c": "--native-loader --pipeline-depth 2", "d": "--native-loader --on-device-eval",
@@ -2499,8 +2697,8 @@ def phase_spatial(config, records, device, n_shards):
     rate = 1 - mism / (n * config.max_points)
     if rate < 0.9995:
         raise AssertionError(f"{name}: {mism} labels differ from the single-grid step")
-    log(f"{name}, {n} scans: launches per scan K1, K3, K5-K8 x{n_shards}, K2 "
-        f"x{2 * n_shards} in both spiral modes; steps 2-{n} under the sync check; banded == "
+    log(f"{name}, {n} scans: launches per scan K1, K2, K3, K5-K8 x{n_shards} in both spiral "
+        f"modes; steps 2-{n} under the sync check; banded == "
         f"replicated bitwise (labels, outliers, ground, groundpatch); second runs bitwise; vs "
         f"the single-grid step {mism} of {n * config.max_points} labels differ ({points} "
         f"labelled points), ground max {worst[0]:.3g}, groundpatch max {worst[1]:.3g}; ms per "
@@ -2721,7 +2919,7 @@ def phase_spatial_cards(records, devices=None):
                              for kind in kinds}
                     out[f"{label}_{world}_{mode}_nccl"] = times
                     log(f"{name} {config.cell_count}^2 ({mode}): every rank bitwise its shard "
-                        f"on one card, launches per scan K1 x1, K2 x2, K3 x1 a rank; rank 0's "
+                        f"on one card, launches per scan K1, K2, K3 x1 a rank; rank 0's "
                         f"ms per scan in turns: " + ", ".join(
                             f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in times.items()))
     log("phase 10 across cards summary: " + json.dumps(out))
@@ -2924,6 +3122,12 @@ def main() -> int:
     log(f"{N_SCANS} synthetic HDL-64E scans rendered in {time.perf_counter() - t0:.1f} s, "
         f"{records[0].points.shape[0]} points in the first")
 
+    if sys.argv[1:] == ["--k8-tiles"]:  # phase 1 and K8's tile candidates alone
+        print(json.dumps({"k8_tiles": phase_k8_tiles(config, records, device)}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--spatial"]:  # phases 1 and 10 alone
         run_spatial_phase(records, device)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -43,6 +43,13 @@ class DetectTables(NamedTuple):
     skip_thr: torch.Tensor  # early-skip point count threshold
     interior: torch.Tensor  # bool: cells the reference iterates ([2, N-2)^2)
     min_expected_s: torch.Tensor  # expected * S * threshold
+    # (N, N, 4) int32, the five tables as one 16-byte record a cell (K8's one
+    # load): var_thr_sq, skip_thr and min_expected_s as f32 bits, then
+    # use3 | interior << 1 (RECORD_USE3, RECORD_INTERIOR)
+    records: torch.Tensor
+
+
+RECORD_USE3, RECORD_INTERIOR = 1, 2
 
 
 def make_tables(config: GroundGridConfig, device) -> DetectTables:
@@ -68,9 +75,12 @@ def make_tables(config: GroundGridConfig, device) -> DetectTables:
     def dev(a, dtype=np.float32):
         return torch.from_numpy(np.ascontiguousarray(a.astype(dtype))).to(device)
 
+    words = [a.astype(np.float32).view(np.int32) for a in (var_thr_sq, skip_thr, min_expected_s)]
+    flags = use3 * RECORD_USE3 | interior * RECORD_INTERIOR
     return DetectTables(
         use3=dev(use3, bool), var_thr_sq=dev(var_thr_sq), skip_thr=dev(skip_thr),
         interior=dev(interior, bool), min_expected_s=dev(min_expected_s),
+        records=dev(np.stack(words + [flags.astype(np.int32)], axis=-1), np.int32),
     )
 
 

@@ -204,18 +204,20 @@ def march(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs, 
 
 
 def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: Binning, x, y,
-                    z, old_h, budget_fn, march_fn):
+                    z, budget_fn, march_fn):
     """``((P,) bool, () int64)``: True for occluded-return outliers, and the
     number of marchable candidates (before the ``max_outlier_candidates``
     cap; 0 when the cap is 0) as a tensor on the points' device, unread.
     Of a (B, P) batch: ``((B, P) bool, (B,) int64)``, row by row.
 
     ``ground``/``groundpatch``: the previous scan's layers (after the move).
-    ``old_h``: per-point ``ground[cell]`` (K2). ``s``: the scan scalars
-    (the sensor origin and the binning constants, ``core/scalars.py``).
-    ``budget_fn`` / ``march_fn``: ``ops.march.march_budget`` (K6) and
-    ``ops.march.march`` (K7), or their plain versions (:func:`march_budget`,
-    and :func:`march` over the plain K2). Between them, ``torch.topk`` takes
+    ``s``: the scan scalars (the sensor origin and the binning constants,
+    ``core/scalars.py``). ``budget_fn`` / ``march_fn``:
+    ``ops.march.march_budget`` (K6, which reads each point's ``ground[cell]``
+    itself) and ``ops.march.march`` (K7), or their plain versions (K2's
+    plain gather and :func:`march_budget`, and :func:`march` over the plain
+    K2); ``budget_fn`` takes ``ground`` where :func:`march_budget` takes
+    the gathered ``old_h``. Between them, ``torch.topk`` takes
     the ``k_max`` largest keys (the JAX package's ``lax.top_k``); the march
     reads the occlusion keys of ``ground`` and ``groundpatch`` (K7 cell by
     cell, the plain march through the whole key table).
@@ -226,7 +228,7 @@ def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: B
     if k_max == 0:
         return (torch.zeros(x.shape, dtype=torch.bool, device=x.device),
                 torch.zeros(batch, dtype=torch.int64, device=x.device))
-    budget, key, dirs = budget_fn(config, s, binning, x, y, z, old_h)
+    budget, key, dirs = budget_fn(config, s, binning, x, y, z, ground)
     # candidate selection; a positive budget always outranks a zero one, so
     # the top k_max keys hold the JAX package's marchable buffer, padded
     # with zero budgets that never fire

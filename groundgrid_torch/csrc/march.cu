@@ -11,20 +11,27 @@
 // that selects the candidates.
 //
 // K6 march_budget, one thread a point: the candidate test against the
-// previous terrain first; only a candidate computes its f64-faithful ray
-// (sumsq3_ds, sqrt_rn_ds) and its correctly rounded vertical direction
-// (div_rn), and only a marchable one (a downward candidate: budget > 0) its
-// two horizontal directions, which it writes beside vz for K7. Every point
+// previous terrain first. The terrain under a point is the moved ground at
+// its cell, which K6 gathers itself (no K2 launch before it; the JAX step
+// gathers it by sorted_lookup): only an in-map, unignored point reads its
+// cell id and then ground[cell], as K2 reads it (0 for an id outside [0,
+// n2), the word as it lies, so -0.0 and NaN compare as the gathered word
+// did). Only a candidate computes its f64-faithful ray (sumsq3_ds,
+// sqrt_rn_ds) and its correctly rounded vertical direction (div_rn), and
+// only a marchable one (a downward candidate: budget > 0) its two
+// horizontal directions, which it writes beside vz for K7. Every point
 // writes its budget (the squared ray length of a downward candidate, else
 // +0.0) and its unique int64 selection key (outliers.selection_key: the
 // truncated monotone budget over the index up to 2^17 points, the exact
-// budget over 2^32 - 1 - index above). Bound on the card: bytes, 22 a point
-// (z, old_h, the flags; budget and key), 8 a candidate (x, y) and 12 a
-// marchable point (2.9 MB at 131,072 points, 0.86 us at 3.35 TB/s); the
-// operations (386 a candidate's ray and vz, 246 a marchable point's vx and
-// vy) are a fraction of that on the main path's data. The points come
-// sorted by cell on the main path, so candidates cluster and whole warps
-// skip the ray.
+// budget over 2^32 - 1 - index above). Bound on the card: bytes, 18 a
+// point (z, the flags; budget and key), 4 an in-map unignored point (its
+// id) and 4 a distinct ground cell those ids name, 8 a candidate (x, y)
+// and 12 a marchable point (2.9 MB on a warm scan of 131,072 points, 0.86
+// us at 3.35 TB/s); the operations (386 a candidate's ray and vz, 246 a
+// marchable point's vx and vy) are a fraction of that on the main path's
+// data. The points come sorted by cell on the main path, so candidates
+// cluster, whole warps skip the ray, and neighbouring threads read
+// neighbouring ground words.
 //
 // K7 march, one warp a candidate: it reads the candidate's budget and ends
 // at once, the whole warp, when no step is live (3^2 < budget false): the
@@ -81,10 +88,12 @@ __device__ __forceinline__ Ray ray(float x, float y, float z, const float* s) {
 
 // dirs: (3, batch, p), the planes vx, vy, vz, written where the budget is
 // positive
+// ground: (batch, n2), the moved grids; cell: (batch, p) the points' ids
 __global__ void march_budget_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                                    const float* __restrict__ z, const float* __restrict__ old_h,
+                                    const float* __restrict__ z, const int* __restrict__ cell,
                                     const bool* __restrict__ inmap,
                                     const bool* __restrict__ ignored, int p,
+                                    const float* __restrict__ ground, int n2,
                                     const float* __restrict__ scalars, int stride,
                                     float* __restrict__ budget, long long* __restrict__ key,
                                     float* __restrict__ dirs) {
@@ -93,7 +102,13 @@ __global__ void march_budget_kernel(const float* __restrict__ x, const float* __
   const size_t k = (size_t)blockIdx.y * p + i;
   const float zk = z[k];
   float b = 0.0f;
-  if (inmap[k] & !ignored[k] & (zk < gg::sub(old_h[k], (float)0.2))) {
+  bool cand = inmap[k] & !ignored[k];
+  if (cand) {
+    const int c = cell[k];
+    const float old_h = (c >= 0 && c < n2) ? ground[(size_t)blockIdx.y * n2 + c] : 0.0f;
+    cand = zk < gg::sub(old_h, (float)0.2);
+  }
+  if (cand) {
     const Ray r = ray(x[k], y[k], zk, scalars + (size_t)blockIdx.y * stride);
     const float vz = gg::div_rn(r.dz, r.length);
     if (vz < (float)-0.01) b = gg::mul(r.length, r.length);
@@ -188,19 +203,20 @@ __global__ void march_kernel(MarchArgs a, int kc, int p, int stride, int n, floa
 
 }  // namespace
 
-// x, y, z, old_h: (batch, p) f32; inmap, ignored: (batch, p) bool; scalars:
-// the first row's scan scalars, rows `stride` floats apart; budget (f32) and
-// key (i64) out, (batch, p); dirs out, (3, batch, p) f32, written where the
-// budget is positive. p >= 1, 1 <= batch <= 65535.
-extern "C" int gg_march_budget(const float* x, const float* y, const float* z,
-                               const float* old_h, const bool* inmap, const bool* ignored, int p,
-                               int batch, const float* scalars, int stride, float* budget,
-                               long long* key, float* dirs, cudaStream_t stream) {
-  if (p < 1 || batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+// x, y, z: (batch, p) f32; cell: (batch, p) i32; inmap, ignored: (batch, p)
+// bool; ground: (batch, n2) f32, the moved grids; scalars: the first row's
+// scan scalars, rows `stride` floats apart; budget (f32) and key (i64) out,
+// (batch, p); dirs out, (3, batch, p) f32, written where the budget is
+// positive. p >= 1, n2 >= 1, 1 <= batch <= 65535.
+extern "C" int gg_march_budget(const float* x, const float* y, const float* z, const int* cell,
+                               const bool* inmap, const bool* ignored, int p, int batch,
+                               const float* ground, int n2, const float* scalars, int stride,
+                               float* budget, long long* key, float* dirs, cudaStream_t stream) {
+  if (p < 1 || n2 < 1 || batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   dim3 blocks((p + threads - 1) / threads, batch);
-  march_budget_kernel<<<blocks, threads, 0, stream>>>(x, y, z, old_h, inmap, ignored, p,
-                                                      scalars, stride, budget, key, dirs);
+  march_budget_kernel<<<blocks, threads, 0, stream>>>(x, y, z, cell, inmap, ignored, p, ground,
+                                                      n2, scalars, stride, budget, key, dirs);
   return (int)cudaGetLastError();
 }
 

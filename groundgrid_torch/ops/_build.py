@@ -53,9 +53,9 @@ _SIGNATURES = {
     "gg_spiral": [_P, _P, _I, _I, _P, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P],
     "gg_spiral_global": [_P, _P, _I, _I, _P, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P, _P],
     "gg_detect": [_P] * 9 + [_I, _I, _F, _F, _F, _P, _P, _I, _P],
-    "gg_detect_stage": [_P] * 10 + [_I] * 4 + [_F] * 4 + [_P, _P, _P],
+    "gg_detect_stage": [_P] * 6 + [_I] * 4 + [_F] * 4 + [_P, _P, _P],
     "gg_bin": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _F, _F, _F, _I, _F] + [_P] * 7,
-    "gg_march_budget": [_P] * 6 + [_I, _I, _P, _I, _P, _P, _P, _P],
+    "gg_march_budget": [_P] * 6 + [_I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "gg_march": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _F, _F, _I, _P, _P],
 }
 

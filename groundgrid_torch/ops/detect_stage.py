@@ -17,8 +17,11 @@ tables shared (the fleet's batched step), is one launch, each grid bitwise
 its own.
 
 The kernel gives each block a tile of ``TILE_H`` x ``TILE_W`` output cells
-and stages their input rows and columns with a 2-cell rim;
-:func:`tile_plan` is the Python twin of that split.
+and stages their input rows and columns with a rim of 2 rows and 4
+columns; each thread folds a strip of ``STRIP`` consecutive cells of a row
+from registers, and reads its cells' tables as one 16-byte record each
+(``DetectTables.records``). :func:`tile_plan` is the Python twin of that
+split.
 """
 
 from __future__ import annotations
@@ -33,37 +36,47 @@ from groundgrid_torch.core.detect import DetectTables
 from groundgrid_torch.ops import _build
 from groundgrid_torch.ops.detect import _constants
 
-# the kernel's shape (detect_stage.cu kTileW, kTileH)
-TILE_W = 32
+# the kernel's shape (detect_stage.cu kTileW, kTileH, kStrip)
+TILE_W = 64
 TILE_H = 8
-STAGED = (TILE_H + 4) * (TILE_W + 4)
+STRIP = 2
+THREADS = TILE_W // STRIP * TILE_H
+STAGED = (TILE_H + 4) * (TILE_W + 8)
 SHARED_BYTES = 4 * 4 * STAGED  # points, p*v, p*m, min_gh
 HALOS = (0, detectlib.HALO)
 
 
 class Block(NamedTuple):
-    """One block of the kernel: its output cells ``rows x cols`` and the
+    """One block of the kernel: its output cells ``rows x cols``, the
     input rows and columns it stages (clipped to the input; the rest of the
-    staged tile holds the plain stage's pads)."""
+    staged tile holds the plain stage's pads) and its threads' strips, ``(row,
+    cols)`` for each thread with a cell on the grid, in thread order."""
 
     rows: range
     cols: range
     staged_rows: range
     staged_cols: range
+    strips: list[tuple[int, range]]
 
 
 def tile_plan(rows: int, n: int, halo: int) -> list[Block]:
     """The kernel's split of ``rows`` output rows of an ``n``-column grid
-    whose stencil inputs carry ``halo`` ghost rows a side, block by block,
-    as ``detect_stage.cu`` computes it from ``blockIdx``."""
+    whose stencil inputs carry ``halo`` ghost rows a side, block by block
+    and thread by thread, as ``detect_stage.cu`` computes it from
+    ``blockIdx`` and ``threadIdx``."""
     blocks = []
     for r0 in range(0, rows, TILE_H):
         k0 = r0 + halo - 2
         for c0 in range(0, n, TILE_W):
+            # thread t: row r0 + t // (TILE_W // STRIP), first column c0 + (t %
+            # (TILE_W // STRIP)) * STRIP
+            strips = [(r, range(first, min(first + STRIP, n)))
+                      for r in range(r0, min(r0 + TILE_H, rows))
+                      for first in range(c0, min(c0 + TILE_W, n), STRIP)]
             blocks.append(Block(
                 range(r0, min(r0 + TILE_H, rows)), range(c0, min(c0 + TILE_W, n)),
                 range(max(k0, 0), min(k0 + TILE_H + 4, rows + 2 * halo)),
-                range(max(c0 - 2, 0), min(c0 + TILE_W + 2, n))))
+                range(max(c0 - 4, 0), min(c0 + TILE_W + 4, n)), strips))
     return blocks
 
 
@@ -84,7 +97,8 @@ def _check_args(config, tables, stencil, ground, groundpatch, halo):
               + [(t, shape, torch.float32) for t in (ground, groundpatch)]
               + [(t, (rows, n), torch.float32)
                  for t in (tables.var_thr_sq, tables.skip_thr, tables.min_expected_s)]
-              + [(t, (rows, n), torch.bool) for t in (tables.use3, tables.interior)])
+              + [(t, (rows, n), torch.bool) for t in (tables.use3, tables.interior)]
+              + [(tables.records, (rows, n, 4), torch.int32)])
     for t, want, dtype in checks:
         if tuple(t.shape) != want or t.dtype != dtype or t.device != dev:
             raise ValueError(f"detect_stage: want {want} {dtype} on {dev}, got "
@@ -109,9 +123,7 @@ def detect_stage(config: GroundGridConfig, tables: DetectTables, points_h, varia
         return detectlib._update(config, tables, *stencil, ground, groundpatch, halo)
     if ground.device.type != "cuda":
         raise RuntimeError(f"detect_stage: unsupported device {ground.device}")
-    ins = [t.contiguous() for t in (*stencil, ground, groundpatch, tables.var_thr_sq,
-                                    tables.skip_thr, tables.min_expected_s, tables.use3,
-                                    tables.interior)]
+    ins = [t.contiguous() for t in (*stencil, ground, groundpatch, tables.records)]
     out_g, out_c = torch.empty_like(ins[3]), torch.empty_like(ins[4])
     pccvt, out_tol, ocpcf = _constants(config)
     batch = ground.shape[0] if ground.dim() == 3 else 1

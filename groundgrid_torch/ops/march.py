@@ -4,16 +4,19 @@ Replace what XLA fuses for the JAX package of its outlier rejection,
 ``groundgrid_tpu/core/outliers.py:detect_outliers``: K6 :func:`march_budget`
 the per-point budgets, selection keys and ray directions before the
 ``torch.topk`` that picks the candidates (the JAX package's ``lax.top_k``),
+reading each point's previous terrain ``ground[cell]`` from the moved
+ground itself (the JAX step gathers it with its sorted-lookup kernel), and
 K7 :func:`march` the walk of the selected candidates' rays over the grid,
 with the occlusion key of each cell it reads computed from the moved
 ground and groundpatch (the JAX package reads a key table through its
 sorted-lookup kernel). Eager PyTorch runs the two chains and the key table
-as ~1,480 elementwise kernels and one K2 launch a scan.
+as ~1,480 elementwise kernels and two K2 launches a scan.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (:func:`march_budget_plain`, :func:`march_plain`: ``core/
-outliers.py``'s ``march_budget`` and ``march``, the latter over the key
-table and K2's plain version) only for CPU tensors. Kernel and plain
+outliers.py``'s ``march_budget`` after K2's plain gather of the old ground,
+and ``march`` over the key table and K2's plain version) only for CPU
+tensors. Kernel and plain
 version agree bitwise: the kernels round every operation as its PyTorch
 kernel does (``csrc/exactf32.cuh``). Both kernels read the scan scalars
 where they lie (``scalars.device_rows``) and take a batch of vehicles, (B,
@@ -36,7 +39,12 @@ from groundgrid_torch.core.rasterize import Binning
 from groundgrid_torch.ops import _build
 from groundgrid_torch.ops.lookup import lookup_plain
 
-march_budget_plain = outliers.march_budget
+def march_budget_plain(config: GroundGridConfig, s, binning: Binning, x, y, z, ground):
+    """Plain version of :func:`march_budget`: ``old_h``, ``ground[cell]``
+    by K2's plain version, then ``core/outliers.py march_budget``."""
+    n2 = ground.shape[-2] * ground.shape[-1]
+    (old_h,) = lookup_plain(binning.cell, [ground], n2)
+    return outliers.march_budget(config, s, binning, x, y, z, old_h)
 
 
 def march_plain(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs):
@@ -54,30 +62,38 @@ def _check_points(*tensors):
             raise ValueError("every per-point tensor must have the points' shape and device")
 
 
-def march_budget(config: GroundGridConfig, s, binning: Binning, x, y, z, old_h):
+def march_budget(config: GroundGridConfig, s, binning: Binning, x, y, z, ground):
     """``(budget, key, dirs)``: ``core/outliers.py march_budget`` of (P,) or
     (B, P) points, the f32 march budget and the unique int64 selection key
     of every point, and the (3, ...) f32 ray directions, defined where the
-    budget is positive (the kernel writes nothing elsewhere). ``old_h``:
-    ``ground[cell]`` of the moved ground (K2)."""
+    budget is positive (the kernel writes nothing elsewhere). ``ground``:
+    the moved ground, (N, N) or (B, N, N) f32, whose word at each point's
+    ``binning.cell`` is its previous terrain (0 for an id outside [0, N^2),
+    as K2 reads it); the kernel reads it for in-map, unignored points."""
     if x.device.type == "cpu":
-        return march_budget_plain(config, s, binning, x, y, z, old_h)
-    _check_points(x, y, z, old_h, binning.inmap, binning.ignored)
-    if any(t.dtype != torch.float32 for t in (y, z, old_h)) or any(
+        return march_budget_plain(config, s, binning, x, y, z, ground)
+    _check_points(x, y, z, binning.cell, binning.inmap, binning.ignored)
+    if any(t.dtype != torch.float32 for t in (y, z)) or binning.cell.dtype != torch.int32 or any(
             t.dtype != torch.bool for t in (binning.inmap, binning.ignored)):
-        raise ValueError("march_budget takes float32 coordinates and heights, bool flags")
+        raise ValueError("march_budget takes float32 coordinates, int32 cell ids, bool flags")
+    n = config.cell_count
+    if (ground.dtype != torch.float32 or ground.shape != (*x.shape[:-1], n, n)
+            or ground.device != x.device):
+        raise ValueError(f"ground must be the {(*x.shape[:-1], n, n)} float32 moved ground on "
+                         f"the points' device, got {tuple(ground.shape)} {ground.dtype}")
     if x.device.type != "cuda":
         raise RuntimeError(f"march_budget: unsupported device {x.device}")
     base, stride = scalarlib.device_rows(s, x)
-    ins = [t.contiguous() for t in (x, y, z, old_h, binning.inmap, binning.ignored)]
+    ins = [t.contiguous() for t in (x, y, z, binning.cell, binning.inmap, binning.ignored)]
+    ground = ground.contiguous()
     budget = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     key = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     dirs = torch.empty((3, *x.shape), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return budget, key, dirs
     code = _build.launch("gg_march_budget", x.device, *(t.data_ptr() for t in ins),
-                         x.shape[-1], math.prod(x.shape[:-1]), base, stride, budget.data_ptr(),
-                         key.data_ptr(), dirs.data_ptr())
+                         x.shape[-1], math.prod(x.shape[:-1]), ground.data_ptr(), n * n, base,
+                         stride, budget.data_ptr(), key.data_ptr(), dirs.data_ptr())
     _build.check(code, "march_budget")
     march_budget.launches += 1
     return budget, key, dirs

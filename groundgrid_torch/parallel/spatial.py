@@ -359,7 +359,8 @@ class SpatialStep:
 
     Per local shard, as the JAX spatial step's ``local_step`` (its
     :meth:`body`): gather the rows into full layers, ``grid.move`` them
-    (replicated), bin, K2 and march its own points (its own
+    (replicated), bin and march its own points (K6 reading each point's
+    old ground from the whole moved grid; its own
     ``max_outlier_candidates`` buffer), its seven K1 columns
     (:func:`~groundgrid_torch.core.rasterize.raster_partials`); the columns
     of every shard folded in shard order
@@ -374,7 +375,7 @@ class SpatialStep:
     need it), else the host center recurrence's (``grid.index_shift_ds``).
     The host packs every per-scan value into the scan scalars, shipped once
     per device. Kernel launches per scan: K1, K3, K5, K6, K7 and K8 x S
-    (K3 one per non-empty band when banded), K2 x 2 S. The step reads
+    (K3 one per non-empty band when banded), K2 x S. The step reads
     nothing back to the host; ``fallbacks`` counts the shards' unsorted
     chunks of sorted scans (a host read).
     """
@@ -443,8 +444,7 @@ class SpatialStep:
         if not cfg.sorted_scans:
             x, y, z = tf.transform_points_soa(sc.velo, x, y, z)
         binning = self._bin(cfg, sc, x, y, rings, valid > 0)
-        (old_h,) = self._lookup(binning.cell, [moved[0]], n2)
-        outlier, _ = outlierlib.detect_outliers(cfg, sc, *moved, binning, x, y, z, old_h,
+        outlier, _ = outlierlib.detect_outliers(cfg, sc, *moved, binning, x, y, z,
                                                 self._budget, self._march)
         accept = binning.inmap & ~binning.ignored & ~outlier
         rb, rz, racc = binning, z, accept

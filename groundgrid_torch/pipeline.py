@@ -6,7 +6,7 @@ the map frame and sorts it by flat cell id against the host-tracked grid
 center (:func:`prepare_scan`); the device step then runs, in the reference's
 stage order (``GroundSegmentation.cpp:50-197``, ``GroundGrid.cpp:83-147``):
 
-    move -> K5 bin -> K2 (old ground) -> K6 budgets -> top-k -> K7 march
+    move -> K5 bin -> K6 budgets (reading the old ground) -> top-k -> K7 march
          -> K1 raster -> detect -> K3 spiral -> K2 (ground, variance) -> classify
 
 Unsorted mode (``sorted_scans=False``, the config default) takes raw
@@ -291,9 +291,8 @@ class Step:
 
         # --- outlier ray-march against the previous terrain (cpp:242-275; K6, K7) ---
         with stage("march"):
-            (old_h,) = self._lookup(binning.cell, [moved_g], n2)
             outlier, self._marchable = outlierlib.detect_outliers(
-                cfg, s, moved_g, moved_c, binning, x, y, z, old_h, self._budget, self._march,
+                cfg, s, moved_g, moved_c, binning, x, y, z, self._budget, self._march,
             )
 
         # --- rasterize (cpp:200-311) ---

@@ -16,7 +16,9 @@ case, gets the five rendered scans). With
 ``lookup``, every turn also times its tree's K2 on the march lattice of a
 warm scan by this script's own ``chip_smoke.check_lookup_march`` (the
 same measurement in every tree whose plain march takes the moved layers
-and K6's directions, as this one does). A turn prints the
+and K6's directions, as this one does); with ``detect_stage``, its tree's
+K8 on a batch of 64 grids at 364^2 by this script's own
+``chip_smoke.stage_batch`` (``detect_stage_b64``). A turn prints the
 tree's environment lines and, last, one JSON line with what each check
 returned; this script echoes them and ends with one JSON line of all turns.
 It fails if a turn fails. ``binning``, ``march`` (K5-K7) and
@@ -102,6 +104,10 @@ def keep(result):  # a check's record, without the tensors some checks also retu
     return result
 
 
+# this script's own chip_smoke: measurements made the same way in every tree
+spec = importlib.util.spec_from_file_location("turns_probe", sys.argv[1])
+probe = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(probe)
 out = {}
 for name in sys.argv[2:]:
     if name == "step":
@@ -111,9 +117,6 @@ for name in sys.argv[2:]:
         extra = (records[4],) if len(inspect.signature(cs.check_lookup).parameters) > 3 else ()
         out[name] = keep(cs.check_lookup(config, driver, cell, *extra))
         # the march lattice, measured by the calling tree's probe in every tree
-        spec = importlib.util.spec_from_file_location("turns_probe", sys.argv[1])
-        probe = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(probe)
         out["lookup_march"] = probe.check_lookup_march(config, driver, records[4])
     elif not hasattr(cs, "check_" + name):
         out[name] = None  # the tree has no such kernel
@@ -121,10 +124,12 @@ for name in sys.argv[2:]:
         check = getattr(cs, "check_" + name)
         extra = (records,) if len(inspect.signature(check).parameters) > 3 else ()
         out[name] = keep(check(config, driver, records[4], *extra))
+        if name == "detect_stage":  # K8 at B = 64, by the calling tree's probe
+            out["detect_stage_b64"] = probe.stage_batch(config, driver, records)
 print(json.dumps(out))
 """
 
-# this script's own chip_smoke.py: the probe of the march lattice
+# this script's own chip_smoke.py: the probes (the march lattice, K8 at B = 64)
 _PROBE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py")
 
 

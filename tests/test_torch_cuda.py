@@ -20,7 +20,10 @@ one where the use3 disc's edge crosses a tile; two runs bitwise; border
 cells passed through); K8 bitwise the plain detect stage (n = 12 to
 1200, the seam layers' signed zeros, NaN and ties; the spatial step's
 halo'd row blocks; a batch of 3 against single launches; two runs
-bitwise; and each of ``STAGE_MUTATIONS`` built alone fails a case); the
+bitwise; its strips across the use3 circle; and each of
+``STAGE_MUTATIONS`` built alone fails a case); K6 reading the old ground
+itself on the seams of ``march_scenes.fold_inputs`` (overflow ids, -0.0
+and NaN words, a batch; each of ``MARCH_MUTATIONS`` fails a case); the
 occlusion march shedding candidates at the cap, on both selection keys, bitwise the CPU's; K5, K6 and K7 (the fused
 binning and march) bitwise their plain versions on a warm scan, on random
 points (cell edges and +-1 ulp from them, -0.0, both selection keys), on
@@ -54,9 +57,10 @@ pytestmark = pytest.mark.gpu
 def _path(steps, detect, raster=None):
     """The launch counts of ``steps`` single steps (or shards, or batched
     steps) on the main path: K1 (``raster`` if the aux count adds one), K2
-    x2 (the old ground, then ground and variance), K3, K5, K6 and K7 x1,
-    K4 ``detect`` (the fused detect, ``steps`` or 0), K8 the other steps."""
-    return {"raster": steps if raster is None else raster, "lookup": 2 * steps, "spiral": steps,
+    (ground and variance for classify; K6 reads the old ground itself), K3,
+    K5, K6 and K7 x1, K4 ``detect`` (the fused detect, ``steps`` or 0), K8
+    the other steps."""
+    return {"raster": steps if raster is None else raster, "lookup": steps, "spiral": steps,
             "detect": detect, "bin": steps, "march_budget": steps, "march": steps,
             "detect_stage": steps - detect}
 
@@ -519,60 +523,134 @@ def test_detect_stage_batch_matches_single_launches(cuda):
             assert _bitwise(g[v], w)
 
 
+def test_detect_stage_strips_across_the_use3_circle(cuda):
+    """K8's strips (``ops/detect_stage.py tile_plan``, ``STRIP`` cells a
+    thread) that hold both 3x3 and 5x5 interior cells, where a thread folds
+    both windows from one row of registers: they exist at n = 80, 364 and
+    1200 and the kernel is bitwise the plain stage on their cells, on warm
+    layers and the seam layers."""
+    from groundgrid_torch.core import detect as detectlib
+    from groundgrid_torch.data.synthetic import detect_seam_layers
+    from groundgrid_torch.ops.detect_stage import detect_stage, tile_plan
+
+    for dimension, resolution in ((40.0, 0.5), (120.0, 0.33), (120.0, 0.1)):
+        cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
+        n = cfg.cell_count
+        tables = make_tables(cfg, cuda)
+        use3, interior = tables.use3.cpu(), tables.interior.cpu()
+        mixed = torch.zeros((n, n), dtype=torch.bool)
+        for block in tile_plan(n, n, 0):
+            for r, cols in block.strips:
+                cells = slice(cols.start, cols.stop)
+                inner = interior[r, cells]
+                if bool((use3[r, cells] & inner).any() and (~use3[r, cells] & inner).any()):
+                    mixed[r, cells] = True
+        assert int(mixed.sum()) > 0, n
+        for layers in (detect_layers(n, 0), detect_seam_layers(n, 1)):
+            ts = [torch.from_numpy(a).to(cuda) for a in layers]
+            got = detect_stage(cfg, tables, *ts)
+            want = detectlib.detect_ground_patches(cfg, tables, *ts)
+            for g, w in zip(got, want):
+                assert _bitwise(g.cpu()[mixed], w.cpu()[mixed]), n
+                assert _bitwise(g, w), n
+
+
+def test_march_budget_reads_the_ground_on_seams(cuda):
+    """K6 reading ``ground[cell]`` itself against K2's plain gather and the
+    plain budget on the seams of ``march_scenes.fold_inputs`` (overflow ids
+    on in-map points, -0.0 and NaN ground words, the word past a grid), one
+    vehicle and a batch of three: budgets, keys and directions bitwise, two
+    runs bitwise, each batch row bitwise its single launch."""
+    import march_scenes
+
+    cfg = GroundGridConfig(**march_scenes.EDGE)
+    for seeds in ((0,), (1,), (2, 3, 4)):
+        s, b, x, y, z, ground, ov = march_scenes.fold_inputs(cfg, seeds, cuda)
+        want = march.march_budget_plain(cfg, s, b, x, y, z, ground)
+        before = march.march_budget.launches
+        got = march.march_budget(cfg, s, b, x, y, z, ground)
+        again = march.march_budget(cfg, s, b, x, y, z, ground)
+        assert march.march_budget.launches == before + 2
+        assert _same_budgets(got, want) and _same_budgets(again, got), seeds
+        assert bool((got[0][ov] > 0).any())
+        for v, seed in enumerate(seeds if len(seeds) > 1 else ()):
+            one = march.march_budget(cfg, *march_scenes.fold_inputs(cfg, (seed,), cuda)[:-1])
+            assert _same_budgets(one, (got[0][v], got[1][v], got[2][:, v])), seed
+
+
+def _mutants(source, mutations, tmp_path):
+    """``{name: library path}`` of ``csrc/<source>`` built alone with the
+    library's flags, unmutated ("none") and under each of ``mutations``
+    (``{name: (old, new)}``, ``old`` found once), one nvcc a build, all
+    started together."""
+    import subprocess
+
+    from groundgrid_torch.ops import _build
+
+    text = (_build.CSRC / source).read_text()
+    (tmp_path / "exactf32.cuh").write_text((_build.CSRC / "exactf32.cuh").read_text())
+    jobs = {}
+    for k, (name, (old, new)) in enumerate([("none", ("", ""))] + list(mutations.items())):
+        assert name == "none" or text.count(old) == 1, name
+        (tmp_path / f"m{k}.cu").write_text(text.replace(old, new))
+        jobs[name] = (tmp_path / f"m{k}.so", subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(tmp_path / f"m{k}.so"),
+             str(tmp_path / f"m{k}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    for name, (lib_path, proc) in jobs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, (name, out)
+    return {name: lib_path for name, (lib_path, _) in jobs.items()}
+
+
+def _entry(lib_path, name):
+    import ctypes
+
+    from groundgrid_torch.ops import _build
+
+    entry = getattr(ctypes.CDLL(str(lib_path)), name)
+    entry.argtypes = _build._SIGNATURES[name]
+    return entry
+
+
 # mutations of detect_stage.cu that the cases above must catch
 STAGE_MUTATIONS = {
-    "process >": ("w.psum >= a.skip_thr[cell]", "w.psum > a.skip_thr[cell]"),
+    "process >": ("w.psum >= t[j].skip_thr", "w.psum > t[j].skip_thr"),
     "max_var >= 0": ("(max_var > 0.0f)", "(max_var >= 0.0f)"),
-    "localmin <=": ("w.localmin < g)", "w.localmin <= g)"),
-    "groundpatch >= 0.5": ("(cf > 0.5f)", "(cf >= 0.5f)"),
-    "chain from 0": ("Window w{s.p[at], s.pv[at], s.pm[at], s.m[at]};\n#pragma unroll\n"
-                     "  for (int d = 1;",
-                     "Window w{0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000)};\n"
-                     "#pragma unroll\n  for (int d = 0;"),
-    "column-major": ("at + (d / kSize) * kStagedW + d % kSize",
-                     "at + (d % kSize) * kStagedW + d / kSize"),
+    "localmin <=": ("w.localmin < gj)", "w.localmin <= gj)"),
+    "groundpatch >= 0.5": ("(cfj > 0.5f)", "(cfj >= 0.5f)"),
+    "chain from 0": ("    w = Window{p, pv, pm, m};\n    return;\n",
+                     "    w = Window{0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000)};\n"),
+    "columns reversed": ("const int i5 = j + dc;", "const int i5 = j + 4 - dc;"),
     "min drops NaN": ("  if (a != a) return a;\n  if (b != b) return b;\n", ""),
     "new_c unclamped": ("clamp_max(gg::div(w.psum, a.ocpcf), 1.0f)", "gg::div(w.psum, a.ocpcf)"),
+    "strip shifted": ("const int i5 = j + dc;", "const int i5 = (j == 1 ? 0 : j) + dc;"),
+    "NaN blocks by fminf": ("  if (nan_free) fold_strip<true>", "  if (true) fold_strip<true>"),
 }
 
 
 def test_mutated_detect_stage_kernels_fail(cuda, tmp_path):
     """Each mutation of ``STAGE_MUTATIONS`` (a tie flipped, a chain started
-    at 0, the window folded column-major, the min losing NaN, a clamp
-    missed), built alone with the library's flags, differs from the plain
-    stage on at least one of ``test_detect_stage_kernel_matches_plain``'s
+    at 0, a window row folded from its last column, the min losing NaN, a
+    clamp missed, a strip's second cell folded from the first cell's
+    registers, a block with a NaN min_gh folded by fminf alone), built
+    alone with the library's flags, differs from the
+    plain stage on at least one of ``test_detect_stage_kernel_matches_plain``'s
     cases; the source unmutated, built and called the same way, on none."""
-    import ctypes
-    import subprocess
-
     from groundgrid_torch.core import detect as detectlib
-    from groundgrid_torch.ops import _build
     from groundgrid_torch.ops.detect import _constants
 
-    source = (_build.CSRC / "detect_stage.cu").read_text()
-    (tmp_path / "exactf32.cuh").write_text((_build.CSRC / "exactf32.cuh").read_text())
-    jobs = {}
-    for k, (name, (old, new)) in enumerate([("none", ("", ""))] + list(STAGE_MUTATIONS.items())):
-        assert name == "none" or source.count(old) == 1, name
-        (tmp_path / f"m{k}.cu").write_text(source.replace(old, new))
-        jobs[name] = (tmp_path / f"m{k}.so", subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(tmp_path / f"m{k}.so"),
-             str(tmp_path / f"m{k}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = _mutants("detect_stage.cu", STAGE_MUTATIONS, tmp_path)
     cases = list(_stage_cases(cuda))
     wants = [detectlib.detect_ground_patches(cfg, tables, *ts) for _, cfg, tables, ts in cases]
-    for name, (lib_path, proc) in jobs.items():
-        out, _ = proc.communicate()
-        assert proc.returncode == 0, (name, out)
-        entry = ctypes.CDLL(str(lib_path)).gg_detect_stage
-        entry.argtypes = _build._SIGNATURES["gg_detect_stage"]
+    for name, lib_path in libs.items():
+        entry = _entry(lib_path, "gg_detect_stage")
         caught = []
         for (case, cfg, tables, ts), want in zip(cases, wants):
             out_g, out_c = torch.empty_like(ts[3]), torch.empty_like(ts[4])
             pccvt, out_tol, ocpcf = _constants(cfg)
-            ins = [*ts, tables.var_thr_sq, tables.skip_thr, tables.min_expected_s, tables.use3,
-                   tables.interior]
-            assert entry(*(t.data_ptr() for t in ins), cfg.cell_count, cfg.cell_count, 0, 1,
-                         pccvt, out_tol, ocpcf, ocpcf * 2.0, out_g.data_ptr(), out_c.data_ptr(),
+            assert entry(*(t.data_ptr() for t in [*ts, tables.records]), cfg.cell_count,
+                         cfg.cell_count, 0, 1, pccvt, out_tol, ocpcf, ocpcf * 2.0,
+                         out_g.data_ptr(), out_c.data_ptr(),
                          torch.cuda.current_stream().cuda_stream) == 0
             if not (_bitwise(out_g, want[0]) and _bitwise(out_c, want[1])):
                 caught.append(case)
@@ -580,6 +658,43 @@ def test_mutated_detect_stage_kernels_fail(cuda, tmp_path):
             assert not caught, f"the unmutated source failed {caught}"
         else:
             assert caught, f"mutation {name!r} passed every case"
+
+
+# mutations of march.cu's K6 that ``test_march_budget_reads_the_ground_on_seams``'s
+# cases must catch
+MARCH_MUTATIONS = {
+    "ground read unguarded": ("(c >= 0 && c < n2) ? ground[(size_t)blockIdx.y * n2 + c] : 0.0f",
+                              "ground[(size_t)blockIdx.y * n2 + c]"),
+}
+
+
+def test_mutated_march_budget_kernels_fail(cuda, tmp_path):
+    """Each mutation of ``MARCH_MUTATIONS`` (K6 reading the word at the
+    overflow id n^2, past its grid), built alone with the library's flags,
+    differs from the plain route on a seam case; the source unmutated, on
+    none."""
+    import math
+
+    import march_scenes
+    from groundgrid_torch.core import scalars as scalarlib
+
+    libs = _mutants("march.cu", MARCH_MUTATIONS, tmp_path)
+    cfg = GroundGridConfig(**march_scenes.EDGE)
+    cases = [march_scenes.fold_inputs(cfg, seeds, cuda) for seeds in ((0,), (2, 3, 4))]
+    wants = [march.march_budget_plain(cfg, *case[:-1]) for case in cases]
+    for name, lib_path in libs.items():
+        entry = _entry(lib_path, "gg_march_budget")
+        caught = 0
+        for (s, b, x, y, z, ground, _), want in zip(cases, wants):
+            base, stride = scalarlib.device_rows(s, x)
+            out = (torch.empty_like(x), torch.empty(x.shape, dtype=torch.int64, device=cuda),
+                   torch.empty((3, *x.shape), device=cuda))
+            assert entry(*(t.data_ptr() for t in (x, y, z, b.cell, b.inmap, b.ignored)),
+                         x.shape[-1], math.prod(x.shape[:-1]), ground.data_ptr(),
+                         cfg.cell_count ** 2, base, stride, *(t.data_ptr() for t in out),
+                         torch.cuda.current_stream().cuda_stream) == 0
+            caught += not _same_budgets(out, want)
+        assert (caught == 0) == (name == "none"), (name, caught)
 
 
 def test_wrappers_reject_bad_input(cuda):
@@ -730,8 +845,7 @@ def test_march_shedding_on_card_matches_cpu(cuda, p_total):
         b = rasterize.bin_points(cfg, s, x, y,
                                  torch.zeros(p_total, dtype=torch.int32, device=dev),
                                  torch.from_numpy(valid).to(dev))
-        (old_h,) = lookup.lookup(b.cell, [ground], n * n)
-        got, marchable = outliers.detect_outliers(cfg, s, ground, conf, b, x, y, z, old_h,
+        got, marchable = outliers.detect_outliers(cfg, s, ground, conf, b, x, y, z,
                                                   march.march_budget, march.march)
         return got.cpu().numpy(), marchable
 
@@ -807,7 +921,7 @@ def _small_fleet_streams(n_vehicles, n_scans):
 @pytest.mark.parametrize("sorted_scans", [True, False])
 def test_fleet_on_card_matches_streaming(cuda, sorted_scans):
     """The fleet on the card equals one StreamingDriver per vehicle on the
-    card, bitwise; each tick launches K1, K3, K5, K6 and K7 x1 and K2 x2
+    card, bitwise; each tick launches K1, K2, K3, K5, K6 and K7 x1
     per vehicle (sorted), or once each for the whole batch (unsorted: one
     batched step, captured from the second tick on)."""
     from groundgrid_torch.runtime.driver import StreamingDriver
@@ -1154,14 +1268,13 @@ def _bitwise(a, b):
 
 
 def _march_inputs(cfg, s, binning, x, y, z, ground, budget_fn):
-    """The march's inputs as the step builds them: old_h (K2), budgets,
-    keys and directions (``budget_fn``), and the top-k candidates."""
-    n2 = cfg.cell_count ** 2
-    (old_h,) = lookup.lookup(binning.cell, [ground], n2)
-    budget, key, dirs = budget_fn(cfg, s, binning, x, y, z, old_h)
+    """The march's inputs as the step builds them: budgets, keys and
+    directions (``budget_fn`` of the moved ``ground``), and the top-k
+    candidates."""
+    budget, key, dirs = budget_fn(cfg, s, binning, x, y, z, ground)
     pidx = torch.topk(key, min(cfg.max_outlier_candidates, x.shape[-1]), dim=-1,
                       sorted=False).indices
-    return old_h, budget, key, dirs, pidx
+    return budget, key, dirs, pidx
 
 
 def _same_budgets(got, want):
@@ -1182,10 +1295,10 @@ def _check_fused(cfg, s, x, y, z, rings, valid, ground, conf):
     for f, g, a, w in zip(want_b._fields, got_b, again_b, want_b):
         assert _bitwise(g, w), f"K5 {f}"
         assert _bitwise(a, g), f"K5 {f}: two runs"
-    old_h, budget, key, dirs, pidx = _march_inputs(cfg, s, want_b, x, y, z, ground,
-                                                   march.march_budget_plain)
+    budget, key, dirs, pidx = _march_inputs(cfg, s, want_b, x, y, z, ground,
+                                            march.march_budget_plain)
     for run in range(2):
-        got = march.march_budget(cfg, s, want_b, x, y, z, old_h)
+        got = march.march_budget(cfg, s, want_b, x, y, z, ground)
         assert _same_budgets(got, (budget, key, dirs)), f"K6, run {run + 1}"
     want_m = march.march_plain(cfg, s, ground, conf, pidx, budget, dirs)
     got_m = march.march(cfg, s, ground, conf, pidx, got[0], got[2])
@@ -1318,14 +1431,14 @@ def _check_rows(cfg, packed, plain_b, x, y, z, rings, valid, ground, conf, hits)
     from groundgrid_torch.core import scalars
 
     dev = x.device
-    old_h, budget, key, dirs, pidx = _march_inputs(cfg, scalars.view(torch.from_numpy(
+    budget, key, dirs, pidx = _march_inputs(cfg, scalars.view(torch.from_numpy(
         packed).to(dev)), plain_b, x, y, z, ground, march.march_budget)
     for v in range(x.shape[0]):
         s = scalars.view(torch.from_numpy(packed[v]).to(dev))
         single = binning.bin_points(cfg, s, x[v], y[v], rings[v], valid[v])
         assert all(_bitwise(g[v], w) for g, w in zip(plain_b, single)), f"K5 vehicle {v}"
         bv = type(plain_b)(*(t[v] for t in plain_b))
-        got = march.march_budget(cfg, s, bv, x[v], y[v], z[v], old_h[v])
+        got = march.march_budget(cfg, s, bv, x[v], y[v], z[v], ground[v])
         assert _same_budgets(got, (budget[v], key[v], dirs[:, v])), f"K6 vehicle {v}"
         single_m = march.march(cfg, s, ground[v], conf[v], pidx[v], budget[v], dirs[:, v])
         assert _bitwise(single_m, hits[v]), f"K7 vehicle {v}"
@@ -1356,8 +1469,8 @@ def test_fused_kernels_match_plain_on_edge_grid(cuda, case):
                                  sc.conf)
     assert int(hits.sum()) > 0
     if case == "all-marchable":
-        _, budget, _, _, pidx = _march_inputs(cfg, s, plain_b, sc.x, sc.y, sc.z, sc.ground,
-                                              march.march_budget)
+        budget, _, _, pidx = _march_inputs(cfg, s, plain_b, sc.x, sc.y, sc.z, sc.ground,
+                                           march.march_budget)
         assert bool((budget[pidx] > 0).all())
 
 
@@ -1424,7 +1537,7 @@ def test_fused_kernels_read_scalars_at_replay(cuda):
 
     def fused(s):
         b = binning.bin_points(cfg, s, x, y, rings, valid > 0)
-        _, budget, _, dirs, pidx = _march_inputs(cfg, s, b, x, y, z, ground, march.march_budget)
+        budget, _, dirs, pidx = _march_inputs(cfg, s, b, x, y, z, ground, march.march_budget)
         return b, budget, march.march(cfg, s, ground, conf, pidx, budget, dirs)
 
     fused(scalars.view(buf))  # build and warm
@@ -1464,10 +1577,14 @@ def test_fused_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         binning.bin_points(cfg, s, x, x, rings.float(), valid)
     b = binning.bin_points(cfg, s, x, x, rings, valid)
-    with pytest.raises(ValueError):
-        march.march_budget(cfg, s, b, x, x, x[:32], x)
     n = cfg.cell_count
     layer = torch.zeros((n, n), device=cuda)
+    with pytest.raises(ValueError):
+        march.march_budget(cfg, s, b, x, x, x[:32], layer)
+    with pytest.raises(ValueError):  # the gathered old ground, not the moved grid
+        march.march_budget(cfg, s, b, x, x, x, x)
+    with pytest.raises(ValueError):  # a grid of another size
+        march.march_budget(cfg, s, b, x, x, x, layer[:-1])
     pidx, dirs = torch.zeros(4, dtype=torch.int64, device=cuda), torch.zeros((3, 64), device=cuda)
     with pytest.raises(ValueError):  # a layer of the wrong shape
         march.march(cfg, s, torch.zeros(7, device=cuda), layer, pidx, x, dirs)

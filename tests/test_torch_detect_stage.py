@@ -8,7 +8,9 @@ and on a batch, launching nothing; its argument checks; the step, the
 spatial step and the sharded detect choosing it; its launch counter; its
 CPU path against the JAX package's stage on a warm scan, within
 ``test_torch_stages.test_detect_vs_jax``'s bounds (ground 1e-4,
-confidence 1e-5); and ``tile_plan``, the Python twin of the kernel's split.
+confidence 1e-5); ``tile_plan``, the Python twin of the kernel's split
+into blocks and each thread's strip of ``STRIP`` cells; and the tables'
+16-byte records the kernel reads.
 """
 
 import dataclasses
@@ -29,7 +31,8 @@ from groundgrid_torch.core import detect as tdetect
 from groundgrid_torch.data.synthetic import detect_layers, detect_seam_layers
 from groundgrid_torch.ops import detect as fusedops
 from groundgrid_torch.ops import detect_stage as stageops
-from groundgrid_torch.ops.detect_stage import SHARED_BYTES, TILE_H, TILE_W, detect_stage, tile_plan
+from groundgrid_torch.ops.detect_stage import (SHARED_BYTES, STRIP, THREADS, TILE_H, TILE_W,
+                                               detect_stage, tile_plan)
 from groundgrid_torch.parallel import spatial
 from groundgrid_torch.pipeline import Step
 
@@ -266,14 +269,39 @@ def _check_plan(rows, n, halo):
         written[b.rows.start:b.rows.stop, b.cols.start:b.cols.stop] += 1
         assert 0 <= b.staged_rows.start and b.staged_rows.stop <= rows + 2 * halo
         assert 0 <= b.staged_cols.start and b.staged_cols.stop <= n
-        assert len(b.staged_rows) <= TILE_H + 4 and len(b.staged_cols) <= TILE_W + 4
-        # the window rows and columns that lie on the input are staged
+        assert len(b.staged_rows) <= TILE_H + 4 and len(b.staged_cols) <= TILE_W + 8
+        # the window rows and columns that lie on the input are staged (the
+        # columns with a 4-cell rim: staged rows start on 16-byte boundaries)
         lo_r, hi_r = b.rows.start + halo - 2, b.rows.stop - 1 + halo + 2
         assert b.staged_rows.start == max(lo_r, 0)
         assert b.staged_rows.stop == min(hi_r + 1, rows + 2 * halo)
-        assert b.staged_cols.start == max(b.cols.start - 2, 0)
-        assert b.staged_cols.stop == min(b.cols.stop + 2, n)
+        assert b.staged_cols.start == max(b.cols.start - 4, 0)
+        assert b.staged_cols.stop == min(b.cols.start + TILE_W + 4, n)
+        assert b.staged_cols.start <= max(b.cols.start - 2, 0)
+        assert b.staged_cols.stop >= min(b.cols.stop + 2, n)
+        assert (b.cols.start - 4) % 4 == 0
     np.testing.assert_array_equal(written, np.ones((rows, n), np.int32))
+
+
+def _check_strips(rows, n, halo):
+    """Every output cell in exactly one thread's strip; a strip holds 1 to
+    ``STRIP`` consecutive cells of one of its block's rows, inside the
+    block's columns, starting on a ``STRIP`` boundary of the tile; no more
+    strips a block than threads; the strips' staged words (the window's
+    ``STRIP`` + 4 columns, two a side) inside the staged tile and 8-byte
+    aligned in it."""
+    covered = np.zeros((rows, n), np.int32)
+    for b in tile_plan(rows, n, halo):
+        assert len(b.strips) <= THREADS
+        for r, cols in b.strips:
+            assert r in b.rows and 1 <= len(cols) <= STRIP
+            assert cols.start in b.cols and cols.stop - 1 in b.cols
+            assert (cols.start - b.cols.start) % STRIP == 0
+            covered[r, cols.start:cols.stop] += 1
+            # staged column j is input column b.cols.start - 4 + j
+            first = cols.start - 2 - (b.cols.start - 4)
+            assert 0 <= first and first + STRIP + 4 <= TILE_W + 8 and first % 2 == 0
+    np.testing.assert_array_equal(covered, np.ones((rows, n), np.int32))
 
 
 @pytest.mark.parametrize("lo", range(5, 701, 58))
@@ -293,6 +321,50 @@ def test_plan_covers_halo_blocks(rows):
         _check_plan(rows, n, 2)
 
 
+@pytest.mark.parametrize("n", [12, 45, 63, 64, 65, 80, 127, 364, 601, 1200])
+def test_strips_cover_whole_grids(n):
+    _check_strips(n, n, 0)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 17, 91])
+def test_strips_cover_halo_blocks(rows):
+    for n in (5, 12, 45, 66, 364, 1200):
+        _check_strips(rows, n, 2)
+
+
+def test_plan_is_the_kernel_shape():
+    """``tile_plan``'s constants are ``detect_stage.cu``'s, read from its
+    source: the tile, the strip and the threads a block."""
+    import re
+
+    from groundgrid_torch.ops import _build
+
+    source = (_build.CSRC / "detect_stage.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (kTile[WH]|kStrip) = (\d+);",
+                                               source)}
+    assert consts == {"kTileW": TILE_W, "kTileH": TILE_H, "kStrip": STRIP}
+    assert THREADS == TILE_W // STRIP * TILE_H
+    blocks = tile_plan(364, 364, 0)
+    assert len(blocks) == -(-364 // TILE_W) * -(-364 // TILE_H)
+
+
+def test_records_pack_the_tables():
+    """``DetectTables.records``, the kernel's one 16-byte load a cell: the
+    three f32 tables' bits and use3 | interior << 1, also for a block's
+    rows (``row_tables``)."""
+    n = 45
+    tabs = tdetect.make_tables(_config(n), "cpu")
+    for t in (tabs, tdetect.row_tables(tabs, slice(10, 17))):
+        rec = t.records
+        assert rec.dtype == torch.int32 and rec.shape == (*t.use3.shape, 4)
+        assert rec.is_contiguous()
+        for k, table in enumerate((t.var_thr_sq, t.skip_thr, t.min_expected_s)):
+            assert torch.equal(rec[..., k], table.view(torch.int32))
+        flags = rec[..., 3]
+        assert torch.equal(flags, t.use3.int() * tdetect.RECORD_USE3
+                           + t.interior.int() * tdetect.RECORD_INTERIOR)
+
+
 def test_shared_memory_fits():
-    assert SHARED_BYTES == 6912  # 4 layers of 12 x 36 staged floats
+    assert SHARED_BYTES == 13824  # 4 layers of 12 x 72 staged floats
     assert SHARED_BYTES <= fusedops.SHARED_LIMIT

@@ -31,7 +31,7 @@ from groundgrid_torch.core import outliers as toutliers
 from groundgrid_torch.core import scalars as tscalars
 from groundgrid_torch.core import transforms as ttf
 from groundgrid_torch.core.rasterize import Binning
-from groundgrid_torch.ops import _build, binning, lookup, march
+from groundgrid_torch.ops import _build, binning, march
 
 torch.set_num_threads(1)
 
@@ -196,15 +196,12 @@ def _terrain(n, seed):
 
 def _torch_outliers(cfg, x, y, z, valid, ground, conf, center=0):
     hi, lo = _centers(center)
-    n = cfg.cell_count
     s = tscalars.host(cfg, hi, lo, ttf.translation(*ORIGIN, np.float32))
     t = [torch.from_numpy(a) for a in (x, y, z)]
     b = binning.bin_points(cfg, s, t[0], t[1], torch.zeros(x.shape, dtype=torch.int32),
                            torch.from_numpy(valid))
     g, c = torch.from_numpy(ground), torch.from_numpy(conf)
-    (old_h,) = lookup.lookup(b.cell, [g], n * n)
-    return toutliers.detect_outliers(cfg, s, g, c, b, *t, old_h, march.march_budget,
-                                     march.march)
+    return toutliers.detect_outliers(cfg, s, g, c, b, *t, march.march_budget, march.march)
 
 
 @pytest.mark.parametrize("p_total", [1 << 17, (1 << 17) + 1])
@@ -243,8 +240,7 @@ def test_budget_keys_at_the_boundary(p_total):
     t = [torch.from_numpy(a) for a in (x, y, z)]
     b = binning.bin_points(cfg, s, t[0], t[1], torch.zeros(p_total, dtype=torch.int32),
                            torch.from_numpy(valid))
-    (old_h,) = lookup.lookup(b.cell, [torch.from_numpy(ground)], cfg.cell_count ** 2)
-    budget, key, _ = march.march_budget(cfg, s, b, *t, old_h)
+    budget, key, _ = march.march_budget(cfg, s, b, *t, torch.from_numpy(ground))
     assert torch.equal(key, toutliers.selection_key(budget))
     assert torch.unique(key).numel() == p_total
     order = torch.argsort(key, descending=True)
@@ -288,21 +284,19 @@ def test_batch_of_three_is_three_single_calls():
     x, y, z, rings, valid = (torch.from_numpy(c) for c in cols)
     sb = tscalars.view(torch.from_numpy(packed))
     bb = binning.bin_points(cfg, sb, x, y, rings, valid)
-    (old_h,) = lookup.lookup(bb.cell, [ground], n * n)
-    got, marchable = toutliers.detect_outliers(cfg, sb, ground, conf, bb, x, y, z, old_h,
+    got, marchable = toutliers.detect_outliers(cfg, sb, ground, conf, bb, x, y, z,
                                                march.march_budget, march.march)
-    budget, key, dirs = march.march_budget(cfg, sb, bb, x, y, z, old_h)
+    budget, key, dirs = march.march_budget(cfg, sb, bb, x, y, z, ground)
     for v in range(3):
         s = tscalars.view(torch.from_numpy(packed[v]))
         b1 = binning.bin_points(cfg, s, x[v], y[v], rings[v], valid[v])
         for field, a, w in zip(Binning._fields, bb, b1):
             assert torch.equal(_t_bits(a[v]), _t_bits(w)), (v, field)
-        (old1,) = lookup.lookup(b1.cell, [ground[v]], n * n)
-        budget1, key1, dirs1 = march.march_budget(cfg, s, b1, x[v], y[v], z[v], old1)
+        budget1, key1, dirs1 = march.march_budget(cfg, s, b1, x[v], y[v], z[v], ground[v])
         assert torch.equal(_t_bits(budget[v]), _t_bits(budget1)) and torch.equal(key[v], key1)
         assert torch.equal(_t_bits(dirs[:, v]), _t_bits(dirs1))
         out1, m1 = toutliers.detect_outliers(cfg, s, ground[v], conf[v], b1, x[v], y[v], z[v],
-                                             old1, march.march_budget, march.march)
+                                             march.march_budget, march.march)
         assert torch.equal(got[v], out1)
         assert int(marchable[v]) == int(m1) > cfg.max_outlier_candidates
         hi, lo = _near_center(v)

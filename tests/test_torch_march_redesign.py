@@ -71,7 +71,7 @@ def _scenes(cfg, seeds):
 
 def _march_inputs(cfg, s, b, sc):
     (old_h,) = lookup.lookup(b.cell, [sc.ground], cfg.cell_count ** 2)
-    budget, key, dirs = march.march_budget(cfg, s, b, sc.x, sc.y, sc.z, old_h)
+    budget, key, dirs = march.march_budget(cfg, s, b, sc.x, sc.y, sc.z, sc.ground)
     k = min(cfg.max_outlier_candidates, sc.x.shape[-1])
     return old_h, budget, key, dirs, torch.topk(key, k, dim=-1, sorted=False).indices
 
@@ -192,8 +192,7 @@ def test_detect_outliers_on_edges_bitwise_jax(p_total):
     s = scalars.view(torch.from_numpy(sc.packed))
     b = binning.bin_points(cfg, s, t[0], t[1], torch.from_numpy(rings), torch.from_numpy(valid))
     g, c = torch.from_numpy(sc.ground), torch.from_numpy(sc.conf)
-    (old_h,) = lookup.lookup(b.cell, [g], cfg.cell_count ** 2)
-    got, marchable = outliers.detect_outliers(cfg, s, g, c, b, *t, old_h, march.march_budget,
+    got, marchable = outliers.detect_outliers(cfg, s, g, c, b, *t, march.march_budget,
                                               march.march)
     zero = jnp.zeros(2, jnp.float32)
     with jax.disable_jit():

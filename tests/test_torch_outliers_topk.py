@@ -25,7 +25,7 @@ from groundgrid_torch.core import outliers as toutliers
 from groundgrid_torch.core import rasterize as traster
 from groundgrid_torch.core import scalars as tscalars
 from groundgrid_torch.core import transforms as ttf
-from groundgrid_torch.ops import lookup, march
+from groundgrid_torch.ops import march
 
 torch.set_num_threads(1)
 
@@ -82,9 +82,8 @@ def test_march_selection_bitwise(p_total):
     s = tscalars.host(tcfg, center, lo, ttf.translation(*origin, np.float32))
     tb = traster.bin_points(tcfg, s, t[0], t[1], torch.from_numpy(rings),
                             torch.from_numpy(valid))
-    (old_h,) = lookup.lookup(tb.cell, [torch.from_numpy(ground)], n * n)
     got, marchable = toutliers.detect_outliers(tcfg, s, torch.from_numpy(ground),
-                                               torch.from_numpy(conf), tb, *t, old_h,
+                                               torch.from_numpy(conf), tb, *t,
                                                march.march_budget, march.march)
     np.testing.assert_array_equal(got.numpy(), want)
     assert marchable == N_LONG + N_TIED + N_SHORT > K_MAX

@@ -86,10 +86,8 @@ def _outliers(jcfg, tcfg, d, ground, groundpatch, z_shift=None):
             jcfg, jnp.asarray(d["center"]), jnp.asarray(ground), jnp.asarray(groundpatch), jb,
             jnp.asarray(d["px"]), jnp.asarray(d["py"]), jnp.asarray(z),
             jnp.asarray(d["origin"]), center_lo=jnp.asarray(d["center_lo"]))
-    n2 = tcfg.cell_count ** 2
-    (old_h,) = lookup.lookup(tb.cell, [_t(ground)], n2)
     got, _ = toutliers.detect_outliers(tcfg, d["s"], _t(ground), _t(groundpatch), tb,
-                                       _t(d["px"]), _t(d["py"]), _t(z), old_h,
+                                       _t(d["px"]), _t(d["py"]), _t(z),
                                        march.march_budget, march.march)
     return got.numpy(), np.asarray(want)
 
