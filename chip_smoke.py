@@ -45,8 +45,12 @@ Phases (any failure raises and exits non-zero, printing no result):
    together, the full sweep; the plain stage's device ms and device
    activities by ``torch.profiler`` beside its call ms; timed at 364^2,
    1200^2 and on a batch of 64 grids, with its registers and spills by
-   ``nvcc -Xptxas -v``); each of K4-K8 two runs bitwise.
-   K3's ring ranges (``spiral_interpolation_rings``) at
+   ``nvcc -Xptxas -v``); K9 raster_columns_ordered and K10 finish_layers
+   (``check_raster_stage``: the raster stage around K1 on a warm scan, K9
+   through the stable sort's order of the sorted scan and of the scan
+   shuffled, K10 over K1's columns with the main path's three layers, with
+   all layers and the max, and over 4 shards' columns; bitwise their plain
+   versions); each of K4-K10 two runs bitwise. K3's ring ranges (``spiral_interpolation_rings``) at
    364^2 and 1200^2 (warm states, ``HIGHRES_CONFIG`` for the latter) and at
    n = 2416 (the global band, random layers): the bands of S = 2 and 8 in
    order bitwise one full launch, one band against its plain version (the
@@ -63,14 +67,14 @@ Phases (any failure raises and exits non-zero, printing no result):
    over the stacked tables, timed in turns with the kernel (no one PyTorch
    call computes K1, K3 or K4). Then the batched launches of the unsorted
    fleet (``check_batched``): K1, K2 (the points' 2 tables and the march
-   lattice's 1), K3-K8 on a batch of 64 vehicles at 364^2 (8 warm
+   lattice's 1), K3-K10 on a batch of 64 vehicles at 364^2 (8 warm
    scans cycled, each vehicle's layers made distinct), each bitwise its
    64 single launches and against its plain batched version (K3 at its
    bounds above); the batched launch's device ms against the 64 single
    launches' summed device ms, both calls' CUDA-event ms, the plain
    batched call's ms and the bound of the batch's work.
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
-   synthetic scans: per-scan launch counts (K1, K2, K3, K5-K8 x1; a replay
+   synthetic scans: per-scan launch counts (K1, K2, K3, K5-K10 x1; a replay
    of the captured step adds the launches its capture recorded), no
    sortedness fallback, every step after the first (every replay) under
    ``torch.cuda.set_sync_debug_mode("error")`` (no device-to-host read),
@@ -99,7 +103,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    ``playback --native-loader --pipeline-depth 2`` with layer and HTML
    exports. The C++ loaders must be native; (a)-(d) and the resumed (f)
    print the same statistics block and metrics; (e) is within 0.1 pt of (a)
-   on F1 and IoUg; per scan K1 x1 (x2 for (g)), K2, K3, K5-K8 x1 and no
+   on F1 and IoUg; per scan K1 x1 (x2 for (g)), K2, K3, K5-K10 x1 and no
    sortedness fallback; (g) writes 11 layer PNGs per exported scan and the
    player. Prints ms/scan per variant (the payload's and CUDA events around
    the call) and the host prep p50 of NumPy against the native loader.
@@ -128,7 +132,7 @@ Phases (any failure raises and exits non-zero, printing no result):
 9. BASELINE.json config 5, the fleet: ``FleetDriver(GroundGridConfig(
    sorted_scans=True), batch=64, device)`` for 4 ticks, vehicle v on phase
    3's records from record v mod 32 (backward for v >= 32): per tick K1,
-   K2, K3, K5-K8 x64, the step of ticks 2-4 under the sync check (host prep
+   K2, K3, K5-K10 x64, the step of ticks 2-4 under the sync check (host prep
    and the tick's one fetch outside), the summary equal to the fetched
    labels' counts; every vehicle's labels and outliers (the fleet's one
    captured vehicle step) bitwise those of an eager ``StreamingDriver``
@@ -140,7 +144,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    metric line. Then the unsorted fleet (``phase_fleet_unsorted``), the
    default ``GroundGridConfig()`` with 64 vehicles on the same streams,
    stepped as one batched body captured as one graph a tick: per tick K1,
-   K2, K3, K5-K8 x1, ticks 2-4 under the sync check, the summary, ms per
+   K2, K3, K5-K10 x1, ticks 2-4 under the sync check, the summary, ms per
    tick with host prep and fetch, the capture's seconds and pool bytes;
    labels, outliers and the final state bitwise 64 single captured
    unsorted steps (the same fleet vehicle by vehicle, one replay per
@@ -155,7 +159,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    centers, both spiral modes: (a) ``HIGHRES_CONFIG`` (1200^2) over
    ``["cuda:0"] * 8``, (b) the default 364^2 over ``["cuda:0"] * 4``, each
    over the first 8 scans. The eager ``SpatialStep``: launches per scan K1,
-   K2, K3, K5-K8 x S, steps 2-8 under the sync check, banded ==
+   K2, K3, K5-K10 x S, steps 2-8 under the sync check, banded ==
    replicated bitwise (labels, outliers, ground, groundpatch), a second run
    of each bitwise the first, against the single-grid ``Step`` over the
    same scans labels >= 99.95 %, ground atol 2e-4 / rtol 1e-4, groundpatch
@@ -177,6 +181,10 @@ Phases (any failure raises and exits non-zero, printing no result):
    ``python3 chip_smoke.py --k8-tiles`` runs phase 1 and K8's tile
    candidates (``K8_TILES``) alone: each built alone, bitwise the plain
    stage at 364^2, 1200^2 and on 64 grids, timed there in turns.
+   ``python3 chip_smoke.py --k5-variants`` runs phase 1 and K5's
+   candidates (``K5_VARIANTS``: points a thread, threads a block) alone:
+   each built alone, bitwise the plain version at 364^2 and on 64 scans,
+   timed there in turns.
 11. The captured step (``pipeline.CapturedStep``) against the eager
    ``make_step_fn`` step, bitwise: phase 3's path over its 32 scans in four
    runs in turns (eager, captured, captured, eager; labels, outliers and
@@ -1033,9 +1041,11 @@ def host_packed(config, driver, scan):
 
 
 # the kernels line's further keys: K6 and K7's registers and spills, the
-# key table K7 folds in, K8's plain stage on the profiler
+# key table K7 folds in, K8's plain stage on the profiler, K9 on a shuffled
+# scan, K10 with all layers and over 4 shards
 EXTRA_KEYS = ("registers", "spill_store_bytes", "spill_load_bytes", "key_table_device_ms",
-              "key_table_launches", "plain_device_ms", "plain_launches")
+              "key_table_launches", "plain_device_ms", "plain_launches", "shuffled_device_ms",
+              "aux_device_ms", "shards4_device_ms")
 
 
 def march_work(config, s, ground, conf, pidx, budget, dirs):
@@ -1124,44 +1134,51 @@ def parse_ptxas(text, kernels):
 K8_TILES = ((8, 64, 2), (8, 64, 4), (16, 64, 4))
 
 
-def stage_variants(tiles, tmp):
-    """``{tile: (entry point, ptxas record, SASS mix)}``:
-    ``csrc/detect_stage.cu`` with each tile's constants, built alone with
-    the library's flags (one nvcc a tile, all started together) and loaded
-    with ctypes."""
+def source_variants(source, entry_name, kernel, names, variants, tmp, label):
+    """``{variant: (entry point, ptxas record, SASS mix)}``: ``csrc/<source>``
+    with each variant's values of its ``constexpr int`` constants ``names``,
+    built alone with the library's flags (one nvcc a variant, all started
+    together) and loaded with ctypes; ``entry_name`` the C entry point,
+    ``kernel`` the kernel the records name."""
     import ctypes
 
     from groundgrid_torch.ops import _build
 
-    text = (_build.CSRC / "detect_stage.cu").read_text()
+    text = (_build.CSRC / source).read_text()
     with open(os.path.join(tmp, "exactf32.cuh"), "w") as f:
         f.write((_build.CSRC / "exactf32.cuh").read_text())
     jobs = {}
-    for k, tile in enumerate(tiles):
+    for k, variant in enumerate(variants):
         src = text
-        for name, value in zip(("kTileH", "kTileW", "kStrip"), tile):
+        for name, value in zip(names, variant):
             src, found = re.subn(rf"constexpr int {name} = \d+;",
                                  f"constexpr int {name} = {value};", src)
             if found != 1:
-                raise RuntimeError(f"detect_stage.cu: no single {name}")
-        path = os.path.join(tmp, f"k8_{k}.cu")
+                raise RuntimeError(f"{source}: no single {name}")
+        path = os.path.join(tmp, f"{label.split()[0]}_{k}.cu")
         with open(path, "w") as f:
             f.write(src)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
                path[:-3] + ".so", path]
-        jobs[tile] = (path[:-3] + ".so", subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                          stderr=subprocess.STDOUT, text=True))
+        jobs[variant] = (path[:-3] + ".so", subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                             stderr=subprocess.STDOUT, text=True))
     out = {}
-    for tile, (lib, proc) in jobs.items():
+    for variant, (lib, proc) in jobs.items():
         text_out, _ = proc.communicate(timeout=300)
         if proc.returncode != 0:
-            raise RuntimeError(f"K8 tile {tile}: nvcc failed\n{text_out}")
-        entry = ctypes.CDLL(lib).gg_detect_stage
-        entry.argtypes = _build._SIGNATURES["gg_detect_stage"]
+            raise RuntimeError(f"{label} {variant}: nvcc failed\n{text_out}")
+        entry = getattr(ctypes.CDLL(lib), entry_name)
+        entry.argtypes = _build._SIGNATURES[entry_name]
         entry.restype = ctypes.c_int
-        out[tile] = (entry, parse_ptxas(text_out, ("detect_stage_kernel",))["detect_stage_kernel"],
-                     sass_mix(lib, "detect_stage_kernel"))
+        out[variant] = (entry, parse_ptxas(text_out, (kernel,))[kernel], sass_mix(lib, kernel))
     return out
+
+
+def stage_variants(tiles, tmp):
+    """``{tile: (entry point, ptxas record, SASS mix)}``:
+    ``csrc/detect_stage.cu`` with each tile's constants (:func:`source_variants`)."""
+    return source_variants("detect_stage.cu", "gg_detect_stage", "detect_stage_kernel",
+                           ("kTileH", "kTileW", "kStrip"), tiles, tmp, "K8 tile")
 
 
 def sass_mix(lib, kernel):
@@ -1249,6 +1266,75 @@ def phase_k8_tiles(config, records, device):
     return {f"{t[0]}x{t[1]}/{t[2]}": rec for t, rec in out.items()}
 
 
+# K5's candidates (kPts, kThreads): points a thread (the vector width) and
+# threads a block; the first is the one csrc/binning.cu builds
+K5_VARIANTS = ((2, 256), (4, 128), (4, 256), (2, 64), (2, 128), (1, 128), (1, 256), (8, 64))
+
+
+def call_bin_variant(entry, config, s, x, y, rings, valid):
+    """One launch of a K5 variant's entry point; its fresh outputs."""
+    import math
+
+    from groundgrid_torch.core import exactf32
+    from groundgrid_torch.core import scalars as scalarlib
+    from groundgrid_torch.core.rasterize import Binning
+    from groundgrid_torch.ops import _build
+
+    base, stride = scalarlib.device_rows(s, x)
+    out = Binning(*(torch.empty(x.shape, dtype=dt, device=x.device) for dt in (
+        torch.int32, torch.int32, torch.int32, torch.bool, torch.bool, torch.float32)))
+    rh, rl, inv = exactf32.res_ds(config.resolution)
+    _build.check(entry(x.data_ptr(), y.data_ptr(), rings.data_ptr(), valid.data_ptr(),
+                       x.shape[-1], math.prod(x.shape[:-1]), base, stride, config.cell_count,
+                       float(rh), float(rl), float(inv), int(config.max_ring),
+                       float(np.float32(config.min_dist_squared)), *(t.data_ptr() for t in out),
+                       torch.cuda.current_stream().cuda_stream), "bin_points variant")
+    return out
+
+
+def phase_k5_variants(config, records, device):
+    """K5's candidates (:data:`K5_VARIANTS`) on a prepared scan at 364^2
+    (131,072 points) and on a batch of FLEET_BATCH scans: each variant
+    bitwise the plain version, then its device ms by ``torch.profiler`` in
+    turns (the candidates in order, then reversed), its registers and
+    spills. Returns ``{variant: record}``."""
+    from groundgrid_torch.core import scalars as scalarlib
+    from groundgrid_torch.core.rasterize import bin_points
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    driver = warm_driver(config, records, device)
+    scan, s, _, _ = prepared(config, driver, records[4])
+    x = batched_inputs(config, driver, records[4:12], FLEET_BATCH)
+    px, py, _, rings, valid = x["points"]
+    cases = {"364": (s, scan.px, scan.py, scan.rings, scan.valid > 0),
+             f"b{FLEET_BATCH}": (scalarlib.view(x["scalars"]), px, py, rings, valid)}
+    with tempfile.TemporaryDirectory() as tmp:
+        variants = source_variants("binning.cu", "gg_bin", "binning_kernel",
+                                   ("kPts", "kThreads"), K5_VARIANTS, tmp, "K5 variant")
+        out = {v: {"registers": usage[0], "spill_store_bytes": usage[1],
+                   "spill_load_bytes": usage[2], "sass": mix}
+               for v, (_, usage, mix) in variants.items()}
+        for key, args in cases.items():
+            want = bin_points(config, *args)
+            for v, (entry, _, _) in variants.items():
+                got = call_bin_variant(entry, config, *args)
+                if not all(bitwise(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"K5 variant {v} ({key}) differs from the plain version")
+        for v in list(K5_VARIANTS) + list(K5_VARIANTS)[::-1]:
+            entry = variants[v][0]
+            for key, args in cases.items():
+                ms = device_ms(lambda: call_bin_variant(entry, config, *args), 50,
+                               "binning_kernel")[0]
+                out[v].setdefault(f"device_ms_{key}", []).append(ms)
+    for v, rec in out.items():
+        log(f"K5 variant {v[0]} points a thread, {v[1]} threads a block: bitwise at 364^2 and "
+            f"B = {FLEET_BATCH}; device ms in turns " + ", ".join(
+                f"{key} " + " / ".join(f"{ms:.5f}" for ms in rec[f"device_ms_{key}"])
+                for key in cases) + f"; {rec['registers']} registers, spills "
+            f"{rec['spill_store_bytes']} / {rec['spill_load_bytes']} bytes; SASS {rec['sass']}")
+    return {f"{v[0]}x{v[1]}": rec for v, rec in out.items()}
+
+
 def check_binning(config, driver, rec):
     """K5 on a prepared scan (131,072 points) against its plain version on
     the card and the host prep's ids (the plain version on the CPU):
@@ -1280,6 +1366,244 @@ def check_binning(config, driver, rec):
         f"(wrapper {rec['wrapper_device_ms']:.4f} ms), call {rec['call_ms']:.4f} ms, plain "
         f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     return rec
+
+
+def bin_batch(config, driver, records, b=None):
+    """K5 on a batch of ``b`` (FLEET_BATCH) prepared scans (``records[4:12]``
+    cycled, each its scan scalars): one launch bitwise the plain batched
+    version; its device ms and bound (``kernel_turns.py`` times each tree's
+    K5 so, by this script's probe)."""
+    from groundgrid_torch.core import scalars as scalarlib
+    from groundgrid_torch.ops import binning
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    b = FLEET_BATCH if b is None else b
+    scans = [driver.make_scan(rec)[0] for rec in records[4:12]]
+    pick = [scans[v % len(scans)] for v in range(b)]
+    points = [torch.stack([getattr(sc, f) for sc in pick]) for f in ("px", "py", "rings", "valid")]
+    packed = np.stack([host_packed(config, driver, sc) for sc in pick])
+    args = (config, scalarlib.view(torch.from_numpy(packed).to(driver.device)), *points[:3],
+            points[3] > 0)
+    got, want = binning.bin_points(*args), binning.bin_points_plain(*args)
+    if not all(bitwise(g, w) for g, w in zip(got, want)):
+        raise AssertionError("K5 batched differs from its plain batched version")
+    p = points[0].shape[-1]
+    out = {"device_ms": device_ms(lambda: binning.bin_points(*args), 20, "binning_kernel")[0],
+           **bound(31 * p * b, BIN_FLOPS * p * b)}
+    log(f"K5 bin_points, B = {b}: bitwise the plain batched version; device "
+        f"{out['device_ms']:.5f} ms, bound {out['bound_ms']:.5f} ms ({out['bound_by']})")
+    return out
+
+
+# K9 a point: the order (8 bytes), cell (4), inmap, ignored and outlier (3)
+# and z (4) read, the id and seven columns (32) written (an accepted point's
+# gi0 and gi1 come from its id); 15 f32 operations (pd, the plane shift's
+# 11, pdc, pdc^2). K10 a cell: the six columns the main path's layers need
+# read a shard (24 bytes; the z sum too with the aux layers, 28), 4 bytes a
+# layer written; 10 f32 operations for the main path's three layers.
+COLUMNS_BYTES, COLUMNS_FLOPS = 51, 15
+FINISH_BYTES, FINISH_AUX_BYTES, FINISH_LAYER_BYTES, FINISH_FLOPS = 24, 28, 4, 10
+
+
+def raster_stage_inputs(config, driver, rec):
+    """The raster stage's inputs on scan ``rec`` from the driver's warm
+    state, as the main path builds them: the scan scalars, the binning (K5),
+    z, the march's outlier flags (K6, K7) and the stable sort's order (of
+    the sorted scan, the identity)."""
+    from groundgrid_torch.core import grid as gridlib
+    from groundgrid_torch.core import outliers
+    from groundgrid_torch.ops import binning, march
+
+    scan, s, _, _ = prepared(config, driver, rec)
+    b = binning.bin_points(config, s, scan.px, scan.py, scan.rings, scan.valid > 0)
+    ground, conf = gridlib.move(config, driver.state.ground, driver.state.groundpatch, s)
+    outlier, _ = outliers.detect_outliers(config, s, ground, conf, b, scan.px, scan.py,
+                                          scan.pz, march.march_budget, march.march)
+    return s, b, scan.pz, outlier, torch.argsort(b.cell, dim=-1, stable=True)
+
+
+def same_columns(got, want):
+    return bitwise(got[0], want[0]) and all(bitwise(g, w) for g, w in zip(got[1], want[1]))
+
+
+def same_layers(got, want):
+    return all((g is None and w is None) or (g is not None and w is not None and bitwise(g, w))
+               for g, w in zip(got, want))
+
+
+def check_raster_stage(config, driver, rec):
+    """K9 and K10 on a warm scan against their plain versions on the card,
+    bitwise, two runs bitwise: K9 through the stable sort's order of the
+    sorted scan (the main path's identity) and of the scan shuffled (the
+    unsorted path's gathers); K10 over K1's columns of that scan with the
+    main path's three layers, with all layers and the max (the aux path),
+    and over 4 shards' columns (the spatial step's fold). Their times and
+    bounds (:data:`COLUMNS_BYTES`, :data:`FINISH_BYTES`), and K1's after
+    each producer of its columns (:func:`probe_k1_order`). Returns ``(k9,
+    k10, k1_order)``."""
+    from groundgrid_torch.core.rasterize import COLUMN_OPS, MAIN_LAYERS, Binning
+    from groundgrid_torch.ops import raster, raster_stage
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    s, b, z, outlier, order = raster_stage_inputs(config, driver, rec)
+    p, n2 = z.shape[-1], config.cell_count ** 2
+    columns, columns_plain = (raster_stage.raster_columns_ordered,
+                              raster_stage.raster_columns_ordered_plain)
+    perm = torch.randperm(p, generator=torch.Generator().manual_seed(0)).to(z.device)
+    sb = Binning(*(t[perm] for t in b))
+    shuffled = (config, sb, z[perm], outlier[perm], s, torch.argsort(sb.cell, stable=True))
+    args = (config, b, z, outlier, s, order)
+    for name, a in (("sorted", args), ("shuffled", shuffled)):
+        got, again, want = columns(*a), columns(*a), columns_plain(*a)
+        if not same_columns(got, want):
+            raise AssertionError(f"K9 ({name} scan) differs from its plain version")
+        if not same_columns(again, got):
+            raise AssertionError(f"K9 ({name} scan): two runs not bitwise equal")
+    cell, cols = columns(*args)
+    part = raster.raster_reduce(cell, cols, COLUMN_OPS, n2)
+    bounds = np.linspace(0, p, 5).astype(int)
+    shards = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        cb = Binning(*(t[lo:hi] for t in b))
+        c, k = columns(config, cb, z[lo:hi], outlier[lo:hi], s, torch.argsort(cb.cell, stable=True))
+        shards.append(raster.raster_reduce(c, k, COLUMN_OPS, n2))
+    finish, finish_plain = raster_stage.finish_layers, raster_stage.finish_layers_plain
+    cases = {"main": ([part], False), "aux": ([part], True), "shards4": (shards, False)}
+    for name, (parts, aux) in cases.items():
+        got, again = (finish(config, parts, s, aux) for _ in range(2))
+        if not same_layers(got, finish_plain(config, parts, s, aux)):
+            raise AssertionError(f"K10 ({name}) differs from its plain version")
+        if not same_layers(again, got):
+            raise AssertionError(f"K10 ({name}): two runs not bitwise equal")
+
+    k9 = {"max_abs_err": 0.0, "library_ms": None}
+    k9.update(kernel_times(lambda: columns(*args), 100, "raster_columns_kernel",
+                           lambda: columns_plain(*args), 20))
+    k9.update(bound(COLUMNS_BYTES * p, COLUMNS_FLOPS * int((cols[1] > 0).sum())))
+    k9["shuffled_device_ms"] = device_ms(lambda: columns(*shuffled), 100,
+                                         "raster_columns_kernel")[0]
+    def call(fn, name):
+        parts, aux = cases[name]
+        return lambda: fn(config, parts, s, aux)
+
+    k10 = {"max_abs_err": 0.0, "library_ms": None}
+    k10.update(kernel_times(call(finish, "main"), 100, "raster_finish_kernel",
+                            call(finish_plain, "main"), 20))
+    k10.update(bound((FINISH_BYTES + FINISH_LAYER_BYTES * len(MAIN_LAYERS)) * n2,
+                     FINISH_FLOPS * n2))
+    k10["aux_bound_ms"] = bound((FINISH_AUX_BYTES + FINISH_LAYER_BYTES * 8) * n2, 0)["bound_ms"]
+    for name in ("aux", "shards4"):
+        k10[f"{name}_device_ms"] = device_ms(call(finish, name), 100, "raster_finish_kernel")[0]
+    log(f"K9 raster_columns_ordered: {p} points ({int((cols[1] > 0).sum())} accepted): bitwise "
+        f"the plain version, sorted and shuffled, two runs bitwise; device "
+        f"{k9['device_ms']:.5f} ms (wrapper {k9['wrapper_device_ms']:.5f} ms; shuffled "
+        f"{k9['shuffled_device_ms']:.5f}), call {k9['call_ms']:.4f} ms, plain "
+        f"{k9['plain_ms']:.4f} ms, bound {k9['bound_ms']:.5f} ms ({k9['bound_by']})")
+    log(f"K10 finish_layers: {n2} cells: bitwise the plain version (main path's 3 layers, all "
+        f"with the max, 4 shards), two runs bitwise; device {k10['device_ms']:.5f} ms (wrapper "
+        f"{k10['wrapper_device_ms']:.5f} ms; all layers {k10['aux_device_ms']:.5f}, 4 shards "
+        f"{k10['shards4_device_ms']:.5f}), call {k10['call_ms']:.4f} ms, plain "
+        f"{k10['plain_ms']:.4f} ms, bound {k10['bound_ms']:.5f} ms ({k10['bound_by']}; all "
+        f"layers {k10['aux_bound_ms']:.5f})")
+    return k9, k10, probe_k1_order(config, args, cell, cols)
+
+
+def probe_k1_order(config, args, cell, cols):
+    """K1's device ms (``torch.profiler``, its kernel alone) after each
+    producer of its columns, in the step's order on one warm scan
+    (``args``: K9's arguments; ``cell``, ``cols``: K9's output): K1
+    repeated on K9's planes (phase 2's own K1 time), after K9 (the step),
+    after the plain route's separate columns (the parent's step), after K9
+    with the L2 cache flushed between (a 256 MB write), after copies of
+    K9's columns into one (7, P) block, into seven separate tensors, and
+    into a block whose planes are 1 KiB further apart, and after a 0.5 ms
+    spin of one thread (``torch.cuda._sleep``: every other SM idle, as
+    during K3). Returns ``{case: ms}``."""
+    from groundgrid_torch.core.rasterize import COLUMN_OPS
+    from groundgrid_torch.ops import raster, raster_stage
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    n2, p = config.cell_count ** 2, cell.shape[-1]
+    columns, plain = raster_stage.raster_columns_ordered, raster_stage.raster_columns_ordered_plain
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=cell.device)
+    stacked = torch.stack(cols)
+    block = torch.empty_like(stacked)
+    padded = torch.empty((len(cols), p + 256), dtype=torch.float32, device=cell.device)
+
+    def k1(c):
+        return raster.raster_reduce(c[0], c[1], COLUMN_OPS, n2)
+
+    def flushed():
+        c = columns(*args)
+        flush.zero_()
+        return k1(c)
+
+    def copied(dst):
+        dst.copy_(stacked)
+        return k1((cell, list(dst.unbind(0))))
+
+    cases = {
+        "repeated": lambda: k1((cell, cols)),
+        "after_k9": lambda: k1(columns(*args)),
+        "after_plain_route": lambda: k1(plain(*args)),
+        "after_k9_l2_flushed": flushed,
+        "after_copy_block": lambda: copied(block),
+        "after_copy_apart": lambda: k1((cell, [c.clone() for c in cols])),
+        "after_copy_padded": lambda: copied(padded[:, :p]),
+        "after_idle_sms": lambda: (torch.cuda._sleep(1 << 20), k1((cell, cols))),
+    }
+    out = {}
+    for _ in range(2):  # in turns: the cases, then again
+        for name, fn in cases.items():
+            out.setdefault(name, []).append(device_ms(fn, 50, "raster_reduce_kernel")[0])
+    log("K1 after each producer of its columns (device ms, two passes): " + ", ".join(
+        f"{name} {ms[0]:.5f} / {ms[1]:.5f}" for name, ms in out.items()))
+    return out
+
+
+def k1_in_step(config, records, device):
+    """K1's device ms a launch inside the step, eager (``make_step_fn``, as
+    ``bench --profile`` stages it) and captured (the driver's step), by
+    ``torch.profiler`` over ``records[2:10]`` after two warm steps; the
+    longest run of cell ids K1 folds in each of those eager steps
+    (``longest_runs``), and K1 repeated alone on the last one's own inputs
+    (``repeated``). The tree's own step, so that ``kernel_turns.py`` reads
+    it in any tree."""
+    from groundgrid_torch.ops import raster
+    from groundgrid_torch.pipeline import make_step_fn
+    from groundgrid_torch.runtime.driver import StreamingDriver
+    from groundgrid_torch.runtime.kernel_timing import device_ms, device_us, profiled
+
+    out, inputs = {}, []
+    for mode in ("eager", "captured"):
+        driver = StreamingDriver(config, device=device)
+        if mode == "eager":
+            driver.step = step = make_step_fn(config)
+            reduce = step._reduce
+
+            def spy(cell, cols, ops, n2):  # holds each step's K1 inputs (no copy)
+                inputs.append((cell, cols, ops, n2))
+                return reduce(cell, cols, ops, n2)
+
+            step._reduce = spy
+        for rec in records[:2]:
+            driver.process(rec)
+        scans = [driver.make_scan(rec)[0] for rec in records[2:10]]
+        torch.cuda.synchronize(device)
+        with profiled() as prof:
+            state = driver.state
+            for scan in scans:
+                state, _ = driver.step(state, scan)
+            torch.cuda.synchronize(device)
+        us, launches = device_us(prof, "raster_reduce_kernel")
+        out[mode] = {"device_ms": us / 1000.0 / max(launches, 1),
+                     "launches_per_step": launches / len(scans)}
+    inputs = inputs[-len(scans):]
+    out["longest_runs"] = [int(torch.bincount(cell[cell < n2].long(), minlength=n2).max())
+                           for cell, _, _, n2 in inputs]
+    out["repeated"] = {"device_ms": device_ms(lambda: raster.raster_reduce(*inputs[-1]), 50,
+                                              "raster_reduce_kernel")[0]}
+    return out
 
 
 def same_budgets(got, want):
@@ -1548,19 +1872,21 @@ def check_batched(config, driver, records, b=None):
     out["detect_stage"] = stage_batch(config, driver, records, b, layers)
     out.update(check_batched_fused(config, x, b))
     log(f"batched kernels, B = {b} at {n}^2: K1, K2 (points and march lattice), K3, K4, K8, "
-        f"K5, K6 and K7 each bitwise its {b} single launches and against its plain batched "
-        f"version")
+        f"K5, K6, K7, K9 and K10 each bitwise its {b} single launches and against its plain "
+        f"batched version")
     return out
 
 
 def check_batched_fused(config, x, b):
-    """K5, K6 and K7 on the batch of :func:`batched_inputs` (each vehicle
-    its scan, scan scalars and moved layers), each bitwise its ``b`` single
+    """K5, K6, K7, K9 and K10 on the batch of :func:`batched_inputs` (each
+    vehicle its scan, scan scalars and moved layers; K9 through the stable
+    sort's order of K5's ids, with K7's outlier flags; K10 over K1's
+    columns, the main path's three layers), each bitwise its ``b`` single
     launches and its plain batched version; timed against the single
     launches (``batched_times``)."""
     from groundgrid_torch.core import scalars as scalarlib
-    from groundgrid_torch.core.rasterize import Binning
-    from groundgrid_torch.ops import binning, march
+    from groundgrid_torch.core.rasterize import COLUMN_OPS, MAIN_LAYERS, Binning
+    from groundgrid_torch.ops import binning, march, raster, raster_stage
 
     sb = scalarlib.view(x["scalars"])
     rows = [scalarlib.view(x["scalars"][v]) for v in range(b)]
@@ -1627,6 +1953,42 @@ def check_batched_fused(config, x, b):
         lambda: [single_march(v) for v in range(b)],
         lambda: march.march_plain(*march_args), "march_kernel", b,
         *march_cost(k * b, total)))
+
+    # K9 and K10: the batch's raster stage around K1, through the stable
+    # sort's order, the main path's three layers
+    outlier = march.march(*march_args) > 0
+    order = torch.argsort(bins.cell, dim=-1, stable=True)
+    col_args = (config, bins, pz, outlier, sb, order)
+
+    def single_columns(v):
+        cell_v, cols_v = raster_stage.raster_columns_ordered(config, row(bins, v), pz[v],
+                                                              outlier[v], rows[v], order[v])
+        return (cell_v, *cols_v)
+
+    cell, cols = raster_stage.raster_columns_ordered(*col_args)
+    check("K9", (cell, *cols), (lambda c: (c[0], *c[1]))(
+        raster_stage.raster_columns_ordered_plain(*col_args)), single_columns)
+    out["raster_columns"] = dict(max_abs_err=0.0, **batched_times(
+        "K9 raster_columns_ordered", lambda: raster_stage.raster_columns_ordered(*col_args),
+        lambda: [single_columns(v) for v in range(b)],
+        lambda: raster_stage.raster_columns_ordered_plain(*col_args), "raster_columns_kernel",
+        b, COLUMNS_BYTES * p * b, COLUMNS_FLOPS * int((cols[1] > 0).sum())))
+    n2 = config.cell_count ** 2
+    part = raster.raster_reduce(cell, cols, COLUMN_OPS, n2)
+
+    def finish(fn, s, parts):
+        layers = fn(config, [parts], s)
+        return tuple(getattr(layers, name) for name in MAIN_LAYERS)
+
+    check("K10", finish(raster_stage.finish_layers, sb, part),
+          finish(raster_stage.finish_layers_plain, sb, part),
+          lambda v: finish(raster_stage.finish_layers, rows[v], [c[v] for c in part]))
+    out["raster_finish"] = dict(max_abs_err=0.0, **batched_times(
+        "K10 finish_layers", lambda: finish(raster_stage.finish_layers, sb, part),
+        lambda: [finish(raster_stage.finish_layers, rows[v], [c[v] for c in part])
+                 for v in range(b)],
+        lambda: finish(raster_stage.finish_layers_plain, sb, part), "raster_finish_kernel", b,
+        (FINISH_BYTES + FINISH_LAYER_BYTES * len(MAIN_LAYERS)) * n2 * b, FINISH_FLOPS * n2 * b))
     return out
 
 
@@ -1752,12 +2114,12 @@ def path_counts():
 def path_launches(steps, raster=None, detect=0):
     """The main path's launches over ``steps`` steps (or shards, or batched
     steps): K1 (``raster``: twice a step with the aux count), K2 (ground and
-    variance for classify; K6 reads the old ground itself), K3, K5, K6 and
-    K7 x1, K4 ``detect`` (the fused detect, ``steps`` or 0) and K8 the other
-    steps."""
+    variance for classify; K6 reads the old ground itself), K3, K5, K6, K7,
+    K9 and K10 x1, K4 ``detect`` (the fused detect, ``steps`` or 0) and K8
+    the other steps."""
     return {"raster": steps if raster is None else raster, "lookup": steps, "spiral": steps,
             "detect": detect, "bin": steps, "march_budget": steps, "march": steps,
-            "detect_stage": steps - detect}
+            "detect_stage": steps - detect, "raster_columns": steps, "raster_finish": steps}
 
 
 def check_launches(counts, want, driver, name):
@@ -2075,7 +2437,7 @@ def phase_entry_point(config, records, device):
     log(f"entry point: (a)-(d) and resumed (f) bitwise (statistics block and metrics: "
         f"F1 {metrics['a']['f1']:.6f}, IoUg {metrics['a']['ioug']:.6f}); wire (e) "
         f"F1 {metrics['e']['f1']:.6f}, IoUg {metrics['e']['ioug']:.6f}; launches per scan "
-        f"K1 x1 (x2 playback), K2, K3, K5-K8 x1; 0 fallbacks; loaders native; "
+        f"K1 x1 (x2 playback), K2, K3, K5-K10 x1; 0 fallbacks; loaders native; "
         f"{len(exported)} layer PNGs and the player written")
     names = {"a": "evaluate, NumPy prep", "b": "--native-loader",
              "c": "--native-loader --pipeline-depth 2", "d": "--native-loader --on-device-eval",
@@ -2697,7 +3059,7 @@ def phase_spatial(config, records, device, n_shards):
     rate = 1 - mism / (n * config.max_points)
     if rate < 0.9995:
         raise AssertionError(f"{name}: {mism} labels differ from the single-grid step")
-    log(f"{name}, {n} scans: launches per scan K1, K2, K3, K5-K8 x{n_shards} in both spiral "
+    log(f"{name}, {n} scans: launches per scan K1, K2, K3, K5-K10 x{n_shards} in both spiral "
         f"modes; steps 2-{n} under the sync check; banded == "
         f"replicated bitwise (labels, outliers, ground, groundpatch); second runs bitwise; vs "
         f"the single-grid step {mism} of {n * config.max_points} labels differ ({points} "
@@ -3128,6 +3490,12 @@ def main() -> int:
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:] == ["--k5-variants"]:  # phase 1 and K5's candidates alone
+        print(json.dumps({"k5_variants": phase_k5_variants(config, records, device)}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--spatial"]:  # phases 1 and 10 alone
         run_spatial_phase(records, device)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3146,6 +3514,7 @@ def main() -> int:
     k4 = check_detect(config, driver, records[4], records)
     k8 = check_detect_stage(config, driver, records[4], records)
     k5 = check_binning(config, driver, records[4])
+    k9, k10, _ = check_raster_stage(config, driver, records[4])
     k6, k7 = check_march(config, driver, records[4])
     batched = check_batched(config, driver, records[4:12])
     del driver
@@ -3194,6 +3563,11 @@ def main() -> int:
         # and of its non-fused detect stage
         ("detect_ground_patches", "detect_stage.cu", "groundgrid_tpu/core/detect.py:93",
          "detect_stage", k8, counts),
+        # and of its raster stage around the Pallas kernel
+        ("raster_columns_ordered", "raster_stage.cu", "groundgrid_tpu/core/rasterize.py:312",
+         "raster_columns", k9, counts),
+        ("finish_layers", "raster_stage.cu", "groundgrid_tpu/core/rasterize.py:409",
+         "raster_finish", k10, counts),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"groundgrid_torch/csrc/{route_file}",

@@ -117,7 +117,8 @@ def view(t: torch.Tensor) -> ScanScalars:
 
 
 # the fields a kernel reads from device memory, at their offsets in a row
-KERNEL_FIELDS = {"ox": 0, "oy": 1, "oz": 2, "sh0": 4, "sl0": 5, "sh1": 6, "sl1": 7}
+KERNEL_FIELDS = {"ox": 0, "oy": 1, "oz": 2, "sh0": 4, "sl0": 5, "sh1": 6, "sl1": 7, "cxh": 8,
+                 "cyh": 9, "b20": 12, "b21": 13, "b23": 14}
 
 
 def device_rows(s: ScanScalars, points: torch.Tensor) -> tuple[int, int]:

@@ -14,9 +14,9 @@ The file name carries a hash of the sources, the headers beside them
 an unchanged one loads the existing library. ``--fmad=false`` keeps every
 ``a*b+c`` separately rounded, as the plain PyTorch versions round it: the
 spiral's confidence is held bitwise, and its decay test ``d2 >
-min_dist_squared`` hangs on the last ulp; the binning and the march
-(``binning.cu``, ``march.cu``) round each step with the ``_rn`` intrinsics
-of ``exactf32.cuh`` besides.
+min_dist_squared`` hangs on the last ulp; the binning, the march and the
+raster stage (``binning.cu``, ``march.cu``, ``raster_stage.cu``) round each
+step with the ``_rn`` intrinsics of ``exactf32.cuh`` besides.
 
 No C++ of PyTorch is included, so a build takes seconds. A failed build or
 load raises; there is no fallback. Each C entry point returns
@@ -57,6 +57,8 @@ _SIGNATURES = {
     "gg_bin": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _F, _F, _F, _I, _F] + [_P] * 7,
     "gg_march_budget": [_P] * 6 + [_I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "gg_march": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _F, _F, _I, _P, _P],
+    "gg_raster_columns": [_P] * 6 + [_I, _I, _I, _P, _I, _F, _P, _P, _P],
+    "gg_raster_finish": [_P, _I, _I, _I, _P, _I, _F, _I, _P, _P],
 }
 
 

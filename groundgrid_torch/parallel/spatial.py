@@ -70,6 +70,7 @@ from groundgrid_torch.ops import detect_stage as stageops
 from groundgrid_torch.ops import lookup as lookuplib
 from groundgrid_torch.ops import march as marchops
 from groundgrid_torch.ops import raster as rasterops
+from groundgrid_torch.ops import raster_stage as stage_ops
 from groundgrid_torch.ops import spiral as spiralops
 from groundgrid_torch.parallel.collectives import CapturedShards, Gather, drive
 from groundgrid_torch.parallel.sharding import _place, make_mesh
@@ -361,10 +362,10 @@ class SpatialStep:
     :meth:`body`): gather the rows into full layers, ``grid.move`` them
     (replicated), bin and march its own points (K6 reading each point's
     old ground from the whole moved grid; its own
-    ``max_outlier_candidates`` buffer), its seven K1 columns
-    (:func:`~groundgrid_torch.core.rasterize.raster_partials`); the columns
-    of every shard folded in shard order
-    (:func:`~groundgrid_torch.core.rasterize.finish_partials`); detect on
+    ``max_outlier_candidates`` buffer), its seven K1 columns (K9, then K1);
+    the columns of every shard folded in shard order into the layers
+    detect reads (K10, :func:`~groundgrid_torch.core.rasterize.
+    finish_layers`); detect on
     its rows, halo'd from those layers (:func:`~groundgrid_torch.core.
     detect.detect_block`, K8); the rows gathered; the spiral, a full K3
     launch per shard (``"replicated"``) or the band relay (``"banded"``,
@@ -374,7 +375,7 @@ class SpatialStep:
     ``with_scan_center`` the scans' centers are the new ones (sorted scans
     need it), else the host center recurrence's (``grid.index_shift_ds``).
     The host packs every per-scan value into the scan scalars, shipped once
-    per device. Kernel launches per scan: K1, K3, K5, K6, K7 and K8 x S
+    per device. Kernel launches per scan: K1, K3, K5-K10 x S
     (K3 one per non-empty band when banded), K2 x S. The step reads
     nothing back to the host; ``fallbacks`` counts the shards' unsorted
     chunks of sorted scans (a host read).
@@ -398,6 +399,9 @@ class SpatialStep:
         self.with_scan_center = with_scan_center
         plain = config.use_pallas is False
         self._reduce = rasterops.raster_reduce_plain if plain else rasterops.raster_reduce
+        self._columns = (stage_ops.raster_columns_ordered_plain if plain
+                         else stage_ops.raster_columns_ordered)
+        self._finish = stage_ops.finish_layers_plain if plain else stage_ops.finish_layers
         self._lookup = lookuplib.lookup_plain if plain else lookuplib.lookup
         self._bin = binops.bin_points_plain if plain else binops.bin_points
         self._budget = marchops.march_budget_plain if plain else marchops.march_budget
@@ -446,19 +450,18 @@ class SpatialStep:
         binning = self._bin(cfg, sc, x, y, rings, valid > 0)
         outlier, _ = outlierlib.detect_outliers(cfg, sc, *moved, binning, x, y, z,
                                                 self._budget, self._march)
-        accept = binning.inmap & ~binning.ignored & ~outlier
-        rb, rz, racc = binning, z, accept
+        order = None
         if not cfg.sorted_scans or cfg.sorted_fallback_check:
             order = torch.argsort(binning.cell, stable=True)
-            rb, rz, racc = binning.permute(order), z[order], accept[order]
         if cfg.sorted_scans and cfg.sorted_fallback_check:
             if dev not in self._fallbacks:
                 self._fallbacks[dev] = torch.zeros((), dtype=torch.int64, device=dev)
             self._fallbacks[dev] += (binning.cell[1:] < binning.cell[:-1]).any()
-        cols = rasterlib.raster_partials(cfg, rb, rz, racc, sc, self._reduce)
+        rcell, cols = self._columns(cfg, binning, z, outlier, sc, order)
+        part = self._reduce(rcell, cols, rasterlib.COLUMN_OPS, n2)
 
-        (gathered,) = yield Gather((torch.stack(list(cols)),))
-        raster = rasterlib.finish_partials(cfg, [p.unbind(0) for p in gathered], sc)
+        (gathered,) = yield Gather((torch.stack(list(part)),))
+        raster = self._finish(cfg, [p.unbind(0) for p in gathered], sc)
 
         def halo(full):
             return torch.nn.functional.pad(full, (0, 0, HALO, HALO))[

@@ -7,7 +7,8 @@ center (:func:`prepare_scan`); the device step then runs, in the reference's
 stage order (``GroundSegmentation.cpp:50-197``, ``GroundGrid.cpp:83-147``):
 
     move -> K5 bin -> K6 budgets (reading the old ground) -> top-k -> K7 march
-         -> K1 raster -> detect -> K3 spiral -> K2 (ground, variance) -> classify
+         -> K9 raster columns -> K1 sums -> K10 raster layers -> detect
+         -> K3 spiral -> K2 (ground, variance) -> classify
 
 Unsorted mode (``sorted_scans=False``, the config default) takes raw
 sensor-frame scans (:func:`pad_scan`): the step transforms them on the
@@ -40,15 +41,16 @@ outputs and state are bitwise the single step's. :class:`CapturedStep`
 captures the batched body as it does the single one: one graph, one
 replay a tick.
 
-Kernels: with ``config.use_pallas`` None or True, K1-K8 go through their
+Kernels: with ``config.use_pallas`` None or True, K1-K10 go through their
 wrappers (``groundgrid_torch/ops``), which launch the CUDA kernels for CUDA
 tensors and take the plain versions for CPU tensors; False takes the plain
 versions on every device. Detection runs through K8 (``core/detect.py``'s
 stage in one launch), or K4 with ``config.fused_detect``. K1-K4 port the
-JAX package's Pallas kernels; K5-K8 port what XLA fuses of its binning,
-occlusion march and detect stage.
+JAX package's Pallas kernels; K5-K10 port what XLA fuses of its binning,
+occlusion march, detect stage and raster stage.
 Each stage of the body is a ``torch.profiler.record_function`` range
-(:data:`STAGES`), which ``runtime/bench.py`` reads for the eager step.
+(:data:`STAGES`; the raster stage's parts :data:`RASTER_PARTS` are ranges
+inside it), which ``runtime/bench.py`` reads for the eager step.
 
 Options, as in the JAX package: ``with_aux`` also returns all eleven
 published grid layers (:class:`AuxLayers`; the non-ground count is a second
@@ -84,6 +86,7 @@ from groundgrid_torch.ops import detect_stage as stageops
 from groundgrid_torch.ops import lookup as lookuplib
 from groundgrid_torch.ops import march as marchops
 from groundgrid_torch.ops import raster as rasterops
+from groundgrid_torch.ops import raster_stage as stage_ops
 from groundgrid_torch.ops import spiral as spiralops
 
 
@@ -148,6 +151,10 @@ class AuxLayers(NamedTuple):
 # range (``bench.profile_steps`` reads the device time of each); the
 # transform runs in unsorted and wire mode, the aux count with ``with_aux``
 STAGES = ("transform", "move", "bin", "march", "raster", "detect", "spiral", "classify", "aux")
+# the raster stage's parts, ranges inside "raster" (each only where it runs):
+# the stable sort, the sortedness check, K9, K1 and K10
+RASTER_PARTS = ("raster.sort", "raster.check", "raster.columns", "raster.sums",
+                "raster.finish")
 
 
 def stage(name: str):
@@ -182,9 +189,9 @@ class Step:
     copy; the device body (:meth:`body`) reads them as the scan scalars
     (``core/scalars.py``). In sorted mode ``fallbacks`` counts scans whose
     device cell ids were not sorted (a host/device binning divergence).
-    With the check on, every scan's raster inputs take a stable sort of the
-    ids before K1; of sorted ids it is the identity, so a sorted scan reaches
-    K1 bitwise as it came, and no host read picks between the two (the JAX
+    With the check on, K9 reads every scan's raster inputs through a stable
+    sort of the ids; of sorted ids it is the identity, so a sorted scan
+    reaches K1 bitwise as it came, and no host read picks between the two (the JAX
     step's ``lax.cond``, ``pipeline.py:204-214`` there). With
     ``config.sorted_fallback_check`` false the step trusts the host's order,
     as the JAX step does: no check, no fallback, no sort. Unsorted mode
@@ -212,6 +219,8 @@ class Step:
             self._spiral = spiralops.spiral_interpolation_plain
             self._bin = binops.bin_points_plain
             self._budget, self._march = marchops.march_budget_plain, marchops.march_plain
+            self._columns = stage_ops.raster_columns_ordered_plain
+            self._finish = stage_ops.finish_layers_plain
             fused, detect = detectops.detect_fused_plain, detectlib.detect_ground_patches
         else:
             self._reduce = rasterops.raster_reduce
@@ -219,6 +228,8 @@ class Step:
             self._spiral = spiralops.spiral_interpolation
             self._bin = binops.bin_points
             self._budget, self._march = marchops.march_budget, marchops.march
+            self._columns = stage_ops.raster_columns_ordered
+            self._finish = stage_ops.finish_layers
             fused, detect = detectops.detect_fused, stageops.detect_stage
         self._detect = fused if config.fused_detect else detect
 
@@ -295,25 +306,27 @@ class Step:
                 cfg, s, moved_g, moved_c, binning, x, y, z, self._budget, self._march,
             )
 
-        # --- rasterize (cpp:200-311) ---
+        # --- rasterize (cpp:200-311): K9 columns, K1 sums, K10 layers ---
         with stage("raster"):
-            accept = binning.inmap & ~binning.ignored & ~outlier
-            rb, rz, racc = binning, z, accept
             cell = binning.cell
             order = None
             if not cfg.sorted_scans or cfg.sorted_fallback_check:
-                order = torch.argsort(cell, dim=-1, stable=True)
+                with stage("raster.sort"):
+                    order = torch.argsort(cell, dim=-1, stable=True)
             if cfg.sorted_scans and cfg.sorted_fallback_check:
-                if cell.device not in self._fallbacks:
-                    self._fallbacks[cell.device] = torch.zeros((), dtype=torch.int64,
-                                                               device=cell.device)
-                unsorted = (cell[..., 1:] < cell[..., :-1]).any(-1)  # a flag a vehicle
-                self._fallbacks[cell.device] += unsorted if unsorted.dim() == 0 else unsorted.sum()
-            if order is not None:
-                rb, rz, racc = (binning.permute(order), take_points(z, order),
-                                take_points(accept, order))
-            raster = rasterlib.rasterize_sorted(cfg, rb, rz, racc, s, self._reduce,
-                                                with_max=self.with_aux)
+                with stage("raster.check"):
+                    if cell.device not in self._fallbacks:
+                        self._fallbacks[cell.device] = torch.zeros((), dtype=torch.int64,
+                                                                   device=cell.device)
+                    unsorted = (cell[..., 1:] < cell[..., :-1]).any(-1)  # a flag a vehicle
+                    self._fallbacks[cell.device] += (unsorted if unsorted.dim() == 0
+                                                     else unsorted.sum())
+            with stage("raster.columns"):
+                rcell, cols = self._columns(cfg, binning, z, outlier, s, order)
+            with stage("raster.sums"):
+                part = self._reduce(rcell, cols, rasterlib.COLUMN_OPS, n2)
+            with stage("raster.finish"):
+                raster = self._finish(cfg, [part], s, aux=self.with_aux)
 
         # --- ground patch detection (cpp:314-395) ---
         with stage("detect"):
@@ -338,7 +351,7 @@ class Step:
         # (sorted) cells, the JAX step's count kernel
         with stage("aux"):
             ng = (labels == classifylib.LABEL_NONGROUND).to(torch.float32)
-            (counts,) = self._reduce(rb.cell, [ng if order is None else take_points(ng, order)],
+            (counts,) = self._reduce(rcell, [ng if order is None else take_points(ng, order)],
                                      ["sum"], n2)
         aux = AuxLayers(
             points=counts.reshape(ground.shape), points_raw=raster.points_raw,

@@ -28,7 +28,8 @@ sorted-scan configuration, and the same metric name,
 Run on the card: ``python -m groundgrid_torch.runtime.bench`` prints one
 JSON line; ``--profile`` prints instead a ``torch.profiler`` table of eight
 warm steps by device time, the eager step's device ms and launches stage
-by stage (``pipeline.STAGES``), then the device busy ms per step (the sum of
+by stage (``pipeline.STAGES``, the raster stage also by its parts,
+``pipeline.RASTER_PARTS``: sort, check, K9, K1, K10), then the device busy ms per step (the sum of
 the device activities' durations over the steps). A device that is not CUDA raises: this bench
 gives no CPU number.
 """
@@ -52,6 +53,7 @@ from groundgrid_torch.parallel.sharding import (
     stack_fleet_pytree,
 )
 from groundgrid_torch.pipeline import (
+    RASTER_PARTS,
     STAGES,
     CenterTracker,
     init_state,
@@ -315,8 +317,9 @@ def profile_steps(n_steps: int = 8, device="cuda") -> str:
 
 def stage_lines(config: GroundGridConfig, records: list[ScanRecord], device) -> str:
     """The eager step's device ms and launches a step, stage by stage (its
-    ``record_function`` ranges, ``pipeline.STAGES``; a replayed graph has
-    none), over ``records[2:]`` after two warm steps, as lines."""
+    ``record_function`` ranges, ``pipeline.STAGES``, and under the raster
+    stage its parts, ``pipeline.RASTER_PARTS``; a replayed graph has none),
+    over ``records[2:]`` after two warm steps, as lines."""
     driver = StreamingDriver(config, device=device)
     driver.step = make_step_fn(config)
     for rec in records[:2]:
@@ -329,6 +332,7 @@ def stage_lines(config: GroundGridConfig, records: list[ScanRecord], device) -> 
             state, _ = driver.step(state, scan)
     busy_us, activities = device_us(prof)
     stages = stage_us(prof, STAGES)
+    parts = stage_us(prof, RASTER_PARTS)
     n = len(scans)
     lines = [f"eager step by stage ({n} warm steps, a step): device {busy_us / 1000.0 / n:.4f} "
              f"ms, {activities / n:.1f} device activities"]
@@ -336,6 +340,10 @@ def stage_lines(config: GroundGridConfig, records: list[ScanRecord], device) -> 
         if count:
             lines.append(f"  stage {name}: {us / 1000.0 / n:.4f} device ms, {count / n:.1f} "
                          f"launches")
+        if name == "raster":
+            lines.extend(f"    part {part}: {p_us / 1000.0 / n:.4f} device ms, "
+                         f"{p_count / n:.1f} launches"
+                         for part, (p_us, p_count) in parts.items() if p_count)
     us = busy_us - sum(v[0] for v in stages.values())
     count = activities - sum(v[1] for v in stages.values())
     lines.append(f"  outside the stages: {us / 1000.0 / n:.4f} device ms, {count / n:.1f} "

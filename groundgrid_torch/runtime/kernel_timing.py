@@ -112,10 +112,11 @@ def device_us(prof, name: str | None = None) -> tuple[float, int]:
 def stage_us(prof, names) -> dict[str, tuple[float, int]]:
     """Summed microseconds and count of the device activities launched
     inside each ``record_function`` range named in ``names``
-    (``pipeline.STAGES``) in a finished ``torch.profiler`` run. An activity
-    belongs to the range whose host-clock span holds the CUDA runtime call
-    that launched it (the call of the same correlation id), so a kernel
-    launched outside any PyTorch op (the port's ctypes launches) counts."""
+    (``pipeline.STAGES``, ``pipeline.RASTER_PARTS``) in a finished
+    ``torch.profiler`` run. An activity belongs to every named range whose
+    host-clock span holds the CUDA runtime call that launched it (the call
+    of the same correlation id; ranges may nest), so a kernel launched
+    outside any PyTorch op (the port's ctypes launches) counts."""
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
@@ -128,8 +129,8 @@ def stage_us(prof, names) -> dict[str, tuple[float, int]]:
         at = launched_at.get(e.id)
         if e.device_type != cuda or e.is_user_annotation or at is None:
             continue
-        k = bisect.bisect_right(starts, at) - 1
-        if k >= 0 and at <= spans[k][1]:
-            us, count = out[spans[k][2]]
-            out[spans[k][2]] = (us + e.time_range.end - e.time_range.start, count + 1)
+        for _, end, name in spans[:bisect.bisect_right(starts, at)]:
+            if at <= end:
+                us, count = out[name]
+                out[name] = (us + e.time_range.end - e.time_range.start, count + 1)
     return out

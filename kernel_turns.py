@@ -3,6 +3,7 @@
     python3 kernel_turns.py _archive/parent .                  # parent, tree, tree, parent
     python3 kernel_turns.py _archive/parent . --kernels spiral
     python3 kernel_turns.py _archive/parent . --kernels step lookup
+    python3 kernel_turns.py _archive/parent . --kernels binning raster_stage step
 
 Each tree is the repository root or an unpacked ``git archive`` of a commit
 (``_archive/`` is gitignored). The trees run in the given order, then in
@@ -18,15 +19,19 @@ warm scan by this script's own ``chip_smoke.check_lookup_march`` (the
 same measurement in every tree whose plain march takes the moved layers
 and K6's directions, as this one does); with ``detect_stage``, its tree's
 K8 on a batch of 64 grids at 364^2 by this script's own
-``chip_smoke.stage_batch`` (``detect_stage_b64``). A turn prints the
+``chip_smoke.stage_batch`` (``detect_stage_b64``); with ``binning``, its
+tree's K5 on a batch of 64 prepared scans by ``chip_smoke.bin_batch``
+(``binning_b64``). A turn prints the
 tree's environment lines and, last, one JSON line with what each check
 returned; this script echoes them and ends with one JSON line of all turns.
-It fails if a turn fails. ``binning``, ``march`` (K5-K7) and
-``detect_stage`` (K8) exist only in trees that have them: a tree without
-the check records null for it. ``step`` times the whole step in each tree
+It fails if a turn fails. ``binning``, ``march`` (K5-K7), ``detect_stage``
+(K8) and ``raster_stage`` (K9, K10) exist only in trees that have them: a
+tree without the check records null for it. ``step`` times the whole step in each tree
 on 32 rendered scans: the streaming bench's device ms a scan (the captured
 step), ``bench --profile``'s busy ms and device activities a step (and,
-where the tree has them, the eager step's stages), and the unsorted fleet
+where the tree has them, the eager step's stages and the raster stage's
+parts), K1's device ms inside the eager and the captured step (by this
+script's own ``chip_smoke.k1_in_step``), and the unsorted fleet
 of 64's device ms a tick; it also digests the captured step's outputs on
 those scans, sorted and unsorted (labels, outlier flags, marchable counts,
 the last state), and the last line says whether every turn's digest is
@@ -41,7 +46,8 @@ import os
 import subprocess
 import sys
 
-KERNELS = ("raster", "lookup", "spiral", "detect", "binning", "march", "detect_stage", "step")
+KERNELS = ("raster", "lookup", "spiral", "detect", "binning", "march", "detect_stage",
+           "raster_stage", "step")
 
 # run with the tree's root as the working directory: ``python -c`` puts it
 # first on sys.path
@@ -80,8 +86,10 @@ def outputs_digest():
 
 def step_turn():
     # the step end to end: the streaming bench's device ms a scan (the
-    # captured step), bench --profile's summary lines, the unsorted fleet
-    # of 64's device ms a tick (one batched step) and the outputs' digest
+    # captured step), bench --profile's summary lines, K1's device ms inside
+    # the eager and the captured step (by the calling tree's probe), the
+    # unsorted fleet of 64's device ms a tick (one batched step) and the
+    # outputs' digest
     from groundgrid_torch.runtime import bench
     from groundgrid_torch.runtime.driver import StreamingDriver
 
@@ -90,10 +98,11 @@ def step_turn():
         streaming.process(rec)
     steps, _ = bench.device_ms_per_step(streaming, records)
     profile = bench.profile_steps(device=device).splitlines()
-    keep = ("eager step", "  stage", "  outside", "device busy")
+    keep = ("eager step", "  stage", "    part", "  outside", "device busy")
     fleet = bench.run_fleet_benchmark(GroundGridConfig(), records[:8], 64, 128, 3, device)
     return {"device_ms_per_scan": sum(steps) / len(steps),
             "profile": [line for line in profile if line.startswith(keep)],
+            "k1_in_step": probe.k1_in_step(config, records, device),
             "fleet_unsorted_device_ms_per_tick": fleet["device_ms_per_tick"],
             "fleet_unsorted_batched": fleet["batched"], "outputs_digest": outputs_digest()}
 
@@ -126,6 +135,8 @@ for name in sys.argv[2:]:
         out[name] = keep(check(config, driver, records[4], *extra))
         if name == "detect_stage":  # K8 at B = 64, by the calling tree's probe
             out["detect_stage_b64"] = probe.stage_batch(config, driver, records)
+        if name == "binning":  # K5 at B = 64, by the calling tree's probe
+            out["binning_b64"] = probe.bin_batch(config, driver, records)
 print(json.dumps(out))
 """
 

@@ -28,7 +28,13 @@ occlusion march shedding candidates at the cap, on both selection keys, bitwise 
 binning and march) bitwise their plain versions on a warm scan, on random
 points (cell edges and +-1 ulp from them, -0.0, both selection keys), on
 a batch of 64 against 64 single launches, in two runs, and replayed from a
-CUDA graph on another scan's scalars; plus the small-config
+CUDA graph on another scan's scalars; K5's groups cut by rows, tails and
+unaligned arrays (and ``BINNING_MUTATIONS``' dropped tail point fails);
+K9 and K10 (the raster stage around K1) bitwise their plain versions on
+the seams of ``raster_scenes`` (sorted and through the sort's order, a
+batch, 4 and 8 shards), 64 scenes in one launch against single launches,
+two runs, a graph replayed on another scene's scalars, and each of
+``RASTER_STAGE_MUTATIONS`` built alone fails a case; plus the small-config
 streaming step on the card against the same step on the CPU, on the main
 path and on the fused, aux and wire path; the fleet on the card bitwise
 per-vehicle streaming; a warm step and a fleet tick under
@@ -49,7 +55,7 @@ from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core.detect import make_tables
 from groundgrid_torch.data.synthetic import detect_layers
 from groundgrid_torch.ops import (binning, detect, launch_counts, lookup, march, raster,
-                                  reset_launch_counts, spiral)
+                                  raster_stage, reset_launch_counts, spiral)
 
 pytestmark = pytest.mark.gpu
 
@@ -58,11 +64,11 @@ def _path(steps, detect, raster=None):
     """The launch counts of ``steps`` single steps (or shards, or batched
     steps) on the main path: K1 (``raster`` if the aux count adds one), K2
     (ground and variance for classify; K6 reads the old ground itself), K3,
-    K5, K6 and K7 x1, K4 ``detect`` (the fused detect, ``steps`` or 0), K8
-    the other steps."""
+    K5, K6, K7, K9 and K10 x1, K4 ``detect`` (the fused detect, ``steps`` or
+    0), K8 the other steps."""
     return {"raster": steps if raster is None else raster, "lookup": steps, "spiral": steps,
             "detect": detect, "bin": steps, "march_budget": steps, "march": steps,
-            "detect_stage": steps - detect}
+            "detect_stage": steps - detect, "raster_columns": steps, "raster_finish": steps}
 
 
 @pytest.fixture
@@ -695,6 +701,324 @@ def test_mutated_march_budget_kernels_fail(cuda, tmp_path):
                          torch.cuda.current_stream().cuda_stream) == 0
             caught += not _same_budgets(out, want)
         assert (caught == 0) == (name == "none"), (name, caught)
+
+
+def _raster_cases(device):
+    """The raster stage's seam cases of ``raster_scenes``: ``(name, config,
+    s, binning, z, outlier, order, shards)``; ``shards`` cuts the points
+    into that many chunks, each read through its own stable sort."""
+    import raster_scenes
+
+    for name, seeds, sort, shards in (("seams-sorted", (0,), False, 1),
+                                      ("seams-argsort", (1,), True, 1),
+                                      ("batch-3", (3, 4, 5), True, 1),
+                                      ("shards-4", (4,), True, 4), ("shards-8", (8,), True, 8)):
+        cfg, s, b, z, outlier = raster_scenes.seam_inputs(seeds, device=device, sort=not sort)
+        order = torch.argsort(b.cell, dim=-1, stable=True) if sort else None
+        yield name, cfg, s, b, z, outlier, order, shards
+
+
+def _raster_chunks(b, z, outlier, order, shards):
+    """``(binning, z, outlier, order)`` of each shard's chunk of points."""
+    from groundgrid_torch.core.rasterize import Binning
+
+    if shards == 1:
+        return [(b, z, outlier, order)]
+    bounds = np.linspace(0, z.shape[-1], shards + 1).astype(int)
+    out = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        chunk = Binning(*(t[..., lo:hi].contiguous() for t in b))
+        out.append((chunk, z[..., lo:hi].contiguous(), outlier[..., lo:hi].contiguous(),
+                    torch.argsort(chunk.cell, dim=-1, stable=True)))
+    return out
+
+
+def _raster_run(cfg, s, chunks, columns, finish, aux):
+    """The raster stage over ``chunks`` by ``columns`` and ``finish`` (the
+    kernels' wrappers or their plain versions), K1 between: each chunk's
+    ids and columns, and the layers."""
+    from groundgrid_torch.core.rasterize import COLUMN_OPS
+
+    n2 = cfg.cell_count ** 2
+    cols = [columns(cfg, cb, cz, co, s, order) for cb, cz, co, order in chunks]
+    parts = [raster.raster_reduce(cell, c, COLUMN_OPS, n2) for cell, c in cols]
+    return cols, finish(cfg, parts, s, aux)
+
+
+def _same_raster(got, want):
+    (cols_g, layers_g), (cols_w, layers_w) = got, want
+    for (cell_g, c_g), (cell_w, c_w) in zip(cols_g, cols_w):
+        if not (_bitwise(cell_g, cell_w) and all(_bitwise(a, b) for a, b in zip(c_g, c_w))):
+            return "K9"
+    for name, g, w in zip(layers_w._fields, layers_g, layers_w):
+        if (g is None) != (w is None) or (g is not None and not _bitwise(g, w)):
+            return f"K10 {name}"
+    return None
+
+
+def test_raster_stage_kernels_match_plain(cuda):
+    """K9 and K10 on the seams of ``raster_scenes`` (sorted and through the
+    sort's order, a batch of 3, 4 and 8 shards; all layers with the max,
+    and the main path's three): bitwise their plain versions on the card,
+    two runs bitwise."""
+    reset_launch_counts()
+    runs = 0
+    for name, cfg, s, b, z, outlier, order, shards in _raster_cases(cuda):
+        chunks = _raster_chunks(b, z, outlier, order, shards)
+        for aux in (True, False):
+            want = _raster_run(cfg, s, chunks, raster_stage.raster_columns_ordered_plain,
+                              raster_stage.finish_layers_plain, aux)
+            got = _raster_run(cfg, s, chunks, raster_stage.raster_columns_ordered,
+                             raster_stage.finish_layers, aux)
+            again = _raster_run(cfg, s, chunks, raster_stage.raster_columns_ordered,
+                               raster_stage.finish_layers, aux)
+            assert _same_raster(got, want) is None, (name, aux, _same_raster(got, want))
+            assert _same_raster(again, got) is None, (name, "two runs")
+            runs += 2
+            shards_run = len(chunks)
+    counts = launch_counts()
+    assert counts["raster_finish"] == runs and counts["raster_columns"] >= runs
+    assert shards_run == 8
+
+
+def test_raster_finish_main_layers_read_no_z_sum(cuda):
+    """K10 without the aux layers reads no z sum: NaN in column 2 of every
+    shard leaves its three layers bitwise the plain version's on the clean
+    columns (sorted, through the sort's order, a batch, 4 and 8 shards)."""
+    from groundgrid_torch.core.rasterize import COLUMN_OPS, MAIN_LAYERS
+
+    for name, cfg, s, b, z, outlier, order, shards in _raster_cases(cuda):
+        chunks = _raster_chunks(b, z, outlier, order, shards)
+        cols = [raster_stage.raster_columns_ordered(cfg, cb, cz, co, s, o)
+                for cb, cz, co, o in chunks]
+        parts = [raster.raster_reduce(cell, c, COLUMN_OPS, cfg.cell_count ** 2)
+                 for cell, c in cols]
+        poisoned = [[torch.full_like(c, float("nan")) if j == 2 else c for j, c in enumerate(p)]
+                    for p in parts]
+        got = raster_stage.finish_layers(cfg, poisoned, s)
+        want = raster_stage.finish_layers_plain(cfg, parts, s)
+        for layer in MAIN_LAYERS:
+            assert _bitwise(getattr(got, layer), getattr(want, layer)), (name, layer)
+
+
+def test_raster_stage_batch_matches_single_launches(cuda):
+    """K9 and K10 on a batch of 64 seam scenes (each its own scan scalars),
+    one launch each: every row bitwise its single launch, and the batch
+    bitwise the plain batched versions."""
+    import raster_scenes
+    from groundgrid_torch.core import scalars
+    from groundgrid_torch.core.rasterize import COLUMN_OPS, Binning
+
+    seeds = tuple(range(100, 164))
+    cfg, s, b, z, outlier = raster_scenes.seam_inputs(seeds, p=4096, device=cuda)
+    order = torch.argsort(b.cell, dim=-1, stable=True)
+    n2 = cfg.cell_count ** 2
+    cell, cols = raster_stage.raster_columns_ordered(cfg, b, z, outlier, s, order)
+    plain = raster_stage.raster_columns_ordered_plain(cfg, b, z, outlier, s, order)
+    assert _bitwise(cell, plain[0]) and all(_bitwise(g, w) for g, w in zip(cols, plain[1]))
+    part = raster.raster_reduce(cell, cols, COLUMN_OPS, n2)
+    layers = raster_stage.finish_layers(cfg, [part], s, True)
+    want = raster_stage.finish_layers_plain(cfg, [part], s, True)
+    assert all(_bitwise(g, w) for g, w in zip(layers, want))
+    full = s.ox._base  # the (B, SIZE) scan scalars
+    assert full.shape == (len(seeds), scalars.SIZE)
+    for v in range(len(seeds)):
+        sv = scalars.view(full[v])
+        bv = Binning(*(t[v] for t in b))
+        c1, k1 = raster_stage.raster_columns_ordered(cfg, bv, z[v], outlier[v], sv, order[v])
+        assert _bitwise(c1, cell[v]) and all(_bitwise(g[v], w) for g, w in zip(cols, k1)), v
+        p1 = raster.raster_reduce(c1, k1, COLUMN_OPS, n2)
+        l1 = raster_stage.finish_layers(cfg, [p1], sv, True)
+        assert all(_bitwise(g[v], w) for g, w in zip(layers, l1)), v
+
+
+def test_raster_stage_reads_scalars_at_replay(cuda):
+    """K9 and K10 captured in one CUDA graph on scene A's scan scalars and
+    replayed after scene B's are copied in: bitwise the eager calls on B."""
+    import raster_scenes
+    from groundgrid_torch.core import scalars
+    from groundgrid_torch.core.rasterize import COLUMN_OPS
+
+    scenes = [raster_scenes.seam_inputs((seed,), device=cuda) for seed in (20, 21)]
+    cfg = scenes[0][0]
+    n2 = cfg.cell_count ** 2
+    packed = [sc[1].ox._base for sc in scenes]  # each scene's (SIZE,) scan scalars
+    assert all(t.shape == (scalars.SIZE,) for t in packed)
+    buf = packed[0].clone()
+    static = [t.clone() for t in (*scenes[0][2], scenes[0][3], scenes[0][4])]
+
+    def stage(s):
+        from groundgrid_torch.core.rasterize import Binning
+
+        b = Binning(*static[:6])
+        order = torch.argsort(b.cell, stable=True)
+        cell, cols = raster_stage.raster_columns_ordered(cfg, b, static[6], static[7], s, order)
+        part = raster.raster_reduce(cell, cols, COLUMN_OPS, n2)
+        return (cell, *cols, *raster_stage.finish_layers(cfg, [part], s, True))
+
+    stage(scalars.view(buf))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = stage(scalars.view(buf))
+    for k in (1, 0):
+        buf.copy_(packed[k])
+        for dst, src in zip(static, (*scenes[k][2], scenes[k][3], scenes[k][4])):
+            dst.copy_(src)
+        graph.replay()
+        want = stage(scalars.view(packed[k]))
+        torch.cuda.synchronize()
+        assert all(_bitwise(g, w) for g, w in zip(out, want)), k
+    assert not _bitwise(out[-1], stage(scalars.view(packed[1]))[-1])  # the scenes differ
+
+
+# mutations of raster_stage.cu that the seam cases must catch
+RASTER_STAGE_MUTATIONS = {
+    "plane shift contracted": ("gg::add(gg::mul(s[kB20], xc), gg::mul(s[kB21], yc))",
+                               "__fmaf_rn(s[kB20], xc, gg::mul(s[kB21], yc))"),
+    "shards folded in reverse": ("a.cols[sh][j][k];", "a.cols[shards - sh][j][k];"),
+    "gi1 off the id": ("cell - gi0 * n, res", "cell - gi0 * n + 1, res"),
+    "count > 0 gate >=": ("count > 0.0f ? gg::add(", "count >= 0.0f ? gg::add("),
+    "min epsilon dropped": ("gg::sub(zmin, 1e-4f)", "zmin"),
+    "sentinel test flipped": ("(zmin < 1e30f)", "(zmin > 1e30f)"),
+    "max reset dropped": ("gg::clamp_min(zmax, kFltTiny)", "zmax"),
+    "empty shards fold": ("has_w ? w[5] : kMinSent", "w[5]"),
+    "outliers accepted": ("in & !a.ignored[k] & !a.outlier[k]", "in & !a.ignored[k]"),
+    "order ignored": ("(size_t)a.order[row + i]", "(size_t)i"),
+}
+
+
+def test_mutated_raster_stage_kernels_fail(cuda, tmp_path):
+    """Each mutation of ``RASTER_STAGE_MUTATIONS`` (the plane shift
+    contracted into an FMA, the shards folded in reverse, a gate or a
+    sentinel test flipped, the min epsilon or the max reset dropped, an
+    empty shard's zeros folded, outliers accepted, the order ignored, the
+    column index taken off the cell id wrongly), built alone with the
+    library's flags, differs from the plain stage (all layers) on at least
+    one seam case; the source unmutated, on none."""
+    import ctypes
+    import math
+
+    from groundgrid_torch.core import scalars
+
+    libs = _mutants("raster_stage.cu", RASTER_STAGE_MUTATIONS, tmp_path)
+    cases = []
+    for name, cfg, s, b, z, outlier, order, shards in _raster_cases(cuda):
+        chunks = _raster_chunks(b, z, outlier, order, shards)
+        want = _raster_run(cfg, s, chunks, raster_stage.raster_columns_ordered_plain,
+                          raster_stage.finish_layers_plain, True)
+        cases.append((name, cfg, s, chunks, want))
+    stream = torch.cuda.current_stream().cuda_stream
+    for mutant, lib_path in libs.items():
+        columns_entry = _entry(lib_path, "gg_raster_columns")
+        finish_entry = _entry(lib_path, "gg_raster_finish")
+
+        def columns(cfg, cb, cz, co, s, order):
+            base, stride = scalars.device_rows(s, cz)
+            cell = torch.full(cz.shape, -7, dtype=torch.int32, device=cuda)
+            cols = torch.full((7, *cz.shape), 3.5, device=cuda)
+            assert columns_entry(
+                None if order is None else order.data_ptr(),
+                *(t.data_ptr() for t in (cb.cell, cb.inmap, cb.ignored, co, cz)),
+                cz.shape[-1], math.prod(cz.shape[:-1]), cfg.cell_count, base, stride,
+                float(np.float32(cfg.resolution)), cell.data_ptr(),
+                cols.data_ptr(), stream) == 0
+            return cell, list(cols.unbind(0))
+
+        def finish(cfg, parts, s, aux):
+            first = parts[0][0]
+            base, stride = scalars.device_rows(s, first)
+            out = torch.full((len(raster_stage.KERNEL_LAYERS), *first.shape[:-1],
+                              cfg.cell_count, cfg.cell_count), 9.5, device=cuda)
+            col_ptrs = (ctypes.c_void_p * (7 * len(parts)))(
+                *[c.data_ptr() for part in parts for c in part])
+            assert finish_entry(ctypes.addressof(col_ptrs), len(parts), cfg.cell_count,
+                                math.prod(first.shape[:-1]), base, stride,
+                                float(np.float32(cfg.resolution)), int(aux), out.data_ptr(),
+                                stream) == 0
+            layers = dict(zip(raster_stage.KERNEL_LAYERS, out.unbind(0)))
+            return raster_stage.RasterLayers(**layers, mean_variance=layers["plane_dist"])
+
+        caught = []
+        for name, cfg, s, chunks, want in cases:
+            got = _raster_run(cfg, s, chunks, columns, finish, True)
+            if _same_raster(got, want) is not None:
+                caught.append(name)
+        if mutant == "none":
+            assert not caught, f"the unmutated source failed {caught}"
+        else:
+            assert caught, f"mutation {mutant!r} passed every case"
+
+
+@pytest.mark.parametrize("b,p,offset", [(1, 4097, 0), (1, 4096, 1), (3, 2050, 0), (4, 7, 0),
+                                        (2, 1001, 3), (1, 1, 0)])
+def test_binning_groups_cut_by_rows_and_alignment(cuda, b, p, offset):
+    """K5's groups of points: rows that do not start on a group (p not a
+    multiple of the vector width, in a batch), a tail, arrays offset from
+    their alignment (the scalar path), tiny scans; bitwise the plain
+    version, two runs bitwise."""
+    from groundgrid_torch.core import scalars, transforms
+
+    cfg = GroundGridConfig(**dict(SMALL_SORTED, max_points=max(p, 8)), max_ring=60)
+    rng = np.random.default_rng(p + offset)
+    pts = [_random_points(rng, cfg, p) for _ in range(b)]
+
+    def on_card(a):  # ``offset`` elements into a fresh buffer
+        flat = np.concatenate([np.zeros(offset, a.dtype), a.reshape(-1)])
+        t = torch.from_numpy(flat).to(cuda)[offset:]
+        return t.view(b, p) if b > 1 else t
+
+    x, y, _, rings, valid = (on_card(np.stack(a)) for a in zip(*pts))
+    rows = [scalars.pack(cfg, rng.normal(0, 0.2, 2).astype(np.float32), np.zeros(2, np.float32),
+                         (0, 0), transforms.translation(*rng.normal(0, 0.5, 2), 1.7), np.eye(4),
+                         np.eye(4)) for _ in range(b)]
+    s = scalars.view(torch.from_numpy(np.stack(rows) if b > 1 else rows[0]).to(cuda))
+    want = binning.bin_points_plain(cfg, s, x, y, rings, valid)
+    got, again = (binning.bin_points(cfg, s, x, y, rings, valid) for _ in range(2))
+    for f, g, a, w in zip(want._fields, got, again, want):
+        assert _bitwise(g, w), f
+        assert _bitwise(a, g), f
+
+
+# a mutation of binning.cu's scalar path (a group cut by the row's end)
+BINNING_MUTATIONS = {
+    "tail drops its last point": ("for (long long k = lo; k < hi; ++k)",
+                                  "for (long long k = lo; k < hi - 1; ++k)"),
+}
+
+
+def test_mutated_binning_kernels_fail(cuda, tmp_path):
+    """The mutation of ``BINNING_MUTATIONS``, built alone with the library's
+    flags, leaves a point of a 4097-point scan unwritten (outputs filled
+    with a sentinel first); the source unmutated writes every point as the
+    plain version."""
+    import math
+
+    from groundgrid_torch.core import exactf32, scalars, transforms
+    from groundgrid_torch.core.rasterize import Binning
+
+    libs = _mutants("binning.cu", BINNING_MUTATIONS, tmp_path)
+    p = 4097
+    cfg = GroundGridConfig(**dict(SMALL_SORTED, max_points=p), max_ring=60)
+    rng = np.random.default_rng(5)
+    x, y, _, rings, valid = (torch.from_numpy(a).to(cuda) for a in _random_points(rng, cfg, p))
+    packed = scalars.pack(cfg, np.zeros(2, np.float32), np.zeros(2, np.float32), (0, 0),
+                          transforms.translation(0.3, -0.2, 1.7), np.eye(4), np.eye(4))
+    s = scalars.view(torch.from_numpy(packed).to(cuda))
+    want = binning.bin_points_plain(cfg, s, x, y, rings, valid)
+    base, stride = scalars.device_rows(s, x)
+    rh, rl, inv = exactf32.res_ds(cfg.resolution)
+    for name, lib_path in libs.items():
+        out = Binning(*(torch.full_like(t, 1 if t.dtype == torch.bool else 77) for t in want))
+        out = out._replace(inmap=torch.ones_like(want.inmap) ^ want.inmap)  # every flag wrong
+        assert _entry(lib_path, "gg_bin")(
+            x.data_ptr(), y.data_ptr(), rings.data_ptr(), valid.data_ptr(), p, 1, base, stride,
+            cfg.cell_count, float(rh), float(rl), float(inv), int(cfg.max_ring),
+            float(np.float32(cfg.min_dist_squared)), *(t.data_ptr() for t in out),
+            torch.cuda.current_stream().cuda_stream) == 0
+        same = all(_bitwise(g, w) for g, w in zip(out, want))
+        assert same == (name == "none"), name
+    assert math.prod(want.cell.shape) == p
 
 
 def test_wrappers_reject_bad_input(cuda):

@@ -355,7 +355,9 @@ def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
 
 def test_step_stages_are_profiler_ranges():
     """Under ``torch.profiler`` every stage of the eager step is one range
-    a step, holding its ops; outside one, the body dispatches no range."""
+    a step, holding its ops, and so is each part of the raster stage (the
+    sort, the check, K9, K1, K10: a sorted config with the check runs all
+    five); outside one, the body dispatches no range."""
     from groundgrid_torch.data.synthetic import synthetic_sequence
     from groundgrid_torch.runtime.driver import ScanRecord, StreamingDriver
     from groundgrid_torch.runtime.kernel_timing import stage_us
@@ -372,10 +374,11 @@ def test_step_stages_are_profiler_ranges():
         for rec in recs[1:]:
             driver.process(rec)
     ranges = [e for e in prof.events() if e.is_user_annotation]
-    ran = [s for s in tpipe.STAGES if s != "aux"]
+    ran = [s for s in tpipe.STAGES if s != "aux"] + list(tpipe.RASTER_PARTS)
     assert sorted(e.name for e in ranges) == sorted(ran * 2)
     for e in ranges:
         if e.name not in ("transform",):  # sorted scans: nothing to transform
             assert e.cpu_children, e.name
     assert set(stage_us(prof, tpipe.STAGES)) == set(tpipe.STAGES)  # no device: zeros
+    assert set(stage_us(prof, tpipe.RASTER_PARTS)) == set(tpipe.RASTER_PARTS)
     assert not torch.autograd._profiler_enabled()
