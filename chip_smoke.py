@@ -30,7 +30,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    update fires: ground and confidence bitwise, two runs bitwise; timed at
    both grid sizes), K5 bin_points (a prepared scan: the six outputs
    bitwise, and the cell ids bitwise the host prep's), K6 march_budget and
-   K7 march (a warm scan's budgets, keys, directions and top-k candidates,
+   K7 march (a warm scan's budgets, keys, directions and selected candidates,
    as the step builds them by the plain versions, K6 reading each point's
    old ground from the moved grid, bitwise K2's plain gather and the plain
    budget, K7 walking K6's own outputs over the moved layers; bitwise,
@@ -50,7 +50,14 @@ Phases (any failure raises and exits non-zero, printing no result):
    through the stable sort's order of the sorted scan and of the scan
    shuffled, K10 over K1's columns with the main path's three layers, with
    all layers and the max, and over 4 shards' columns; bitwise their plain
-   versions); each of K4-K10 two runs bitwise. K3's ring ranges (``spiral_interpolation_rings``) at
+   versions); K11 select_candidates (``check_select``: a warm scan's
+   budgets and keys, the scan twice over, 262,144 points on the exact key,
+   and storms of 20,000 marchable points at 2^17 and 2^18, past the cap:
+   the indices and the marchable count bitwise its plain version; timed in
+   turns against ``torch.topk`` of the same keys, its library column); K12
+   move (``check_move``: the warm state moved by a scan's shift, a large
+   shift and a wipe, bitwise the plain move, the inputs untouched); each of
+   K4-K12 two runs bitwise. K3's ring ranges (``spiral_interpolation_rings``) at
    364^2 and 1200^2 (warm states, ``HIGHRES_CONFIG`` for the latter) and at
    n = 2416 (the global band, random layers): the bands of S = 2 and 8 in
    order bitwise one full launch, one band against its plain version (the
@@ -63,18 +70,20 @@ Phases (any failure raises and exits non-zero, printing no result):
    3.35 TB/s or its f32 operations over 67 TFLOP/s: K2 reads only the
    distinct cells its ids name, K6 computes rays for candidates alone, K7
    counts the live steps up to each candidate's first hit and the cells
-   they read in both layers) and, for K2, one ``torch.index_select``
-   over the stacked tables, timed in turns with the kernel (no one PyTorch
-   call computes K1, K3 or K4). Then the batched launches of the unsorted
-   fleet (``check_batched``): K1, K2 (the points' 2 tables and the march
-   lattice's 1), K3-K10 on a batch of 64 vehicles at 364^2 (8 warm
-   scans cycled, each vehicle's layers made distinct), each bitwise its
+   they read in both layers, K11 reads the keys only past the cap, K12
+   reads no exposed cell) and, for K2, one ``torch.index_select`` over
+   the stacked tables, for K11 one ``torch.topk``, timed in turns with
+   the kernel (no one PyTorch call computes K1, K3-K10 or K12). Then the
+   batched launches of the unsorted fleet (``check_batched``): K1, K2 (the
+   points' 2 tables and the march lattice's 1), K3-K12 on a batch of 64
+   vehicles at 364^2 (8 warm scans cycled, each vehicle's layers made
+   distinct), each bitwise its
    64 single launches and against its plain batched version (K3 at its
    bounds above); the batched launch's device ms against the 64 single
    launches' summed device ms, both calls' CUDA-event ms, the plain
    batched call's ms and the bound of the batch's work.
 3. ``StreamingDriver`` with the default sorted config over 32 consecutive
-   synthetic scans: per-scan launch counts (K1, K2, K3, K5-K10 x1; a replay
+   synthetic scans: per-scan launch counts (K1, K2, K3, K5-K12 x1; a replay
    of the captured step adds the launches its capture recorded), no
    sortedness fallback, every step after the first (every replay) under
    ``torch.cuda.set_sync_debug_mode("error")`` (no device-to-host read),
@@ -103,7 +112,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    ``playback --native-loader --pipeline-depth 2`` with layer and HTML
    exports. The C++ loaders must be native; (a)-(d) and the resumed (f)
    print the same statistics block and metrics; (e) is within 0.1 pt of (a)
-   on F1 and IoUg; per scan K1 x1 (x2 for (g)), K2, K3, K5-K10 x1 and no
+   on F1 and IoUg; per scan K1 x1 (x2 for (g)), K2, K3, K5-K12 x1 and no
    sortedness fallback; (g) writes 11 layer PNGs per exported scan and the
    player. Prints ms/scan per variant (the payload's and CUDA events around
    the call) and the host prep p50 of NumPy against the native loader.
@@ -132,7 +141,7 @@ Phases (any failure raises and exits non-zero, printing no result):
 9. BASELINE.json config 5, the fleet: ``FleetDriver(GroundGridConfig(
    sorted_scans=True), batch=64, device)`` for 4 ticks, vehicle v on phase
    3's records from record v mod 32 (backward for v >= 32): per tick K1,
-   K2, K3, K5-K10 x64, the step of ticks 2-4 under the sync check (host prep
+   K2, K3, K5-K12 x64, the step of ticks 2-4 under the sync check (host prep
    and the tick's one fetch outside), the summary equal to the fetched
    labels' counts; every vehicle's labels and outliers (the fleet's one
    captured vehicle step) bitwise those of an eager ``StreamingDriver``
@@ -144,7 +153,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    metric line. Then the unsorted fleet (``phase_fleet_unsorted``), the
    default ``GroundGridConfig()`` with 64 vehicles on the same streams,
    stepped as one batched body captured as one graph a tick: per tick K1,
-   K2, K3, K5-K10 x1, ticks 2-4 under the sync check, the summary, ms per
+   K2, K3, K5-K12 x1, ticks 2-4 under the sync check, the summary, ms per
    tick with host prep and fetch, the capture's seconds and pool bytes;
    labels, outliers and the final state bitwise 64 single captured
    unsorted steps (the same fleet vehicle by vehicle, one replay per
@@ -159,7 +168,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    centers, both spiral modes: (a) ``HIGHRES_CONFIG`` (1200^2) over
    ``["cuda:0"] * 8``, (b) the default 364^2 over ``["cuda:0"] * 4``, each
    over the first 8 scans. The eager ``SpatialStep``: launches per scan K1,
-   K2, K3, K5-K10 x S, steps 2-8 under the sync check, banded ==
+   K2, K3, K5-K12 x S, steps 2-8 under the sync check, banded ==
    replicated bitwise (labels, outliers, ground, groundpatch), a second run
    of each bitwise the first, against the single-grid ``Step`` over the
    same scans labels >= 99.95 %, ground atol 2e-4 / rtol 1e-4, groundpatch
@@ -382,10 +391,10 @@ def march_inputs(config, driver, rec):
     the step builds them, by the plain versions (the budgets from K2's plain
     gather of the old ground): the prepared scan, its scan scalars and
     binning, the moved layers, the budgets, keys and directions, and the
-    top-k candidates."""
+    selected candidates (K11's plain version)."""
     from groundgrid_torch.core import grid as gridlib
     from groundgrid_torch.core import outliers
-    from groundgrid_torch.ops import lookup
+    from groundgrid_torch.ops import lookup, select
 
     scan, s, binning, _ = prepared(config, driver, rec)
     ground, conf = gridlib.move(config, driver.state.ground, driver.state.groundpatch, s)
@@ -395,7 +404,7 @@ def march_inputs(config, driver, rec):
     k = min(config.max_outlier_candidates, scan.px.shape[-1])
     return {"scan": scan, "s": s, "binning": binning, "ground": ground, "conf": conf,
             "budget": budget, "key": key, "dirs": dirs,
-            "pidx": torch.topk(key, k, dim=-1, sorted=False).indices}
+            "pidx": select.select_candidates_plain(budget, key, k)[0]}
 
 
 def march_lattice(config, driver, rec):
@@ -1040,12 +1049,14 @@ def host_packed(config, driver, scan):
     return host_scalars(config, driver.state.center_np, driver.state.center_lo_np, scan)[0]
 
 
-# the kernels line's further keys: K6 and K7's registers and spills, the
-# key table K7 folds in, K8's plain stage on the profiler, K9 on a shuffled
-# scan, K10 with all layers and over 4 shards
+# the kernels line's further keys: registers and spills, the key table K7
+# folds in, K8's plain stage on the profiler, K9 on a shuffled scan, K10
+# with all layers and over 4 shards, K11's torch.topk launches, K12's wipe
+# (and, by prefix, K11's other cases)
 EXTRA_KEYS = ("registers", "spill_store_bytes", "spill_load_bytes", "key_table_device_ms",
               "key_table_launches", "plain_device_ms", "plain_launches", "shuffled_device_ms",
-              "aux_device_ms", "shards4_device_ms")
+              "aux_device_ms", "shards4_device_ms", "library_launches", "wipe_device_ms")
+EXTRA_PREFIXES = ("one_table_", "exact_key_", "overflow_")
 
 
 def march_work(config, s, ground, conf, pidx, budget, dirs):
@@ -1408,17 +1419,17 @@ FINISH_BYTES, FINISH_AUX_BYTES, FINISH_LAYER_BYTES, FINISH_FLOPS = 24, 28, 4, 10
 def raster_stage_inputs(config, driver, rec):
     """The raster stage's inputs on scan ``rec`` from the driver's warm
     state, as the main path builds them: the scan scalars, the binning (K5),
-    z, the march's outlier flags (K6, K7) and the stable sort's order (of
-    the sorted scan, the identity)."""
-    from groundgrid_torch.core import grid as gridlib
+    z, the march's outlier flags (K6, K11, K7) and the stable sort's order
+    (of the sorted scan, the identity)."""
     from groundgrid_torch.core import outliers
-    from groundgrid_torch.ops import binning, march
+    from groundgrid_torch.ops import binning, march, move, select
 
     scan, s, _, _ = prepared(config, driver, rec)
     b = binning.bin_points(config, s, scan.px, scan.py, scan.rings, scan.valid > 0)
-    ground, conf = gridlib.move(config, driver.state.ground, driver.state.groundpatch, s)
+    ground, conf = move.move(config, driver.state.ground, driver.state.groundpatch, s)
     outlier, _ = outliers.detect_outliers(config, s, ground, conf, b, scan.px, scan.py,
-                                          scan.pz, march.march_budget, march.march)
+                                          scan.pz, march.march_budget,
+                                          select.select_candidates, march.march)
     return s, b, scan.pz, outlier, torch.argsort(b.cell, dim=-1, stable=True)
 
 
@@ -1627,7 +1638,7 @@ def check_march(config, driver, rec):
     from groundgrid_torch.core import outliers
     from groundgrid_torch.core.rasterize import Binning
     from groundgrid_torch.runtime.kernel_timing import device_ms
-    from groundgrid_torch.ops import march
+    from groundgrid_torch.ops import march, select
 
     x = march_inputs(config, driver, rec)
     scan, s, b = x["scan"], x["s"], x["binning"]
@@ -1656,7 +1667,7 @@ def check_march(config, driver, rec):
     plain = march.march_budget_plain(config, s, two, *big, ground)
     if not same_budgets(got, plain):
         raise AssertionError("K6 on 262,144 points differs from the plain version")
-    pidx = torch.topk(plain[1], config.max_outlier_candidates, sorted=False).indices
+    pidx = select.select_candidates_plain(plain[0], plain[1], config.max_outlier_candidates)[0]
     if not bitwise(march.march(config, s, ground, conf, pidx, got[0], got[2]),
                    march.march_plain(config, s, ground, conf, pidx, plain[0], plain[2])):
         raise AssertionError("K7 on 262,144 points differs from the plain version")
@@ -1707,6 +1718,196 @@ def check_march(config, driver, rec):
         f"{table_ms:.4f} device ms, {table_acts / reps:g} launches a call")
     return k6, k7
 
+
+SELECT_BYTES_POINT, SELECT_BYTES_KEY, SELECT_BYTES_OUT = 4, 8, 8
+
+
+def select_cost(budget, key, k):
+    """K11's bytes on these inputs, each row: its budgets read once; its keys
+    only where a row has more marchable points than ``k`` (the radix
+    select); ``k`` indices and the count written."""
+    rows = budget.reshape(-1, budget.shape[-1])
+    over = int(((rows > 0).sum(-1) > k).sum())
+    return (SELECT_BYTES_POINT * rows.numel() + SELECT_BYTES_KEY * over * rows.shape[-1]
+            + SELECT_BYTES_OUT * (k + 1) * rows.shape[0])
+
+
+def overflow_budgets(p, n_pos, seed, device):
+    """A storm's (p,) budgets: ``n_pos`` positive (squared ray lengths of 0.2
+    to 20 m, rounded to a few values so the cap falls inside tied groups)
+    at random slots, the rest 0; and their selection keys."""
+    from groundgrid_torch.core import outliers
+
+    rng = np.random.default_rng(seed)
+    out = np.zeros(p, np.float32)
+    slots = rng.choice(p, n_pos, replace=False)
+    out[slots] = (np.round(rng.uniform(0.04, 400.0, n_pos) / 40.0) * 40.0 + 0.5).astype(
+        np.float32)
+    budget = torch.from_numpy(out).to(device)
+    return budget, outliers.selection_key(budget)
+
+
+def check_select(config, driver, rec):
+    """K11 on a warm scan's budgets and keys (the march's inputs, as the step
+    builds them), on the scan twice over (262,144 points: the exact-budget
+    key) and on two storms past the cap (20,000 marchable points at 2^17 and
+    2^18: the radix select on both keys): bitwise its plain version (the
+    indices and the marchable count), two runs bitwise. Times: the kernel in
+    turns against ``torch.topk`` of the same keys (kernel, topk, topk,
+    kernel; the library column), the plain version, the bound; registers
+    and spills."""
+    from groundgrid_torch.core import outliers
+    from groundgrid_torch.ops import select
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    x = march_inputs(config, driver, rec)
+    budget, key = x["budget"], x["key"]
+    k = min(config.max_outlier_candidates, budget.shape[-1])
+    twice = torch.cat([budget, budget])
+    cases = {"scan": (budget, key), "exact_key": (twice, outliers.selection_key(twice)),
+             "overflow": overflow_budgets(budget.shape[-1], 20000, 1, budget.device),
+             "overflow_exact": overflow_budgets(2 * budget.shape[-1], 20000, 2, budget.device)}
+    for name, (b, kk) in cases.items():
+        want = select.select_candidates_plain(b, kk, k)
+        for run in range(2):
+            got = select.select_candidates(b, kk, k)
+            if not (bitwise(got[0], want[0]) and bitwise(got[1], want[1])):
+                raise AssertionError(f"K11 ({name}, run {run + 1}) differs from the plain "
+                                     f"version")
+    if int(select.select_candidates(budget, key, k)[1]) > k:
+        raise AssertionError("K11: the warm scan overflows the cap")
+    result = {"max_abs_err": 0.0, "marchable": int((budget > 0).sum()), "candidates": k}
+
+    def timed(b, kk):
+        def kernel():
+            return select.select_candidates(b, kk, k)
+
+        def library():
+            return torch.topk(kk, k, dim=-1, sorted=False)
+
+        out = kernel_times(kernel, 100, "select_kernel",
+                           lambda: select.select_candidates_plain(b, kk, k), 20)
+        # kernel and library in turns (kernel, library, library, kernel)
+        lib_runs = [device_ms(library, 100)[0], device_ms(library, 100)[0]]
+        dev_runs = [out["device_ms"], kernel_times(kernel, 100, "select_kernel")["device_ms"]]
+        out.update(device_ms=sum(dev_runs) / 2, library_ms=sum(lib_runs) / 2,
+                   device_turns=dev_runs, library_turns=lib_runs,
+                   library_launches=device_ms(library, 20)[1] / 20)
+        out.update(bound(select_cost(b, kk, k), 0))
+        return out
+
+    for name, (b, kk) in cases.items():
+        res = timed(b, kk)
+        if name == "scan":
+            result.update(res)
+        else:
+            result.update({f"{name}_{field}": v for field, v in res.items()
+                           if field in ("device_ms", "library_ms", "call_ms", "plain_ms",
+                                        "bound_ms")})
+        log(f"K11 select ({name}, {b.shape[-1]} points, {int((b > 0).sum())} marchable, k = "
+            f"{k}): bitwise the plain version, two runs bitwise; device "
+            f"{res['device_turns'][0]:.4f} / {res['device_turns'][1]:.4f} ms, torch.topk "
+            f"{res['library_turns'][0]:.4f} / {res['library_turns'][1]:.4f} ms "
+            f"({res['library_launches']:g} device activities a call) in turns, call "
+            f"{res['call_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+            f"{res['bound_ms']:.5f} ms ({res['bound_by']})")
+    result.pop("device_turns"), result.pop("library_turns")
+    usage = ptxas_usage("select.cu", ("select_kernel",))["select_kernel"]
+    result["registers"], result["spill_store_bytes"], result["spill_load_bytes"] = usage
+    log(f"K11 select: {usage[0]} registers, spills {usage[1]} / {usage[2]} bytes")
+    return result
+
+
+
+def select_batch(config, driver, records, b=None):
+    """K11 on a batch of ``b`` (FLEET_BATCH) warm scans' budgets and keys
+    (``records[4:12]`` cycled, as :func:`march_inputs` builds them): one
+    launch bitwise the plain batched version and each row its single
+    launch; its device ms and bound (``kernel_turns.py`` times each tree's
+    K11 so, by this script's probe)."""
+    from groundgrid_torch.ops import select
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    b = FLEET_BATCH if b is None else b
+    rows = [march_inputs(config, driver, rec) for rec in records[4:12]]
+    budget = torch.stack([rows[v % len(rows)]["budget"] for v in range(b)])
+    key = torch.stack([rows[v % len(rows)]["key"] for v in range(b)])
+    k = min(config.max_outlier_candidates, budget.shape[-1])
+    got, want = select.select_candidates(budget, key, k), select.select_candidates_plain(
+        budget, key, k)
+    if not all(bitwise(g, w) for g, w in zip(got, want)):
+        raise AssertionError("K11 batched differs from its plain batched version")
+    for v in range(min(b, len(rows))):
+        one = select.select_candidates(budget[v], key[v], k)
+        if not (bitwise(got[0][v], one[0]) and bitwise(got[1][v], one[1])):
+            raise AssertionError(f"K11 batched: row {v} differs from its single launch")
+    out = {"device_ms": device_ms(lambda: select.select_candidates(budget, key, k), 20,
+                                  "select_kernel")[0],
+           **bound(select_cost(budget, key, k), 0)}
+    log(f"K11 select_candidates, B = {b}: bitwise the plain batched version and its single "
+        f"launches; device {out['device_ms']:.5f} ms, bound {out['bound_ms']:.5f} ms "
+        f"({out['bound_by']})")
+    return out
+
+MOVE_BYTES_KEPT, MOVE_BYTES_CELL = 8, 8  # a kept cell's two words read; two written
+
+
+def move_cost(config, s):
+    """K12's bytes on these scan scalars: both layers written at every cell,
+    read at the cells the shift keeps (an exposed cell reads nothing)."""
+    from groundgrid_torch.core import grid as gridlib
+
+    n = config.cell_count
+    exposed = gridlib.exposed_mask(n, s.k0, s.k1, s.k0.device)
+    cells = exposed.numel()
+    return MOVE_BYTES_CELL * cells + MOVE_BYTES_KEPT * (cells - int(exposed.sum()))
+
+
+def check_move(config, driver, rec):
+    """K12 on the driver's warm state with scan ``rec``'s scan scalars (the
+    step's move), with a large shift (37, -150) and with a wipe (n, n):
+    bitwise the plain move (``core/grid.py move``), two runs bitwise, the
+    inputs untouched. Times on the warm scan's move; the bound; registers
+    and spills. No single PyTorch call computes it (``torch.roll`` moves
+    the layers but resets no exposed cell)."""
+    from groundgrid_torch.core import scalars as scalarlib
+    from groundgrid_torch.ops import move
+
+    scan, _ = driver.make_scan(rec)
+    packed = host_packed(config, driver, scan)
+    n = config.cell_count
+    ground, conf = driver.state.ground.clone(), driver.state.groundpatch.clone()
+    cases = {}
+    for name, k in (("scan", None), ("large_shift", (37, -150)), ("wipe", (n, n))):
+        p = packed.copy()
+        if k is not None:
+            p.view(np.int32)[scalarlib.K0], p.view(np.int32)[scalarlib.K1] = k
+        cases[name] = scalarlib.view(torch.from_numpy(p).to(driver.device))
+    for name, s in cases.items():
+        want = move.move_plain(config, ground, conf, s)
+        for run in range(2):
+            got = move.move(config, ground, conf, s)
+            if not all(bitwise(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"K12 ({name}, run {run + 1}) differs from the plain move")
+        if not (bitwise(ground, driver.state.ground) and bitwise(conf, driver.state.groundpatch)):
+            raise AssertionError(f"K12 ({name}) wrote its inputs")
+    s = cases["scan"]
+    out = {"max_abs_err": 0.0, "library_ms": None, "shift": [int(s.k0), int(s.k1)]}
+    out.update(kernel_times(lambda: move.move(config, ground, conf, s), 100, "move_kernel",
+                            lambda: move.move_plain(config, ground, conf, s), 20))
+    out.update(bound(move_cost(config, s), 0))
+    wipe = kernel_times(lambda: move.move(config, ground, conf, cases["wipe"]), 100,
+                        "move_kernel")
+    out["wipe_device_ms"] = wipe["device_ms"]
+    usage = ptxas_usage("move.cu", ("move_kernel",))["move_kernel"]
+    out["registers"], out["spill_store_bytes"], out["spill_load_bytes"] = usage
+    log(f"K12 move: the warm scan's shift {out['shift']}, a large shift (37, -150) and a wipe "
+        f"({n}, {n}) bitwise the plain move, two runs bitwise, inputs untouched; device "
+        f"{out['device_ms']:.4f} ms (the wipe {wipe['device_ms']:.4f}), call "
+        f"{out['call_ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.5f} ms ({out['bound_by']}); {usage[0]} registers, spills "
+        f"{usage[1]} / {usage[2]} bytes")
+    return out
 
 def batched_inputs(config, driver, records, b):
     """Phase 2's batch of ``b`` vehicles at the main path's shapes: the
@@ -1872,21 +2073,22 @@ def check_batched(config, driver, records, b=None):
     out["detect_stage"] = stage_batch(config, driver, records, b, layers)
     out.update(check_batched_fused(config, x, b))
     log(f"batched kernels, B = {b} at {n}^2: K1, K2 (points and march lattice), K3, K4, K8, "
-        f"K5, K6, K7, K9 and K10 each bitwise its {b} single launches and against its plain "
-        f"batched version")
+        f"K5, K6, K11, K7, K9, K10 and K12 each bitwise its {b} single launches and against "
+        f"its plain batched version")
     return out
 
 
 def check_batched_fused(config, x, b):
-    """K5, K6, K7, K9 and K10 on the batch of :func:`batched_inputs` (each
-    vehicle its scan, scan scalars and moved layers; K9 through the stable
-    sort's order of K5's ids, with K7's outlier flags; K10 over K1's
-    columns, the main path's three layers), each bitwise its ``b`` single
+    """K5, K6, K11, K7, K9, K10 and K12 on the batch of :func:`batched_inputs`
+    (each vehicle its scan, scan scalars and moved layers; K11 over K6's
+    budgets and keys; K9 through the stable sort's order of K5's ids, with
+    K7's outlier flags; K10 over K1's columns, the main path's three
+    layers; K12 moving each vehicle's grid), each bitwise its ``b`` single
     launches and its plain batched version; timed against the single
     launches (``batched_times``)."""
     from groundgrid_torch.core import scalars as scalarlib
     from groundgrid_torch.core.rasterize import COLUMN_OPS, MAIN_LAYERS, Binning
-    from groundgrid_torch.ops import binning, march, raster, raster_stage
+    from groundgrid_torch.ops import binning, march, move, raster, raster_stage, select
 
     sb = scalarlib.view(x["scalars"])
     rows = [scalarlib.view(x["scalars"][v]) for v in range(b)]
@@ -1937,7 +2139,15 @@ def check_batched_fused(config, x, b):
         *budget_cost(p * b, budget_work(config, bins, pz, ground), int((budget > 0).sum()))))
 
     k = min(config.max_outlier_candidates, p)
-    pidx = torch.topk(key, k, dim=-1, sorted=False).indices
+    sel_args = (budget, key, k)
+    pidx, _ = select.select_candidates(*sel_args)
+    check("K11", select.select_candidates(*sel_args), select.select_candidates_plain(*sel_args),
+          lambda v: select.select_candidates(budget[v], key[v], k))
+    out["select"] = dict(max_abs_err=0.0, **batched_times(
+        "K11 select_candidates", lambda: select.select_candidates(*sel_args),
+        lambda: [select.select_candidates(budget[v], key[v], k) for v in range(b)],
+        lambda: select.select_candidates_plain(*sel_args), "select_kernel", b,
+        select_cost(budget, key, k), 0))
     march_args = (config, sb, ground, conf, pidx, budget, dirs)
 
     def single_march(v):
@@ -1989,6 +2199,16 @@ def check_batched_fused(config, x, b):
                  for v in range(b)],
         lambda: finish(raster_stage.finish_layers_plain, sb, part), "raster_finish_kernel", b,
         (FINISH_BYTES + FINISH_LAYER_BYTES * len(MAIN_LAYERS)) * n2 * b, FINISH_FLOPS * n2 * b))
+
+    # K12: the batch's grids (before the move) moved by each vehicle's shift
+    move_args = (config, x["ground"], x["conf"], sb)
+    check("K12", move.move(*move_args), move.move_plain(*move_args),
+          lambda v: move.move(config, x["ground"][v], x["conf"][v], rows[v]))
+    out["move"] = dict(max_abs_err=0.0, **batched_times(
+        "K12 move", lambda: move.move(*move_args),
+        lambda: [move.move(config, x["ground"][v], x["conf"][v], rows[v]) for v in range(b)],
+        lambda: move.move_plain(*move_args), "move_kernel", b,
+        sum(move_cost(config, rows[v]) for v in range(b)), 0))
     return out
 
 
@@ -2115,11 +2335,12 @@ def path_launches(steps, raster=None, detect=0):
     """The main path's launches over ``steps`` steps (or shards, or batched
     steps): K1 (``raster``: twice a step with the aux count), K2 (ground and
     variance for classify; K6 reads the old ground itself), K3, K5, K6, K7,
-    K9 and K10 x1, K4 ``detect`` (the fused detect, ``steps`` or 0) and K8
-    the other steps."""
+    K9, K10, K11 and K12 x1, K4 ``detect`` (the fused detect, ``steps`` or
+    0) and K8 the other steps."""
     return {"raster": steps if raster is None else raster, "lookup": steps, "spiral": steps,
             "detect": detect, "bin": steps, "march_budget": steps, "march": steps,
-            "detect_stage": steps - detect, "raster_columns": steps, "raster_finish": steps}
+            "detect_stage": steps - detect, "raster_columns": steps, "raster_finish": steps,
+            "select": steps, "move": steps}
 
 
 def check_launches(counts, want, driver, name):
@@ -2437,7 +2658,7 @@ def phase_entry_point(config, records, device):
     log(f"entry point: (a)-(d) and resumed (f) bitwise (statistics block and metrics: "
         f"F1 {metrics['a']['f1']:.6f}, IoUg {metrics['a']['ioug']:.6f}); wire (e) "
         f"F1 {metrics['e']['f1']:.6f}, IoUg {metrics['e']['ioug']:.6f}; launches per scan "
-        f"K1 x1 (x2 playback), K2, K3, K5-K10 x1; 0 fallbacks; loaders native; "
+        f"K1 x1 (x2 playback), K2, K3, K5-K12 x1; 0 fallbacks; loaders native; "
         f"{len(exported)} layer PNGs and the player written")
     names = {"a": "evaluate, NumPy prep", "b": "--native-loader",
              "c": "--native-loader --pipeline-depth 2", "d": "--native-loader --on-device-eval",
@@ -3059,7 +3280,7 @@ def phase_spatial(config, records, device, n_shards):
     rate = 1 - mism / (n * config.max_points)
     if rate < 0.9995:
         raise AssertionError(f"{name}: {mism} labels differ from the single-grid step")
-    log(f"{name}, {n} scans: launches per scan K1, K2, K3, K5-K10 x{n_shards} in both spiral "
+    log(f"{name}, {n} scans: launches per scan K1, K2, K3, K5-K12 x{n_shards} in both spiral "
         f"modes; steps 2-{n} under the sync check; banded == "
         f"replicated bitwise (labels, outliers, ground, groundpatch); second runs bitwise; vs "
         f"the single-grid step {mism} of {n * config.max_points} labels differ ({points} "
@@ -3516,6 +3737,8 @@ def main() -> int:
     k5 = check_binning(config, driver, records[4])
     k9, k10, _ = check_raster_stage(config, driver, records[4])
     k6, k7 = check_march(config, driver, records[4])
+    k11 = check_select(config, driver, records[4])
+    k12 = check_move(config, driver, records[4])
     batched = check_batched(config, driver, records[4:12])
     del driver
     torch.cuda.synchronize()
@@ -3568,6 +3791,10 @@ def main() -> int:
          "raster_columns", k9, counts),
         ("finish_layers", "raster_stage.cu", "groundgrid_tpu/core/rasterize.py:409",
          "raster_finish", k10, counts),
+        # and of its candidate selection and grid move
+        ("select_candidates", "select.cu", "groundgrid_tpu/core/outliers.py:228", "select", k11,
+         counts),
+        ("move", "move.cu", "groundgrid_tpu/core/grid.py:143", "move", k12, counts),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"groundgrid_torch/csrc/{route_file}",
@@ -3585,7 +3812,7 @@ def main() -> int:
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
             **{k: v for k, v in res.items()
                if k.endswith(("_highres", "_364", "_1200", "_2416")) or k in EXTRA_KEYS
-               or k.startswith("one_table_")},
+               or k.startswith(EXTRA_PREFIXES)},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,8 +15,8 @@ the ``max_outlier_candidates`` cap, and the selection keys, so overflow
 sheds the same candidates: up to 2^17 points, the truncated 15-bit monotone
 budget in the high bits and the point index in the low 17 (ties: the higher
 index first); above, the exact budget, descending, ties to the lower index,
-as ``lax.top_k`` orders them. Both keys are unique int64s, so
-``torch.topk`` has no tie to break. The three per-sample table tests fold
+as ``lax.top_k`` orders them. Both keys are unique int64s, so the
+selection has no tie to break. The three per-sample table tests fold
 into one monotone u32 key per cell.
 
 What is not: the tier/peel lattice, the while loops, the 2-wide pair table
@@ -28,15 +28,17 @@ false), so the padded buffer marks the outliers of the marchable ones
 alone, and the march reads nothing back to the host.
 
 :func:`detect_outliers` is three stages: the per-point budgets, keys and
-ray directions (:func:`march_budget`), ``torch.topk`` over the keys, and
-the march of the selected candidates along those directions
+ray directions (:func:`march_budget`), the candidate selection over the
+keys (``ops/select.py select_candidates_plain``: the marchable points, or
+the top keys past the cap, as a stable partition of the point indices),
+and the march of the selected candidates along those directions
 (:func:`march`) against the moved ground and groundpatch. The first and
-the last are the plain versions of K6 and K7 (``ops/march.py``), which
-fuse each chain into one launch on the card, as XLA fuses it for the JAX
-package; K7 folds the occlusion key of each cell it reads into the walk,
-where the plain march builds the whole key table
-(:func:`occlusion_key_table`) and reads it through K2's plain version,
-which takes unsorted cells.
+the last are the plain versions of K6 and K7 (``ops/march.py``), the
+selection that of K11 (``ops/select.py``); each fuses its chain into one
+launch on the card, as XLA fuses it for the JAX package. K7 folds the
+occlusion key of each cell it reads into the walk, where the plain march
+builds the whole key table (:func:`occlusion_key_table`) and reads it
+through K2's plain version, which takes unsorted cells.
 
 A batch of vehicles, (B, P) points, (B, N, N) layers and (B, 1) scan
 scalars, marches each row against its own grid: the selection takes each
@@ -204,7 +206,7 @@ def march(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs, 
 
 
 def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: Binning, x, y,
-                    z, budget_fn, march_fn):
+                    z, budget_fn, select_fn, march_fn):
     """``((P,) bool, () int64)``: True for occluded-return outliers, and the
     number of marchable candidates (before the ``max_outlier_candidates``
     cap; 0 when the cap is 0) as a tensor on the points' device, unread.
@@ -212,15 +214,18 @@ def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: B
 
     ``ground``/``groundpatch``: the previous scan's layers (after the move).
     ``s``: the scan scalars (the sensor origin and the binning constants,
-    ``core/scalars.py``). ``budget_fn`` / ``march_fn``:
+    ``core/scalars.py``). ``budget_fn`` / ``select_fn`` / ``march_fn``:
     ``ops.march.march_budget`` (K6, which reads each point's ``ground[cell]``
-    itself) and ``ops.march.march`` (K7), or their plain versions (K2's
-    plain gather and :func:`march_budget`, and :func:`march` over the plain
-    K2); ``budget_fn`` takes ``ground`` where :func:`march_budget` takes
-    the gathered ``old_h``. Between them, ``torch.topk`` takes
-    the ``k_max`` largest keys (the JAX package's ``lax.top_k``); the march
-    reads the occlusion keys of ``ground`` and ``groundpatch`` (K7 cell by
-    cell, the plain march through the whole key table).
+    itself), ``ops.select.select_candidates`` (K11) and
+    ``ops.march.march`` (K7), or their plain versions (K2's plain gather
+    and :func:`march_budget`, ``select_candidates_plain``, and
+    :func:`march` over the plain K2); ``budget_fn`` takes ``ground`` where
+    :func:`march_budget` takes the gathered ``old_h``. ``select_fn(budget,
+    key, k_max)`` picks the ``k_max`` candidates and counts the marchable
+    points (the JAX package's sort or ``lax.top_k``: the same marchable
+    set); the march reads the occlusion keys of ``ground`` and
+    ``groundpatch`` (K7 cell by cell, the plain march through the whole
+    key table).
     """
     p_total = x.shape[-1]
     batch = x.shape[:-1]
@@ -229,9 +234,8 @@ def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: B
         return (torch.zeros(x.shape, dtype=torch.bool, device=x.device),
                 torch.zeros(batch, dtype=torch.int64, device=x.device))
     budget, key, dirs = budget_fn(config, s, binning, x, y, z, ground)
-    # candidate selection; a positive budget always outranks a zero one, so
-    # the top k_max keys hold the JAX package's marchable buffer, padded
+    # candidate selection: the JAX package's marchable buffer (every
+    # marchable point, or past the cap those of the top k_max keys), padded
     # with zero budgets that never fire
-    n_marchable = (budget > 0).sum(-1)
-    pidx = torch.topk(key, k_max, dim=-1, sorted=False).indices
+    pidx, n_marchable = select_fn(budget, key, k_max)
     return march_fn(config, s, ground, groundpatch, pidx, budget, dirs) > 0, n_marchable

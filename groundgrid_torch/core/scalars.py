@@ -117,8 +117,10 @@ def view(t: torch.Tensor) -> ScanScalars:
 
 
 # the fields a kernel reads from device memory, at their offsets in a row
+# (k0 and k1 as int32 bits)
 KERNEL_FIELDS = {"ox": 0, "oy": 1, "oz": 2, "sh0": 4, "sl0": 5, "sh1": 6, "sl1": 7, "cxh": 8,
-                 "cyh": 9, "b20": 12, "b21": 13, "b23": 14}
+                 "cyh": 9, "cx": 10, "cy": 11, "b20": 12, "b21": 13, "b23": 14, "k0": K0,
+                 "k1": K1}
 
 
 def device_rows(s: ScanScalars, points: torch.Tensor) -> tuple[int, int]:

@@ -7,8 +7,8 @@
 // sorted-lookup Pallas kernel there), itself the per-point while loop of
 // GroundSegmentation.cpp:242-275. Eager PyTorch runs these chains as ~1,480
 // elementwise kernels a scan plus one K2 gather over the (steps x
-// candidates) lattice; here they are two launches around the PyTorch top-k
-// that selects the candidates.
+// candidates) lattice; here they are two launches around K11 (select.cu),
+// which selects the candidates.
 //
 // K6 march_budget, one thread a point: the candidate test against the
 // previous terrain first. The terrain under a point is the moved ground at
@@ -51,7 +51,7 @@
 // the block, nine independent loads summed in the table's row-major
 // order), which decides the same bit. `any` over the steps is order-free,
 // so the warp stops at the round of the first hit (__any_sync) and lane 0
-// stores a 1; the top-k indices are unique, so the store is a plain one and
+// stores a 1; the candidate indices are unique, so the store is a plain one and
 // every other point keeps the 0 the wrapper wrote. Its work: 182 f32
 // operations a live step up to its first hit, 8 adds a block summed; its
 // bytes: 12 a candidate (index, budget), 12 a marchable one (directions),

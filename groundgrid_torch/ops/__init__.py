@@ -5,9 +5,10 @@ K1 ``raster.raster_reduce``, K2 ``lookup.lookup``, K3
 one above 2415 cells a side), K4 ``detect.detect_fused``: the ports of the
 JAX package's Pallas kernels. K5 ``binning.bin_points``, K6
 ``march.march_budget``, K7 ``march.march``, K8
-``detect_stage.detect_stage``, K9 ``raster_stage.raster_columns_ordered``
-and K10 ``raster_stage.finish_layers``: the ports of what XLA fuses of its
-binning, occlusion march, detect stage and raster stage. Each wrapper
+``detect_stage.detect_stage``, K9 ``raster_stage.raster_columns_ordered``,
+K10 ``raster_stage.finish_layers``, K11 ``select.select_candidates`` and
+K12 ``move.move``: the ports of what XLA fuses of its binning, occlusion
+march, detect stage, raster stage, candidate selection and grid move. Each wrapper
 counts its kernel launches in a ``launches`` attribute (K3 counts either
 variant there, and the global-band one also in ``global_launches``);
 :func:`launch_counts` reads them and :func:`reset_launch_counts` zeroes them.
@@ -26,14 +27,17 @@ def _wrappers():
     from groundgrid_torch.ops.detect_stage import detect_stage
     from groundgrid_torch.ops.lookup import lookup
     from groundgrid_torch.ops.march import march, march_budget
+    from groundgrid_torch.ops.move import move
     from groundgrid_torch.ops.raster import raster_reduce
     from groundgrid_torch.ops.raster_stage import finish_layers, raster_columns_ordered
+    from groundgrid_torch.ops.select import select_candidates
     from groundgrid_torch.ops.spiral import spiral_interpolation
 
     return {"raster": raster_reduce, "lookup": lookup, "spiral": spiral_interpolation,
             "detect": detect_fused, "bin": bin_points, "march_budget": march_budget,
             "march": march, "raster_columns": raster_columns_ordered,
-            "raster_finish": finish_layers, "detect_stage": detect_stage}
+            "raster_finish": finish_layers, "select": select_candidates, "move": move,
+            "detect_stage": detect_stage}
 
 
 def launch_counts() -> dict[str, int]:

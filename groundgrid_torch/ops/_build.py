@@ -15,8 +15,9 @@ an unchanged one loads the existing library. ``--fmad=false`` keeps every
 ``a*b+c`` separately rounded, as the plain PyTorch versions round it: the
 spiral's confidence is held bitwise, and its decay test ``d2 >
 min_dist_squared`` hangs on the last ulp; the binning, the march and the
-raster stage (``binning.cu``, ``march.cu``, ``raster_stage.cu``) round each
-step with the ``_rn`` intrinsics of ``exactf32.cuh`` besides.
+raster stage and the grid move (``binning.cu``, ``march.cu``,
+``raster_stage.cu``, ``move.cu``) round each step with the ``_rn``
+intrinsics of ``exactf32.cuh`` besides.
 
 No C++ of PyTorch is included, so a build takes seconds. A failed build or
 load raises; there is no fallback. Each C entry point returns
@@ -59,6 +60,8 @@ _SIGNATURES = {
     "gg_march": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _F, _F, _I, _P, _P],
     "gg_raster_columns": [_P] * 6 + [_I, _I, _I, _P, _I, _F, _P, _P, _P],
     "gg_raster_finish": [_P, _I, _I, _I, _P, _I, _F, _I, _P, _P],
+    "gg_select": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "gg_move": [_P, _P, _I, _I, _P, _I, _F, _F, _P, _P, _P],
 }
 
 

@@ -2,8 +2,9 @@
 
 Replace what XLA fuses for the JAX package of its outlier rejection,
 ``groundgrid_tpu/core/outliers.py:detect_outliers``: K6 :func:`march_budget`
-the per-point budgets, selection keys and ray directions before the
-``torch.topk`` that picks the candidates (the JAX package's ``lax.top_k``),
+the per-point budgets, selection keys and ray directions before K11
+(``ops/select.py``) picks the candidates (the JAX package's sort or
+``lax.top_k``),
 reading each point's previous terrain ``ground[cell]`` from the moved
 ground itself (the JAX step gathers it with its sorted-lookup kernel), and
 K7 :func:`march` the walk of the selected candidates' rays over the grid,

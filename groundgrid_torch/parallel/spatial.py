@@ -69,8 +69,10 @@ from groundgrid_torch.ops import binning as binops
 from groundgrid_torch.ops import detect_stage as stageops
 from groundgrid_torch.ops import lookup as lookuplib
 from groundgrid_torch.ops import march as marchops
+from groundgrid_torch.ops import move as moveops
 from groundgrid_torch.ops import raster as rasterops
 from groundgrid_torch.ops import raster_stage as stage_ops
+from groundgrid_torch.ops import select as selectops
 from groundgrid_torch.ops import spiral as spiralops
 from groundgrid_torch.parallel.collectives import CapturedShards, Gather, drive
 from groundgrid_torch.parallel.sharding import _place, make_mesh
@@ -359,9 +361,9 @@ class SpatialStep:
     (:class:`CapturedSpatialStep`) is held against.
 
     Per local shard, as the JAX spatial step's ``local_step`` (its
-    :meth:`body`): gather the rows into full layers, ``grid.move`` them
-    (replicated), bin and march its own points (K6 reading each point's
-    old ground from the whole moved grid; its own
+    :meth:`body`): gather the rows into full layers, move them (K12,
+    replicated), bin and march its own points (K6 reading each point's
+    old ground from the whole moved grid; K11 selecting its own
     ``max_outlier_candidates`` buffer), its seven K1 columns (K9, then K1);
     the columns of every shard folded in shard order into the layers
     detect reads (K10, :func:`~groundgrid_torch.core.rasterize.
@@ -375,7 +377,7 @@ class SpatialStep:
     ``with_scan_center`` the scans' centers are the new ones (sorted scans
     need it), else the host center recurrence's (``grid.index_shift_ds``).
     The host packs every per-scan value into the scan scalars, shipped once
-    per device. Kernel launches per scan: K1, K3, K5-K10 x S
+    per device. Kernel launches per scan: K1, K3, K5-K12 x S
     (K3 one per non-empty band when banded), K2 x S. The step reads
     nothing back to the host; ``fallbacks`` counts the shards' unsorted
     chunks of sorted scans (a host read).
@@ -406,6 +408,8 @@ class SpatialStep:
         self._bin = binops.bin_points_plain if plain else binops.bin_points
         self._budget = marchops.march_budget_plain if plain else marchops.march_budget
         self._march = marchops.march_plain if plain else marchops.march
+        self._select = selectops.select_candidates_plain if plain else selectops.select_candidates
+        self._move = moveops.move_plain if plain else moveops.move
         self._spiral = (spiralops.spiral_interpolation_plain if plain
                         else spiralops.spiral_interpolation)
         self._band = None
@@ -443,13 +447,13 @@ class SpatialStep:
         n, n2 = cfg.cell_count, cfg.cell_count ** 2
         rows = _rows(n, size, s)
         grounds, patches = yield Gather((g_block, c_block))
-        moved = gridlib.move(cfg, torch.cat(grounds), torch.cat(patches), sc)
+        moved = self._move(cfg, torch.cat(grounds), torch.cat(patches), sc)
         x, y, z, rings, valid = points
         if not cfg.sorted_scans:
             x, y, z = tf.transform_points_soa(sc.velo, x, y, z)
         binning = self._bin(cfg, sc, x, y, rings, valid > 0)
         outlier, _ = outlierlib.detect_outliers(cfg, sc, *moved, binning, x, y, z,
-                                                self._budget, self._march)
+                                                self._budget, self._select, self._march)
         order = None
         if not cfg.sorted_scans or cfg.sorted_fallback_check:
             order = torch.argsort(binning.cell, stable=True)

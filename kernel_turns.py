@@ -4,6 +4,7 @@
     python3 kernel_turns.py _archive/parent . --kernels spiral
     python3 kernel_turns.py _archive/parent . --kernels step lookup
     python3 kernel_turns.py _archive/parent . --kernels binning raster_stage step
+    python3 kernel_turns.py _archive/parent . --kernels march select move step
 
 Each tree is the repository root or an unpacked ``git archive`` of a commit
 (``_archive/`` is gitignored). The trees run in the given order, then in
@@ -21,12 +22,14 @@ and K6's directions, as this one does); with ``detect_stage``, its tree's
 K8 on a batch of 64 grids at 364^2 by this script's own
 ``chip_smoke.stage_batch`` (``detect_stage_b64``); with ``binning``, its
 tree's K5 on a batch of 64 prepared scans by ``chip_smoke.bin_batch``
-(``binning_b64``). A turn prints the
+(``binning_b64``); with ``select``, its tree's K11 on 64 warm scans'
+budgets and keys by ``chip_smoke.select_batch`` (``select_b64``). A turn prints the
 tree's environment lines and, last, one JSON line with what each check
 returned; this script echoes them and ends with one JSON line of all turns.
 It fails if a turn fails. ``binning``, ``march`` (K5-K7), ``detect_stage``
-(K8) and ``raster_stage`` (K9, K10) exist only in trees that have them: a
-tree without the check records null for it. ``step`` times the whole step in each tree
+(K8), ``raster_stage`` (K9, K10), ``select`` (K11) and ``move`` (K12)
+exist only in trees that have them: a tree without the check records null
+for it. ``step`` times the whole step in each tree
 on 32 rendered scans: the streaming bench's device ms a scan (the captured
 step), ``bench --profile``'s busy ms and device activities a step (and,
 where the tree has them, the eager step's stages and the raster stage's
@@ -47,7 +50,7 @@ import subprocess
 import sys
 
 KERNELS = ("raster", "lookup", "spiral", "detect", "binning", "march", "detect_stage",
-           "raster_stage", "step")
+           "raster_stage", "select", "move", "step")
 
 # run with the tree's root as the working directory: ``python -c`` puts it
 # first on sys.path
@@ -137,6 +140,8 @@ for name in sys.argv[2:]:
             out["detect_stage_b64"] = probe.stage_batch(config, driver, records)
         if name == "binning":  # K5 at B = 64, by the calling tree's probe
             out["binning_b64"] = probe.bin_batch(config, driver, records)
+        if name == "select":  # K11 at B = 64, by the calling tree's probe
+            out["select_b64"] = probe.select_batch(config, driver, records)
 print(json.dumps(out))
 """
 

@@ -34,7 +34,15 @@ K9 and K10 (the raster stage around K1) bitwise their plain versions on
 the seams of ``raster_scenes`` (sorted and through the sort's order, a
 batch, 4 and 8 shards), 64 scenes in one launch against single launches,
 two runs, a graph replayed on another scene's scalars, and each of
-``RASTER_STAGE_MUTATIONS`` built alone fails a case; plus the small-config
+``RASTER_STAGE_MUTATIONS`` built alone fails a case; K11 (the march's
+candidate selection) bitwise its plain version, indices and marchable
+count, under the cap, at it and over it (the radix select) on both keys up
+to 2^18 points, 64 rows against 64 single launches, two runs, each of
+``SELECT_MUTATIONS`` failing a case; K12 (the grid move) bitwise the plain
+move for shifts of 0, +-1, +-37, +-(n - 1), +-n and beyond, NaN and -0.0
+layers, a level plane at height 0, 64 grids against single launches, a
+graph replayed on other scalars, each of ``MOVE_MUTATIONS`` failing a
+case; plus the small-config
 streaming step on the card against the same step on the CPU, on the main
 path and on the fused, aux and wire path; the fleet on the card bitwise
 per-vehicle streaming; a warm step and a fleet tick under
@@ -54,8 +62,8 @@ import torch
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core.detect import make_tables
 from groundgrid_torch.data.synthetic import detect_layers
-from groundgrid_torch.ops import (binning, detect, launch_counts, lookup, march, raster,
-                                  raster_stage, reset_launch_counts, spiral)
+from groundgrid_torch.ops import (binning, detect, launch_counts, lookup, march, move, raster,
+                                  raster_stage, reset_launch_counts, select, spiral)
 
 pytestmark = pytest.mark.gpu
 
@@ -64,11 +72,12 @@ def _path(steps, detect, raster=None):
     """The launch counts of ``steps`` single steps (or shards, or batched
     steps) on the main path: K1 (``raster`` if the aux count adds one), K2
     (ground and variance for classify; K6 reads the old ground itself), K3,
-    K5, K6, K7, K9 and K10 x1, K4 ``detect`` (the fused detect, ``steps`` or
-    0), K8 the other steps."""
+    K5, K6, K7, K9, K10, K11 and K12 x1, K4 ``detect`` (the fused detect,
+    ``steps`` or 0), K8 the other steps."""
     return {"raster": steps if raster is None else raster, "lookup": steps, "spiral": steps,
             "detect": detect, "bin": steps, "march_budget": steps, "march": steps,
-            "detect_stage": steps - detect, "raster_columns": steps, "raster_finish": steps}
+            "detect_stage": steps - detect, "raster_columns": steps, "raster_finish": steps,
+            "select": steps, "move": steps}
 
 
 @pytest.fixture
@@ -703,6 +712,259 @@ def test_mutated_march_budget_kernels_fail(cuda, tmp_path):
         assert (caught == 0) == (name == "none"), (name, caught)
 
 
+def _select_budgets(rng, b, p, n_pos, ties=True):
+    """(b, p) f32 budgets, ``n_pos`` positive a row at random slots (squared
+    ray lengths of 0.2 to 20 m; with ``ties`` rounded to a few values, so
+    the cap falls inside groups of equal budgets), and their selection keys."""
+    from groundgrid_torch.core import outliers
+
+    out = np.zeros((b, p), np.float32)
+    for r in range(b):
+        slots = rng.choice(p, n_pos if np.isscalar(n_pos) else n_pos[r], replace=False)
+        v = rng.uniform(0.04, 400.0, slots.shape[0]).astype(np.float32)
+        out[r, slots] = (np.round(v / 40.0) * 40.0 + 0.5).astype(np.float32) if ties else v
+    budget = torch.from_numpy(out)
+    return budget, outliers.selection_key(budget)
+
+
+# (points, marchable, k_max): under the cap, at it and over it (the radix
+# select), on the truncated key (up to 2^17 points) and the exact one
+SELECT_CASES = [(1, 1, 1), (77, 20, 40), (77, 60, 40), (4097, 300, 700), (4097, 700, 700),
+                (5000, 900, 700), (16385, 1000, 16385), (1 << 17, 726, 8192),
+                (1 << 17, 8192, 8192), (1 << 17, 9000, 8192), ((1 << 17) + 640, 5000, 3000),
+                (1 << 18, 2000, 8192), (1 << 18, 12000, 8192), (262144, 262144, 8192)]
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["distinct", "tied"])
+@pytest.mark.parametrize("p,n_pos,k", SELECT_CASES)
+def test_select_kernel_matches_plain(cuda, p, n_pos, k, ties):
+    """K11 bitwise its plain version (the candidate indices, not only their
+    set, and the marchable count), two runs bitwise, one launch each."""
+    budget, key = _select_budgets(np.random.default_rng(p + n_pos), 1, p, n_pos, ties)
+    budget, key = budget[0].to(cuda), key[0].to(cuda)
+    before = select.select_candidates.launches
+    got = select.select_candidates(budget, key, k)
+    again = select.select_candidates(budget, key, k)
+    assert select.select_candidates.launches == before + 2
+    want = select.select_candidates_plain(budget, key, k)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert _bitwise(g, w) and _bitwise(a, g)
+    assert int(got[1]) == n_pos
+
+
+@pytest.mark.parametrize("p", [1 << 17, 1 << 18])
+def test_select_kernel_batch_matches_single_launches(cuda, p):
+    """K11 on 64 rows in one launch (rows under, at and over the cap, both
+    keys): every row bitwise its single launch, the batch bitwise the plain
+    batched version."""
+    b, k = 64, 8192
+    rng = np.random.default_rng(p)
+    counts = [int(v) for v in rng.choice([0, 700, 8192, 9000, 20000], b)]
+    budget, key = _select_budgets(rng, b, p, counts)
+    budget, key = budget.to(cuda), key.to(cuda)
+    got = select.select_candidates(budget, key, k)
+    want = select.select_candidates_plain(budget, key, k)
+    assert all(_bitwise(g, w) for g, w in zip(got, want))
+    assert got[1].tolist() == counts
+    for v in range(b):
+        one = select.select_candidates(budget[v], key[v], k)
+        assert _bitwise(got[0][v], one[0]) and _bitwise(got[1][v], one[1]), v
+
+
+# mutations of select.cu that ``test_select_kernel_matches_plain``'s cases
+# must catch
+SELECT_MUTATIONS = {
+    "k-th key off by one": ("unsigned int remaining = (unsigned int)k;",
+                            "unsigned int remaining = (unsigned int)k + 1u;"),
+    "unstable partition": ("const unsigned int pos = before + __popc(word & ((1u << b) - 1u));",
+                           "const unsigned int pos = before + __popc(word & ~((2u << b) - 1u));"),
+    "zero budgets marchable": ("return b > 0.0f;", "return b >= 0.0f;"),
+}
+
+
+def test_mutated_select_kernels_fail(cuda, tmp_path):
+    """Each mutation of ``SELECT_MUTATIONS`` (the radix select aiming at the
+    (k+1)-th key, the selected points of a word ranked in reverse, zero
+    budgets counted as marchable), built alone with the library's flags, differs
+    from the plain version on at least one case; the source unmutated, on
+    none."""
+    libs = _mutants("select.cu", SELECT_MUTATIONS, tmp_path)
+    cases = []
+    for p, n_pos, k in SELECT_CASES[3:]:
+        budget, key = _select_budgets(np.random.default_rng(p + n_pos), 1, p, n_pos)
+        budget, key = budget[0].to(cuda), key[0].to(cuda)
+        cases.append((budget, key, k, select.select_candidates_plain(budget, key, k)))
+    for name, lib_path in libs.items():
+        entry = _entry(lib_path, "gg_select")
+        caught = 0
+        for budget, key, k, want in cases:
+            pidx = torch.empty(k, dtype=torch.int64, device=cuda)
+            n_m = torch.empty((), dtype=torch.int64, device=cuda)
+            assert entry(budget.data_ptr(), key.data_ptr(), budget.shape[0], 1, k,
+                         pidx.data_ptr(), n_m.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream) == 0
+            caught += not (_bitwise(pidx, want[0]) and _bitwise(n_m, want[1]))
+        assert (caught == 0) == (name == "none"), (name, caught)
+
+
+def _move_case(cfg, rng, shifts, device, flat=False):
+    """One grid a shift of ``shifts``: random layers with NaN (quiet and
+    with a payload) and -0.0 words, and the scan scalars of a move by the
+    shift (clamped to [-n, n] by ``scalars.pack``) from a random centre onto
+    a tilted base plane (with ``flat`` a level one at height 0: exposed
+    ground -0.0). Returns (B, N, N) layers on ``device`` and the (B,
+    ``SIZE``) packed scalars in NumPy."""
+    from groundgrid_torch.core import scalars
+
+    n = cfg.cell_count
+    rows = []
+    for k in shifts:
+        g = rng.normal(-1.7, 0.4, (n, n)).astype(np.float32)
+        c = rng.uniform(0.0, 1.0, (n, n)).astype(np.float32)
+        g[0, :3] = np.nan
+        g.view(np.int32)[n // 2, n // 3] = 0x7FC01234
+        g[1, 1], c[2, n - 1], c[n - 1, 0] = -0.0, -0.0, np.nan
+        tb = np.eye(4, dtype=np.float32)
+        if not flat:
+            tb[2, 0], tb[2, 1] = rng.normal(0, 0.02, 2)
+            tb[2, 3] = rng.normal(-1.7, 0.2)
+        else:
+            tb[2, 3] = 0.0
+        center = rng.normal(0, 40, 2).astype(np.float32)
+        rows.append((g, c, scalars.pack(cfg, center, None, k, np.eye(4), np.eye(4), tb)))
+    g, c, packed = (np.stack(a) for a in zip(*rows))
+    return torch.from_numpy(g).to(device), torch.from_numpy(c).to(device), packed
+
+
+def _scalars(packed, device):
+    from groundgrid_torch.core import scalars
+
+    return scalars.view(torch.from_numpy(packed).to(device))
+
+
+def _move_shifts(n):
+    return [(0, 0), (1, 0), (0, -1), (-1, 1), (37, -37), (-37, 5), (n - 1, 0), (0, 1 - n),
+            (n, 2), (-n, -n), (n + 9, -3), (-500, 700)]
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["tilted", "flat"])
+@pytest.mark.parametrize("dimension,resolution", [(7.0, 1.0), (40.0, 0.5), (120.0, 0.33),
+                                                  (400.0, 0.33)])
+def test_move_kernel_matches_plain(cuda, dimension, resolution, flat):
+    """K12 bitwise the plain move (NaN and -0.0 rolled bit for bit, the
+    exposed cells' base plane, -0.0 on a level plane at height 0) for every
+    shift of ``_move_shifts``; two runs bitwise; the inputs untouched."""
+    cfg = GroundGridConfig(dimension=dimension, resolution=resolution)
+    n = cfg.cell_count
+    shifts = _move_shifts(n)
+    g, c, packed = _move_case(cfg, np.random.default_rng(n), shifts, cuda, flat)
+    for v, k in enumerate(shifts):
+        s = _scalars(packed[v], cuda)
+        g0, c0 = g[v].clone(), c[v].clone()
+        before = move.move.launches
+        got = move.move(cfg, g[v], c[v], s)
+        again = move.move(cfg, g[v], c[v], s)
+        assert move.move.launches == before + 2
+        want = move.move_plain(cfg, g[v], c[v], s)
+        torch.cuda.synchronize()
+        assert _bitwise(g[v], g0) and _bitwise(c[v], c0), k
+        for x, a, w in zip(got, again, want):
+            assert _bitwise(x, w) and _bitwise(a, x), k
+
+
+def test_move_kernel_batch_matches_single_launches(cuda):
+    """K12 on 64 grids at 364^2 in one launch, each its own shift (a wipe
+    among them), centre and plane: every grid bitwise its single launch,
+    the batch bitwise the plain batched move."""
+    cfg = GroundGridConfig()
+    n = cfg.cell_count
+    rng = np.random.default_rng(64)
+    shifts = [tuple(int(v) for v in rng.integers(-4, 5, 2)) for _ in range(61)]
+    shifts += [(0, 0), (n, -3), (-n - 7, 2)]
+    g, c, packed = _move_case(cfg, rng, shifts, cuda)
+    sb = _scalars(packed, cuda)
+    got = move.move(cfg, g, c, sb)
+    want = move.move_plain(cfg, g, c, sb)
+    assert all(_bitwise(x, w) for x, w in zip(got, want))
+    for v in range(64):
+        one = move.move(cfg, g[v], c[v], _scalars(packed[v], cuda))
+        assert _bitwise(got[0][v], one[0]) and _bitwise(got[1][v], one[1]), v
+
+
+def test_move_kernel_reads_scalars_at_replay(cuda):
+    """K12 captured in a CUDA graph on one move's scan scalars and replayed
+    after others are copied in (a step, no shift, a wipe): bitwise the
+    eager plain move of each (the kernel reads the shift, centre and plane
+    when it runs)."""
+    cfg = GroundGridConfig(dimension=40.0, resolution=0.5)
+    n = cfg.cell_count
+    shifts = [(2, -1), (0, 0), (-n, 4), (5, 5)]
+    g, c, packed = _move_case(cfg, np.random.default_rng(5), shifts, cuda)
+    ground, conf, buf = g[0].clone(), c[0].clone(), torch.from_numpy(packed[0]).to(cuda)
+    from groundgrid_torch.core import scalars
+
+    move.move(cfg, ground, conf, scalars.view(buf))  # build and warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = move.move(cfg, ground, conf, scalars.view(buf))
+    for v in (1, 2, 3, 0):
+        buf.copy_(torch.from_numpy(packed[v]).to(cuda))
+        graph.replay()
+        want = move.move_plain(cfg, ground, conf, _scalars(packed[v], cuda))
+        torch.cuda.synchronize()
+        assert _bitwise(out[0], want[0]) and _bitwise(out[1], want[1]), shifts[v]
+
+
+# mutations of move.cu that ``test_move_kernel_matches_plain``'s cases must
+# catch. Deleting exposed()'s ``(k >= n) | (k <= -n)`` alone changes
+# nothing (for |k| >= n the axis test already holds on every index); the
+# wipe is lost where the shift is reduced modulo n before the test, as a
+# roll reduces it
+MOVE_MUTATIONS = {
+    "exposed edge off by one": ("return (k >= 0 ? idx < k : idx >= n + k)",
+                                "return (k >= 0 ? idx <= k : idx >= n + k)"),
+    "wipe dropped (shift mod n)": (
+        "const int k0 = __float_as_int(s[kK0]), k1 = __float_as_int(s[kK1]);",
+        "const int k0 = __float_as_int(s[kK0]) % n, k1 = __float_as_int(s[kK1]) % n;"),
+    "z_base contracted to an FMA": (
+        "gg::add(gg::add(gg::mul(s[kB20], px), gg::mul(s[kB21], py)), s[kB23])",
+        "gg::add(__fmaf_rn(s[kB20], px, gg::mul(s[kB21], py)), s[kB23])"),
+    "rolled backwards": ("const int s = idx - k;", "const int s = idx + k;"),
+}
+
+
+def test_mutated_move_kernels_fail(cuda, tmp_path):
+    """Each mutation of ``MOVE_MUTATIONS`` (an exposed edge one cell off, the
+    wipe lost to a shift reduced mod n, the base plane's product and sum
+    contracted into an FMA, the roll backwards), built alone with the
+    library's flags, differs from the plain move on at least one case of
+    ``_move_shifts``; the source unmutated, on none."""
+    from groundgrid_torch.core import scalars
+
+    libs = _mutants("move.cu", MOVE_MUTATIONS, tmp_path)
+    cfg = GroundGridConfig(dimension=120.0, resolution=0.33)
+    n = cfg.cell_count
+    g, c, packed = _move_case(cfg, np.random.default_rng(1), _move_shifts(n), cuda)
+    cases = []
+    for v in range(g.shape[0]):
+        s = _scalars(packed[v], cuda)
+        cases.append((g[v], c[v], s, move.move_plain(cfg, g[v], c[v], s)))
+    for name, lib_path in libs.items():
+        entry = _entry(lib_path, "gg_move")
+        caught = 0
+        for gv, cv, s, want in cases:
+            base, stride = scalars.device_rows(s, gv.flatten())
+            out = torch.empty_like(gv), torch.empty_like(cv)
+            assert entry(gv.data_ptr(), cv.data_ptr(), n, 1, base, stride,
+                         float(np.float32(cfg.half_length)), float(np.float32(cfg.resolution)),
+                         out[0].data_ptr(), out[1].data_ptr(),
+                         torch.cuda.current_stream().cuda_stream) == 0
+            caught += not (_bitwise(out[0], want[0]) and _bitwise(out[1], want[1]))
+        assert (caught == 0) == (name == "none"), (name, caught)
+
+
 def _raster_cases(device):
     """The raster stage's seam cases of ``raster_scenes``: ``(name, config,
     s, binning, z, outlier, order, shards)``; ``shards`` cuts the points
@@ -1170,7 +1432,8 @@ def test_march_shedding_on_card_matches_cpu(cuda, p_total):
                                  torch.zeros(p_total, dtype=torch.int32, device=dev),
                                  torch.from_numpy(valid).to(dev))
         got, marchable = outliers.detect_outliers(cfg, s, ground, conf, b, x, y, z,
-                                                  march.march_budget, march.march)
+                                                  march.march_budget, select.select_candidates,
+                                                  march.march)
         return got.cpu().numpy(), marchable
 
     want, want_marchable = run("cpu")
@@ -1593,11 +1856,11 @@ def _bitwise(a, b):
 
 def _march_inputs(cfg, s, binning, x, y, z, ground, budget_fn):
     """The march's inputs as the step builds them: budgets, keys and
-    directions (``budget_fn`` of the moved ``ground``), and the top-k
-    candidates."""
+    directions (``budget_fn`` of the moved ``ground``), and the selected
+    candidates (K11's plain version)."""
     budget, key, dirs = budget_fn(cfg, s, binning, x, y, z, ground)
-    pidx = torch.topk(key, min(cfg.max_outlier_candidates, x.shape[-1]), dim=-1,
-                      sorted=False).indices
+    pidx, _ = select.select_candidates_plain(budget, key,
+                                             min(cfg.max_outlier_candidates, x.shape[-1]))
     return budget, key, dirs, pidx
 
 

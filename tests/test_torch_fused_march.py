@@ -4,7 +4,8 @@ CPU.
 
 On the CPU each wrapper takes its plain version: ``core/rasterize.py
 bin_points`` for K5, ``core/outliers.py march_budget`` and ``march`` for K6
-and K7, the last two joined by ``torch.topk`` in ``detect_outliers``. They
+and K7, the last two joined by K11's plain selection (``ops/select.py``) in
+``detect_outliers``. They
 are held bitwise to the JAX package's eager ``bin_points`` and
 ``detect_outliers`` (eager: fused, XLA:CPU contracts the lattice's products
 and adds into FMAs), on inputs made with numpy from a seed: coordinates on
@@ -31,7 +32,7 @@ from groundgrid_torch.core import outliers as toutliers
 from groundgrid_torch.core import scalars as tscalars
 from groundgrid_torch.core import transforms as ttf
 from groundgrid_torch.core.rasterize import Binning
-from groundgrid_torch.ops import _build, binning, march
+from groundgrid_torch.ops import _build, binning, march, select
 
 torch.set_num_threads(1)
 
@@ -201,12 +202,13 @@ def _torch_outliers(cfg, x, y, z, valid, ground, conf, center=0):
     b = binning.bin_points(cfg, s, t[0], t[1], torch.zeros(x.shape, dtype=torch.int32),
                            torch.from_numpy(valid))
     g, c = torch.from_numpy(ground), torch.from_numpy(conf)
-    return toutliers.detect_outliers(cfg, s, g, c, b, *t, march.march_budget, march.march)
+    return toutliers.detect_outliers(cfg, s, g, c, b, *t, march.march_budget,
+                                     select.select_candidates, march.march)
 
 
 @pytest.mark.parametrize("p_total", [1 << 17, (1 << 17) + 1])
 def test_detect_outliers_bitwise_jax_at_the_cap(p_total):
-    """The split march (K6's and K7's plain versions around ``torch.topk``)
+    """The split march (K6's and K7's plain versions around K11's)
     bitwise the JAX package's eager ``detect_outliers`` on both selection
     keys (2^17 points: the truncated key, equal budgets to the higher
     index; one more: the exact budget, to the lower), the cap inside the
@@ -285,7 +287,8 @@ def test_batch_of_three_is_three_single_calls():
     sb = tscalars.view(torch.from_numpy(packed))
     bb = binning.bin_points(cfg, sb, x, y, rings, valid)
     got, marchable = toutliers.detect_outliers(cfg, sb, ground, conf, bb, x, y, z,
-                                               march.march_budget, march.march)
+                                               march.march_budget, select.select_candidates,
+                                               march.march)
     budget, key, dirs = march.march_budget(cfg, sb, bb, x, y, z, ground)
     for v in range(3):
         s = tscalars.view(torch.from_numpy(packed[v]))
@@ -296,7 +299,8 @@ def test_batch_of_three_is_three_single_calls():
         assert torch.equal(_t_bits(budget[v]), _t_bits(budget1)) and torch.equal(key[v], key1)
         assert torch.equal(_t_bits(dirs[:, v]), _t_bits(dirs1))
         out1, m1 = toutliers.detect_outliers(cfg, s, ground[v], conf[v], b1, x[v], y[v], z[v],
-                                             march.march_budget, march.march)
+                                             march.march_budget, select.select_candidates,
+                                             march.march)
         assert torch.equal(got[v], out1)
         assert int(marchable[v]) == int(m1) > cfg.max_outlier_candidates
         hi, lo = _near_center(v)

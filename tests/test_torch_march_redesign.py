@@ -26,7 +26,7 @@ from groundgrid_tpu.core import rasterize as jraster
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core import exactf32, outliers, scalars
 from groundgrid_torch.core.rasterize import ds_cells, take_points
-from groundgrid_torch.ops import binning, lookup, march
+from groundgrid_torch.ops import binning, lookup, march, select
 
 torch.set_num_threads(1)
 
@@ -173,8 +173,8 @@ def test_budget_directions_are_div_rn_of_the_ray(case):
 
 @pytest.mark.parametrize("p_total", [1 << 17, (1 << 17) + 1])
 def test_detect_outliers_on_edges_bitwise_jax(p_total):
-    """``detect_outliers`` (K6's and K7's plain versions around
-    ``torch.topk``) bitwise the JAX package's eager ``detect_outliers`` on
+    """``detect_outliers`` (K6's and K7's plain versions around K11's)
+    bitwise the JAX package's eager ``detect_outliers`` on
     the edge scene spread over ``p_total`` slots (both selection keys), the
     cap below the marchable count."""
     kw = dict(march_scenes.EDGE, max_points=p_total, max_outlier_candidates=1500)
@@ -193,7 +193,7 @@ def test_detect_outliers_on_edges_bitwise_jax(p_total):
     b = binning.bin_points(cfg, s, t[0], t[1], torch.from_numpy(rings), torch.from_numpy(valid))
     g, c = torch.from_numpy(sc.ground), torch.from_numpy(sc.conf)
     got, marchable = outliers.detect_outliers(cfg, s, g, c, b, *t, march.march_budget,
-                                              march.march)
+                                              select.select_candidates, march.march)
     zero = jnp.zeros(2, jnp.float32)
     with jax.disable_jit():
         jb = jraster.bin_points(jcfg, zero, *(jnp.asarray(a) for a in (x, y, z, rings, valid)),

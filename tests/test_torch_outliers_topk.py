@@ -25,7 +25,7 @@ from groundgrid_torch.core import outliers as toutliers
 from groundgrid_torch.core import rasterize as traster
 from groundgrid_torch.core import scalars as tscalars
 from groundgrid_torch.core import transforms as ttf
-from groundgrid_torch.ops import march
+from groundgrid_torch.ops import march, select
 
 torch.set_num_threads(1)
 
@@ -84,7 +84,8 @@ def test_march_selection_bitwise(p_total):
                             torch.from_numpy(valid))
     got, marchable = toutliers.detect_outliers(tcfg, s, torch.from_numpy(ground),
                                                torch.from_numpy(conf), tb, *t,
-                                               march.march_budget, march.march)
+                                               march.march_budget, select.select_candidates,
+                                               march.march)
     np.testing.assert_array_equal(got.numpy(), want)
     assert marchable == N_LONG + N_TIED + N_SHORT > K_MAX
     # the long rays fire and the short ones are shed; the cut splits the tie

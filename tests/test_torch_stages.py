@@ -32,7 +32,7 @@ from groundgrid_torch.core import detect as tdetect
 from groundgrid_torch.core import outliers as toutliers
 from groundgrid_torch.core import rasterize as traster
 from groundgrid_torch.core import scalars as tscalars
-from groundgrid_torch.ops import lookup, march, raster
+from groundgrid_torch.ops import lookup, march, raster, select
 
 # the test workers share the CPU: torch's intra-op thread pools would
 # oversubscribe it and stall on the many small ops of the plain versions
@@ -88,7 +88,8 @@ def _outliers(jcfg, tcfg, d, ground, groundpatch, z_shift=None):
             jnp.asarray(d["origin"]), center_lo=jnp.asarray(d["center_lo"]))
     got, _ = toutliers.detect_outliers(tcfg, d["s"], _t(ground), _t(groundpatch), tb,
                                        _t(d["px"]), _t(d["py"]), _t(z),
-                                       march.march_budget, march.march)
+                                       march.march_budget, select.select_candidates,
+                                       march.march)
     return got.numpy(), np.asarray(want)
 
 

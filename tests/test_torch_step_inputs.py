@@ -153,7 +153,7 @@ def test_step_matches_host_float_forms(mode, monkeypatch):
 
     with monkeypatch.context() as m:
         m.setattr(tpipe.gridlib, "shift_cells", recorded)
-        m.setattr(tpipe.gridlib, "move", host_move(shifts))
+        m.setattr(tpipe.moveops, "move_plain", host_move(shifts))  # K12's CPU route
         m.setattr(tpipe.scalarlib, "view", float_form)
         want = run(config, recs, with_aux, tpipe.make_step_fn(config, with_aux))
 

@@ -27,7 +27,7 @@ from groundgrid_torch.core import scalars as tscalars
 from groundgrid_torch.core import transforms as ttf
 from groundgrid_torch.core.grid import state_from_numpy, state_to_numpy
 from groundgrid_torch.data.synthetic import adversarial_sequence
-from groundgrid_torch.ops import march
+from groundgrid_torch.ops import march, select
 
 from test_torch_outliers_topk import N_LONG, N_SHORT, N_TIED, _scene
 
@@ -136,7 +136,8 @@ def test_fixed_march_at_the_cap(p_total, cap):
     conf = torch.ones((n, n))
     binning = traster.bin_points(cfg, s, t[0], t[1], torch.zeros(p_total, dtype=torch.int32),
                                  torch.from_numpy(valid))
-    args = (s, ground, conf, binning, *t, march.march_budget, march.march)
+    args = (s, ground, conf, binning, *t, march.march_budget, select.select_candidates,
+            march.march)
     with host_reads() as reads:
         got, marchable = fixed_detect_outliers(cfg, *args)
     assert reads == []
