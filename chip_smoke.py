@@ -1021,24 +1021,26 @@ def budget_work(config, binning, z, ground):
 
 def budget_cost(p, work, marchable):
     """K6's (bytes, f32 operations) on these inputs (:func:`budget_work`):
-    18 bytes a point (z and the two flags read, budget and key written), 4
+    19 bytes a point (z and the two flags read, budget, key and the zeroed
+    outlier flag written), 4
     a point that reads its cell id and 4 a distinct ground cell those ids
     name, 8 a candidate (x and y, which only a candidate's ray reads) and
     12 a marchable point (its directions); the candidate tests, the
     candidates' rays and the marchable points' vx, vy."""
-    return (18 * p + 4 * work["read"] + 4 * work["cells"] + 8 * work["candidates"]
+    return (19 * p + 4 * work["read"] + 4 * work["cells"] + 8 * work["candidates"]
             + 12 * marchable, BUDGET_POINT_FLOPS * work["read"]
             + BUDGET_CAND_FLOPS * work["candidates"] + BUDGET_DIR_FLOPS * marchable)
 
 
-def march_cost(k, work):
-    """K7's (bytes, f32 operations) on one or more vehicles' :func:`march_work`:
-    12 bytes a candidate (index, budget), 12 a marching one (its
+def march_cost(rows, walking, work):
+    """K7's (bytes, f32 operations) on ``rows`` vehicles' :func:`march_work`:
+    8 bytes a row (K11's count), 12 a candidate before it (``walking``:
+    index, budget; the others end on the count), 12 a marching one (its
     directions), 4 a ground cell and 4 a confidence cell its samples read,
-    4 a hit written (the wrapper zeroes the flags before the launch); 182
-    operations a step evaluated, 8 a block summed."""
-    return (12 * k + 12 * work["marching"] + 4 * work["ground_cells"] + 4 * work["conf_cells"]
-            + 4 * work["hits"], MARCH_STEP_FLOPS * work["steps"]
+    1 a hit written (K6 zeroes the flags); 182 operations a step evaluated,
+    8 a block summed."""
+    return (8 * rows + 12 * walking + 12 * work["marching"] + 4 * work["ground_cells"]
+            + 4 * work["conf_cells"] + work["hits"], MARCH_STEP_FLOPS * work["steps"]
             + MARCH_BLOCK_FLOPS * work["blocks"])
 
 
@@ -1051,12 +1053,13 @@ def host_packed(config, driver, scan):
 
 # the kernels line's further keys: registers and spills, the key table K7
 # folds in, K8's plain stage on the profiler, K9 on a shuffled scan, K10
-# with all layers and over 4 shards, K11's torch.topk launches, K12's wipe
-# (and, by prefix, K11's other cases)
+# with all layers and over 4 shards, K11's torch.topk launches and cluster
+# shapes, K12's wipe (and, by prefix, K11's other cases)
 EXTRA_KEYS = ("registers", "spill_store_bytes", "spill_load_bytes", "key_table_device_ms",
-              "key_table_launches", "plain_device_ms", "plain_launches", "shuffled_device_ms",
-              "aux_device_ms", "shards4_device_ms", "library_launches", "wipe_device_ms")
-EXTRA_PREFIXES = ("one_table_", "exact_key_", "overflow_")
+              "key_table_launches", "stage_device_ms", "stage_launches", "plain_device_ms", "plain_launches", "shuffled_device_ms",
+              "aux_device_ms", "shards4_device_ms", "library_launches", "wipe_device_ms",
+              "cluster_shapes")
+EXTRA_PREFIXES = ("one_table_", "exact_key_", "overflow_", "tail_crossing_")
 
 
 def march_work(config, s, ground, conf, pidx, budget, dirs):
@@ -1617,6 +1620,11 @@ def k1_in_step(config, records, device):
     return out
 
 
+def no_flags(budget):
+    """K7's outlier flags as K6 leaves them: all False, of the budget's shape."""
+    return torch.zeros(budget.shape, dtype=torch.bool, device=budget.device)
+
+
 def same_budgets(got, want):
     """K6's outputs bitwise: budget and key everywhere, the directions where
     the budget is positive (K6 writes them nowhere else)."""
@@ -1651,12 +1659,14 @@ def check_march(config, driver, rec):
                              "budget")
     for run in range(2):
         got6 = march.march_budget(*budget_args)
-        if not same_budgets(got6, want6):
+        if not same_budgets(got6, want6) or not bitwise(got6[3], no_flags(x["budget"])):
             raise AssertionError(f"K6 (run {run + 1}) differs from the plain version")
-    march_args = (config, s, ground, conf, x["pidx"], got6[0], got6[2])
-    want = march.march_plain(config, s, ground, conf, x["pidx"], x["budget"], x["dirs"])
+    n_m = (x["budget"] > 0).sum(-1)
+    march_args = (config, s, ground, conf, x["pidx"], got6[0], got6[2], n_m)
+    want = march.march_plain(config, s, ground, conf, x["pidx"], x["budget"], x["dirs"], n_m,
+                             no_flags(x["budget"]))
     for run in range(2):
-        got = march.march(*march_args)
+        got = march.march(*march_args, no_flags(x["budget"]))
         if not bitwise(got, want):
             raise AssertionError(f"K7 (run {run + 1}) differs from the plain version in "
                                  f"{int((got != want).sum())} points")
@@ -1667,9 +1677,11 @@ def check_march(config, driver, rec):
     plain = march.march_budget_plain(config, s, two, *big, ground)
     if not same_budgets(got, plain):
         raise AssertionError("K6 on 262,144 points differs from the plain version")
-    pidx = select.select_candidates_plain(plain[0], plain[1], config.max_outlier_candidates)[0]
-    if not bitwise(march.march(config, s, ground, conf, pidx, got[0], got[2]),
-                   march.march_plain(config, s, ground, conf, pidx, plain[0], plain[2])):
+    pidx, n_two = select.select_candidates_plain(plain[0], plain[1],
+                                                 config.max_outlier_candidates)
+    if not bitwise(march.march(config, s, ground, conf, pidx, got[0], got[2], n_two, got[3]),
+                   march.march_plain(config, s, ground, conf, pidx, plain[0], plain[2], n_two,
+                                     plain[3])):
         raise AssertionError("K7 on 262,144 points differs from the plain version")
 
     p, k = scan.px.shape[0], x["pidx"].shape[0]
@@ -1688,12 +1700,24 @@ def check_march(config, driver, rec):
         raise AssertionError(f"march_work counts {work['hits']} hits, the march {int(want.sum())}")
     k7 = {"max_abs_err": 0.0, "library_ms": None, **work, "marchable": marchable,
           "candidates": k}
-    k7.update(kernel_times(lambda: march.march(*march_args), 100, "march_kernel",
-                           lambda: march.march_plain(*march_args), 10))
-    k7.update(bound(*march_cost(k, work)))
+    flags = no_flags(x["budget"])  # K7 sets the same hits on every call
+    k7.update(kernel_times(lambda: march.march(*march_args, flags), 100, "march_kernel",
+                           lambda: march.march_plain(*march_args, flags), 10))
+    k7.update(bound(*march_cost(1, min(marchable, k), work)))
+    # the march stage as the step runs it (core/outliers.py detect_outliers
+    # with K6, K11 and K7): every device activity in the window is the
+    # stage's, 3 a call (no fill of the flags, no comparison after K7; the
+    # profiler now and then drops a record, never adds one)
+    reps = 50
+    stage_ms, stage_acts = device_ms(lambda: outliers.detect_outliers(
+        config, s, ground, conf, b, *pts, march.march_budget, select.select_candidates,
+        march.march), reps)
+    if not 2.9 * reps <= stage_acts <= 3 * reps:
+        raise AssertionError(f"the march stage is {stage_acts / reps:g} device activities a "
+                             f"call, not K6, K11 and K7")
+    k7.update(stage_device_ms=stage_ms, stage_launches=stage_acts / reps)
     # the key table K7 folds in, as the step built it before (every device
     # activity of one call; launches a call)
-    reps = 50
     table_ms, table_acts = device_ms(lambda: outliers.occlusion_key_table(config, ground, conf),
                                      reps)
     k7.update(key_table_device_ms=table_ms, key_table_launches=table_acts / reps)
@@ -1715,7 +1739,9 @@ def check_march(config, driver, rec):
         f"{k7['plain_ms']:.4f} ms, bound {k7['bound_ms']:.5f} ms ({k7['bound_by']}); "
         f"{k7['registers']} registers, spills {k7['spill_store_bytes']} / "
         f"{k7['spill_load_bytes']} bytes; the occlusion key table it folds in: "
-        f"{table_ms:.4f} device ms, {table_acts / reps:g} launches a call")
+        f"{table_ms:.4f} device ms, {table_acts / reps:g} launches a call; the march stage "
+        f"(K6, K11, K7) {stage_ms:.4f} device ms, {stage_acts / reps:g} device activities a "
+        f"call")
     return k6, k7
 
 
@@ -1750,9 +1776,13 @@ def overflow_budgets(p, n_pos, seed, device):
 def check_select(config, driver, rec):
     """K11 on a warm scan's budgets and keys (the march's inputs, as the step
     builds them), on the scan twice over (262,144 points: the exact-budget
-    key) and on two storms past the cap (20,000 marchable points at 2^17 and
-    2^18: the radix select on both keys): bitwise its plain version (the
-    indices and the marchable count), two runs bitwise. Times: the kernel in
+    key), on two storms past the cap (20,000 marchable points at 2^17 and
+    2^18: the radix select on both keys, its keys in shared memory) and on
+    a tail that crosses from one chunk into the next (2^16 points, 500
+    marchable, k = 8,192: the tail spans chunks 0 and 1 of 4,096 points at
+    16 blocks): bitwise its plain version (the indices and the marchable
+    count), two runs bitwise; batches of 2 and 7 of the scan's rows (each
+    row its single launch), each case's cluster shape. Times: the kernel in
     turns against ``torch.topk`` of the same keys (kernel, topk, topk,
     kernel; the library column), the plain version, the bound; registers
     and spills."""
@@ -1766,7 +1796,9 @@ def check_select(config, driver, rec):
     twice = torch.cat([budget, budget])
     cases = {"scan": (budget, key), "exact_key": (twice, outliers.selection_key(twice)),
              "overflow": overflow_budgets(budget.shape[-1], 20000, 1, budget.device),
-             "overflow_exact": overflow_budgets(2 * budget.shape[-1], 20000, 2, budget.device)}
+             "overflow_exact": overflow_budgets(2 * budget.shape[-1], 20000, 2, budget.device),
+             "tail_crossing": overflow_budgets(1 << 16, 500, 3, budget.device)}
+    shapes = {}
     for name, (b, kk) in cases.items():
         want = select.select_candidates_plain(b, kk, k)
         for run in range(2):
@@ -1774,9 +1806,27 @@ def check_select(config, driver, rec):
             if not (bitwise(got[0], want[0]) and bitwise(got[1], want[1])):
                 raise AssertionError(f"K11 ({name}, run {run + 1}) differs from the plain "
                                      f"version")
+        shapes[name] = select.cluster_size(b.shape[-1], 1, b.device)
+    span = 32 * -(-(1 << 11) // shapes["tail_crossing"])  # a chunk's points at its shape
+    if not 500 + span <= k:
+        raise AssertionError(f"K11: the tail_crossing case's tail ends inside chunk 0 "
+                             f"({span} points)")
+    for b in (2, 7):  # the scan's budgets rolled a row, their keys
+        rows = torch.stack([budget.roll(37 * v) for v in range(b)])
+        rows = (rows, outliers.selection_key(rows))
+        got = select.select_candidates(*rows, k)
+        want = select.select_candidates_plain(*rows, k)
+        if not all(bitwise(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K11 B = {b} differs from its plain batched version")
+        for v in range(b):
+            one = select.select_candidates(rows[0][v], rows[1][v], k)
+            if not all(bitwise(g[v], o) for g, o in zip(got, one)):
+                raise AssertionError(f"K11 B = {b}: row {v} differs from its single launch")
+        shapes[f"batch{b}"] = select.cluster_size(budget.shape[-1], b, budget.device)
     if int(select.select_candidates(budget, key, k)[1]) > k:
         raise AssertionError("K11: the warm scan overflows the cap")
-    result = {"max_abs_err": 0.0, "marchable": int((budget > 0).sum()), "candidates": k}
+    result = {"max_abs_err": 0.0, "marchable": int((budget > 0).sum()), "candidates": k,
+              "cluster_shapes": shapes}
 
     def timed(b, kk):
         def kernel():
@@ -1844,10 +1894,104 @@ def select_batch(config, driver, records, b=None):
     out = {"device_ms": device_ms(lambda: select.select_candidates(budget, key, k), 20,
                                   "select_kernel")[0],
            **bound(select_cost(budget, key, k), 0)}
+    if hasattr(select, "cluster_size"):  # a tree whose launch chooses its cluster
+        out["cluster"] = select.cluster_size(budget.shape[-1], b, budget.device)
     log(f"K11 select_candidates, B = {b}: bitwise the plain batched version and its single "
         f"launches; device {out['device_ms']:.5f} ms, bound {out['bound_ms']:.5f} ms "
-        f"({out['bound_by']})")
+        f"({out['bound_by']}), cluster {out.get('cluster')}")
     return out
+
+
+def move_batch(config, driver, records, b=None):
+    """K12 on a batch of ``b`` (FLEET_BATCH) grids at the main path's size:
+    the driver's warm layers, offset a vehicle, each moved by its own warm
+    scan's shift (``records[4:12]`` cycled); one launch bitwise the plain
+    batched move and each grid its single launch; its device ms and bound
+    (``kernel_turns.py`` times each tree's K12 so, by this script's probe)."""
+    from groundgrid_torch.core import scalars as scalarlib
+    from groundgrid_torch.ops import move
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    b = FLEET_BATCH if b is None else b
+    packed = [host_packed(config, driver, driver.make_scan(rec)[0]) for rec in records[4:12]]
+    sb = torch.from_numpy(np.stack([packed[v % len(packed)] for v in range(b)])).to(
+        driver.device)
+    offset = torch.arange(b, dtype=torch.float32, device=driver.device)[:, None, None] * 1e-3
+    ground = driver.state.ground[None] + offset
+    conf = torch.stack([driver.state.groundpatch.roll(v, 0) for v in range(b)])
+    rows = [scalarlib.view(sb[v]) for v in range(b)]
+    got = move.move(config, ground, conf, scalarlib.view(sb))
+    want = move.move_plain(config, ground, conf, scalarlib.view(sb))
+    if not all(bitwise(g, w) for g, w in zip(got, want)):
+        raise AssertionError("K12 batched differs from the plain batched move")
+    for v in range(b):
+        one = move.move(config, ground[v], conf[v], rows[v])
+        if not all(bitwise(g[v], o) for g, o in zip(got, one)):
+            raise AssertionError(f"K12 batched: grid {v} differs from its single launch")
+    out = {"device_ms": device_ms(lambda: move.move(config, ground, conf, scalarlib.view(sb)),
+                                  20, "move_kernel")[0],
+           **bound(sum(move_cost(config, r) for r in rows), 0)}
+    log(f"K12 move, B = {b}: bitwise the plain batched move and its single launches; device "
+        f"{out['device_ms']:.5f} ms, bound {out['bound_ms']:.5f} ms ({out['bound_by']})")
+    return out
+
+K11_CLUSTERS = (1, 2, 4, 8, 16)  # the cluster sizes gg_select takes
+
+
+def phase_k11_shapes(config, records, device):
+    """K11's cluster sizes against each other, each forced through
+    ``gg_select``'s ``cluster`` argument: the warm scan's budgets and keys
+    as batches of 1, 2, 7 and 64 rows (``records[4:12]`` cycled, as
+    :func:`select_batch` builds them) and the storms of :func:`check_select`
+    at 2^17 and 2^18 points. Each shape the card places bitwise the plain
+    version, then its device ms in turns (the sizes in order, then
+    reversed), beside the size the launch's rule takes. Returns the
+    record."""
+    from groundgrid_torch.ops import _build, select
+    from groundgrid_torch.runtime.kernel_timing import device_ms
+
+    driver = warm_driver(config, records, device)
+    rows = [march_inputs(config, driver, rec) for rec in records[4:12]]
+    k = config.max_outlier_candidates
+    p = rows[0]["budget"].shape[-1]
+    inputs = {}
+    for b in (1, 2, 7, FLEET_BATCH):
+        inputs[f"batch{b}"] = (torch.stack([rows[v % len(rows)]["budget"] for v in range(b)]),
+                               torch.stack([rows[v % len(rows)]["key"] for v in range(b)]))
+    for name, pts, seed in (("storm_2^17", p, 1), ("storm_2^18", 2 * p, 2)):
+        inputs[name] = tuple(t[None] for t in overflow_budgets(pts, 20000, seed, device))
+
+    def call(budget, key, cluster):
+        pidx = torch.empty((budget.shape[0], k), dtype=torch.int64, device=device)
+        n_m = torch.empty(budget.shape[0], dtype=torch.int64, device=device)
+        code = _build.launch("gg_select", device, budget.data_ptr(), key.data_ptr(),
+                             budget.shape[-1], budget.shape[0], k, cluster, pidx.data_ptr(),
+                             n_m.data_ptr())
+        return code, pidx, n_m
+
+    out = {}
+    for name, (budget, key) in inputs.items():
+        want = select.select_candidates_plain(budget, key, k)
+        placed = []
+        for c in K11_CLUSTERS:
+            code, pidx, n_m = call(budget, key, c)
+            torch.cuda.synchronize(device)
+            if code != 0:
+                continue  # the card places no such cluster
+            if not (bitwise(pidx, want[0]) and bitwise(n_m, want[1])):
+                raise AssertionError(f"K11 {name} at {c} blocks a row differs from the plain "
+                                     f"version")
+            placed.append(c)
+        times = {c: [] for c in placed}
+        for c in placed + placed[::-1]:
+            times[c].append(device_ms(lambda: call(budget, key, c), 50, "select_kernel")[0])
+        out[name] = {"rule": select.cluster_size(budget.shape[-1], budget.shape[0], device),
+                     "device_ms": {str(c): v for c, v in times.items()}}
+        log(f"K11 shapes, {name} ({budget.shape[0]} x {budget.shape[-1]}): rule "
+            f"{out[name]['rule']} blocks a row; device ms in turns "
+            + ", ".join(f"{c}: {v[0]:.5f} / {v[1]:.5f}" for c, v in times.items()))
+    return out
+
 
 MOVE_BYTES_KEPT, MOVE_BYTES_CELL = 8, 8  # a kept cell's two words read; two written
 
@@ -1899,15 +2043,53 @@ def check_move(config, driver, rec):
     wipe = kernel_times(lambda: move.move(config, ground, conf, cases["wipe"]), 100,
                         "move_kernel")
     out["wipe_device_ms"] = wipe["device_ms"]
+    high = move_highres(config, driver, records=[rec])
+    out["device_ms_highres"], out["bound_ms_highres"] = high["device_ms"], high["bound_ms"]
     usage = ptxas_usage("move.cu", ("move_kernel",))["move_kernel"]
     out["registers"], out["spill_store_bytes"], out["spill_load_bytes"] = usage
     log(f"K12 move: the warm scan's shift {out['shift']}, a large shift (37, -150) and a wipe "
         f"({n}, {n}) bitwise the plain move, two runs bitwise, inputs untouched; device "
-        f"{out['device_ms']:.4f} ms (the wipe {wipe['device_ms']:.4f}), call "
-        f"{out['call_ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
-        f"{out['bound_ms']:.5f} ms ({out['bound_by']}); {usage[0]} registers, spills "
+        f"{out['device_ms']:.4f} ms (the wipe {wipe['device_ms']:.4f}; 1200^2, also bitwise "
+        f"on both shifts, {out['device_ms_highres']:.4f} against a bound of "
+        f"{out['bound_ms_highres']:.5f}), call {out['call_ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms ({out['bound_by']}); "
+        f"{usage[0]} registers, spills "
         f"{usage[1]} / {usage[2]} bytes")
     return out
+
+def move_highres(config, driver, records):
+    """K12 at 1200^2 (``HIGHRES_CONFIG``'s grid): seeded layers moved by the
+    warm scan ``records[-1]``'s shift and plane, and by (37, -150), whose
+    columns take two runs of a row (k1 % 4 != 0): bitwise the plain move;
+    the device ms and bound of the warm shift (the layers, 23 MB, stay in
+    the 50 MB L2 between the timed calls). ``kernel_turns.py`` times each
+    tree's K12 so, by this script's probe."""
+    from groundgrid_torch.config import HIGHRES_CONFIG
+    from groundgrid_torch.core import scalars as scalarlib
+    from groundgrid_torch.ops import move
+
+    high = HIGHRES_CONFIG
+    packed = host_packed(config, driver, driver.make_scan(records[-1])[0])
+    rng = np.random.default_rng(1200)
+    n = high.cell_count
+    g = torch.from_numpy(rng.normal(-1.7, 0.4, (n, n)).astype(np.float32)).to(driver.device)
+    c = torch.from_numpy(rng.uniform(0.0, 1.0, (n, n)).astype(np.float32)).to(driver.device)
+    shifts = {}
+    for name, k in (("scan", None), ("large_shift", (37, -150))):
+        q = packed.copy()
+        if k is not None:
+            q.view(np.int32)[scalarlib.K0], q.view(np.int32)[scalarlib.K1] = k
+        shifts[name] = scalarlib.view(torch.from_numpy(q).to(driver.device))
+        want = move.move_plain(high, g, c, shifts[name])
+        if not all(bitwise(x, w) for x, w in zip(move.move(high, g, c, shifts[name]), want)):
+            raise AssertionError(f"K12 at {n}^2 ({name}) differs from the plain move")
+    out = {"device_ms": kernel_times(lambda: move.move(high, g, c, shifts["scan"]), 100,
+                                     "move_kernel")["device_ms"],
+           **bound(move_cost(high, shifts["scan"]), 0)}
+    log(f"K12 move at {n}^2: the warm scan's shift and (37, -150) bitwise the plain move; "
+        f"device {out['device_ms']:.5f} ms, bound {out['bound_ms']:.5f} ms ({out['bound_by']})")
+    return out
+
 
 def batched_inputs(config, driver, records, b):
     """Phase 2's batch of ``b`` vehicles at the main path's shapes: the
@@ -2122,9 +2304,9 @@ def check_batched_fused(config, x, b):
         BIN_FLOPS * p * b))
 
     budget_args = (config, sb, bins, px, py, pz, ground)
-    budget, key, dirs = march.march_budget(*budget_args)
+    budget, key, dirs, flags6 = march.march_budget(*budget_args)
     plain6 = march.march_budget_plain(*budget_args)
-    if not same_budgets((budget, key, dirs), plain6):
+    if not same_budgets((budget, key, dirs), plain6) or not bitwise(flags6, plain6[3]):
         raise AssertionError("K6 batched differs from its plain batched version")
     for v in range(b):
         single = march.march_budget(config, rows[v], row(bins, v), px[v], py[v], pz[v],
@@ -2140,7 +2322,7 @@ def check_batched_fused(config, x, b):
 
     k = min(config.max_outlier_candidates, p)
     sel_args = (budget, key, k)
-    pidx, _ = select.select_candidates(*sel_args)
+    pidx, n_m = select.select_candidates(*sel_args)
     check("K11", select.select_candidates(*sel_args), select.select_candidates_plain(*sel_args),
           lambda v: select.select_candidates(budget[v], key[v], k))
     out["select"] = dict(max_abs_err=0.0, **batched_times(
@@ -2148,25 +2330,28 @@ def check_batched_fused(config, x, b):
         lambda: [select.select_candidates(budget[v], key[v], k) for v in range(b)],
         lambda: select.select_candidates_plain(*sel_args), "select_kernel", b,
         select_cost(budget, key, k), 0))
-    march_args = (config, sb, ground, conf, pidx, budget, dirs)
+    march_args = (config, sb, ground, conf, pidx, budget, dirs, n_m)
 
     def single_march(v):
-        return march.march(config, rows[v], ground[v], conf[v], pidx[v], budget[v], dirs[:, v])
+        return march.march(config, rows[v], ground[v], conf[v], pidx[v], budget[v], dirs[:, v],
+                           n_m[v], no_flags(budget[v]))
 
-    want = march.march_plain(config, sb, ground, conf, pidx, plain6[0], plain6[2])
-    check("K7", march.march(*march_args), want, single_march)
+    want = march.march_plain(config, sb, ground, conf, pidx, plain6[0], plain6[2], n_m,
+                             no_flags(budget))
+    check("K7", march.march(*march_args, no_flags(budget)), want, single_march)
+    flags = no_flags(budget)  # K7 sets the same hits on every call
     work = [march_work(config, rows[v], ground[v], conf[v], pidx[v], plain6[0][v],
                        plain6[2][:, v]) for v in range(b)]
     total = {key_: sum(w[key_] for w in work) for key_ in work[0]}
     out["march"] = dict(max_abs_err=0.0, steps=total["steps"], **batched_times(
-        "K7 march", lambda: march.march(*march_args),
+        "K7 march", lambda: march.march(*march_args, flags),
         lambda: [single_march(v) for v in range(b)],
-        lambda: march.march_plain(*march_args), "march_kernel", b,
-        *march_cost(k * b, total)))
+        lambda: march.march_plain(*march_args, flags), "march_kernel", b,
+        *march_cost(b, int(torch.clamp(n_m, max=k).sum()), total)))
 
     # K9 and K10: the batch's raster stage around K1, through the stable
     # sort's order, the main path's three layers
-    outlier = march.march(*march_args) > 0
+    outlier = march.march(*march_args, no_flags(budget))
     order = torch.argsort(bins.cell, dim=-1, stable=True)
     col_args = (config, bins, pz, outlier, sb, order)
 
@@ -2335,8 +2520,10 @@ def path_launches(steps, raster=None, detect=0):
     """The main path's launches over ``steps`` steps (or shards, or batched
     steps): K1 (``raster``: twice a step with the aux count), K2 (ground and
     variance for classify; K6 reads the old ground itself), K3, K5, K6, K7,
-    K9, K10, K11 and K12 x1, K4 ``detect`` (the fused detect, ``steps`` or
-    0) and K8 the other steps."""
+    K9, K10, K11 and K12 x1 (the march stage's three launches: K6, K11 and
+    K7, :func:`check_march` checking under the profiler that it launches
+    nothing else), K4 ``detect`` (the fused detect, ``steps`` or 0) and K8
+    the other steps."""
     return {"raster": steps if raster is None else raster, "lookup": steps, "spiral": steps,
             "detect": detect, "bin": steps, "march_budget": steps, "march": steps,
             "detect_stage": steps - detect, "raster_columns": steps, "raster_finish": steps,
@@ -3713,6 +3900,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--k5-variants"]:  # phase 1 and K5's candidates alone
         print(json.dumps({"k5_variants": phase_k5_variants(config, records, device)}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["--k11-shapes"]:  # phase 1 and K11's cluster sizes alone
+        print(json.dumps({"k11_shapes": phase_k11_shapes(config, records, device)}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))

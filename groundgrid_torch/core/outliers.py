@@ -163,9 +163,9 @@ def march_budget(config: GroundGridConfig, s, binning: Binning, x, y, z, old_h):
 
 
 def march(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs, lookup_fn):
-    """(P,) int32, 1 at the candidates ``pidx`` (unique point indices, (K,),
-    or (B, K) of a (B, P) batch) whose line of sight crosses an occluding
-    cell, 0 elsewhere.
+    """(P,) bool, True at the candidates ``pidx`` (unique point indices,
+    (K,), or (B, K) of a (B, P) batch) whose line of sight crosses an
+    occluding cell, False elsewhere.
 
     Marches the (steps x candidates) lattice, ``LATTICE_ELEMS`` elements a
     chunk, along each candidate's direction (``dirs``, :func:`march_budget`'s):
@@ -179,7 +179,7 @@ def march(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs, 
     batch = budget.shape[:-1]
     dev = budget.device
     key_table = occlusion_key_table(config, ground, groundpatch)
-    out = torch.zeros(budget.shape, dtype=torch.int32, device=dev)
+    out = torch.zeros(budget.shape, dtype=torch.bool, device=dev)
     k_max = pidx.shape[-1]
     tol = float(np.float32(config.outlier_tolerance))
     steps = torch.arange(3, config.ray_steps, dtype=torch.float32, device=dev)[:, None]
@@ -200,8 +200,7 @@ def march(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs, 
         thr = _mono_u32((steps * vz_c + oz) + tol)
         (vals,) = lookup_fn(flat.reshape(*batch, -1), [key_table], n * n)
         key_hit = _u32_bits(vals).reshape(flat.shape) >= thr
-        hit = (within & inside & key_hit).any(dim=-2).to(torch.int32)
-        out.scatter_reduce_(-1, cp, hit, reduce="amax")
+        out.scatter_(-1, cp, (within & inside & key_hit).any(dim=-2))  # cp: unique
     return out
 
 
@@ -220,7 +219,10 @@ def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: B
     ``ops.march.march`` (K7), or their plain versions (K2's plain gather
     and :func:`march_budget`, ``select_candidates_plain``, and
     :func:`march` over the plain K2); ``budget_fn`` takes ``ground`` where
-    :func:`march_budget` takes the gathered ``old_h``. ``select_fn(budget,
+    :func:`march_budget` takes the gathered ``old_h``, and returns the
+    outlier flags zeroed beside the budgets, keys and directions, which
+    ``march_fn`` sets at the hits (given K11's marchable counts, past which
+    no candidate marches), so the stage is three launches. ``select_fn(budget,
     key, k_max)`` picks the ``k_max`` candidates and counts the marchable
     points (the JAX package's sort or ``lax.top_k``: the same marchable
     set); the march reads the occlusion keys of ``ground`` and
@@ -233,9 +235,10 @@ def detect_outliers(config: GroundGridConfig, s, ground, groundpatch, binning: B
     if k_max == 0:
         return (torch.zeros(x.shape, dtype=torch.bool, device=x.device),
                 torch.zeros(batch, dtype=torch.int64, device=x.device))
-    budget, key, dirs = budget_fn(config, s, binning, x, y, z, ground)
+    budget, key, dirs, flags = budget_fn(config, s, binning, x, y, z, ground)
     # candidate selection: the JAX package's marchable buffer (every
     # marchable point, or past the cap those of the top k_max keys), padded
     # with zero budgets that never fire
     pidx, n_marchable = select_fn(budget, key, k_max)
-    return march_fn(config, s, ground, groundpatch, pidx, budget, dirs) > 0, n_marchable
+    return march_fn(config, s, ground, groundpatch, pidx, budget, dirs, n_marchable,
+                    flags), n_marchable

@@ -8,7 +8,7 @@
 // GroundSegmentation.cpp:242-275. Eager PyTorch runs these chains as ~1,480
 // elementwise kernels a scan plus one K2 gather over the (steps x
 // candidates) lattice; here they are two launches around K11 (select.cu),
-// which selects the candidates.
+// which selects the candidates: the stage is these three launches.
 //
 // K6 march_budget, one thread a point: the candidate test against the
 // previous terrain first. The terrain under a point is the moved ground at
@@ -23,19 +23,23 @@
 // writes its budget (the squared ray length of a downward candidate, else
 // +0.0) and its unique int64 selection key (outliers.selection_key: the
 // truncated monotone budget over the index up to 2^17 points, the exact
-// budget over 2^32 - 1 - index above). Bound on the card: bytes, 18 a
-// point (z, the flags; budget and key), 4 an in-map unignored point (its
-// id) and 4 a distinct ground cell those ids name, 8 a candidate (x, y)
-// and 12 a marchable point (2.9 MB on a warm scan of 131,072 points, 0.86
-// us at 3.35 TB/s); the operations (386 a candidate's ray and vz, 246 a
+// budget over 2^32 - 1 - index above), and zeroes its outlier flag (a
+// bool), which K7 sets at the hits. Bound on the card: bytes, 19 a
+// point (z, the flags; budget, key and outlier flag), 4 an in-map
+// unignored point (its id) and 4 a distinct ground cell those ids name, 8
+// a candidate (x, y) and 12 a marchable point (3.0 MB on a warm scan of
+// 131,072 points, 0.90 us at 3.35 TB/s); the operations (386 a candidate's ray and vz, 246 a
 // marchable point's vx and vy) are a fraction of that on the main path's
 // data. The points come sorted by cell on the main path, so candidates
 // cluster, whole warps skip the ray, and neighbouring threads read
 // neighbouring ground words.
 //
-// K7 march, one warp a candidate: it reads the candidate's budget and ends
-// at once, the whole warp, when no step is live (3^2 < budget false): the
-// padding of the fixed candidate buffer costs two dependent loads. A
+// K7 march, one warp a candidate: a warp at a position at or past
+// min(n_marchable, kc), K11's count, ends after that one load: K11 puts
+// every marchable point before every other, so the padding of the fixed
+// candidate buffer is no candidate. Any other reads the candidate's budget
+// and ends at once, the whole warp, when no step is live (3^2 < budget
+// false). A
 // marchable candidate reads the three directions K6 wrote (no ray of its
 // own), then the lanes take the steps 3 .. ray_steps-1 32 at a time. A step
 // is live while step^2 < budget (monotone in the step, so a round with no
@@ -51,12 +55,12 @@
 // the block, nine independent loads summed in the table's row-major
 // order), which decides the same bit. `any` over the steps is order-free,
 // so the warp stops at the round of the first hit (__any_sync) and lane 0
-// stores a 1; the candidate indices are unique, so the store is a plain one and
-// every other point keeps the 0 the wrapper wrote. Its work: 182 f32
+// stores true; the candidate indices are unique, so the store is a plain one
+// and every other point keeps the false K6 wrote. Its work: 182 f32
 // operations a live step up to its first hit, 8 adds a block summed; its
-// bytes: 12 a candidate (index, budget), 12 a marchable one (directions),
-// the cells its samples read in both layers, and 4 a hit written (the
-// flags' zero fill is the wrapper's own launch); on the main path's data
+// bytes: the count, 12 a marchable candidate (index, budget), 12 more for
+// its directions, the cells its samples read in both layers, and 1 a hit
+// written; on the main path's data
 // bytes and operations bound it about equally, ~0.04 us each at 364^2.
 // What sets its time is the dependent chain of a round (two
 // ds_bins, the cell's loads, the block's) and the launch.
@@ -96,7 +100,7 @@ __global__ void march_budget_kernel(const float* __restrict__ x, const float* __
                                     const float* __restrict__ ground, int n2,
                                     const float* __restrict__ scalars, int stride,
                                     float* __restrict__ budget, long long* __restrict__ key,
-                                    float* __restrict__ dirs) {
+                                    float* __restrict__ dirs, bool* __restrict__ flags) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p) return;
   const size_t k = (size_t)blockIdx.y * p + i;
@@ -120,6 +124,7 @@ __global__ void march_budget_kernel(const float* __restrict__ x, const float* __
     }
   }
   budget[k] = b;
+  flags[k] = false;
   if (p <= 1 << kIdxBits) {
     const long long mask = ~((1LL << kIdxBits) - 1);
     key[k] = ((long long)gg::mono_u32(b) & mask) | (long long)i;
@@ -154,21 +159,22 @@ __device__ __forceinline__ bool occludes(const float* __restrict__ ground,
 }
 
 struct MarchArgs {
-  const long long* pidx;  // (batch, kc) candidate indices, unique a row
-  const float* budget;    // (batch, p)
+  const long long* pidx;         // (batch, kc) candidate indices, unique a row
+  const long long* n_marchable;  // (batch,) K11's counts: the marchable lead pidx
+  const float* budget;           // (batch, p)
   const float* dirs;      // (3, batch, p), defined where the budget is positive
   const float* ground;    // (batch, n, n), moved
   const float* conf;      // (batch, n, n), the moved groundpatch
   const float* scalars;
-  int* out;  // (batch, p), zero but at the hits
+  bool* out;  // (batch, p), false but at the hits
 };
 
 __global__ void march_kernel(MarchArgs a, int kc, int p, int stride, int n, float rh, float rl,
                              float inv, float tol, float min_conf, int ray_steps) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (c >= kc) return;  // the whole warp
   const size_t row = blockIdx.y;
+  if (c >= kc || c >= a.n_marchable[row]) return;  // no marchable candidate: the whole warp
   const size_t k = row * p + (size_t)a.pidx[row * kc + c];
   const float b = a.budget[k];
   if (ray_steps <= 3 || !(gg::mul(3.0f, 3.0f) < b)) return;  // no live step: the whole warp
@@ -195,7 +201,7 @@ __global__ void march_kernel(MarchArgs a, int kc, int p, int stride, int n, floa
       }
     }
     if (__any_sync(0xFFFFFFFFu, hit)) {
-      if (lane == 0) a.out[k] = 1;
+      if (lane == 0) a.out[k] = true;
       return;
     }
   }
@@ -207,33 +213,38 @@ __global__ void march_kernel(MarchArgs a, int kc, int p, int stride, int n, floa
 // bool; ground: (batch, n2) f32, the moved grids; scalars: the first row's
 // scan scalars, rows `stride` floats apart; budget (f32) and key (i64) out,
 // (batch, p); dirs out, (3, batch, p) f32, written where the budget is
-// positive. p >= 1, n2 >= 1, 1 <= batch <= 65535.
+// positive; flags out, (batch, p) bool, false. p >= 1, n2 >= 1, 1 <= batch
+// <= 65535.
 extern "C" int gg_march_budget(const float* x, const float* y, const float* z, const int* cell,
                                const bool* inmap, const bool* ignored, int p, int batch,
                                const float* ground, int n2, const float* scalars, int stride,
-                               float* budget, long long* key, float* dirs, cudaStream_t stream) {
+                               float* budget, long long* key, float* dirs, bool* flags,
+                               cudaStream_t stream) {
   if (p < 1 || n2 < 1 || batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   dim3 blocks((p + threads - 1) / threads, batch);
   march_budget_kernel<<<blocks, threads, 0, stream>>>(x, y, z, cell, inmap, ignored, p, ground,
-                                                      n2, scalars, stride, budget, key, dirs);
+                                                      n2, scalars, stride, budget, key, dirs,
+                                                      flags);
   return (int)cudaGetLastError();
 }
 
-// pidx: (batch, kc) i64 point indices in [0, p), unique a row; budget:
-// (batch, p) f32; dirs: (3, batch, p) f32 (gg_march_budget's); ground,
-// conf: (batch, n, n) f32, the moved layers; out: (batch, p) i32, zeroed by
-// the caller. (rh, rl, inv): core/exactf32.res_ds; tol and min_conf: the
-// outlier tolerance and min_outlier_detection_ground_confidence as f32.
-// kc >= 1, n >= 5, 1 <= batch <= 65535.
-extern "C" int gg_march(const long long* pidx, int kc, const float* budget, const float* dirs,
-                        const float* ground, const float* conf, int p, int batch, int n,
-                        const float* scalars, int stride, float rh, float rl, float inv,
-                        float tol, float min_conf, int ray_steps, int* out,
-                        cudaStream_t stream) {
+// pidx: (batch, kc) i64 point indices in [0, p), unique a row, the
+// marchable ones first (K11's); n_marchable: (batch,) i64, K11's counts;
+// budget: (batch, p) f32; dirs: (3, batch, p) f32 (gg_march_budget's);
+// ground, conf: (batch, n, n) f32, the moved layers; out: (batch, p) bool,
+// false (gg_march_budget's flags). (rh, rl, inv): core/exactf32.res_ds; tol
+// and min_conf: the outlier tolerance and
+// min_outlier_detection_ground_confidence as f32. kc >= 1, n >= 5, 1 <=
+// batch <= 65535.
+extern "C" int gg_march(const long long* pidx, int kc, const long long* n_marchable,
+                        const float* budget, const float* dirs, const float* ground,
+                        const float* conf, int p, int batch, int n, const float* scalars,
+                        int stride, float rh, float rl, float inv, float tol, float min_conf,
+                        int ray_steps, bool* out, cudaStream_t stream) {
   if (kc < 1 || p < 1 || n < 5 || batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   dim3 blocks((kc + kWarps - 1) / kWarps, batch);
-  MarchArgs a{pidx, budget, dirs, ground, conf, scalars, out};
+  MarchArgs a{pidx, n_marchable, budget, dirs, ground, conf, scalars, out};
   march_kernel<<<blocks, kWarps * 32, 0, stream>>>(a, kc, p, stride, n, rh, rl, inv, tol,
                                                    min_conf, ray_steps);
   return (int)cudaGetLastError();

@@ -46,8 +46,8 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every entry point ends with the CUDA stream and returns the
-# launch's cudaGetLastError() code
+# C signatures: every entry point but a query ends with the CUDA stream and
+# returns the launch's cudaGetLastError() code
 _SIGNATURES = {
     "gg_raster_reduce": [_P, _P, _I, _I, _I, ctypes.c_uint, _I, _P, _P],
     "gg_lookup": [_P, _I, _I, _P, _P, _I, ctypes.c_longlong, _P, _P, _P],
@@ -56,11 +56,13 @@ _SIGNATURES = {
     "gg_detect": [_P] * 9 + [_I, _I, _F, _F, _F, _P, _P, _I, _P],
     "gg_detect_stage": [_P] * 6 + [_I] * 4 + [_F] * 4 + [_P, _P, _P],
     "gg_bin": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _F, _F, _F, _I, _F] + [_P] * 7,
-    "gg_march_budget": [_P] * 6 + [_I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
-    "gg_march": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _F, _F, _I, _P, _P],
+    "gg_march_budget": [_P] * 6 + [_I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "gg_march": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _F, _F, _I, _P,
+                 _P],
     "gg_raster_columns": [_P] * 6 + [_I, _I, _I, _P, _I, _F, _P, _P, _P],
     "gg_raster_finish": [_P, _I, _I, _I, _P, _I, _F, _I, _P, _P],
-    "gg_select": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "gg_select": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "gg_select_cluster": [_I, _I],  # a query: no stream
     "gg_move": [_P, _P, _I, _I, _P, _I, _F, _F, _P, _P, _P],
 }
 

@@ -2,16 +2,18 @@
 
 Replace what XLA fuses for the JAX package of its outlier rejection,
 ``groundgrid_tpu/core/outliers.py:detect_outliers``: K6 :func:`march_budget`
-the per-point budgets, selection keys and ray directions before K11
-(``ops/select.py``) picks the candidates (the JAX package's sort or
-``lax.top_k``),
+the per-point budgets, selection keys and ray directions, and the zeroed
+outlier flags, before K11 (``ops/select.py``) picks the candidates (the
+JAX package's sort or ``lax.top_k``),
 reading each point's previous terrain ``ground[cell]`` from the moved
 ground itself (the JAX step gathers it with its sorted-lookup kernel), and
 K7 :func:`march` the walk of the selected candidates' rays over the grid,
 with the occlusion key of each cell it reads computed from the moved
 ground and groundpatch (the JAX package reads a key table through its
-sorted-lookup kernel). Eager PyTorch runs the two chains and the key table
-as ~1,480 elementwise kernels and two K2 launches a scan.
+sorted-lookup kernel), setting the flags at the hits and ending at once for
+the positions past K11's marchable count. Eager PyTorch runs the two chains
+and the key table as ~1,480 elementwise kernels and two K2 launches a scan;
+on the card the stage is the three launches K6, K11 and K7.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (:func:`march_budget_plain`, :func:`march_plain`: ``core/
@@ -42,16 +44,22 @@ from groundgrid_torch.ops.lookup import lookup_plain
 
 def march_budget_plain(config: GroundGridConfig, s, binning: Binning, x, y, z, ground):
     """Plain version of :func:`march_budget`: ``old_h``, ``ground[cell]``
-    by K2's plain version, then ``core/outliers.py march_budget``."""
+    by K2's plain version, then ``core/outliers.py march_budget``, and the
+    outlier flags, all False."""
     n2 = ground.shape[-2] * ground.shape[-1]
     (old_h,) = lookup_plain(binning.cell, [ground], n2)
-    return outliers.march_budget(config, s, binning, x, y, z, old_h)
+    return (*outliers.march_budget(config, s, binning, x, y, z, old_h),
+            torch.zeros(x.shape, dtype=torch.bool, device=x.device))
 
 
-def march_plain(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs):
+def march_plain(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs,
+                n_marchable, flags):
     """Plain version of :func:`march`: ``core/outliers.py march``, its
-    occlusion key table read through K2's plain version."""
-    return outliers.march(config, s, ground, groundpatch, pidx, budget, dirs, lookup_plain)
+    occlusion key table read through K2's plain version, set into
+    ``flags``. It needs no ``n_marchable``: the candidates past it have
+    zero budgets and never hit."""
+    return flags.logical_or_(outliers.march(config, s, ground, groundpatch, pidx, budget, dirs,
+                                            lookup_plain))
 
 
 def _check_points(*tensors):
@@ -64,10 +72,11 @@ def _check_points(*tensors):
 
 
 def march_budget(config: GroundGridConfig, s, binning: Binning, x, y, z, ground):
-    """``(budget, key, dirs)``: ``core/outliers.py march_budget`` of (P,) or
-    (B, P) points, the f32 march budget and the unique int64 selection key
-    of every point, and the (3, ...) f32 ray directions, defined where the
-    budget is positive (the kernel writes nothing elsewhere). ``ground``:
+    """``(budget, key, dirs, flags)``: ``core/outliers.py march_budget`` of
+    (P,) or (B, P) points, the f32 march budget and the unique int64
+    selection key of every point, the (3, ...) f32 ray directions, defined
+    where the budget is positive (the kernel writes nothing elsewhere), and
+    the points' bool outlier flags, all False, for :func:`march`. ``ground``:
     the moved ground, (N, N) or (B, N, N) f32, whose word at each point's
     ``binning.cell`` is its previous terrain (0 for an id outside [0, N^2),
     as K2 reads it); the kernel reads it for in-map, unignored points."""
@@ -90,24 +99,31 @@ def march_budget(config: GroundGridConfig, s, binning: Binning, x, y, z, ground)
     budget = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     key = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     dirs = torch.empty((3, *x.shape), dtype=torch.float32, device=x.device)
+    flags = torch.empty(x.shape, dtype=torch.bool, device=x.device)
     if x.numel() == 0:
-        return budget, key, dirs
+        return budget, key, dirs, flags
     code = _build.launch("gg_march_budget", x.device, *(t.data_ptr() for t in ins),
                          x.shape[-1], math.prod(x.shape[:-1]), ground.data_ptr(), n * n, base,
-                         stride, budget.data_ptr(), key.data_ptr(), dirs.data_ptr())
+                         stride, budget.data_ptr(), key.data_ptr(), dirs.data_ptr(),
+                         flags.data_ptr())
     _build.check(code, "march_budget")
     march_budget.launches += 1
-    return budget, key, dirs
+    return budget, key, dirs, flags
 
 
-def march(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs):
-    """``core/outliers.py march``: (P,) (or (B, P)) int32, 1 at the
-    candidates ``pidx`` (unique int64 point indices a row, (K,) or (B, K))
-    whose ray, along ``dirs`` (:func:`march_budget`'s) for ``budget``,
-    crosses an occluding cell of the moved ``ground`` and ``groundpatch``
-    ((N, N) or (B, N, N) f32), 0 elsewhere."""
+def march(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs, n_marchable,
+          flags):
+    """``core/outliers.py march`` into ``flags`` ((P,) or (B, P) bool, all
+    False: :func:`march_budget`'s), which it returns: True at the
+    candidates ``pidx`` (unique int64 point indices a row, (K,) or (B, K),
+    the marchable ones first: K11's) whose ray, along ``dirs``
+    (:func:`march_budget`'s) for ``budget``, crosses an occluding cell of
+    the moved ``ground`` and ``groundpatch`` ((N, N) or (B, N, N) f32). The
+    kernel ends at once for the positions at or past ``n_marchable`` (K11's
+    () or (B,) int64 counts)."""
     if budget.device.type == "cpu":
-        return march_plain(config, s, ground, groundpatch, pidx, budget, dirs)
+        return march_plain(config, s, ground, groundpatch, pidx, budget, dirs, n_marchable,
+                           flags)
     _check_points(budget)
     n = config.cell_count
     batch = budget.shape[:-1]
@@ -122,6 +138,14 @@ def march(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs):
             dirs.device != budget.device):
         raise ValueError(f"dirs must be (3, *budget.shape) float32, got {tuple(dirs.shape)} "
                          f"{dirs.dtype}")
+    if (n_marchable.dtype != torch.int64 or n_marchable.shape != batch
+            or n_marchable.device != budget.device):
+        raise ValueError(f"n_marchable must be int64 of shape {tuple(batch)} on the points' "
+                         f"device, got {tuple(n_marchable.shape)} {n_marchable.dtype}")
+    if (flags.dtype != torch.bool or flags.shape != budget.shape or flags.device != budget.device
+            or not flags.is_contiguous()):
+        raise ValueError(f"flags must be contiguous bool of the budget's shape, got "
+                         f"{tuple(flags.shape)} {flags.dtype}")
     for layer in (ground, groundpatch):
         if (layer.dtype != torch.float32 or layer.shape != (*batch, n, n)
                 or layer.device != budget.device):
@@ -130,20 +154,19 @@ def march(config: GroundGridConfig, s, ground, groundpatch, pidx, budget, dirs):
     if budget.device.type != "cuda":
         raise RuntimeError(f"march: unsupported device {budget.device}")
     base, stride = scalarlib.device_rows(s, budget)
-    ins = [t.contiguous() for t in (pidx, budget, dirs, ground, groundpatch)]
-    out = torch.zeros(budget.shape, dtype=torch.int32, device=budget.device)
+    ins = [t.contiguous() for t in (pidx, n_marchable, budget, dirs, ground, groundpatch)]
     if pidx.shape[-1] == 0 or budget.numel() == 0:
-        return out  # no candidate marches
+        return flags  # no candidate marches
     rh, rl, inv = exactf32.res_ds(config.resolution)
     code = _build.launch(
         "gg_march", budget.device, ins[0].data_ptr(), pidx.shape[-1],
         *(t.data_ptr() for t in ins[1:]), budget.shape[-1], math.prod(batch), n, base, stride,
         float(rh), float(rl), float(inv), float(np.float32(config.outlier_tolerance)),
         float(np.float32(config.min_outlier_detection_ground_confidence)),
-        int(config.ray_steps), out.data_ptr())
+        int(config.ray_steps), flags.data_ptr())
     _build.check(code, "march")
     march.launches += 1
-    return out
+    return flags
 
 
 march_budget.launches = 0

@@ -18,8 +18,11 @@ alone, the kernel's indices are held to it bitwise.
 
 :func:`select_candidates` launches the kernel for CUDA tensors and takes
 the plain version only for CPU tensors. A batch of vehicles, (B, P)
-budgets and keys, is one launch, one block a row, each row bitwise its
-single call.
+budgets and keys, is one launch, a cluster of blocks a row, each row
+bitwise its single call. The cluster's size is the kernel's own rule
+(:func:`cluster_size`): 16 blocks for a single row, fewer as the batch
+grows, so that every row's cluster is on the card at once. A shape the
+card cannot place raises; there is no other shape to fall back to.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 
 from groundgrid_torch.ops import _build
 
-MAX_POINTS = 1 << 30  # select.cu's bound on a row
+MAX_POINTS = 1 << 23  # select.cu's bound on a row: 16 chunks of 16,384 words
 
 
 def select_candidates_plain(budget, key, k_max: int):
@@ -73,10 +76,27 @@ def select_candidates(budget, key, k_max: int):
         return pidx, n_marchable  # no row (a zero-block launch is invalid)
     budget, key = budget.contiguous(), key.contiguous()
     code = _build.launch("gg_select", budget.device, budget.data_ptr(), key.data_ptr(), p,
-                         math.prod(batch), k_max, pidx.data_ptr(), n_marchable.data_ptr())
+                         math.prod(batch), k_max, 0, pidx.data_ptr(), n_marchable.data_ptr())
     _build.check(code, "select_candidates")
     select_candidates.launches += 1
     return pidx, n_marchable
 
 
 select_candidates.launches = 0
+
+
+def cluster_size(p: int, batch: int, device) -> int:
+    """The blocks a row :func:`select_candidates` launches for ``batch`` rows
+    of ``p`` points on the CUDA ``device``: the largest of 16, 8, 4, 2 and 1
+    (at least 32 words of 32 points a block above 1) of which the card
+    holds ``batch`` clusters at once (``cudaOccupancyMaxActiveClusters``),
+    else the one holding the most blocks. Raises where none is placed."""
+    if not 1 <= p <= MAX_POINTS or batch < 1:
+        raise ValueError(f"cluster_size: need 1 <= P <= {MAX_POINTS} and a batch, got P {p}, "
+                         f"batch {batch}")
+    with torch.cuda.device(device):
+        size = _build.library().lib.gg_select_cluster(p, batch)
+    if size <= 0:
+        raise RuntimeError(f"select_candidates: no cluster shape for {batch} rows of {p} points "
+                           f"(code {size})")
+    return size

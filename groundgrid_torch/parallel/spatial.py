@@ -378,7 +378,8 @@ class SpatialStep:
     need it), else the host center recurrence's (``grid.index_shift_ds``).
     The host packs every per-scan value into the scan scalars, shipped once
     per device. Kernel launches per scan: K1, K3, K5-K12 x S
-    (K3 one per non-empty band when banded), K2 x S. The step reads
+    (K3 one per non-empty band when banded), K2 x S; a shard's march is
+    K6, K11 and K7 alone (K6 zeroes the outlier flags K7 sets). The step reads
     nothing back to the host; ``fallbacks`` counts the shards' unsorted
     chunks of sorted scans (a host read).
     """

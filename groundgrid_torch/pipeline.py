@@ -6,7 +6,8 @@ the map frame and sorts it by flat cell id against the host-tracked grid
 center (:func:`prepare_scan`); the device step then runs, in the reference's
 stage order (``GroundSegmentation.cpp:50-197``, ``GroundGrid.cpp:83-147``):
 
-    K12 move -> K5 bin -> K6 budgets (reading the old ground) -> K11 select -> K7 march
+    K12 move -> K5 bin -> K6 budgets (reading the old ground; zeroing the outlier flags)
+         -> K11 select -> K7 march (setting the flags; the positions past K11's count end)
          -> K9 raster columns -> K1 sums -> K10 raster layers -> detect
          -> K3 spiral -> K2 (ground, variance) -> classify
 

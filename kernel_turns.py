@@ -23,7 +23,10 @@ K8 on a batch of 64 grids at 364^2 by this script's own
 ``chip_smoke.stage_batch`` (``detect_stage_b64``); with ``binning``, its
 tree's K5 on a batch of 64 prepared scans by ``chip_smoke.bin_batch``
 (``binning_b64``); with ``select``, its tree's K11 on 64 warm scans'
-budgets and keys by ``chip_smoke.select_batch`` (``select_b64``). A turn prints the
+budgets and keys by ``chip_smoke.select_batch`` (``select_b64``); with
+``move``, its tree's K12 on 64 grids by ``chip_smoke.move_batch``
+(``move_b64``) and at 1200^2 by ``chip_smoke.move_highres``
+(``move_1200``). A turn prints the
 tree's environment lines and, last, one JSON line with what each check
 returned; this script echoes them and ends with one JSON line of all turns.
 It fails if a turn fails. ``binning``, ``march`` (K5-K7), ``detect_stage``
@@ -142,6 +145,9 @@ for name in sys.argv[2:]:
             out["binning_b64"] = probe.bin_batch(config, driver, records)
         if name == "select":  # K11 at B = 64, by the calling tree's probe
             out["select_b64"] = probe.select_batch(config, driver, records)
+        if name == "move":  # K12 at B = 64 and at 1200^2, by the calling tree's probe
+            out["move_b64"] = probe.move_batch(config, driver, records)
+            out["move_1200"] = probe.move_highres(config, driver, records[4:5])
 print(json.dumps(out))
 """
 

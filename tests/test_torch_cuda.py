@@ -72,8 +72,9 @@ def _path(steps, detect, raster=None):
     """The launch counts of ``steps`` single steps (or shards, or batched
     steps) on the main path: K1 (``raster`` if the aux count adds one), K2
     (ground and variance for classify; K6 reads the old ground itself), K3,
-    K5, K6, K7, K9, K10, K11 and K12 x1, K4 ``detect`` (the fused detect,
-    ``steps`` or 0), K8 the other steps."""
+    K5, K6, K7, K9, K10, K11 and K12 x1 (the march stage's three launches,
+    ``test_march_stage_is_three_launches``), K4 ``detect`` (the fused
+    detect, ``steps`` or 0), K8 the other steps."""
     return {"raster": steps if raster is None else raster, "lookup": steps, "spiral": steps,
             "detect": detect, "bin": steps, "march_budget": steps, "march": steps,
             "detect_stage": steps - detect, "raster_columns": steps, "raster_finish": steps,
@@ -703,13 +704,109 @@ def test_mutated_march_budget_kernels_fail(cuda, tmp_path):
         for (s, b, x, y, z, ground, _), want in zip(cases, wants):
             base, stride = scalarlib.device_rows(s, x)
             out = (torch.empty_like(x), torch.empty(x.shape, dtype=torch.int64, device=cuda),
-                   torch.empty((3, *x.shape), device=cuda))
+                   torch.empty((3, *x.shape), device=cuda),
+                   torch.ones(x.shape, dtype=torch.bool, device=cuda))
             assert entry(*(t.data_ptr() for t in (x, y, z, b.cell, b.inmap, b.ignored)),
                          x.shape[-1], math.prod(x.shape[:-1]), ground.data_ptr(),
                          cfg.cell_count ** 2, base, stride, *(t.data_ptr() for t in out),
                          torch.cuda.current_stream().cuda_stream) == 0
-            caught += not _same_budgets(out, want)
+            caught += not (_same_budgets(out, want) and _bitwise(out[3], want[3]))
         assert (caught == 0) == (name == "none"), (name, caught)
+
+
+# mutations of march.cu's K7 that ``test_mutated_march_kernels_fail``'s case
+# must catch
+WALK_MUTATIONS = {
+    "K7 ends one warp early": ("if (c >= kc || c >= a.n_marchable[row]) return;",
+                               "if (c >= kc || c + 1 >= a.n_marchable[row]) return;"),
+}
+
+
+def test_mutated_march_kernels_fail(cuda, tmp_path):
+    """Each mutation of ``WALK_MUTATIONS`` (K7 ending the warp of the last
+    marchable candidate with the padding past K11's count), built alone
+    with the library's flags, differs from the plain march on the
+    clamp-edge scene with the budgets of the candidates that miss set to
+    0, so that every marchable candidate hits, the last one too; the source
+    unmutated, on none."""
+    import march_scenes
+    from groundgrid_torch.core import exactf32
+    from groundgrid_torch.core import scalars as scalarlib
+
+    libs = _mutants("march.cu", WALK_MUTATIONS, tmp_path)
+    cfg = GroundGridConfig(**march_scenes.EDGE)
+    sc = march_scenes.Scene(*(torch.from_numpy(a).to(cuda)
+                              for a in march_scenes.edge_scene(cfg, 0)))
+    s = scalarlib.view(sc.packed)
+    b = binning.bin_points_plain(cfg, s, sc.x, sc.y, sc.rings, sc.valid)
+    budget, key, dirs, pidx = _march_inputs(cfg, s, b, sc.x, sc.y, sc.z, sc.ground,
+                                            march.march_budget_plain)
+    hits = _march(march.march_plain, cfg, s, sc.ground, sc.conf, pidx, budget, dirs)
+    budget = torch.where(hits, budget, torch.zeros_like(budget))  # only the hits march
+    pidx, n_m = select.select_candidates_plain(budget, _selection_key(budget),
+                                               min(cfg.max_outlier_candidates, budget.shape[-1]))
+    want = _march(march.march_plain, cfg, s, sc.ground, sc.conf, pidx, budget, dirs)
+    assert int(n_m) > 1 and bool(want[pidx[int(n_m) - 1]])  # the last marchable one hits
+    base, stride = scalarlib.device_rows(s, budget)
+    rh, rl, inv = exactf32.res_ds(cfg.resolution)
+    for name, lib_path in libs.items():
+        entry = _entry(lib_path, "gg_march")
+        out = torch.zeros(budget.shape, dtype=torch.bool, device=cuda)
+        assert entry(pidx.data_ptr(), pidx.shape[-1], n_m.data_ptr(), budget.data_ptr(),
+                     dirs.data_ptr(), sc.ground.data_ptr(), sc.conf.data_ptr(),
+                     budget.shape[-1], 1, cfg.cell_count, base, stride, float(rh), float(rl),
+                     float(inv), float(np.float32(cfg.outlier_tolerance)),
+                     float(np.float32(cfg.min_outlier_detection_ground_confidence)),
+                     int(cfg.ray_steps), out.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream) == 0
+        assert _bitwise(out, want) == (name == "none"), name
+
+
+def _selection_key(budget):
+    from groundgrid_torch.core import outliers
+
+    return outliers.selection_key(budget)
+
+
+def test_march_stage_is_three_launches(cuda):
+    """Under ``torch.profiler`` the march stage as the step runs it
+    (``detect_outliers`` with K6, K11 and K7) on a warm scan of the
+    adversarial world is 3 device activities a call, named K6's, K11's and
+    K7's: no fill of the outlier flags before K7 and no comparison after
+    it. (The profiler now and then drops a record, never adds one.)"""
+    from groundgrid_torch.core import grid as gridlib
+    from groundgrid_torch.core import outliers, scalars
+    from groundgrid_torch.pipeline import scan_scalars, to_device
+    from groundgrid_torch.runtime.driver import StreamingDriver
+    from groundgrid_torch.runtime.kernel_timing import profiled
+
+    cfg = GroundGridConfig(**SMALL_SORTED, sorted_scans=True)
+    recs = _adversarial_records(3)
+    driver = StreamingDriver(cfg, cuda)
+    for rec in recs[:2]:
+        driver.process(rec)
+    scan, _ = driver.make_scan(recs[2])
+    packed, _, _ = scan_scalars(cfg, driver.state.center_np, driver.state.center_lo_np, scan)
+    s = scalars.view(to_device(packed, cuda))
+    ground, conf = gridlib.move(cfg, driver.state.ground, driver.state.groundpatch, s)
+    b = binning.bin_points(cfg, s, scan.px, scan.py, scan.rings, scan.valid > 0)
+
+    def stage():
+        return outliers.detect_outliers(cfg, s, ground, conf, b, scan.px, scan.py, scan.pz,
+                                        march.march_budget, select.select_candidates,
+                                        march.march)
+
+    stage()
+    reps = 10
+    with profiled() as prof:
+        for _ in range(reps):
+            stage()
+    dev = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in prof.events() if e.device_type == dev and not e.is_user_annotation]
+    assert 2.9 * reps <= len(names) <= 3 * reps, names
+    kernels = ("march_budget_kernel", "select_kernel", "march_kernel")
+    assert all(any(k in name for k in kernels) for name in names), names
+    assert all(any(k in name for name in names) for k in kernels), names
 
 
 def _select_budgets(rng, b, p, n_pos, ties=True):
@@ -732,7 +829,10 @@ def _select_budgets(rng, b, p, n_pos, ties=True):
 SELECT_CASES = [(1, 1, 1), (77, 20, 40), (77, 60, 40), (4097, 300, 700), (4097, 700, 700),
                 (5000, 900, 700), (16385, 1000, 16385), (1 << 17, 726, 8192),
                 (1 << 17, 8192, 8192), (1 << 17, 9000, 8192), ((1 << 17) + 640, 5000, 3000),
-                (1 << 18, 2000, 8192), (1 << 18, 12000, 8192), (262144, 262144, 8192)]
+                (1 << 18, 2000, 8192), (1 << 18, 12000, 8192), (262144, 262144, 8192),
+                # the storms (keys in shared memory) and a tail crossing from
+                # one 4,096-point chunk into the next at 16 blocks a row
+                (1 << 17, 20000, 8192), (1 << 18, 20000, 8192), (1 << 16, 500, 8192)]
 
 
 @pytest.mark.parametrize("ties", [False, True], ids=["distinct", "tied"])
@@ -772,38 +872,90 @@ def test_select_kernel_batch_matches_single_launches(cuda, p):
         assert _bitwise(got[0][v], one[0]) and _bitwise(got[1][v], one[1]), v
 
 
+def test_select_kernel_cluster_shapes(cuda):
+    """K11 at B = 1, 2, 7 and 64 rows of 131,072 points (rows under, at and
+    over the cap): each batch bitwise its plain version and each row its
+    single launch, at the cluster shape the launch's rule takes for it
+    (``select.cluster_size``); the rule takes 16 blocks for one row and
+    fewer for 64, so the batches cover more than one shape."""
+    p, k = 1 << 17, 8192
+    shapes = {}
+    for b in (1, 2, 7, 64):
+        rng = np.random.default_rng(b)
+        counts = [int(v) for v in rng.choice([0, 726, 8192, 9000, 20000], b)]
+        budget, key = _select_budgets(rng, b, p, counts)
+        budget, key = budget.to(cuda), key.to(cuda)
+        got = select.select_candidates(budget, key, k)
+        want = select.select_candidates_plain(budget, key, k)
+        assert all(_bitwise(g, w) for g, w in zip(got, want)), b
+        for v in range(b):
+            one = select.select_candidates(budget[v], key[v], k)
+            assert _bitwise(got[0][v], one[0]) and _bitwise(got[1][v], one[1]), (b, v)
+        shapes[b] = select.cluster_size(p, b, cuda)
+    assert shapes[1] == 16 and shapes[64] < 16, shapes
+    assert all(shapes[a] >= shapes[b] for a, b in ((1, 2), (2, 7), (7, 64))), shapes
+
+
+def test_select_tail_crosses_a_chunk(cuda):
+    """The tail of 2^16 points with 500 marchable and k = 8,192 runs past
+    the first chunk of the single row's shape (16 blocks of 4,096 points)
+    into the second: bitwise the plain version."""
+    p, n_pos, k = 1 << 16, 500, 8192
+    size = select.cluster_size(p, 1, cuda)
+    chunk = 32 * -(-(p // 32) // size)
+    assert size == 16 and n_pos + chunk < k  # the tail's last point lies past chunk 0
+    budget, key = _select_budgets(np.random.default_rng(16), 1, p, n_pos)
+    budget, key = budget[0].to(cuda), key[0].to(cuda)
+    got = select.select_candidates(budget, key, k)
+    want = select.select_candidates_plain(budget, key, k)
+    assert _bitwise(got[0], want[0]) and _bitwise(got[1], want[1])
+    assert int(want[0][-1]) >= chunk
+
+
 # mutations of select.cu that ``test_select_kernel_matches_plain``'s cases
 # must catch
 SELECT_MUTATIONS = {
     "k-th key off by one": ("unsigned int remaining = (unsigned int)k;",
                             "unsigned int remaining = (unsigned int)k + 1u;"),
-    "unstable partition": ("const unsigned int pos = before + __popc(word & ((1u << b) - 1u));",
-                           "const unsigned int pos = before + __popc(word & ~((2u << b) - 1u));"),
+    "unstable partition": ("nth_bit(mask, tr - before)",
+                           "nth_bit(mask, __popc(mask) - 1u - (tr - before))"),
     "zero budgets marchable": ("return b > 0.0f;", "return b >= 0.0f;"),
+    "tail off by one at a chunk boundary": ("if (b <= t) r = j;", "if (b < t) r = j;"),
+    "storm reads a stale shared key": ("if (ch.keys != nullptr && i < ch.len) ch.keys[i] = v[j];",
+                                       "if (ch.keys != nullptr && i < ch.len - kThreads) "
+                                       "ch.keys[i] = v[j];"),
 }
 
 
 def test_mutated_select_kernels_fail(cuda, tmp_path):
     """Each mutation of ``SELECT_MUTATIONS`` (the radix select aiming at the
-    (k+1)-th key, the selected points of a word ranked in reverse, zero
-    budgets counted as marchable), built alone with the library's flags, differs
-    from the plain version on at least one case; the source unmutated, on
-    none."""
+    (k+1)-th key, the points of a word taken in reverse, zero budgets
+    counted as marchable, a point at the first of a chunk looked for in the
+    chunk before, the last 512 keys of a chunk left as the shared memory
+    held them), built alone with the library's flags, differs from the
+    plain version on at least one case; the source unmutated, on none.
+    Before each case a launch on a row of large keys fills the shared
+    memory, so a key not copied is a stale one."""
+    from groundgrid_torch.core import outliers
+
     libs = _mutants("select.cu", SELECT_MUTATIONS, tmp_path)
     cases = []
     for p, n_pos, k in SELECT_CASES[3:]:
         budget, key = _select_budgets(np.random.default_rng(p + n_pos), 1, p, n_pos)
         budget, key = budget[0].to(cuda), key[0].to(cuda)
-        cases.append((budget, key, k, select.select_candidates_plain(budget, key, k)))
+        poison = torch.full((p,), 1000.5, device=cuda)
+        cases.append((budget, key, k, select.select_candidates_plain(budget, key, k),
+                      (poison, outliers.selection_key(poison))))
+    stream = torch.cuda.current_stream().cuda_stream
     for name, lib_path in libs.items():
         entry = _entry(lib_path, "gg_select")
         caught = 0
-        for budget, key, k, want in cases:
+        for budget, key, k, want, poison in cases:
             pidx = torch.empty(k, dtype=torch.int64, device=cuda)
             n_m = torch.empty((), dtype=torch.int64, device=cuda)
-            assert entry(budget.data_ptr(), key.data_ptr(), budget.shape[0], 1, k,
-                         pidx.data_ptr(), n_m.data_ptr(),
-                         torch.cuda.current_stream().cuda_stream) == 0
+            for b, kk in (poison, (budget, key)):
+                assert entry(b.data_ptr(), kk.data_ptr(), b.shape[0], 1, k, 0, pidx.data_ptr(),
+                             n_m.data_ptr(), stream) == 0
             caught += not (_bitwise(pidx, want[0]) and _bitwise(n_m, want[1]))
         assert (caught == 0) == (name == "none"), (name, caught)
 
@@ -926,19 +1078,23 @@ MOVE_MUTATIONS = {
     "exposed edge off by one": ("return (k >= 0 ? idx < k : idx >= n + k)",
                                 "return (k >= 0 ? idx <= k : idx >= n + k)"),
     "wipe dropped (shift mod n)": (
-        "const int k0 = __float_as_int(s[kK0]), k1 = __float_as_int(s[kK1]);",
-        "const int k0 = __float_as_int(s[kK0]) % n, k1 = __float_as_int(s[kK1]) % n;"),
+        "const int k0 = __float_as_int(sc[5]), k1 = __float_as_int(sc[6]);",
+        "const int k0 = __float_as_int(sc[5]) % n, k1 = __float_as_int(sc[6]) % n;"),
     "z_base contracted to an FMA": (
-        "gg::add(gg::add(gg::mul(s[kB20], px), gg::mul(s[kB21], py)), s[kB23])",
-        "gg::add(__fmaf_rn(s[kB20], px, gg::mul(s[kB21], py)), s[kB23])"),
+        "gg::add(gg::add(gg::mul(b20, px), gg::mul(b21, py)), b23)",
+        "gg::add(__fmaf_rn(b20, px, gg::mul(b21, py)), b23)"),
     "rolled backwards": ("const int s = idx - k;", "const int s = idx + k;"),
+    "vector path takes the wrong run": ("const int qb = qa + 1 < nw ? qa + 1 : 0;",
+                                        "const int qb = qa + 1 < nw ? qa + 1 : qa;"),
 }
 
 
 def test_mutated_move_kernels_fail(cuda, tmp_path):
     """Each mutation of ``MOVE_MUTATIONS`` (an exposed edge one cell off, the
     wipe lost to a shift reduced mod n, the base plane's product and sum
-    contracted into an FMA, the roll backwards), built alone with the
+    contracted into an FMA, the roll backwards, the four cells that wrap
+    past a row's end taken from its last word again instead of its first
+    run; n = 364 takes the vector path), built alone with the
     library's flags, differs from the plain move on at least one case of
     ``_move_shifts``; the source unmutated, on none."""
     from groundgrid_torch.core import scalars
@@ -1858,10 +2014,17 @@ def _march_inputs(cfg, s, binning, x, y, z, ground, budget_fn):
     """The march's inputs as the step builds them: budgets, keys and
     directions (``budget_fn`` of the moved ``ground``), and the selected
     candidates (K11's plain version)."""
-    budget, key, dirs = budget_fn(cfg, s, binning, x, y, z, ground)
+    budget, key, dirs, _ = budget_fn(cfg, s, binning, x, y, z, ground)
     pidx, _ = select.select_candidates_plain(budget, key,
                                              min(cfg.max_outlier_candidates, x.shape[-1]))
     return budget, key, dirs, pidx
+
+
+def _march(fn, cfg, s, ground, conf, pidx, budget, dirs):
+    """K7 (or its plain version, ``fn``) of ``pidx`` with K11's marchable
+    counts, into fresh flags as K6 leaves them (all False)."""
+    return fn(cfg, s, ground, conf, pidx, budget, dirs, (budget > 0).sum(-1),
+              torch.zeros(budget.shape, dtype=torch.bool, device=budget.device))
 
 
 def _same_budgets(got, want):
@@ -1887,10 +2050,11 @@ def _check_fused(cfg, s, x, y, z, rings, valid, ground, conf):
     for run in range(2):
         got = march.march_budget(cfg, s, want_b, x, y, z, ground)
         assert _same_budgets(got, (budget, key, dirs)), f"K6, run {run + 1}"
-    want_m = march.march_plain(cfg, s, ground, conf, pidx, budget, dirs)
-    got_m = march.march(cfg, s, ground, conf, pidx, got[0], got[2])
+        assert got[3].dtype == torch.bool and not bool(got[3].any()), f"K6 flags, run {run + 1}"
+    want_m = _march(march.march_plain, cfg, s, ground, conf, pidx, budget, dirs)
+    got_m = _march(march.march, cfg, s, ground, conf, pidx, got[0], got[2])
     assert _bitwise(got_m, want_m), f"K7: {int((got_m != want_m).sum())} of {int(want_m.sum())}"
-    again_m = march.march(cfg, s, ground, conf, pidx, got[0], got[2])
+    again_m = _march(march.march, cfg, s, ground, conf, pidx, got[0], got[2])
     assert _bitwise(again_m, got_m), "K7: two runs"
     return want_b, got_m
 
@@ -2027,7 +2191,8 @@ def _check_rows(cfg, packed, plain_b, x, y, z, rings, valid, ground, conf, hits)
         bv = type(plain_b)(*(t[v] for t in plain_b))
         got = march.march_budget(cfg, s, bv, x[v], y[v], z[v], ground[v])
         assert _same_budgets(got, (budget[v], key[v], dirs[:, v])), f"K6 vehicle {v}"
-        single_m = march.march(cfg, s, ground[v], conf[v], pidx[v], budget[v], dirs[:, v])
+        single_m = _march(march.march, cfg, s, ground[v], conf[v], pidx[v], budget[v],
+                          dirs[:, v])
         assert _bitwise(single_m, hits[v]), f"K7 vehicle {v}"
 
 
@@ -2125,7 +2290,7 @@ def test_fused_kernels_read_scalars_at_replay(cuda):
     def fused(s):
         b = binning.bin_points(cfg, s, x, y, rings, valid > 0)
         budget, _, dirs, pidx = _march_inputs(cfg, s, b, x, y, z, ground, march.march_budget)
-        return b, budget, march.march(cfg, s, ground, conf, pidx, budget, dirs)
+        return b, budget, _march(march.march, cfg, s, ground, conf, pidx, budget, dirs)
 
     fused(scalars.view(buf))  # build and warm
     torch.cuda.synchronize()
@@ -2173,10 +2338,16 @@ def test_fused_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError):  # a grid of another size
         march.march_budget(cfg, s, b, x, x, x, layer[:-1])
     pidx, dirs = torch.zeros(4, dtype=torch.int64, device=cuda), torch.zeros((3, 64), device=cuda)
+    n_m = torch.zeros((), dtype=torch.int64, device=cuda)
+    flags = torch.zeros(64, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):  # a layer of the wrong shape
-        march.march(cfg, s, torch.zeros(7, device=cuda), layer, pidx, x, dirs)
+        march.march(cfg, s, torch.zeros(7, device=cuda), layer, pidx, x, dirs, n_m, flags)
     with pytest.raises(ValueError):  # directions without the leading 3
-        march.march(cfg, s, layer, layer, pidx, x, dirs[0])
+        march.march(cfg, s, layer, layer, pidx, x, dirs[0], n_m, flags)
+    with pytest.raises(ValueError):  # a count a row of another dtype
+        march.march(cfg, s, layer, layer, pidx, x, dirs, n_m.int(), flags)
+    with pytest.raises(ValueError):  # int32 flags, not K6's bool ones
+        march.march(cfg, s, layer, layer, pidx, x, dirs, n_m, flags.int())
     tiny = GroundGridConfig(dimension=2.0, resolution=0.5)  # 4^2 cells: the block leaves the grid
     with pytest.raises(ValueError):
-        march.march(tiny, s, layer[:4, :4], layer[:4, :4], pidx, x, dirs)
+        march.march(tiny, s, layer[:4, :4], layer[:4, :4], pidx, x, dirs, n_m, flags)

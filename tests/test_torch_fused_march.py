@@ -231,6 +231,39 @@ def test_detect_outliers_bitwise_jax_at_the_cap(p_total):
 
 
 @pytest.mark.parametrize("p_total", [1 << 17, (1 << 17) + 1])
+def test_march_stage_flags_and_count_match_jax(p_total):
+    """The march stage as the step runs it on the seam scene, the cap inside
+    the tied group: K6's plain version returns the outlier flags as bool
+    zeros beside the budgets, K7's plain version sets them in place and
+    returns that tensor, as bool; the flags are the JAX package's eager
+    outliers bitwise and the marchable count (int64) the count of
+    positive budgets, more than the cap."""
+    kw = dict(SMALL, max_points=p_total, max_outlier_candidates=K_CUT)
+    tcfg, jcfg = TConfig(**kw), JConfig(**kw)
+    (x, y, z), valid = _march_scene(p_total)
+    ground, conf = _terrain(tcfg.cell_count, 0)
+    hi, lo = _centers(0)
+    s = tscalars.host(tcfg, hi, lo, ttf.translation(*ORIGIN, np.float32))
+    t = [torch.from_numpy(a) for a in (x, y, z)]
+    b = binning.bin_points(tcfg, s, t[0], t[1], torch.zeros(p_total, dtype=torch.int32),
+                           torch.from_numpy(valid))
+    g, c = torch.from_numpy(ground), torch.from_numpy(conf)
+    budget, key, dirs, flags = march.march_budget(tcfg, s, b, *t, g)
+    assert flags.dtype == torch.bool and flags.shape == (p_total,) and not bool(flags.any())
+    pidx, n_marchable = select.select_candidates(budget, key, K_CUT)
+    assert n_marchable.dtype == torch.int64
+    assert int(n_marchable) == int((budget > 0).sum()) > K_CUT
+    got = march.march(tcfg, s, g, c, pidx, budget, dirs, n_marchable, flags)
+    assert got is flags and got.dtype == torch.bool
+    jb = _jax_binning(jcfg, hi, lo, x, y, z, np.zeros(p_total, np.int32), valid)
+    with jax.disable_jit():
+        want = np.asarray(joutliers.detect_outliers(
+            jcfg, jnp.asarray(hi), jnp.asarray(ground), jnp.asarray(conf), jb, jnp.asarray(x),
+            jnp.asarray(y), jnp.asarray(z), jnp.asarray(ORIGIN), center_lo=jnp.asarray(lo)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("p_total", [1 << 17, (1 << 17) + 1])
 def test_budget_keys_at_the_boundary(p_total):
     """K6's plain keys: unique, the positive budgets above every zero one,
     and the tied group ordered the JAX package's way on each side of 2^17
@@ -242,8 +275,9 @@ def test_budget_keys_at_the_boundary(p_total):
     t = [torch.from_numpy(a) for a in (x, y, z)]
     b = binning.bin_points(cfg, s, t[0], t[1], torch.zeros(p_total, dtype=torch.int32),
                            torch.from_numpy(valid))
-    budget, key, _ = march.march_budget(cfg, s, b, *t, torch.from_numpy(ground))
+    budget, key, _, flags = march.march_budget(cfg, s, b, *t, torch.from_numpy(ground))
     assert torch.equal(key, toutliers.selection_key(budget))
+    assert flags.dtype == torch.bool and flags.shape == budget.shape and not bool(flags.any())
     assert torch.unique(key).numel() == p_total
     order = torch.argsort(key, descending=True)
     positive = int((budget > 0).sum())
@@ -289,13 +323,14 @@ def test_batch_of_three_is_three_single_calls():
     got, marchable = toutliers.detect_outliers(cfg, sb, ground, conf, bb, x, y, z,
                                                march.march_budget, select.select_candidates,
                                                march.march)
-    budget, key, dirs = march.march_budget(cfg, sb, bb, x, y, z, ground)
+    budget, key, dirs, flags = march.march_budget(cfg, sb, bb, x, y, z, ground)
+    assert flags.dtype == torch.bool and not bool(flags.any())
     for v in range(3):
         s = tscalars.view(torch.from_numpy(packed[v]))
         b1 = binning.bin_points(cfg, s, x[v], y[v], rings[v], valid[v])
         for field, a, w in zip(Binning._fields, bb, b1):
             assert torch.equal(_t_bits(a[v]), _t_bits(w)), (v, field)
-        budget1, key1, dirs1 = march.march_budget(cfg, s, b1, x[v], y[v], z[v], ground[v])
+        budget1, key1, dirs1, _ = march.march_budget(cfg, s, b1, x[v], y[v], z[v], ground[v])
         assert torch.equal(_t_bits(budget[v]), _t_bits(budget1)) and torch.equal(key[v], key1)
         assert torch.equal(_t_bits(dirs[:, v]), _t_bits(dirs1))
         out1, m1 = toutliers.detect_outliers(cfg, s, ground[v], conf[v], b1, x[v], y[v], z[v],

@@ -71,9 +71,16 @@ def _scenes(cfg, seeds):
 
 def _march_inputs(cfg, s, b, sc):
     (old_h,) = lookup.lookup(b.cell, [sc.ground], cfg.cell_count ** 2)
-    budget, key, dirs = march.march_budget(cfg, s, b, sc.x, sc.y, sc.z, sc.ground)
+    budget, key, dirs, flags = march.march_budget(cfg, s, b, sc.x, sc.y, sc.z, sc.ground)
+    assert flags.dtype == torch.bool and flags.shape == budget.shape and not bool(flags.any())
     k = min(cfg.max_outlier_candidates, sc.x.shape[-1])
     return old_h, budget, key, dirs, torch.topk(key, k, dim=-1, sorted=False).indices
+
+
+def _march(cfg, s, sc, pidx, budget, dirs):
+    """The plain march of ``pidx`` into fresh zeroed flags (K6's)."""
+    return march.march(cfg, s, sc.ground, sc.conf, pidx, budget, dirs, (budget > 0).sum(-1),
+                       torch.zeros(budget.shape, dtype=torch.bool))
 
 
 CASES = {"edge-0": ((0,), {}), "edge-1": ((1,), {}), "batch-of-3": ((2, 3, 4), {}),
@@ -90,10 +97,10 @@ def test_plain_march_is_the_table_composition(case):
     cfg = GroundGridConfig(**{**march_scenes.EDGE, **kw})
     s, b, sc = _scenes(cfg, seeds)
     _, budget, _, dirs, pidx = _march_inputs(cfg, s, b, sc)
-    got = march.march(cfg, s, sc.ground, sc.conf, pidx, budget, dirs)
+    got = _march(cfg, s, sc, pidx, budget, dirs)
     table = outliers.occlusion_key_table(cfg, sc.ground, sc.conf)
     want = _table_march(cfg, s, table, pidx, sc.x, sc.y, sc.z, budget)
-    assert torch.equal(got, want)
+    assert got.dtype == torch.bool and torch.equal(got, want > 0)
     assert int(want.sum()) > 0
     if case == "all-marchable":
         assert bool((take_points(budget, pidx) > 0).all())
@@ -131,9 +138,9 @@ def test_edge_scene_turns_on_every_key_decision(monkeypatch, kind):
     n = cfg.cell_count
     s, b, sc = _scenes(cfg, (0,))
     _, budget, _, dirs, pidx = _march_inputs(cfg, s, b, sc)
-    want = march.march(cfg, s, sc.ground, sc.conf, pidx, budget, dirs)
+    want = _march(cfg, s, sc, pidx, budget, dirs)
     monkeypatch.setattr(outliers, "occlusion_key_table", _key_table_without(kind))
-    changed = march.march(cfg, s, sc.ground, sc.conf, pidx, budget, dirs)
+    changed = _march(cfg, s, sc, pidx, budget, dirs)
     assert int((changed != want).sum()) > 0
     # the live samples inside the grid reach each clamped row and column
     steps = torch.arange(3, cfg.ray_steps, dtype=torch.float32)[:, None]

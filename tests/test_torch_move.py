@@ -137,3 +137,27 @@ def test_move_batch_rows_match_jax(dimension, resolution):
         one = move.move(tcfg, g[v], c[v], tscalars.view(torch.from_numpy(packed)))
         for a, b, o in zip(got, want, one):
             assert same_bits(a[v].numpy(), b) and same_bits(a[v].numpy(), o.numpy()), v
+
+
+@pytest.mark.parametrize("k1", range(-6, 7))
+def test_move_every_column_offset_matches_jax(k1):
+    """At the default 364^2 grid (n % 4 == 0: the card's kernel takes four
+    cells a thread, the rolled row's two runs read by the column offset
+    k1 mod 4) every column shift of -6 .. 6 with a row shift: ground and
+    groundpatch bitwise the JAX package's eager move."""
+    jcfg, tcfg = JConfig(), TConfig()
+    n = tcfg.cell_count
+    rng = np.random.default_rng(100 + k1)
+    res = np.float32(tcfg.resolution)
+    g, c = layers(rng, n)
+    tb = base_map(rng)
+    center = (rng.normal(0, 40, 2) / res).round().astype(np.float32) * res
+    k = (3, k1)
+    new_center = (center + np.float32(k) * res).astype(np.float32)
+    packed, got_k = scan_scalars(tcfg, center, new_center, tb)
+    assert got_k == k
+    got = move.move(tcfg, torch.from_numpy(g), torch.from_numpy(c),
+                    tscalars.view(torch.from_numpy(packed)))
+    want = jax_move(jcfg, g, c, center, new_center, tb)
+    for name, a, b in zip(("ground", "groundpatch"), got, want):
+        assert same_bits(a.numpy(), b), name

@@ -171,3 +171,27 @@ def test_detect_outliers_through_select_matches_jax(p_total, cap):
     marchable = int(marchable)
     fired = int(want.sum())
     assert fired == cap if cap < marchable else fired >= N_LONG + N_TIED
+
+
+@pytest.mark.parametrize("p_total,n_pos,k_max", [c for c in CASES if c[1] > c[2]])
+def test_storm_marchable_count_and_flags_match_jax(p_total, n_pos, k_max):
+    """On the storms past the cap: the marchable count is the number of
+    marchable members of the JAX package's candidate buffer with no cap
+    (every positive budget), an int64; and the plain march of the selected
+    candidates writes K6's plain flags, all False before it, as bool."""
+    budget = budgets(np.random.default_rng(p_total + n_pos), p_total, n_pos, True)
+    b = torch.from_numpy(budget)
+    pidx, n_marchable = select.select_candidates(b, toutliers.selection_key(b), k_max)
+    assert n_marchable.dtype == torch.int64
+    assert int(n_marchable) == len(marchable_members(jax_selection(budget, p_total), budget))
+    assert bool((b[pidx] > 0).all())  # past the cap every candidate is marchable
+    cfg = TConfig(dimension=40.0, resolution=0.5, max_points=p_total, ray_steps=8)
+    n = cfg.cell_count
+    s = tscalars.host(cfg, np.zeros(2, np.float32), np.zeros(2, np.float32),
+                      ttf.translation(0.0, 0.0, 1.7, np.float32))
+    flags = torch.zeros(p_total, dtype=torch.bool)
+    dirs = torch.zeros((3, p_total))
+    dirs[2] = -1.0  # straight down: no step leaves the origin's cell
+    layer = torch.zeros((n, n))
+    got = march.march(cfg, s, layer, layer, pidx, b, dirs, n_marchable, flags)
+    assert got is flags and got.dtype == torch.bool
