@@ -42,12 +42,20 @@ class Graph:
         self.seconds: float | None = None
         self.pool_bytes: int | None = None
 
-    def capture(self, body, result=None) -> list:
+    @property
+    def pool(self):
+        """The capture's private memory pool (a handle for another capture
+        to share), or None without a graph."""
+        return None if self.graph is None else self.graph.pool()
+
+    def capture(self, body, result=None, pool=None) -> list:
         """Capture ``body()`` (a list of tensors) and return its outputs.
 
         On the card nothing runs: the outputs are the buffers each replay
-        writes. On the CPU the outputs are clones of ``result``, the eager
-        run's that the caller just made, or else ``body()`` run once."""
+        writes; ``pool``, another capture's :attr:`pool`, shares that
+        capture's memory, for graphs that never replay at once. On the CPU
+        the outputs are clones of ``result``, the eager run's that the
+        caller just made, or else ``body()`` run once."""
         if self.device.type != "cuda":
             self.outputs = list(body()) if result is None else [t.clone() for t in result]
             return self.outputs
@@ -57,7 +65,8 @@ class Graph:
         before, reserved = ops.counter_values(), torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(device), torch.cuda.graph(graph, stream=torch.cuda.Stream(device)):
+        with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool,
+                                                       stream=torch.cuda.Stream(device)):
             result = list(body())
         torch.cuda.synchronize(device)
         self.seconds = time.perf_counter() - t0

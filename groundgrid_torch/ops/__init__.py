@@ -20,6 +20,8 @@ replay (:func:`add_launches`), so the counters still count per scan.
 
 from __future__ import annotations
 
+import functools
+
 
 def _wrappers():
     from groundgrid_torch.ops.binning import bin_points
@@ -51,11 +53,12 @@ def reset_launch_counts() -> None:
     _wrappers()["spiral"].global_launches = 0
 
 
+@functools.cache
 def _counters():
-    """(wrapper, attribute) of every launch counter."""
+    """(wrapper, attribute) of every launch counter, built once."""
     wrappers = _wrappers()
-    return [(fn, "launches") for fn in wrappers.values()] + [(wrappers["spiral"],
-                                                             "global_launches")]
+    return tuple([(fn, "launches") for fn in wrappers.values()]
+                 + [(wrappers["spiral"], "global_launches")])
 
 
 def counter_values() -> tuple[int, ...]:
@@ -70,4 +73,5 @@ def set_counters(values) -> None:
 
 def add_launches(delta) -> None:
     """Add ``delta`` (a difference of two :func:`counter_values`) to the counters."""
-    set_counters(v + d for v, d in zip(counter_values(), delta))
+    for (fn, attr), d in zip(_counters(), delta):
+        setattr(fn, attr, getattr(fn, attr) + d)

@@ -64,6 +64,7 @@ _SIGNATURES = {
     "gg_select": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "gg_select_cluster": [_I, _I],  # a query: no stream
     "gg_move": [_P, _P, _I, _I, _P, _I, _F, _F, _P, _P, _P],
+    "gg_stamp": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 

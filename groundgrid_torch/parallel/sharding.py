@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from groundgrid_torch import trace
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core.classify import LABEL_GROUND, LABEL_NONGROUND
 from groundgrid_torch.core.grid import GridState
@@ -154,6 +155,7 @@ class FleetStep:
         self.mesh = tuple(mesh)
         self.steps = [make_step(config) for _ in self.mesh]
         self.batched = not config.sorted_scans
+        self.ticks = 0  # calls so far: the tick's id in the trace
 
     @property
     def fallbacks(self) -> int:
@@ -163,25 +165,29 @@ class FleetStep:
     def __call__(self, states: list, scans: list):
         if not len(states) == len(scans) == len(self.mesh):
             raise ValueError(f"need one state and one scan block per device ({len(self.mesh)})")
-        outs, totals = [], []
-        for step, block, scan in zip(self.steps, states, scans):
-            b = block.ground.shape[0]
-            host = [step.scalars(block.center[i].numpy(), block.center_lo[i].numpy(),
-                                 _vehicle(scan, i)) for i in range(b)]
-            scalars = to_device(np.stack([h[0] for h in host]), block.ground.device)
-            if self.batched:
-                out = self._batch(step, block, scan, scalars, host)
-            else:
-                out = self._vehicles(step, block, scan, scalars, host)
-            outs.append(out)
-            totals.append(torch.stack([(out.labels == LABEL_GROUND).sum(),
-                                       (out.labels == LABEL_NONGROUND).sum(),
-                                       out.outlier.sum(dtype=torch.int64)]))
-        total = totals[0]
-        for t in totals[1:]:
-            total = total + t.to(total.device)
-        if dist.is_available() and dist.is_initialized():
-            dist.all_reduce(total)
+        tick, self.ticks = self.ticks, self.ticks + 1
+        with trace.span("fleet.tick", tick):
+            outs, totals = [], []
+            for step, block, scan in zip(self.steps, states, scans):
+                b = block.ground.shape[0]
+                with trace.span("fleet.scalars"):
+                    host = [step.scalars(block.center[i].numpy(), block.center_lo[i].numpy(),
+                                         _vehicle(scan, i)) for i in range(b)]
+                with trace.span("fleet.copy"):
+                    scalars = to_device(np.stack([h[0] for h in host]), block.ground.device)
+                if self.batched:
+                    out = self._batch(step, block, scan, scalars, host)
+                else:
+                    out = self._vehicles(step, block, scan, scalars, host)
+                outs.append(out)
+                totals.append(torch.stack([(out.labels == LABEL_GROUND).sum(),
+                                           (out.labels == LABEL_NONGROUND).sum(),
+                                           out.outlier.sum(dtype=torch.int64)]))
+            total = totals[0]
+            for t in totals[1:]:
+                total = total + t.to(total.device)
+            if dist.is_available() and dist.is_initialized():
+                dist.all_reduce(total)
         return states, outs, FleetSummary(*total.unbind(0))
 
     @staticmethod

@@ -50,9 +50,11 @@ stage in one launch), or K4 with ``config.fused_detect``. K1-K4 port the
 JAX package's Pallas kernels; K5-K12 port what XLA fuses of its binning,
 occlusion march, detect stage, raster stage, candidate selection and grid
 move.
-Each stage of the body is a ``torch.profiler.record_function`` range
-(:data:`STAGES`; the raster stage's parts :data:`RASTER_PARTS` are ranges
-inside it), which ``runtime/bench.py`` reads for the eager step.
+Each stage of the body is a span of the port's tracer (``trace.span``:
+:data:`STAGES`; the raster stage's parts :data:`RASTER_PARTS` are spans
+inside it), so a ``torch.profiler.record_function`` range while a profiler
+runs, which ``runtime/bench.py`` reads for the eager step; while tracing is
+on, the captured step stamps the device clock at their boundaries.
 
 Options, as in the JAX package: ``with_aux`` also returns all eleven
 published grid layers (:class:`AuxLayers`; the non-ground count is a second
@@ -70,6 +72,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from groundgrid_torch import trace
 from groundgrid_torch.capture import Graph
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core import classify as classifylib
@@ -151,23 +154,16 @@ class AuxLayers(NamedTuple):
     variance: torch.Tensor
 
 
-# the stages of :meth:`Step.body`, each a ``torch.profiler.record_function``
-# range (``bench.profile_steps`` reads the device time of each); the
-# transform runs in unsorted and wire mode, the aux count with ``with_aux``
+# the stages of :meth:`Step.body`, each a ``trace.span`` (a profiler range:
+# ``bench.profile_steps`` reads the device time of each); the transform runs
+# in unsorted and wire mode, the aux count with ``with_aux``
 STAGES = ("transform", "move", "bin", "march", "raster", "detect", "spiral", "classify", "aux")
-# the raster stage's parts, ranges inside "raster" (each only where it runs):
+# the raster stage's parts, spans inside "raster" (each only where it runs):
 # the stable sort, the sortedness check, K9, K1 and K10
 RASTER_PARTS = ("raster.sort", "raster.check", "raster.columns", "raster.sums",
                 "raster.finish")
-
-
-def stage(name: str):
-    """The profiler range of one stage of the step while a profiler runs;
-    else nothing at all (no op is dispatched). A replayed CUDA graph has
-    none."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+# the stages a stamped twin stamps the start of: the innermost ones
+STAMPED = tuple(s for s in STAGES if s != "raster") + RASTER_PARTS
 
 
 def _validate(config: GroundGridConfig) -> None:
@@ -291,7 +287,7 @@ class Step:
         cfg = self.config
         n2 = cfg.cell_count ** 2
         s = scalarlib.view(scalars)
-        with stage("transform"):
+        with trace.span("transform"):
             if cfg.wire_format:
                 x, y, z, rings, valid = dequantize(cfg, *points, s)
             else:
@@ -301,55 +297,55 @@ class Step:
                     x, y, z = tf.transform_points_soa(s.velo, x, y, z)
 
         # --- grid relocation (GroundGrid.cpp:83-147; K12) ---
-        with stage("move"):
+        with trace.span("move"):
             moved_g, moved_c = self._move(cfg, ground, groundpatch, s)
 
         # --- f64-faithful binning (K5) ---
-        with stage("bin"):
+        with trace.span("bin"):
             binning = self._bin(cfg, s, x, y, rings, valid > 0)
 
         # --- outlier ray-march against the previous terrain (cpp:242-275; K6, K11, K7) ---
-        with stage("march"):
+        with trace.span("march"):
             outlier, self._marchable = outlierlib.detect_outliers(
                 cfg, s, moved_g, moved_c, binning, x, y, z, self._budget, self._select,
                 self._march,
             )
 
         # --- rasterize (cpp:200-311): K9 columns, K1 sums, K10 layers ---
-        with stage("raster"):
+        with trace.span("raster"):
             cell = binning.cell
             order = None
             if not cfg.sorted_scans or cfg.sorted_fallback_check:
-                with stage("raster.sort"):
+                with trace.span("raster.sort"):
                     order = torch.argsort(cell, dim=-1, stable=True)
             if cfg.sorted_scans and cfg.sorted_fallback_check:
-                with stage("raster.check"):
+                with trace.span("raster.check"):
                     if cell.device not in self._fallbacks:
                         self._fallbacks[cell.device] = torch.zeros((), dtype=torch.int64,
                                                                    device=cell.device)
                     unsorted = (cell[..., 1:] < cell[..., :-1]).any(-1)  # a flag a vehicle
                     self._fallbacks[cell.device] += (unsorted if unsorted.dim() == 0
                                                      else unsorted.sum())
-            with stage("raster.columns"):
+            with trace.span("raster.columns"):
                 rcell, cols = self._columns(cfg, binning, z, outlier, s, order)
-            with stage("raster.sums"):
+            with trace.span("raster.sums"):
                 part = self._reduce(rcell, cols, rasterlib.COLUMN_OPS, n2)
-            with stage("raster.finish"):
+            with trace.span("raster.finish"):
                 raster = self._finish(cfg, [part], s, aux=self.with_aux)
 
         # --- ground patch detection (cpp:314-395) ---
-        with stage("detect"):
+        with trace.span("detect"):
             ground, groundpatch = self._detect(
                 cfg, self.tables(z.device), raster.points, raster.variance,
                 raster.min_ground_height, moved_g, moved_c,
             )
 
         # --- spiral interpolation (cpp:398-465) ---
-        with stage("spiral"):
+        with trace.span("spiral"):
             ground, groundpatch = self._spiral(cfg, ground, groundpatch, s.base_z)
 
         # --- classification (cpp:146-189) ---
-        with stage("classify"):
+        with trace.span("classify"):
             gh, var = self._lookup(binning.cell, [ground, raster.variance], n2)
             labels = classifylib.classify(cfg, binning, z, outlier, gh, var)
             out = StepOutput(labels=labels, outlier=outlier.to(torch.int32), x=x, y=y, z=z)
@@ -358,7 +354,7 @@ class Step:
 
         # non-ground count per cell (cpp:176): a K1 sum over the raster's
         # (sorted) cells, the JAX step's count kernel
-        with stage("aux"):
+        with trace.span("aux"):
             ng = (labels == classifylib.LABEL_NONGROUND).to(torch.float32)
             (counts,) = self._reduce(rcell, [ng if order is None else take_points(ng, order)],
                                      ["sum"], n2)
@@ -439,6 +435,14 @@ class CapturedStep:
     first :meth:`run` on a (B, ...) state, scan block and (B, ``SIZE``)
     scalars sizes the static buffers for B vehicles, and each later call
     is one replay for all of them (the fleet's unsorted tick).
+
+    While tracing is on (``trace.enable``), a replay on the card replays a
+    stamped twin of the graph instead: the same body captured, the first
+    time a replay finds tracing on, inside ``trace.Stamps``, which stamps
+    the device clock at the start of each stage of :data:`STAMPED` that
+    runs and at the body's end. The twin shares the graph's memory pool
+    (the two never replay at once) and its static inputs; the graph itself
+    holds no stamp.
     """
 
     def __init__(self, config: GroundGridConfig, with_aux: bool = False):
@@ -449,6 +453,9 @@ class CapturedStep:
         self._points: tuple | None = None  # static point rows, body order
         self._scalars: torch.Tensor | None = None
         self._graph: Graph | None = None  # its outputs: StepOutput, then AuxLayers
+        self._twin: Graph | None = None  # the stamped twin, captured while tracing
+        self._stamps: trace.Stamps | None = None  # the device ring the twin writes
+        self._marchables: dict[int, torch.Tensor] = {}  # each graph's marchable, by id
 
     @property
     def fallbacks(self) -> int:
@@ -491,28 +498,33 @@ class CapturedStep:
         return self.eager.scalars(center, center_lo, scan)
 
     def __call__(self, state: GridState, scan):
-        packed, center, center_lo = self.scalars(state.center_np, state.center_lo_np, scan)
-        host = torch.from_numpy(packed)
-        if state.ground.device.type == "cuda":
-            host = host.pin_memory()  # a fresh buffer: no queued copy reads it again
+        with trace.span("step.scalars"):
+            packed, center, center_lo = self.scalars(state.center_np, state.center_lo_np, scan)
+            host = torch.from_numpy(packed)
+            if state.ground.device.type == "cuda":
+                host = host.pin_memory()  # a fresh buffer: no queued copy reads it again
         return self.run(state, scan, host, center, center_lo)
 
     def run(self, state: GridState, scan, scalars: torch.Tensor, center, center_lo):
         """Step ``state`` with the scan scalars (on the state's device, or in
         pinned host memory) and the host center they were made with."""
-        state = self.install(state)
-        points = scan_tensors(scan)
-        if self._points is None:
-            self._allocate(points, scalars, state.ground.device)
-        for dst, src in zip(self._points, points):
-            dst.copy_(src)
-        self._scalars.copy_(scalars, non_blocking=True)
-        if self._graph is None:
-            result = [t.clone() for t in self._body()]
-            self._first(result)
-        else:
-            self._graph.replay(self._body)
-            result = [t.clone() for t in self._graph.outputs]
+        with trace.span("step.replay"):
+            state = self.install(state)
+            points = scan_tensors(scan)
+            if self._points is None:
+                self._allocate(points, scalars, state.ground.device)
+            for dst, src in zip(self._points, points):
+                dst.copy_(src)
+            self._scalars.copy_(scalars, non_blocking=True)
+            if self._graph is None:
+                result = [t.clone() for t in self._body()]
+                self._first(result)
+            else:
+                graph = self._stamped() if trace.enabled() and self.captured else self._graph
+                graph.replay(self._body)
+                if graph.graph is not None:
+                    self.eager._marchable = self._marchables[id(graph)]
+                result = [t.clone() for t in graph.outputs]
         state.center, state.center_lo = gridlib.host_pair(center), gridlib.host_pair(center_lo)
         out = StepOutput(*result[:len(StepOutput._fields)])
         if not self.with_aux:
@@ -528,25 +540,40 @@ class CapturedStep:
         self._points = tuple(row.view(p.dtype) for row, p in zip(rows.unbind(0), points))
         self._scalars = torch.empty(scalars.shape, dtype=scalars.dtype, device=device)
 
-    def _body(self) -> list:
-        """The eager body on the static buffers; the new layers land in the
-        static layers. Returns the outputs as one flat list."""
+    def _body(self, stamps: trace.Stamps | None = None) -> list:
+        """The eager body on the static buffers, its stages stamped by
+        ``stamps`` if given; the new layers land in the static layers.
+        Returns the outputs as one flat list."""
         g, c = self._layers
-        ground, groundpatch, out, aux = self.eager.body(g, c, self._points, self._scalars)
+        with stamps or contextlib.nullcontext():
+            ground, groundpatch, out, aux = self.eager.body(g, c, self._points, self._scalars)
         g.copy_(ground)
         c.copy_(groundpatch)
         return list(out) + ([] if aux is None else list(aux))
 
-    def _first(self, result: list) -> None:
-        """After the first (eager) call: capture the body on the card, or keep
-        the outputs' buffers on the CPU (``capture.Graph``)."""
+    def _capture(self, result=None, stamps: trace.Stamps | None = None, pool=None) -> Graph:
+        """The body captured (``capture.Graph``; on the CPU the outputs'
+        buffers kept), its stages stamped by ``stamps`` if given."""
         graph = Graph(self._layers[0].device)
         marchable = self.eager._marchable
-        graph.capture(self._body, result)
+        graph.capture(lambda: self._body(stamps), result, pool=pool)
         if graph.graph is not None:
             # the capture's marchable holds nothing until the first replay
             self.eager._marchable.copy_(marchable)
-        self._graph = graph
+            self._marchables[id(graph)] = self.eager._marchable
+        return graph
+
+    def _first(self, result: list) -> None:
+        """After the first (eager) call: capture the body."""
+        self._graph = self._capture(result)
+
+    def _stamped(self) -> Graph:
+        """The stamped twin, captured at its first use."""
+        if self._twin is None:
+            g = self._layers[0]
+            self._stamps = trace.Stamps(g.device, STAMPED, g.shape[0] if g.dim() == 3 else 1)
+            self._twin = self._capture(stamps=self._stamps, pool=self._graph.pool)
+        return self._twin
 
 
 def make_step_fn(config: GroundGridConfig, with_aux: bool = False) -> Step:

@@ -37,6 +37,7 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from groundgrid_torch import trace
 from groundgrid_torch.config import GroundGridConfig
 from groundgrid_torch.core import transforms as tf
 from groundgrid_torch.core.grid import GridState
@@ -247,29 +248,32 @@ class StreamingDriver:
         rec = self._check_pose(rec)
         if rec is None:
             return None
-        t0 = time.perf_counter()
-        if self.state is None:
-            # no state yet: the exact f64 pose seeds the tracker (the ds grid
-            # center reconstructs it only to ~2^-48, enough to flip a
-            # half-cell snap tie)
-            self._ensure_tracker(np.asarray(rec.t_map_velo, np.float64)[:2, 3])
-            self.state = self.step.install(init_state(self.config, rec.t_map_velo,
-                                                      self.device))
-        prepared = getattr(rec, "scan", None)
-        if prepared is not None:
-            if not self.config.sorted_scans:
-                raise ValueError("a PreparedRecord is cell-sorted: it needs a sorted-scan config")
-            scan, order, n = prepared, rec.order, rec.n_points
-            # the tracker adopts the center the loader binned against, so a
-            # checkpoint taken now carries the stream's exact f64 center
-            self._tracker = CenterTracker(self.config, rec.center64)
-        else:
-            (scan, order), n = self.make_scan(rec), rec.points.shape[0]
-        out = self.step(self.state, scan)
-        self.state = out[0]
-        return InFlight(index=rec.index, timestamp=rec.timestamp, n_points=n, t0=t0,
-                         step_out=out[1], aux=out[2] if self.with_aux else None,
-                         order=order, rings=scan.rings)
+        with trace.span("runtime.dispatch", rec.index):
+            t0 = time.perf_counter()
+            if self.state is None:
+                # no state yet: the exact f64 pose seeds the tracker (the ds grid
+                # center reconstructs it only to ~2^-48, enough to flip a
+                # half-cell snap tie)
+                self._ensure_tracker(np.asarray(rec.t_map_velo, np.float64)[:2, 3])
+                self.state = self.step.install(init_state(self.config, rec.t_map_velo,
+                                                          self.device))
+            with trace.span("runtime.prep"):
+                prepared = getattr(rec, "scan", None)
+                if prepared is not None:
+                    if not self.config.sorted_scans:
+                        raise ValueError("a PreparedRecord is cell-sorted: it needs a "
+                                         "sorted-scan config")
+                    scan, order, n = prepared, rec.order, rec.n_points
+                    # the tracker adopts the center the loader binned against, so a
+                    # checkpoint taken now carries the stream's exact f64 center
+                    self._tracker = CenterTracker(self.config, rec.center64)
+                else:
+                    (scan, order), n = self.make_scan(rec), rec.points.shape[0]
+            out = self.step(self.state, scan)
+            self.state = out[0]
+            return InFlight(index=rec.index, timestamp=rec.timestamp, n_points=n, t0=t0,
+                            step_out=out[1], aux=out[2] if self.with_aux else None,
+                            order=order, rings=scan.rings)
 
     def _finalize(self, tok: InFlight) -> ScanResult:
         """Fetch a dispatched scan's outputs, restore the input point order,
@@ -288,20 +292,23 @@ class StreamingDriver:
                 u = np.concatenate([u, np.zeros(n - u.shape[0], u.dtype)])
             return u[:n]
 
-        out = tok.step_out
-        labels = fetch(out.labels, np.int32)
-        outlier = fetch(out.outlier, bool)
-        extra = {}
-        if tok.aux is not None:
-            # copies: on the CPU a tensor's numpy() shares its memory
-            extra = dict(aux={k: v.to("cpu", copy=True).numpy()
-                              for k, v in tok.aux._asdict().items()},
-                         x=fetch(out.x, np.float32), y=fetch(out.y, np.float32),
-                         z=fetch(out.z, np.float32))
-        ms = (time.perf_counter() - tok.t0) * 1000.0
-        self.stats.update(ms)
-        return ScanResult(index=tok.index, timestamp=tok.timestamp, labels=labels,
-                          outlier=outlier, n_points=n, wall_ms=ms, **extra)
+        with trace.span("runtime.fetch", tok.index):
+            out = tok.step_out
+            with trace.span("runtime.fetch.wait"):
+                labels = out.labels.cpu()  # waits for the scan's outputs
+            labels = fetch(labels, np.int32)
+            outlier = fetch(out.outlier, bool)
+            extra = {}
+            if tok.aux is not None:
+                # copies: on the CPU a tensor's numpy() shares its memory
+                extra = dict(aux={k: v.to("cpu", copy=True).numpy()
+                                  for k, v in tok.aux._asdict().items()},
+                             x=fetch(out.x, np.float32), y=fetch(out.y, np.float32),
+                             z=fetch(out.z, np.float32))
+            ms = (time.perf_counter() - tok.t0) * 1000.0
+            self.stats.update(ms)
+            return ScanResult(index=tok.index, timestamp=tok.timestamp, labels=labels,
+                              outlier=outlier, n_points=n, wall_ms=ms, **extra)
 
     def run(self, records: Iterable, callback: Optional[Callable[[ScanResult], None]] = None,
             pipeline_depth: int = 0) -> Iterator[ScanResult]:

@@ -396,7 +396,8 @@ def test_step_stages_are_profiler_ranges():
     """Under ``torch.profiler`` every stage of the eager step is one range
     a step, holding its ops, and so is each part of the raster stage (the
     sort, the check, K9, K1, K10: a sorted config with the check runs all
-    five); outside one, the body dispatches no range."""
+    five), beside the driver's own spans (its dispatch, prep, fetch and
+    fetch wait); outside one, the body dispatches no range."""
     from groundgrid_torch.data.synthetic import synthetic_sequence
     from groundgrid_torch.runtime.driver import ScanRecord, StreamingDriver
     from groundgrid_torch.runtime.kernel_timing import stage_us
@@ -414,7 +415,8 @@ def test_step_stages_are_profiler_ranges():
             driver.process(rec)
     ranges = [e for e in prof.events() if e.is_user_annotation]
     ran = [s for s in tpipe.STAGES if s != "aux"] + list(tpipe.RASTER_PARTS)
-    assert sorted(e.name for e in ranges) == sorted(ran * 2)
+    runtime = ["runtime.dispatch", "runtime.prep", "runtime.fetch", "runtime.fetch.wait"]
+    assert sorted(e.name for e in ranges) == sorted((ran + runtime) * 2)
     for e in ranges:
         if e.name not in ("transform",):  # sorted scans: nothing to transform
             assert e.cpu_children, e.name
