@@ -121,16 +121,27 @@ def _snap_cells(x):
     return np.sign(x) * np.floor(np.abs(x) + np.asarray(0.5, x.dtype))
 
 
-def shift_cells(config: GroundGridConfig, old_center, new_center) -> tuple[int, int]:
+def shift_cells(config: GroundGridConfig, old_center, new_center):
     """Whole-cell roll shift between two host f32 centers (as Python ints).
 
     The centers differ by exact cell multiples, so the f32 delta snaps
-    robustly (``grid.py:177-178`` of the JAX package).
+    robustly (``grid.py:177-178`` of the JAX package). Of (B, 2) batches of
+    centers, one pass over the batch: a (B, 2) int32 array, clamped to
+    ``[-n, n]`` as ``scalars.pack`` clamps a shift (:func:`_host_cells`).
     """
     res = np.float32(config.resolution)
     d = (np.asarray(new_center, np.float32) - np.asarray(old_center, np.float32)) / res
-    k = _snap_cells(d.astype(np.float32))
-    return int(k[0]), int(k[1])
+    return _host_cells(config, _snap_cells(d.astype(np.float32)))
+
+
+def _host_cells(config: GroundGridConfig, k):
+    """Snapped whole-cell shifts on the host: of a (2,) pair Python ints;
+    of a (B, 2) batch an int32 array clamped to ``[-n, n]`` (a shift of
+    ``|k| >= n`` exposes every cell whatever its size, and so fits int32)."""
+    if k.ndim == 1:
+        return int(k[0]), int(k[1])
+    n = config.cell_count
+    return np.clip(np.asarray(k), -n, n).astype(np.int32)
 
 
 def roll_cells(x: torch.Tensor, k0, k1) -> torch.Tensor:
@@ -194,11 +205,12 @@ def index_shift_ds(config: GroundGridConfig, center, center_lo, new_position):
     recurrence serves scans without a center (``pipeline.pad_scan``), on
     the eager step.
     Returns ``(k, new_center, new_center_lo)``: (k0, k1) ints and two (2,)
-    f32 CPU tensors.
+    f32 CPU tensors; of (B, 2) batches, the shifts as :func:`shift_cells`
+    gives a batch's and (B, 2) tensors.
     """
     res = np.float32(config.resolution)
     c = host_pair(center)
-    lo = torch.zeros(2, dtype=torch.float32) if center_lo is None else host_pair(center_lo)
+    lo = torch.zeros_like(c) if center_lo is None else host_pair(center_lo)
     delta = host_pair(new_position) - c
     # through int32, as the JAX package's k: a snapped -0.0 becomes +0.0
     kf = _snap_cells(delta / torch.tensor(res)).to(torch.int32).to(torch.float32)
@@ -209,7 +221,7 @@ def index_shift_ds(config: GroundGridConfig, center, center_lo, new_position):
     p2h, p2l = exactf32.two_prod_int_const(kf, rl, rlh, rll)
     nh, nl = exactf32.ds_add(c, lo, p1h, p1l)
     nh, nl = exactf32.ds_add(nh, nl, p2h, p2l)
-    return (int(kf[0]), int(kf[1])), nh, nl
+    return _host_cells(config, kf.numpy()), nh, nl
 
 
 def move(config: GroundGridConfig, ground, groundpatch, s):

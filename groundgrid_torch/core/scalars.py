@@ -67,39 +67,49 @@ SIZE = N_FLOATS + 15
 
 def binning_constants(config: GroundGridConfig, center, center_lo):
     """Host: ``(sh0, sl0, sh1, sl1)`` np.float32, the ds image of
-    ``center + half_length`` per axis (``center_lo`` None = zero tail)."""
+    ``center + half_length`` per axis (``center_lo`` None = zero tail). Of
+    (B, 2) centers each is a (B,) array, the same f32 operations a vehicle."""
     hh, hl = exactf32.f64_to_ds(np.float64(config.half_length))
     c = np.asarray(center, np.float32)
-    cl = np.zeros(2, np.float32) if center_lo is None else np.asarray(center_lo, np.float32)
-    sh0, sl0 = exactf32.ds_add(c[0], cl[0], np.float32(hh), np.float32(hl))
-    sh1, sl1 = exactf32.ds_add(c[1], cl[1], np.float32(hh), np.float32(hl))
+    cl = np.zeros_like(c) if center_lo is None else np.asarray(center_lo, np.float32)
+    (c0, c1), (l0, l1) = c.T, cl.T  # scalars of a pair, (B,) columns of a batch
+    sh0, sl0 = exactf32.ds_add(c0, l0, np.float32(hh), np.float32(hl))
+    sh1, sl1 = exactf32.ds_add(c1, l1, np.float32(hh), np.float32(hl))
     return sh0, sl0, sh1, sl1
 
 
 def pack(config: GroundGridConfig, center, center_lo, k, t_map_velo, t_map_base, t_base_map,
-         count: int = 0) -> np.ndarray:
+         count=0) -> np.ndarray:
     """Host: the (``SIZE``,) float32 scan scalars of one scan.
 
     ``center`` / ``center_lo``: the grid center after the move, an f32
     (hi, lo) pair; ``k``: the move's whole-cell shift (ints), clamped to
     ``[-n, n]``, since a shift of ``|k| >= n`` exposes every cell whatever
     its size; the poses as the scan carries them.
+
+    Of a batch of vehicles, one pass over it: (B, 2) centers and shifts,
+    (B, 4, 4) poses and a (B,) or a shared ``count`` give the (B, ``SIZE``)
+    rows, each bitwise its vehicle's single call (elementwise f32
+    operations; no Python float meets an f32 array).
     """
     n = config.cell_count
     c = np.asarray(center, np.float32)
     half = np.float32(config.half_length)
     velo = np.asarray(t_map_velo, np.float32)
     tb = np.asarray(t_base_map, np.float32)
-    out = np.empty(SIZE, np.float32)
-    out[:N_FLOATS] = (
-        *velo[:3, 3], np.asarray(t_map_base, np.float32)[2, 3],
+    out = np.empty((*c.shape[:-1], SIZE), np.float32)
+    cols = out.T  # a field a row: (SIZE,) of one scan, (SIZE, B) of a batch
+    cx, cy = c.T
+    cols[:N_FLOATS] = (
+        *velo[..., :3, 3].T, np.asarray(t_map_base, np.float32)[..., 2, 3],
         *binning_constants(config, c, center_lo),
-        c[0] + half, c[1] + half, c[0], c[1], tb[2, 0], tb[2, 1], tb[2, 3],
+        cx + half, cy + half, cx, cy, tb[..., 2, 0], tb[..., 2, 1], tb[..., 2, 3],
     )
-    out[VELO] = velo[:3].reshape(-1)
-    ints = out.view(np.int32)
-    ints[K0], ints[K1] = (min(max(int(v), -n), n) for v in k)
-    ints[COUNT] = int(count)
+    cols[VELO] = velo[..., :3, :].reshape(*velo.shape[:-2], 12).T
+    ints = cols.view(np.int32)
+    # through f64, exact for every int32 and every shift an f32 delta snaps to
+    ints[K0:K1 + 1] = np.clip(np.asarray(k, np.float64), -n, n).astype(np.int32).T
+    ints[COUNT] = count
     return out
 
 

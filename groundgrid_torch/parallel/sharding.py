@@ -27,8 +27,10 @@ How a device steps its block follows the JAX package's choice
   state is the step's static layers, updated in place.
 
 Either way each vehicle is bitwise its single step, the scan scalars of a
-block ship in one copy a tick, and the step reads nothing back to the
-host, so a tick is one stream of launches and replays per device. The
+block are computed in one NumPy pass over its vehicles
+(``pipeline.scan_scalars`` on the stacked centers and scan) and ship in
+one copy a tick, and the step reads nothing back to the host, so a tick
+is one stream of launches and replays per device. The
 fleet summary is summed on the device and, when ``torch.distributed`` is
 initialized, reduced over the group by one ``all_reduce`` (the JAX
 ``psum``).
@@ -169,16 +171,14 @@ class FleetStep:
         with trace.span("fleet.tick", tick):
             outs, totals = [], []
             for step, block, scan in zip(self.steps, states, scans):
-                b = block.ground.shape[0]
                 with trace.span("fleet.scalars"):
-                    host = [step.scalars(block.center[i].numpy(), block.center_lo[i].numpy(),
-                                         _vehicle(scan, i)) for i in range(b)]
+                    host = step.scalars(block.center.numpy(), block.center_lo.numpy(), scan)
                 with trace.span("fleet.copy"):
-                    scalars = to_device(np.stack([h[0] for h in host]), block.ground.device)
+                    scalars = to_device(host[0], block.ground.device)
                 if self.batched:
-                    out = self._batch(step, block, scan, scalars, host)
+                    out = self._batch(step, block, scan, scalars, *host[1:])
                 else:
-                    out = self._vehicles(step, block, scan, scalars, host)
+                    out = self._vehicles(step, block, scan, scalars, *host[1:])
                 outs.append(out)
                 totals.append(torch.stack([(out.labels == LABEL_GROUND).sum(),
                                            (out.labels == LABEL_NONGROUND).sum(),
@@ -191,23 +191,23 @@ class FleetStep:
         return states, outs, FleetSummary(*total.unbind(0))
 
     @staticmethod
-    def _batch(step, block: GridState, scan, scalars, host) -> StepOutput:
+    def _batch(step, block: GridState, scan, scalars, center, center_lo) -> StepOutput:
         """The block as one batched step; its layers become the step's
         (static, on a captured step) new ones."""
-        state, out = step.run(block, scan, scalars, np.stack([h[1] for h in host]),
-                              np.stack([h[2] for h in host]))
+        state, out = step.run(block, scan, scalars, center, center_lo)
         block.ground, block.groundpatch = state.ground, state.groundpatch
         block.center, block.center_lo = state.center, state.center_lo
         return out
 
     @staticmethod
-    def _vehicles(step, block: GridState, scan, scalars, host) -> StepOutput:
+    def _vehicles(step, block: GridState, scan, scalars, center, center_lo) -> StepOutput:
         """The block vehicle by vehicle, each copied in and out of the step."""
         per_vehicle = []
-        for i, (_, center, center_lo) in enumerate(host):
+        for i in range(block.ground.shape[0]):
             vehicle = GridState(ground=block.ground[i], groundpatch=block.groundpatch[i],
                                 center=block.center[i], center_lo=block.center_lo[i])
-            vehicle, out = step.run(vehicle, _vehicle(scan, i), scalars[i], center, center_lo)
+            vehicle, out = step.run(vehicle, _vehicle(scan, i), scalars[i], center[i],
+                                    center_lo[i])
             block.ground[i].copy_(vehicle.ground)
             block.groundpatch[i].copy_(vehicle.groundpatch)
             block.center[i], block.center_lo[i] = vehicle.center, vehicle.center_lo

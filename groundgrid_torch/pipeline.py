@@ -259,7 +259,8 @@ class Step:
         return state
 
     def scalars(self, center, center_lo, scan):
-        """Host: the scan scalars and new center of ``scan`` (:func:`scan_scalars`)."""
+        """Host: the scan scalars and new center of ``scan``, or of a block of
+        scans (:func:`scan_scalars`)."""
         return scan_scalars(self.config, center, center_lo, scan)
 
     def __call__(self, state: GridState, scan):
@@ -375,17 +376,22 @@ def scan_scalars(config: GroundGridConfig, center, center_lo, scan):
     f32 (hi, lo) center after the move. The shift comes from the scan's
     center (:func:`~groundgrid_torch.core.grid.shift_cells`), or, for an
     unsorted scan without one, from the host center recurrence
-    (:func:`~groundgrid_torch.core.grid.index_shift_ds`)."""
+    (:func:`~groundgrid_torch.core.grid.index_shift_ds`).
+
+    Of a fleet's block, one pass over its vehicles: (B, 2) center pairs and
+    a stacked scan (poses (B, 4, 4), centers (B, 2) or None) give the (B,
+    ``SIZE``) rows and (B, 2) new centers, each vehicle's bitwise its single
+    call."""
     if scan.center is None:
         if config.sorted_scans:
             raise ValueError("a sorted scan carries the center it was sorted against")
-        origin = np.asarray(scan.t_map_velo, np.float32)[:3, 3]
-        k, new_center, new_lo = gridlib.index_shift_ds(config, center, center_lo, origin[:2])
+        origin = np.asarray(scan.t_map_velo, np.float32)[..., :2, 3]
+        k, new_center, new_lo = gridlib.index_shift_ds(config, center, center_lo, origin)
         new_center, new_lo = new_center.numpy(), new_lo.numpy()
     else:
         k = gridlib.shift_cells(config, center, scan.center)
         new_center = np.asarray(scan.center, np.float32)
-        new_lo = (np.zeros((2,), np.float32) if scan.center_lo is None
+        new_lo = (np.zeros_like(new_center) if scan.center_lo is None
                   else np.asarray(scan.center_lo, np.float32))
     count = scan.count if config.wire_format else 0
     packed = scalarlib.pack(config, new_center, new_lo, k, scan.t_map_velo, scan.t_map_base,

@@ -16,6 +16,9 @@ outputs and state bitwise the single unsorted step's. Held here:
   groundpatch and the center pair, bitwise;
 * the captured batched step (on the CPU a replay runs the body) bitwise
   the eager batched body;
+* ``FleetStep``, whose block's scan scalars are one pass over its
+  vehicles, batched and sorted on two blocks of two: bitwise the batched
+  body fed per-vehicle scalars, and the vehicles' own single steps;
 * the fleet driver with 4 vehicles a block against streaming drivers.
 """
 
@@ -27,13 +30,18 @@ from groundgrid_torch import FleetDriver, GroundGridConfig, ScanRecord, Streamin
 from groundgrid_torch.core.detect import make_tables
 from groundgrid_torch.data.synthetic import detect_layers, synthetic_sequence
 from groundgrid_torch.ops import detect, lookup, raster
-from groundgrid_torch.parallel.sharding import stack_fleet_pytree
+from groundgrid_torch.parallel.sharding import (
+    make_fleet_step,
+    shard_fleet_pytree,
+    stack_fleet_pytree,
+)
 from groundgrid_torch.pipeline import (
     CapturedStep,
     CenterTracker,
     init_state,
     make_step_fn,
     pad_scan,
+    prepare_scan,
 )
 
 torch.set_num_threads(1)
@@ -161,12 +169,17 @@ def _vehicle_streams(n_scans=3):
 
 
 def _scans(cfg, streams, k, trackers):
-    """Tick ``k``'s scans, one a vehicle, with the f64 trackers' centers."""
+    """Tick ``k``'s scans, one a vehicle, with the f64 trackers' centers
+    (cell-sorted against them for a sorted config)."""
     scans = []
     for v, recs in enumerate(streams):
         rec = recs[k]
         pos = np.asarray(rec.t_map_velo, np.float64)[:2, 3]
-        trackers[v].update(pos)
+        center = trackers[v].update(pos)
+        if cfg.sorted_scans:
+            scans.append(prepare_scan(cfg, rec.points[:, :3], rec.labels, rec.t_map_velo,
+                                      center, "cpu")[0])
+            continue
         chi, clo = trackers[v].center_ds()
         scans.append(pad_scan(cfg, rec.points, rec.labels, rec.t_map_velo, "cpu")
                      ._replace(center=chi, center_lo=clo))
@@ -234,6 +247,62 @@ def test_captured_batched_step_is_eager_body(batched_run):
         assert all(_same(a, b) for a, b in zip(out_a, out_b))
         assert all(_same(a, b) for a, b in zip(layers_a, layers_b))
     assert len(step.marchable) == 4
+
+
+def _run_fleet(cfg, streams, mesh):
+    """The vehicles through one ``FleetStep`` on ``mesh``: per tick the
+    outputs and copies of the state, concatenated over the blocks."""
+    fleet = make_fleet_step(cfg, mesh)
+    trackers = [CenterTracker(cfg, np.asarray(r[0].t_map_velo, np.float64)[:2, 3])
+                for r in streams]
+    states = shard_fleet_pytree(
+        stack_fleet_pytree([init_state(cfg, r[0].t_map_velo, "cpu") for r in streams]),
+        fleet.mesh)
+    results = []
+    for k in range(len(streams[0])):
+        scans = shard_fleet_pytree(stack_fleet_pytree(_scans(cfg, streams, k, trackers)),
+                                   fleet.mesh)
+        states, outs, _ = fleet(states, scans)
+        results.append(([torch.cat(field) for field in zip(*outs)],
+                        [torch.cat([getattr(b, name) for b in states]).clone()
+                         for name in ("ground", "groundpatch", "center", "center_lo")]))
+    return fleet, results
+
+
+def test_fleet_step_is_per_vehicle_scalars(batched_run):
+    """A batched ``FleetStep`` tick on two blocks of two (each block's scan
+    scalars one pass over its vehicles) bitwise the batched body fed the
+    stacked per-vehicle ``scan_scalars`` calls: outputs, layers, centers."""
+    cfg, streams, want = batched_run
+    fleet, got = _run_fleet(cfg, streams, ["cpu"] * 2)
+    assert fleet.batched
+    for k, ((out_a, layers_a), (out_b, layers_b)) in enumerate(zip(got, want)):
+        assert all(_same(a, b) for a, b in zip(out_a, out_b)), k
+        assert all(_same(a, b) for a, b in zip(layers_a, layers_b)), k
+
+
+def test_sorted_fleet_step_is_single_steps():
+    """A sorted ``FleetStep`` (each block vehicle by vehicle, its scalars one
+    pass) on two blocks of two: every vehicle bitwise its own single step
+    over its stream."""
+    cfg = GroundGridConfig(**TINY, sorted_scans=True)
+    streams = _vehicle_streams()
+    fleet, got = _run_fleet(cfg, streams, ["cpu"] * 2)
+    assert not fleet.batched
+    for v, recs in enumerate(streams):
+        step = make_step_fn(cfg)
+        tracker = CenterTracker(cfg, np.asarray(recs[0].t_map_velo, np.float64)[:2, 3])
+        state = init_state(cfg, recs[0].t_map_velo, "cpu")
+        for k, rec in enumerate(recs):
+            (scan,) = _scans(cfg, [[rec]], 0, [tracker])
+            state, out = step(state, scan)
+            outs, layers = got[k]
+            for name, a, b in zip(out._fields, outs, out):
+                assert _same(a[v], b), (v, k, name)
+            for a, b in zip(layers, (state.ground, state.groundpatch, state.center,
+                                     state.center_lo)):
+                assert _same(a[v], b), (v, k)
+    assert (got[0][0][0] == 49).any()
 
 
 def test_fleet_blocks_of_four_match_streaming():

@@ -77,6 +77,23 @@ def _children_total(ring):
     return out
 
 
+def test_fleet_scalars_one_span_a_block():
+    """A traced fleet tick on two blocks records one ``fleet.scalars`` span
+    a block (one pass over its vehicles), each inside its tick."""
+    trace.enable()
+    fleet = FleetDriver(GroundGridConfig(**TINY), batch=4, mesh=["cpu"] * 2)
+    list(fleet.run([_records(2, seed=s) for s in range(4)]))
+    ring = trace.snapshot()["ring"]
+    by_seq = {r.seq: r for r in ring}
+    ticks = [r for r in ring if r.name == "fleet.tick"]
+    assert len(ticks) == 2
+    for tick in ticks:
+        inside = [r for r in ring if r.name == "fleet.scalars" and r.parent == tick.seq]
+        assert len(inside) == 2 and all(r.id == tick.id for r in inside)
+    assert sum(r.name == "fleet.scalars" for r in ring) == 4
+    assert all(by_seq[r.parent].name == "fleet.tick" for r in ring if r.name == "fleet.copy")
+
+
 def test_spans_record_parent_request_id_and_self_time():
     """Each span of the runtime, the captured step and the fleet appears
     with its parent and its request id (the record's index, the fleet's
