@@ -11,13 +11,16 @@ is read by ``portbench/metrics/<name>.py``. The harness finds each of these
 by the names in ``BENCHMARK.json``, so a cell or a metric is added by adding
 files and an entry.
 
-A run: import the port and start the card; build or load its kernels;
-render the traffic's pool of scans on the card from ``--seed``; warm up on a
+A run: import the port and start the cell's cards (the traffic's
+``cards``, one unless it says more); build or load its kernels; render the
+traffic's pool of scans on the first card from ``--seed``; warm up on a
 drive of its own (the first step captures the CUDA graph); then measure for
 ``--seconds``, every unit on the host clock, and keep the outputs of the
 checked positions; then replay the checked drive with the plain reference
-and compare. With ``--trace 1`` the same run also records host spans and
-profiles the first part of the window, and reports the per-layer metrics in
+and compare, each card's block of vehicles on its own card, the cards at
+once. With ``--trace 1`` the
+same run also records host spans and profiles stretches after the window,
+and reports the per-layer metrics in
 place of the end-to-end ones. Set-up is printed by part on standard error,
 the numbers compared with their limits last there; the result is the last
 line of standard output.
@@ -81,6 +84,11 @@ class Cell:
                                   .read_text())
         self.limits = json.loads((base / "checks" / f"{workload}.json").read_text())["limits"]
         self.metrics_dir = base / "metrics"
+        # the cards the traffic's loop steps on: a fleet's mesh, one block a card
+        self.cards = int(self.traffic.get("cards", 1))
+        if self.cards != int(self.workload["chips"]):
+            raise ValueError(f"workload {workload!r} asks for {self.workload['chips']} chips "
+                             f"but its traffic steps on {self.cards} cards")
 
     def reports(self, metric: dict) -> bool:
         """Whether this cell reports ``metric`` (an entry of ``end_to_end`` or
@@ -100,8 +108,23 @@ class Cell:
         return [m for m in self.bench["per_layer"] if self.reports(m)]
 
 
+def mesh_devices(device, cards: int) -> list:
+    """The cards a cell steps on: ``device`` alone for one card, else
+    ``cuda:0`` .. ``cuda:{cards-1}`` (``device`` repeated off the card, as
+    the CPU tests run a mesh)."""
+    import torch
+
+    if cards == 1:
+        return [device]
+    if device.type == "cuda":
+        return [torch.device("cuda", k) for k in range(cards)]
+    return [device] * cards
+
+
 class Context:
-    """What a run hands to the loops, the check and the metric readers."""
+    """What a run hands to the loops, the check and the metric readers;
+    ``device`` is the first of the cell's ``devices``, where the traffic is
+    rendered and the check runs."""
 
     def __init__(self, cell: Cell, seed: int, device):
         from portbench.traffic import check_positions
@@ -109,6 +132,7 @@ class Context:
         self.cell = cell
         self.seed = seed
         self.device = device
+        self.devices = mesh_devices(device, cell.cards)
         self.traffic = cell.traffic
         self.params = cell.config_file["groundgrid"]
         self.sensor = cell.config_file["sensor"]
@@ -189,19 +213,20 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     from groundgrid_torch import GroundGridConfig
 
     from portbench import check, loops, roofline, scenes
-    from portbench.trace import Tracer
+    from portbench.trace import Tracer, sync
 
     log = log or (lambda line: print(line, file=sys.stderr, flush=True))
     t0 = time.perf_counter() if t0 is None else t0
     cell = Cell(root, workload)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
+    cx = Context(cell, seed, dev)
     if cuda:
         torch.cuda.init()
-        torch.zeros(1, device=dev)
-        torch.cuda.synchronize()
+        for d in cx.devices:
+            torch.zeros(1, device=d)
+        sync(cx.devices)
     t_import = time.perf_counter() - t0
-    cx = Context(cell, seed, dev)
     cx.cfg = GroundGridConfig(**cx.params)
     build_s = 0.0
     if cuda:
@@ -212,26 +237,27 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     cx.pool = scenes.render_pool(cx.sensor, cell.traffic["scene"], int(cell.traffic["pool_scans"]),
                                  float(cell.traffic["step_m"]), cx.cfg.max_points, seed, dev)
     if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
+        sync(cx.devices)
+        for d in cx.devices:
+            torch.cuda.reset_peak_memory_stats(d)
     t_render = time.perf_counter() - t0
     loop = loops.LOOPS[cell.traffic["loop"]](cx)
     cx.loop = loop
     loop.warmup()
     if cuda:
-        torch.cuda.synchronize()
+        sync(cx.devices)
     setup_s = time.perf_counter() - t0
     steps = loop.step_objects()
     capture = sum(s.capture_seconds or 0.0 for s in steps)
     pool_bytes = sum(s.pool_bytes or 0 for s in steps)
-    peak_setup = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    peaks_setup = [torch.cuda.max_memory_allocated(d) if cuda else 0 for d in cx.devices]
     log(f"portbench {workload} seed {seed}: card {card_line() if cuda else 'none (cpu)'}; "
         f"peak {roofline.PEAK_SOURCE}")
     log(f"setup: import and CUDA init {t_import:.3f} s, kernels {t_build - t_import:.3f} s "
         f"(build_seconds {build_s:.3f}), render {t_render - t_build:.3f} s "
         f"({len(cx.pool.counts)} scans, {sum(cx.pool.counts) / len(cx.pool.counts):.0f} points "
         f"each), warm-up {setup_s - t_render:.3f} s (capture_seconds {capture:.4f}, pool_bytes "
-        f"{pool_bytes}), setup_s {setup_s:.3f}, peak device memory {peak_setup}")
+        f"{pool_bytes}), setup_s {setup_s:.3f}, peak device memory by card {peaks_setup}")
 
     if trace:
         tracer = Tracer(min(PROFILE_SECONDS, seconds), PORT_KERNELS)
@@ -246,8 +272,8 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
             loop.driver.dispatch = timed_dispatch
     window = cx.window = loop.run(seconds)
     if cuda:
-        torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        sync(cx.devices)
+    peaks = [torch.cuda.max_memory_allocated(d) if cuda else 0 for d in cx.devices]
     found = forbidden_modules()
     if found:
         raise SystemExit(f"forbidden modules loaded after the window: {found}")
@@ -275,13 +301,15 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     if cuda:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    numbers, compared = check.replay(cx.params, pool, schedule, drive, kept, dev)
+    numbers, compared = check.replay_blocks(cx.params, pool, schedule, drive,
+                                            loop.check_blocks(kept))
     correct = check.verdict(numbers, cell.limits)
     lat = sorted(window.latencies)
     chunks = _chunk_rates(window)
     log(f"window units' host ms: p50 {1e3 * percentile(lat, 50):.3f}, p90 "
         f"{1e3 * percentile(lat, 90):.3f}, p99 {1e3 * percentile(lat, 99):.3f}, max "
         f"{1e3 * lat[-1]:.3f}; scans/s by fifth of the window {chunks}")
+    log(f"peak device memory by card after the window {peaks}")
     log(f"window {window.elapsed:.3f} s, {window.units} units, {window.scans} scans;"
         f" check: drive {drive}, positions {sorted(kept)}, {compared} scans compared against "
         f"the reference in {time.perf_counter() - t_check:.1f} s")
@@ -292,16 +320,18 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
         "metrics": metrics,
         "device": {"platform": "gpu" if cuda else "cpu",
                    "kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
-                   "count": 1, "memory_peak_bytes": int(peak)},
+                   "count": len(cx.devices), "memory_peak_bytes": int(max(peaks))},
     }
     if trace and tracer.profile is not None:
         p = tracer.profile
-        result["device"]["busy_s"] = p["busy_us"] / 1e6
+        # each card's union of its own activities, averaged over the cards used
+        result["device"]["busy_s"] = sum(p["card_busy_us"].values()) / len(cx.devices) / 1e6
         result["device"]["window_s"] = p["window_us"] / 1e6
         result["breakdown"] = {"device_ops": p["device_ops"], "idle_gaps": p["idle_gaps"]}
-    result["checks"] = {k: {"value": numbers[k], "limit": cell.limits[k]} for k in check.NUMBERS}
-    for k in check.NUMBERS:
-        log(f"check {k} {numbers[k]!r} limit {cell.limits[k]!r}")
+    result["checks"] = {k: {"value": numbers.get(k, float("nan")), "limit": cell.limits[k]}
+                        for k in check.compared(cell.limits)}
+    for k in check.compared(cell.limits):
+        log(f"check {k} {result['checks'][k]['value']!r} limit {cell.limits[k]!r}")
     return result
 
 

@@ -7,7 +7,9 @@ f64), must come out not correct.
 For each seed it draws the cell's traffic and check positions as a run
 does, replays the first drive with the low-precision reference as the
 system under test, keeping its outputs at the checked positions, and
-compares them with the reference as a run compares the program's. It
+compares them with the reference as a run compares the program's: one
+card's block of the fleet at a time (where the cell compares the fleet
+summary, the control's is its own counts over every block). It
 prints each number beside the cell's limit, one line a seed. Benchmark
 runs never run it.
 """
@@ -42,20 +44,30 @@ def control_numbers(root, workload: str, seed: int, device, low=LOW) -> dict:
     pool = scenes.render_pool(cx.sensor, cell.traffic["scene"], int(cell.traffic["pool_scans"]),
                               float(cell.traffic["step_m"]), cfg_points, seed, cx.device)
     schedule = Schedule(cell.traffic, seed, pool.poses)
-    idx, poses = schedule.drive_poses(0)
-    program = GroundGridReference(cx.params, schedule.vehicles, cx.device, low, low)
-    program.reset(poses[0])
-    kept = {}
-    for pos in range(max(cx.positions) + 1):
-        rows = torch.as_tensor(idx[pos], device=pool.points.device)
-        counts = [pool.counts[int(i)] for i in idx[pos]]
-        labels, outlier = program.step(pool.points[rows], pool.rings[rows], counts, poses[pos])
-        if pos in cx.positions:
-            kept[pos] = Kept(labels.clone(), outlier.clone(), program.ground.float().clone(),
-                             program.groundpatch.float().clone(), program.center.copy())
-    del program
-    numbers, _ = check.replay(cx.params, pool, schedule, 0, kept, cx.device)
-    return numbers
+    drive_idx, drive_poses = schedule.drive_poses(0)
+    tally = check.Tally()
+    # one card's block of vehicles at a time, as a run's check compares them
+    b = schedule.vehicles // cell.cards
+    for vehicles in [slice(k * b, (k + 1) * b) for k in range(cell.cards)]:
+        idx, poses = drive_idx[:, vehicles], drive_poses[:, vehicles]
+        program = GroundGridReference(cx.params, idx.shape[1], cx.device, low, low)
+        program.reset(poses[0])
+        kept = {}
+        for pos in range(max(cx.positions) + 1):
+            rows = torch.as_tensor(idx[pos], device=pool.points.device)
+            counts = [pool.counts[int(i)] for i in idx[pos]]
+            labels, outlier = program.step(pool.points[rows], pool.rings[rows], counts,
+                                           poses[pos])
+            if pos in cx.positions:
+                kept[pos] = Kept(labels.clone(), outlier.clone(), program.ground.float().clone(),
+                                 program.groundpatch.float().clone(), program.center.copy())
+        del program
+        check.replay(cx.params, pool, schedule, 0, kept, cx.device, vehicles=vehicles,
+                     tally=tally)
+    if "summary_off" in cell.limits:
+        # the summary the control hands over: its own counts over every block
+        tally.summaries = {pos: c.copy() for pos, c in tally.counted.items()}
+    return tally.numbers()
 
 
 def main(argv=None) -> int:

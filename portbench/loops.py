@@ -24,10 +24,12 @@ from portbench.traffic import WARMUP_DRIVE, Schedule
 class Kept:
     """What the timed path produced at one checked position of a drive."""
 
-    def __init__(self, labels, outlier, ground, groundpatch, center):
+    def __init__(self, labels, outlier, ground, groundpatch, center, summary=None):
         self.labels, self.outlier = labels, outlier  # (V, P) tensors or arrays
         self.ground, self.groundpatch = ground, groundpatch  # (V, N, N)
         self.center = center  # (V, 2) f64 host
+        # the fleet summary's (ground, non-ground, outlier) counts, where kept
+        self.summary = summary
 
 
 class Loop:
@@ -39,9 +41,11 @@ class Loop:
     def __init__(self, cx):
         self.cx = cx
         self.cfg, self.device, self.pool = cx.cfg, cx.device, cx.pool
+        self.devices = cx.devices
         self.schedule = Schedule(cx.traffic, cx.seed, cx.pool.poses)
         self.positions = set(cx.positions)
-        self.kept: dict[int, dict[int, Kept]] = {}  # drive -> position -> Kept
+        # drive -> position -> Kept (the fleet: a list, one Kept a card)
+        self.kept: dict[int, dict[int, Kept | list]] = {}
         self.keeping = True
         self.next_tick = 0  # the tick the next stretch starts at
         self.tracer = None
@@ -58,6 +62,12 @@ class Loop:
         if not self.kept:
             raise RuntimeError("the window reached no check position: it is too short")
         return max(self.kept)
+
+    def check_blocks(self, kept: dict) -> list:
+        """The vehicles the check compares, as (vehicle slice, device,
+        position -> Kept) blocks, from a drive's kept outputs: one block,
+        every vehicle, on the run's device."""
+        return [(slice(None), self.device, kept)]
 
     def run(self, seconds: float, keep: bool = True) -> "Stretch":
         """Step units from where the last stretch ended until ``seconds``
@@ -123,11 +133,14 @@ def _pose_sets(poses: np.ndarray, t_sensor_base: np.ndarray):
 
 
 class Fleet(Loop):
-    """``fleet``: V vehicles in lock-step on one card, one
-    ``make_fleet_step(config, [device])(states, scans)`` a tick and the
-    tick's one read, the fleet summary. The pool's raw scans are staged on
-    the card before the window, as a simulator rendering on the card hands
-    them over; each tick gathers the vehicles' scans from it."""
+    """``fleet``: V vehicles in lock-step on the traffic's ``cards`` cards,
+    one ``make_fleet_step(config, mesh)(states, scans)`` a tick and the
+    tick's one read, the fleet summary. Card k steps the vehicles of
+    ``fleet_sharding``'s block k. The pool's raw scans are staged on every
+    card before the window, as a simulator rendering on the cards hands
+    them over; each tick gathers each block's scans on its own card. Where
+    the cell's check compares the summary (``summary_off``), the tick's
+    summary is kept at the checked positions too."""
 
     unit_name = "tick"
 
@@ -135,10 +148,12 @@ class Fleet(Loop):
         super().__init__(cx)
         from groundgrid_torch import make_fleet_step
         from groundgrid_torch.core import transforms as tf
+        from groundgrid_torch.parallel.sharding import fleet_sharding
 
         self.tf = tf
         v, s = self.schedule.vehicles, self.schedule.pool
-        self.step = make_fleet_step(self.cfg, [self.device])
+        self.step = make_fleet_step(self.cfg, self.devices)
+        self.blocks = fleet_sharding(self.step.mesh, v)
         p = self.pool
         rows = torch.zeros((5, s, p.points.shape[1]), dtype=torch.float32, device=self.device)
         rows[:3] = p.points.permute(2, 0, 1)
@@ -146,19 +161,29 @@ class Fleet(Loop):
         valid = torch.arange(p.points.shape[1], device=self.device)[None] < torch.tensor(
             p.counts, device=self.device)[:, None]
         rows[4].view(torch.int32)[:] = valid.to(torch.int32)
-        self.rows = rows
-        self.tick_rows = torch.tensor([self.schedule.indices(t) for t in range(2 * s)],
-                                      device=self.device)
+        tick_rows = torch.tensor([self.schedule.indices(t) for t in range(2 * s)],
+                                 device=self.device)
+        # each card's copy of the pool and its block's pool indices a tick
+        self.rows = [rows.to(d) for _, d in self.blocks]
+        self.tick_rows = [tick_rows[:, b].contiguous().to(d) for b, d in self.blocks]
         self.unit_scans = v
-        n = self.cfg.cell_count
-        self.slots = {}
-        for key in range(2):
-            for pos in sorted(self.positions):
-                self.slots[key, pos] = Kept(
-                    torch.empty((v, p.points.shape[1]), dtype=torch.int32, device=self.device),
-                    torch.empty((v, p.points.shape[1]), dtype=torch.int32, device=self.device),
-                    torch.empty((v, n, n), dtype=torch.float32, device=self.device),
-                    torch.empty((v, n, n), dtype=torch.float32, device=self.device), None)
+        n, points = self.cfg.cell_count, p.points.shape[1]
+
+        def slot(vehicles: slice, d) -> Kept:
+            b = vehicles.stop - vehicles.start
+            return Kept(torch.empty((b, points), dtype=torch.int32, device=d),
+                        torch.empty((b, points), dtype=torch.int32, device=d),
+                        torch.empty((b, n, n), dtype=torch.float32, device=d),
+                        torch.empty((b, n, n), dtype=torch.float32, device=d), None)
+
+        # one slot a card for each drive parity and checked position
+        self.slots = {(key, pos): [slot(b, d) for b, d in self.blocks]
+                      for key in range(2) for pos in sorted(self.positions)}
+        # the summary's three counts, on the first card, where the check compares it
+        self.summary_slots = {
+            (key, pos): torch.empty(3, dtype=torch.int64, device=self.step.mesh[0])
+            for key in range(2) for pos in sorted(self.positions)
+        } if "summary_off" in cx.cell.limits else None
 
     def _start(self, drive: int) -> None:
         from groundgrid_torch import init_state
@@ -168,9 +193,10 @@ class Fleet(Loop):
         idx, poses = self.schedule.drive_poses(drive)
         self.drive_sets = _pose_sets(poses, self.tf.T_KITTIBASE_BASE)
         self.drive_poses = poses
-        states = [init_state(self.cfg, poses[0, v], self.device)
-                  for v in range(self.schedule.vehicles)]
-        self.states = shard_fleet_pytree(stack_fleet_pytree(states), self.step.mesh)
+        # each block's fresh grids made on its own card
+        self.states = [shard_fleet_pytree(stack_fleet_pytree(
+            [init_state(self.cfg, poses[0, v], d) for v in range(self.schedule.vehicles)[b]]),
+            [d])[0] for b, d in self.blocks]
         self.tracker = CenterTracker(self.cfg, poses[0, :, :2, 3])
 
     def _unit(self, t: int, drive: int, pos: int) -> None:
@@ -179,30 +205,40 @@ class Fleet(Loop):
         with self.span("fleet.prep"):
             if pos == 0:
                 self._start(drive)
-            blk = self.rows[:, self.tick_rows[t % len(self.tick_rows)]]
+            blks = [rows[:, tick_rows[t % len(tick_rows)]]
+                    for rows, tick_rows in zip(self.rows, self.tick_rows)]
             self.tracker.update(self.drive_poses[pos, :, :2, 3])
             chi, clo = self.tracker.center_ds()
             mv, mb, bm = (a[pos] for a in self.drive_sets)
-            scan = Scan(px=blk[0], py=blk[1], pz=blk[2], rings=blk[3].view(torch.int32),
-                        valid=blk[4].view(torch.int32), t_map_velo=mv, t_map_base=mb,
-                        t_base_map=bm, center=chi, center_lo=clo)
+            scans = [Scan(px=blk[0], py=blk[1], pz=blk[2], rings=blk[3].view(torch.int32),
+                          valid=blk[4].view(torch.int32), t_map_velo=mv[b], t_map_base=mb[b],
+                          t_base_map=bm[b], center=chi[b], center_lo=clo[b])
+                     for (b, _), blk in zip(self.blocks, blks)]
         with self.span("fleet.step"):
-            self.states, outs, summary = self.step(self.states, [scan])
+            self.states, outs, summary = self.step(self.states, scans)
         with self.span("fleet.summary"):
             int(summary.ground_points)
         if self.keeping and pos in self.positions:
-            self._keep(drive, pos, outs[0])
+            self._keep(drive, pos, outs, summary)
 
-    def _keep(self, drive: int, pos: int, out) -> None:
-        slot = self.slots[drive % 2, pos]
-        block = self.states[0]
-        slot.labels.copy_(out.labels)
-        slot.outlier.copy_(out.outlier)
-        slot.ground.copy_(block.ground)
-        slot.groundpatch.copy_(block.groundpatch)
-        center = block.center.numpy().astype(np.float64) + block.center_lo.numpy()
-        self.kept.setdefault(drive, {})[pos] = Kept(slot.labels, slot.outlier, slot.ground,
-                                                     slot.groundpatch, center)
+    def _keep(self, drive: int, pos: int, outs, summary) -> None:
+        kept = []
+        for slot, block, out in zip(self.slots[drive % 2, pos], self.states, outs):
+            slot.labels.copy_(out.labels)
+            slot.outlier.copy_(out.outlier)
+            slot.ground.copy_(block.ground)
+            slot.groundpatch.copy_(block.groundpatch)
+            center = block.center.numpy().astype(np.float64) + block.center_lo.numpy()
+            kept.append(Kept(slot.labels, slot.outlier, slot.ground, slot.groundpatch, center))
+        if self.summary_slots is not None:
+            kept[0].summary = torch.stack(tuple(summary), out=self.summary_slots[drive % 2, pos])
+        self.kept.setdefault(drive, {})[pos] = kept
+
+    def check_blocks(self, kept: dict) -> list:
+        """One block a card: its vehicles, its card and what it kept at each
+        position (the first block also the summary)."""
+        return [(b, d, {pos: blocks[k] for pos, blocks in kept.items()})
+                for k, (b, d) in enumerate(self.blocks)]
 
     def warmup(self) -> None:
         d = self.schedule.drive_scans

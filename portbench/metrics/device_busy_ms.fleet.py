@@ -1,5 +1,6 @@
 """``device_busy_ms.fleet`` (pipeline layer), in
-the fleet cell, a tick counting its vehicles' scans:
+the fleet cells, a tick counting its vehicles' scans; on several cards,
+each card's own busy time summed over the cards:
 ``portbench.readers.device_busy_ms``."""
 
 from portbench.readers import device_busy_ms as read  # noqa: F401

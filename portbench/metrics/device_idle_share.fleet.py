@@ -1,5 +1,6 @@
 """``device_idle_share.fleet`` (device layer), in
-the fleet cell, a tick counting its vehicles' scans:
+the fleet cells, a tick counting its vehicles' scans; on several cards,
+the mean of the cards' idle shares:
 ``portbench.readers.device_idle_share``."""
 
 from portbench.readers import device_idle_share as read  # noqa: F401

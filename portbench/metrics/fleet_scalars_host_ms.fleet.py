@@ -1,7 +1,8 @@
 """``fleet_scalars_host_ms.fleet`` (parallel fleet layer): host
 milliseconds a tick of the program's span ``fleet.scalars`` (``FleetStep``'s
-per-vehicle loop: the centers to NumPy, the vehicle's scan, its scan
-scalars), in the traced stretch of ``portbench.program_trace``."""
+one ``scan_scalars`` pass over a block's stacked centers and scan, one
+span a block, one block a card), summed over the tick's blocks, in the
+traced stretch of ``portbench.program_trace``."""
 
 from portbench.program_trace import host_ms
 

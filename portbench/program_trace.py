@@ -29,11 +29,11 @@ def _stretch(cx):
         from groundgrid_torch import ops, trace
     except ImportError:
         return None
-    import torch
+    from portbench.trace import sync as sync_cards
 
     def sync():
         if cx.device.type == "cuda":
-            torch.cuda.synchronize(cx.device)
+            sync_cards(cx.devices)
 
     sync()
     plain = cx.loop.run(SECONDS, keep=False)

@@ -21,12 +21,20 @@ def _profile(cx):
     return p if p and p["scans"] and p["activities"] else None
 
 
+def _busy_us(p) -> float:
+    """Device microseconds of the profiled stretch, each card's union of
+    its own activities (CUPTI's kernel, copy and set records), summed over
+    the cards."""
+    return sum(p["card_busy_us"].values())
+
+
 def device_busy_ms(cx):
-    """Device milliseconds a scan: the union of the device activities
-    (CUPTI's kernel, copy and set records) over the profiled stretch, over
-    the scans completed in it."""
+    """Device milliseconds a scan: the cards' busy time over the profiled
+    stretch (``_busy_us``), over the scans completed in it. On several cards
+    of equal blocks it is the mean over the cards of a card's busy time a
+    scan of its block."""
     p = _profile(cx)
-    return None if p is None else p["busy_us"] / 1000.0 / p["scans"]
+    return None if p is None else _busy_us(p) / 1000.0 / p["scans"]
 
 
 def activities_per_scan(cx):
@@ -36,15 +44,16 @@ def activities_per_scan(cx):
 
 
 def device_idle_share(cx):
-    """Percent of the window in which the device ran nothing, as ``1 -
-    device_busy_ms x scans_per_s``: the device time a scan from the
+    """Percent of the window in which a card ran nothing, as ``1 -
+    device_busy_ms x scans_per_s / cards``: the device time a scan from the
     profiled stretch, times the scans a second of the same run's unprofiled
-    window, so that the profiler's own host work does not read as idle."""
+    window, so that the profiler's own host work does not read as idle;
+    over several cards, the mean of the cards' idle shares."""
     p = _profile(cx)
     if p is None or not cx.window.elapsed:
         return None
-    busy_s = p["busy_us"] / 1e6 / p["scans"]
-    return 100.0 * (1.0 - busy_s * cx.window.scans / cx.window.elapsed)
+    busy_s = _busy_us(p) / 1e6 / p["scans"]
+    return 100.0 * (1.0 - busy_s * cx.window.scans / cx.window.elapsed / len(cx.devices))
 
 
 def _kernel_us(p, kernel: str):
@@ -58,15 +67,17 @@ def _kernel_us(p, kernel: str):
 def k3_roofline(cx):
     """K3's share of its roofline, in percent: the least time of the work
     (``roofline.k3_bytes`` a grid, each of a launch's grids: a fleet tick's
-    launch walks every vehicle's), over the ring-band kernel's device time,
-    summed over its launches in the profiled stretch."""
+    launch on a card walks the grids of that card's block, ``unit_scans /
+    cards``), over the ring-band kernel's device time, summed over its
+    launches in the profiled stretch."""
     p = _profile(cx)
     if p is None:
         return None
     us, launches = _kernel_us(p, "spiral_kernel")
     if not launches or us <= 0:
         return None
-    n_bytes = roofline.k3_bytes(cx.cfg.cell_count) * cx.loop.unit_scans * launches
+    grids = cx.loop.unit_scans // len(cx.devices)
+    n_bytes = roofline.k3_bytes(cx.cfg.cell_count) * grids * launches
     return 100.0 * roofline.bound_s(n_bytes) / (us / 1e6)
 
 

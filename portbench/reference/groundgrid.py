@@ -511,7 +511,9 @@ class GroundGridReference:
                 self._sweep(*self._static)  # the eager warm-up builds the plans
                 torch.cuda.synchronize(self.device)
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
+                # captured on a stream of this grid's own card (the default
+                # capture stream is made once, on whichever card came first)
+                with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.device)):
                     self._sweep(*self._static)
                 self._graph = graph
             sh, sc, sb = self._static

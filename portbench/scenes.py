@@ -10,7 +10,11 @@ a few large device calls, so a run's traffic is made in its set-up.
 
 Everything random comes from one ``--seed``: the scene's parameters from a
 host ``torch.Generator``, the range noise from one on the device. The same
-seed gives the same pool on the same device.
+seed gives the same pool on the same device. A traffic file whose ``scene``
+names a ``seed`` of its own fixes the scene (a map every run drives): the
+run's seed then draws only the range noise, so every run's scans hold the
+same cells, boxes and points per cell, and the seed does not change the
+work.
 """
 
 from __future__ import annotations
@@ -168,11 +172,12 @@ def _render(scene: Scene, sensor: dict, poses: torch.Tensor, d_sensor, noise_gen
 def render_pool(sensor: dict, scene_params: dict, pool: int, step_m: float, max_points: int,
                 seed: int, device, chunk: int = 8) -> Pool:
     """``pool`` consecutive scans ``step_m`` apart along the path of the
-    scene drawn from ``seed``, rendered on ``device`` ``chunk`` scans at a
-    time, each padded to ``max_points`` (a scan's points beyond it are
-    cut)."""
+    scene drawn from ``scene_params["seed"]`` where it is given, else from
+    ``seed``, rendered on ``device`` ``chunk`` scans at a time with range
+    noise drawn from ``seed``, each padded to ``max_points`` (a scan's
+    points beyond it are cut)."""
     device = torch.device(device)
-    scene = make_scene(scene_params, seed)
+    scene = make_scene(scene_params, int(scene_params.get("seed", seed)))
     poses = np.stack([vehicle_pose(scene, i * step_m) for i in range(pool)])
     d_sensor = _ray_directions(sensor, device)
     noise_gen = torch.Generator(device=device).manual_seed(seed ^ 0x5EED)

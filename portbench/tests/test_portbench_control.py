@@ -2,14 +2,18 @@
 the program's place, comes out not correct; so does a run whose timed path
 is broken underneath: a step that returns its state unchanged, half of the
 fleet's batch left out, an answer altered where it is produced. A sound run
-of the same tiny cells comes out correct. (The cells take one card, so no
-exchange between cards can be left out.)"""
+of the same tiny cells comes out correct. On the fleet over two (CPU)
+cards, so does one card's block left unchanged or left out (the check
+compares every card's vehicles), and the exchange between the cards left
+out of the fleet summary (the check holds the summary to every card's
+kept outputs)."""
 
 import pytest
 import torch
 
 import groundgrid_torch.core.classify as classifylib
 from groundgrid_torch import pipeline
+from groundgrid_torch.parallel import sharding
 from portbench import check
 from portbench.bench import Cell, run_cell
 from portbench.control import control_numbers
@@ -20,7 +24,7 @@ def run(root, workload, seed=5):
     return run_cell(root, workload, seed, 3.0, False, "cpu", log=lambda line: None)
 
 
-@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny"])
+@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyfleet2.tiny"])
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_control_is_not_correct(tmp_path, workload, seed):
     root = tiny.write(tmp_path)
@@ -28,12 +32,14 @@ def test_control_is_not_correct(tmp_path, workload, seed):
     assert not check.verdict(numbers, Cell(root, workload).limits), numbers
 
 
-@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny"])
+@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny",
+                                      "tinyfleet2.tiny"])
 def test_sound_run_is_correct(tmp_path, workload):
     assert run(tiny.write(tmp_path), workload)["correct"] is True
 
 
-@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny"])
+@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny",
+                                      "tinyfleet2.tiny"])
 def test_state_left_unchanged_is_not_correct(tmp_path, monkeypatch, workload):
     body = pipeline.Step.body
 
@@ -63,6 +69,66 @@ def test_half_the_fleet_left_out_is_not_correct(tmp_path, monkeypatch):
     result = run(tiny.write(tmp_path), "tinyfleet.tiny")
     assert result["correct"] is False
     assert result["checks"]["point_mismatch"]["value"] > 0.25
+
+
+def _on_second_card(fault):
+    """``pipeline.Step.body`` with ``fault`` in place of it on the second
+    card's step alone: the fleet's steps, one a card, first run in block
+    order."""
+    body = pipeline.Step.body
+    seen = []
+
+    def on_card(self, ground, groundpatch, points, scalars):
+        if self not in seen:
+            seen.append(self)
+        if seen.index(self) == 1:
+            return fault(body, self, ground, groundpatch, points, scalars)
+        return body(self, ground, groundpatch, points, scalars)
+
+    return on_card
+
+
+def _unchanged(body, self, ground, groundpatch, points, scalars):
+    _, _, out, aux = body(self, ground, groundpatch, points, scalars)
+    return ground.clone(), groundpatch.clone(), out, aux
+
+
+def _left_out(body, self, ground, groundpatch, points, scalars):
+    _, _, out, aux = body(self, ground, groundpatch, points, scalars)
+    return (ground.clone(), groundpatch.clone(),
+            out._replace(labels=torch.zeros_like(out.labels)), aux)
+
+
+@pytest.mark.parametrize("fault, number", [(_unchanged, "layer_mismatch"),
+                                           (_left_out, "point_mismatch")])
+def test_one_cards_block_faulted_is_not_correct(tmp_path, monkeypatch, fault, number):
+    monkeypatch.setattr(pipeline.Step, "body", _on_second_card(fault))
+    result = run(tiny.write(tmp_path), "tinyfleet2.tiny")
+    assert result["correct"] is False
+    assert result["checks"][number]["value"] > result["checks"][number]["limit"]
+
+
+def test_exchange_between_cards_left_out_is_not_correct(tmp_path, monkeypatch):
+    call = sharding.FleetStep.__call__
+
+    def first_card_only(self, states, scans):
+        # the summary as the first card's block alone counts it
+        states, outs, _ = call(self, states, scans)
+        out = outs[0]
+        return states, outs, sharding.FleetSummary(
+            (out.labels == classifylib.LABEL_GROUND).sum(),
+            (out.labels == classifylib.LABEL_NONGROUND).sum(), out.outlier.sum(dtype=torch.int64))
+
+    root = tiny.write(tmp_path)
+    sound = run(root, "tinyfleet2.tiny")
+    assert sound["checks"]["summary_off"] == {"value": 0, "limit": 0}
+    monkeypatch.setattr(sharding.FleetStep, "__call__", first_card_only)
+    result = run(root, "tinyfleet2.tiny")
+    assert result["correct"] is False
+    assert result["checks"]["summary_off"]["value"] > 0
+    # the labels are sound: only the summary gives the fault away
+    points = result["checks"]["point_mismatch"]
+    assert points["value"] <= points["limit"]
 
 
 @pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny"])

@@ -12,7 +12,8 @@ from portbench.tests import tiny
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
 
-@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny"])
+@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny",
+                                      "tinyfleet2.tiny"])
 def test_throwaway_cell_runs_and_reports_its_metrics(tmp_path, workload):
     root = tiny.write(tmp_path)
     result = run_cell(root, workload, 2**31 + 7, 3.0, False, "cpu", log=lambda line: None)
@@ -20,6 +21,7 @@ def test_throwaway_cell_runs_and_reports_its_metrics(tmp_path, workload):
     assert result["correct"] is True
     assert result["attempted"] > 0 and result["failed"] == 0
     cell = Cell(root, workload)
+    assert result["device"]["count"] == cell.cards == cell.workload["chips"]
     want = {m["name"] for m in cell.end_to_end()}
     assert set(result["metrics"]) == want
     assert "setup_s" in want and len(want) >= 2
@@ -75,3 +77,33 @@ def test_same_seed_same_traffic(tmp_path):
     # except where it turns at the pool's end
     idx = sa.drive_poses(0)[0]
     assert (idx[1:] != idx[:-1]).mean() > 0.5
+
+
+def test_scene_seed_fixes_the_scene():
+    """A traffic file's ``scene.seed`` fixes the scene: two run seeds drive
+    the same path past the same boxes, and differ only by range noise."""
+    from portbench import scenes
+
+    fixed = dict(tiny.TRAFFIC["scene"], seed=2**31 + 7)
+    a = scenes.render_pool(tiny.SENSOR, fixed, 3, 1.0, 4096, 2**31 + 5, "cpu")
+    b = scenes.render_pool(tiny.SENSOR, fixed, 3, 1.0, 4096, 2**31 + 6, "cpu")
+    assert (a.poses == b.poses).all()
+    assert a.counts == b.counts
+    n = a.counts[0]
+    gap = (a.points[0, :n] - b.points[0, :n]).norm(dim=-1)
+    assert 0 < float(gap.max()) < 10 * tiny.SENSOR["range_noise_m"]
+    assert bool((a.rings == b.rings).all())
+    free = scenes.render_pool(tiny.SENSOR, tiny.TRAFFIC["scene"], 3, 1.0, 4096, 2**31 + 6, "cpu")
+    assert not (free.poses == b.poses).all()
+
+
+def test_a_cell_whose_chips_differ_from_its_cards_is_refused(tmp_path):
+    root = tiny.write(tmp_path)
+    assert Cell(root, "tinyfleet2.tiny").cards == 2
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    for w in bench["workloads"]:
+        if w["name"] == "tinyfleet2.tiny":
+            w["chips"] = 1
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    with pytest.raises(ValueError, match="2 cards"):
+        Cell(root, "tinyfleet2.tiny")

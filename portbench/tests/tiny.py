@@ -37,8 +37,9 @@ LIMITS = {"point_mismatch": 0.0002, "layer_mismatch": 0.01,
 
 def write(root: Path, extra_metric: str | None = None) -> Path:
     """A tiny copy of the benchmark's layout under ``root``: the config
-    ``tiny``, the traffic mixes ``tinyfleet`` (4 vehicles), ``tinylive`` and
-    ``tinyreplay``, one cell each, and the repository's metric readers (plus
+    ``tiny``, the traffic mixes ``tinyfleet`` (4 vehicles), ``tinyfleet2`` (4
+    vehicles on two CPU "cards", 2 a card), ``tinylive`` and ``tinyreplay``,
+    one cell each, and the repository's metric readers (plus
     ``extra_metric``'s reader source as ``tiny_metric``, if given)."""
     root = Path(root)
     base = root / "portbench"
@@ -47,21 +48,24 @@ def write(root: Path, extra_metric: str | None = None) -> Path:
     (base / "configs" / "tiny.json").write_text(json.dumps(
         {"groundgrid": GROUNDGRID, "sensor": SENSOR, "reduced": []}))
     mixes = {"tinyfleet": dict(TRAFFIC, loop="fleet", vehicles=4, phase_step=2),
+             "tinyfleet2": dict(TRAFFIC, loop="fleet", vehicles=4, phase_step=2, cards=2),
              "tinylive": dict(TRAFFIC, loop="live"),
              "tinyreplay": dict(TRAFFIC, loop="replay", pipeline_depth=2)}
     for name, t in mixes.items():
         (base / "traffic" / f"{name}.json").write_text(json.dumps(t))
-        (base / "checks" / f"{name}.tiny.json").write_text(json.dumps({"limits": LIMITS}))
+        # the fleet over cards also holds its summary to the kept outputs
+        limits = dict(LIMITS, summary_off=0) if t.get("cards", 1) > 1 else LIMITS
+        (base / "checks" / f"{name}.tiny.json").write_text(json.dumps({"limits": limits}))
     for f in (REPO / "portbench" / "metrics").glob("*.py"):
         shutil.copy(f, base / "metrics" / f.name)
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     bench = copy.deepcopy(bench)
     bench["configs"] = [{"name": "tiny", "source": "test", "file": "portbench/configs/tiny.json",
                          "reduced": [], "why": "test"}]
-    bench["workloads"] = [{"name": f"{m}.tiny", "config": "tiny", "traffic": m, "chips": 1,
-                           "why": "test"} for m in mixes]
+    bench["workloads"] = [{"name": f"{m}.tiny", "config": "tiny", "traffic": m,
+                           "chips": t.get("cards", 1), "why": "test"} for m, t in mixes.items()]
     rename = {"live.hdl64-1200": "tinylive.tiny", "fleet64.hdl64-364": "tinyfleet.tiny",
-              "replay.hdl64-1200": "tinyreplay.tiny"}
+              "replay.hdl64-1200": "tinyreplay.tiny", "fleet256x4.hdl64-364": "tinyfleet2.tiny"}
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
             m["workloads"] = [rename[w] for w in m["workloads"]]

@@ -15,7 +15,10 @@ of it. Its device activities (kernels, copies,
 sets: CUPTI's records) are summed as in the port's
 ``runtime/kernel_timing.device_us`` and checked against the port's own
 launch counters: a profile that kept fewer of the port's kernels than were
-launched lost records, and another stretch is profiled.
+launched lost records, and another stretch is profiled. On a cell over
+several cards the stretch waits for every card at both ends; busy time is
+each card's own (the union of its activities), and the idle gaps are those
+of every card's activities at once.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ class Tracer:
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         while self.profile is None:
             self.attempts += 1
-            torch.cuda.synchronize()
+            sync(loop.devices)
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.__enter__()
             with torch.profiler.record_function(OPEN):
@@ -71,7 +74,7 @@ class Tracer:
             stretch = loop.run(self.profile_seconds, keep=False)
             with torch.profiler.record_function(CLOSE):
                 pass
-            torch.cuda.synchronize()
+            sync(loop.devices)
             launched = [a - b for a, b in zip(ops.counter_values(), before)]
             prof, self.prof = self.prof, None
             prof.__exit__(None, None, None)
@@ -83,6 +86,12 @@ class Tracer:
             if summary["port_kernels_seen"] >= summary["port_launches"] \
                     or self.attempts >= ATTEMPTS:
                 self.profile = summary
+
+
+def sync(devices) -> None:
+    """Wait for the work queued on every card of ``devices``."""
+    for d in devices:
+        torch.cuda.synchronize(d)
 
 
 def kernel_base(name: str) -> str:
@@ -97,22 +106,12 @@ def kernel_base(name: str) -> str:
     return name.rsplit("::", 1)[-1].strip()
 
 
-def summarize(prof, kernel_names) -> dict:
-    """Device activities, busy time and idle gaps of a finished profile, in
-    microseconds on the profiler's clock."""
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    acts = sorted(((e.time_range.start, e.time_range.end, e.name) for e in events
-                   if e.device_type == cuda and not e.is_user_annotation),
-                  key=lambda a: a[0])
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                    if e.device_type == cpu and e.is_user_annotation)
-    marks = {name: s for s, _, name in ranges if name in (OPEN, CLOSE)}
-    w0, w1 = marks[OPEN], marks[CLOSE]
-    ranges = [r for r in ranges if r[2] not in marks]
-    inside = [a for a in acts if a[1] > w0 and a[0] < w1]
+def _union(acts, w0: float, w1: float) -> tuple[float, list]:
+    """Busy time and idle gaps of the time-sorted activities ``acts``
+    (start, end, ...) inside the window [w0, w1]: the length of their union
+    and the stretches it leaves out."""
     busy, gaps, cur_s, cur_e = 0.0, [], None, None
-    for s, e, _ in inside:
+    for s, e, *_ in acts:
         s, e = max(s, w0), min(e, w1)
         if cur_e is None:
             if s > w0:
@@ -128,8 +127,30 @@ def summarize(prof, kernel_names) -> dict:
         busy += cur_e - cur_s
         if cur_e < w1:
             gaps.append((cur_e, w1))
+    return busy, gaps
+
+
+def summarize(prof, kernel_names) -> dict:
+    """Device activities, busy time and idle gaps of a finished profile, in
+    microseconds on the profiler's clock: each card's busy time, the union
+    of its own activities (``card_busy_us``, keyed by the device index),
+    and the idle gaps of every card's activities at once."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    acts = sorted(((e.time_range.start, e.time_range.end, e.name, e.device_index) for e in events
+                   if e.device_type == cuda and not e.is_user_annotation),
+                  key=lambda a: a[0])
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.device_type == cpu and e.is_user_annotation)
+    marks = {name: s for s, _, name in ranges if name in (OPEN, CLOSE)}
+    w0, w1 = marks[OPEN], marks[CLOSE]
+    ranges = [r for r in ranges if r[2] not in marks]
+    inside = [a for a in acts if a[1] > w0 and a[0] < w1]
+    _, gaps = _union(inside, w0, w1)
+    card_busy = {card: _union([a for a in inside if a[3] == card], w0, w1)[0]
+                 for card in sorted({a[3] for a in inside})}
     by_name: dict[str, list] = {}
-    for s, e, name in inside:
+    for s, e, name, _ in inside:
         entry = by_name.setdefault(name, [0.0, 0])
         entry[0] += e - s
         entry[1] += 1
@@ -144,10 +165,10 @@ def summarize(prof, kernel_names) -> dict:
     gaps.sort(key=lambda g: g[1] - g[0], reverse=True)
     return {
         "window_us": w1 - w0,
-        "busy_us": busy,
+        "card_busy_us": card_busy,
         "activities": len(inside),
         "by_name": by_name,
-        "port_kernels_seen": sum(kernel_base(name) in kernel_names for _, _, name in acts),
+        "port_kernels_seen": sum(kernel_base(name) in kernel_names for _, _, name, _ in acts),
         "idle_gaps": [[host_doing((s + e) / 2), (e - s) / 1e6] for s, e in gaps[:10]],
         "device_ops": [[name, us / 1e6] for name, (us, _) in
                        sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]],
