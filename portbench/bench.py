@@ -13,8 +13,10 @@ files and an entry.
 
 A run: import the port and start the cell's cards (the traffic's
 ``cards``, one unless it says more); build or load its kernels; render the
-traffic's pool of scans on the first card from ``--seed``; warm up on a
-drive of its own (the first step captures the CUDA graph); then measure for
+traffic's pool of scans on the first card from ``--seed`` (for a
+sorted-scan configuration, also every scan the run steps, prepared on the
+cards: ``prepare.py``); warm up on a drive of its own (the first step
+captures the CUDA graph); then measure for
 ``--seconds``, every unit on the host clock, and keep the outputs of the
 checked positions; then replay the checked drive with the plain reference
 and compare, each card's block of vehicles on its own card, the cards at
@@ -213,7 +215,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     from groundgrid_torch import GroundGridConfig
 
     from portbench import check, loops, roofline, scenes
-    from portbench.trace import Tracer, sync
+    from portbench.trace import Tracer, kernel_base, sync
 
     log = log or (lambda line: print(line, file=sys.stderr, flush=True))
     t0 = time.perf_counter() if t0 is None else t0
@@ -251,13 +253,16 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     capture = sum(s.capture_seconds or 0.0 for s in steps)
     pool_bytes = sum(s.pool_bytes or 0 for s in steps)
     peaks_setup = [torch.cuda.max_memory_allocated(d) if cuda else 0 for d in cx.devices]
+    prep_s = getattr(loop, "prepare_seconds", None)
+    prep_line = "" if prep_s is None else f"prepared scans {prep_s:.3f} s of the "
     log(f"portbench {workload} seed {seed}: card {card_line() if cuda else 'none (cpu)'}; "
         f"peak {roofline.PEAK_SOURCE}")
     log(f"setup: import and CUDA init {t_import:.3f} s, kernels {t_build - t_import:.3f} s "
         f"(build_seconds {build_s:.3f}), render {t_render - t_build:.3f} s "
         f"({len(cx.pool.counts)} scans, {sum(cx.pool.counts) / len(cx.pool.counts):.0f} points "
-        f"each), warm-up {setup_s - t_render:.3f} s (capture_seconds {capture:.4f}, pool_bytes "
-        f"{pool_bytes}), setup_s {setup_s:.3f}, peak device memory by card {peaks_setup}")
+        f"each), {prep_line}warm-up {setup_s - t_render:.3f} s (capture_seconds {capture:.4f}, "
+        f"pool_bytes {pool_bytes}), setup_s {setup_s:.3f}, peak device memory by card "
+        f"{peaks_setup}")
 
     if trace:
         tracer = Tracer(min(PROFILE_SECONDS, seconds), PORT_KERNELS)
@@ -274,6 +279,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     if cuda:
         sync(cx.devices)
     peaks = [torch.cuda.max_memory_allocated(d) if cuda else 0 for d in cx.devices]
+    counted = loop.counted()
     found = forbidden_modules()
     if found:
         raise SystemExit(f"forbidden modules loaded after the window: {found}")
@@ -284,6 +290,12 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     if trace:
         if cuda:
             tracer.profile_stretch(loop)
+            p = tracer.profile
+            k3 = sum(count for name, (_, count) in p["by_name"].items()
+                     if kernel_base(name) == "spiral_kernel")
+            log(f"profiled stretch: {len(p['units'])} units, {p['scans']} scans, {k3} K3 "
+                f"launches, {p['port_launches']} port launches counted, {p['port_kernels_seen']} "
+                f"seen, attempt {tracer.attempts}")
         cx.profile = tracer.profile
         for m in cell.per_layer():
             value = load_reader(cell.metrics_dir / f"{m['name']}.py")(cx)
@@ -303,6 +315,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     t_check = time.perf_counter()
     numbers, compared = check.replay_blocks(cx.params, pool, schedule, drive,
                                             loop.check_blocks(kept))
+    numbers.update(counted)
     correct = check.verdict(numbers, cell.limits)
     lat = sorted(window.latencies)
     chunks = _chunk_rates(window)

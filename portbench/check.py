@@ -23,6 +23,18 @@ and, in a cell whose file gives it a limit, a fourth:
   comparison, its limit 0. The kept labels are each held to the
   reference; the summary is held to their sum, over every card's block.
 
+and, in a sorted-scan cell, a fifth, which the loop counts itself:
+
+* ``fallbacks_off``: how far the scans the step found unsorted by its own
+  cell ids (``FleetStep.fallbacks``, the sortedness check's count, read
+  once after the window) lie from the planted scans it stepped, one a
+  drive, each unsorted by one pair (``prepare.plant``); an exact
+  comparison, its limit 0. A prepared scan is sorted by the ids the card
+  will compute, so a count above the planted means the card binned a point
+  into another cell than the preparation did (the step's fallback sort
+  would keep that out of the labels), and one below that the step skipped
+  its check or its count.
+
 The reference (``portbench/reference``) imports nothing of the program and
 takes nothing it made: it gets the same raw sensor-frame points, ring
 channels and f64 poses the program got, and replays the drive from its
@@ -45,7 +57,7 @@ from portbench.reference.groundgrid import LABEL_GROUND, LABEL_NONGROUND, Ground
 LAYER_TOL_M = 1e-3
 LAYER_TOL_CONF = 1e-3
 
-NUMBERS = ("point_mismatch", "layer_mismatch", "center_off", "summary_off")
+NUMBERS = ("point_mismatch", "layer_mismatch", "center_off", "summary_off", "fallbacks_off")
 
 
 class Tally:

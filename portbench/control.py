@@ -9,7 +9,8 @@ does, replays the first drive with the low-precision reference as the
 system under test, keeping its outputs at the checked positions, and
 compares them with the reference as a run compares the program's: one
 card's block of the fleet at a time (where the cell compares the fleet
-summary, the control's is its own counts over every block). It
+summary, the control's is its own counts over every block; a sorted-scan
+cell's control takes the raw scans and counts no fallback). It
 prints each number beside the cell's limit, one line a seed. Benchmark
 runs never run it.
 """
@@ -67,7 +68,11 @@ def control_numbers(root, workload: str, seed: int, device, low=LOW) -> dict:
     if "summary_off" in cell.limits:
         # the summary the control hands over: its own counts over every block
         tally.summaries = {pos: c.copy() for pos, c in tally.counted.items()}
-    return tally.numbers()
+    numbers = tally.numbers()
+    if "fallbacks_off" in cell.limits:
+        # the control takes the raw scans: none reaches it out of order, none planted
+        numbers["fallbacks_off"] = 0
+    return numbers
 
 
 def main(argv=None) -> int:

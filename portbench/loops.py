@@ -24,12 +24,29 @@ from portbench.traffic import WARMUP_DRIVE, Schedule
 class Kept:
     """What the timed path produced at one checked position of a drive."""
 
-    def __init__(self, labels, outlier, ground, groundpatch, center, summary=None):
+    def __init__(self, labels, outlier, ground, groundpatch, center, summary=None, order=None):
         self.labels, self.outlier = labels, outlier  # (V, P) tensors or arrays
         self.ground, self.groundpatch = ground, groundpatch  # (V, N, N)
         self.center = center  # (V, 2) f64 host
         # the fleet summary's (ground, non-ground, outlier) counts, where kept
         self.summary = summary
+        # a prepared scan's (V, P) order (labels and flags in the sorted
+        # order, ``sorted = raw[order]``), None where they are in the raw one
+        self.order = order
+
+
+def in_raw_order(kept: Kept) -> Kept:
+    """``kept`` with its labels and outlier flags in the raw scans' order:
+    scattered back through the prepared scans' order where it has one."""
+    if kept.order is None:
+        return kept
+    order = kept.order.long()
+
+    def back(t):
+        return torch.empty_like(t).scatter_(1, order, t)
+
+    return Kept(back(kept.labels), back(kept.outlier), kept.ground, kept.groundpatch,
+                kept.center, kept.summary)
 
 
 class Loop:
@@ -53,6 +70,11 @@ class Loop:
     def _forget_old(self, drive: int) -> None:
         for old in [d for d in self.kept if d < drive - 1]:
             del self.kept[old]
+
+    def counted(self) -> dict:
+        """The check's numbers the loop counts itself, read once after the
+        window (``check.NUMBERS``); none here."""
+        return {}
 
     def checked_drive(self, stretch: "Stretch") -> int:
         """The drive the check replays: the stretch's last complete one,
@@ -140,7 +162,16 @@ class Fleet(Loop):
     card before the window, as a simulator rendering on the cards hands
     them over; each tick gathers each block's scans on its own card. Where
     the cell's check compares the summary (``summary_off``), the tick's
-    summary is kept at the checked positions too."""
+    summary is kept at the checked positions too.
+
+    A sorted-scan configuration steps prepared scans instead
+    (``prepare.PreparedDrives``: map frame, cell-sorted, made on each card
+    before the window from the staged pool); each tick takes its block's
+    rows of the drive's prepared set and the centers they were sorted
+    against. Its outputs come back in the sorted order: the check maps them
+    back (:func:`in_raw_order`), after the window, and compares the step's
+    count of scans that reached it unsorted with the planted scans it
+    stepped (``fallbacks_off``)."""
 
     unit_name = "tick"
 
@@ -166,6 +197,16 @@ class Fleet(Loop):
         # each card's copy of the pool and its block's pool indices a tick
         self.rows = [rows.to(d) for _, d in self.blocks]
         self.tick_rows = [tick_rows[:, b].contiguous().to(d) for b, d in self.blocks]
+        self.prepared = None
+        self.planted = 0  # planted scans stepped (``prepare.plant``)
+        if self.cfg.sorted_scans:
+            from portbench.prepare import SETS, PreparedDrives
+
+            self.schedule.sets = SETS
+            t0 = time.perf_counter()
+            self.prepared = PreparedDrives(self.cfg, self.schedule, self.rows, self.blocks,
+                                           self.positions)
+            self.prepare_seconds = time.perf_counter() - t0
         self.unit_scans = v
         n, points = self.cfg.cell_count, p.points.shape[1]
 
@@ -197,7 +238,8 @@ class Fleet(Loop):
         self.states = [shard_fleet_pytree(stack_fleet_pytree(
             [init_state(self.cfg, poses[0, v], d) for v in range(self.schedule.vehicles)[b]]),
             [d])[0] for b, d in self.blocks]
-        self.tracker = CenterTracker(self.cfg, poses[0, :, :2, 3])
+        if self.prepared is None:
+            self.tracker = CenterTracker(self.cfg, poses[0, :, :2, 3])
 
     def _unit(self, t: int, drive: int, pos: int) -> None:
         from groundgrid_torch import Scan
@@ -205,10 +247,15 @@ class Fleet(Loop):
         with self.span("fleet.prep"):
             if pos == 0:
                 self._start(drive)
-            blks = [rows[:, tick_rows[t % len(tick_rows)]]
-                    for rows, tick_rows in zip(self.rows, self.tick_rows)]
-            self.tracker.update(self.drive_poses[pos, :, :2, 3])
-            chi, clo = self.tracker.center_ds()
+            if self.prepared is None:
+                blks = [rows[:, tick_rows[t % len(tick_rows)]]
+                        for rows, tick_rows in zip(self.rows, self.tick_rows)]
+                self.tracker.update(self.drive_poses[pos, :, :2, 3])
+                chi, clo = self.tracker.center_ds()
+            else:
+                blks = [self.prepared.block_rows(k, drive, pos) for k in range(len(self.blocks))]
+                chi, clo = self.prepared.center(drive, pos)
+                self.planted += int(pos == self.prepared.planted_pos)
             mv, mb, bm = (a[pos] for a in self.drive_sets)
             scans = [Scan(px=blk[0], py=blk[1], pz=blk[2], rings=blk[3].view(torch.int32),
                           valid=blk[4].view(torch.int32), t_map_velo=mv[b], t_map_base=mb[b],
@@ -223,22 +270,34 @@ class Fleet(Loop):
 
     def _keep(self, drive: int, pos: int, outs, summary) -> None:
         kept = []
-        for slot, block, out in zip(self.slots[drive % 2, pos], self.states, outs):
+        for k, (slot, block, out) in enumerate(zip(self.slots[drive % 2, pos], self.states,
+                                                   outs)):
             slot.labels.copy_(out.labels)
             slot.outlier.copy_(out.outlier)
             slot.ground.copy_(block.ground)
             slot.groundpatch.copy_(block.groundpatch)
             center = block.center.numpy().astype(np.float64) + block.center_lo.numpy()
-            kept.append(Kept(slot.labels, slot.outlier, slot.ground, slot.groundpatch, center))
+            order = None if self.prepared is None else self.prepared.order(k, drive, pos)
+            kept.append(Kept(slot.labels, slot.outlier, slot.ground, slot.groundpatch, center,
+                             order=order))
         if self.summary_slots is not None:
             kept[0].summary = torch.stack(tuple(summary), out=self.summary_slots[drive % 2, pos])
         self.kept.setdefault(drive, {})[pos] = kept
 
     def check_blocks(self, kept: dict) -> list:
         """One block a card: its vehicles, its card and what it kept at each
-        position (the first block also the summary)."""
-        return [(b, d, {pos: blocks[k] for pos, blocks in kept.items()})
+        position (the first block also the summary), in the raw scans'
+        order."""
+        return [(b, d, {pos: in_raw_order(blocks[k]) for pos, blocks in kept.items()})
                 for k, (b, d) in enumerate(self.blocks)]
+
+    def counted(self) -> dict:
+        """A sorted fleet's ``fallbacks_off``: how far the scans whose cell
+        ids the step found unsorted, over every card
+        (``FleetStep.fallbacks``), lie from the planted scans it stepped."""
+        if self.prepared is None:
+            return {}
+        return {"fallbacks_off": abs(self.step.fallbacks - self.planted)}
 
     def warmup(self) -> None:
         d = self.schedule.drive_scans
@@ -254,6 +313,8 @@ class Fleet(Loop):
         """Drop the system under test (its graphs, pools and state); the
         kept outputs stay."""
         del self.step, self.states, self.rows
+        if self.prepared is not None:
+            self.prepared.rows = None
 
 
 class _Single(Loop):

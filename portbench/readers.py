@@ -65,19 +65,19 @@ def _kernel_us(p, kernel: str):
 
 
 def k3_roofline(cx):
-    """K3's share of its roofline, in percent: the least time of the work
-    (``roofline.k3_bytes`` a grid, each of a launch's grids: a fleet tick's
-    launch on a card walks the grids of that card's block, ``unit_scans /
-    cards``), over the ring-band kernel's device time, summed over its
-    launches in the profiled stretch."""
+    """K3's share of its roofline, in percent: the least time of the work,
+    ``roofline.k3_bytes`` a grid for each scan stepped in the profiled
+    stretch (its units times the scans a unit), over the ring-band
+    kernel's device time, summed over its launches there (on every card).
+    Counted from the work, not the launches, so a fleet tick read as one
+    launch a card's block or as one a vehicle reads the same bytes."""
     p = _profile(cx)
     if p is None:
         return None
     us, launches = _kernel_us(p, "spiral_kernel")
     if not launches or us <= 0:
         return None
-    grids = cx.loop.unit_scans // len(cx.devices)
-    n_bytes = roofline.k3_bytes(cx.cfg.cell_count) * grids * launches
+    n_bytes = roofline.k3_bytes(cx.cfg.cell_count) * p["scans"]
     return 100.0 * roofline.bound_s(n_bytes) / (us / 1e6)
 
 

@@ -1,6 +1,6 @@
 """A cell over several cards: the profile's busy time is each card's own,
-its idle gaps those of every card at once, and K3's roofline counts each
-launch's grids as one card's block. On one card all read as they did
+its idle gaps those of every card at once, and K3's roofline counts the
+grids of the scans stepped, whatever the launches that walked them. On one card all read as they did
 before there was a card axis (the loops below are the code they replaced,
 kept as the oracle)."""
 
@@ -117,6 +117,17 @@ def test_k3_roofline_counts_a_cards_block_a_launch():
     # on one card, the count before there was a card axis
     old = 100.0 * roofline.bound_s(roofline.k3_bytes(364) * 64 * 10) / (6400.0 / 1e6)
     assert share == old
+
+
+def test_k3_roofline_counts_the_scans_not_the_launches():
+    # 10 ticks of 64 vehicles stepped vehicle by vehicle: 640 launches of one
+    # grid each, in the time of the batched tick's 10 launches of 64 grids
+    batched = _cx(_stub(10, 6400.0, 640), 64, 1)
+    per_vehicle = _cx(_stub(640, 6400.0, 640), 64, 1)
+    assert readers.k3_roofline(per_vehicle) == readers.k3_roofline(batched)
+    # the same grids in twice the time read half the share
+    slower = _cx(_stub(640, 12800.0, 640), 64, 1)
+    assert readers.k3_roofline(slower) == pytest.approx(readers.k3_roofline(batched) / 2)
 
 
 @pytest.mark.parametrize("cards", [1, 2])

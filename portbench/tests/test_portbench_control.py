@@ -1,7 +1,8 @@
 """The check can fail. Its control, the reference computed in bfloat16 in
 the program's place, comes out not correct; so does a run whose timed path
 is broken underneath: a step that returns its state unchanged, half of the
-fleet's batch left out, an answer altered where it is produced. A sound run
+fleet's batch left out, an answer altered where it is produced, on the
+sorted-scan fleet too. A sound run
 of the same tiny cells comes out correct. On the fleet over two (CPU)
 cards, so does one card's block left unchanged or left out (the check
 compares every card's vehicles), and the exchange between the cards left
@@ -20,11 +21,15 @@ from portbench.control import control_numbers
 from portbench.tests import tiny
 
 
+SORTED = "tinyfleet-sorted.tiny-sorted"
+
+
 def run(root, workload, seed=5):
     return run_cell(root, workload, seed, 3.0, False, "cpu", log=lambda line: None)
 
 
-@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyfleet2.tiny"])
+@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyfleet2.tiny",
+                                      SORTED])
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_control_is_not_correct(tmp_path, workload, seed):
     root = tiny.write(tmp_path)
@@ -33,13 +38,13 @@ def test_control_is_not_correct(tmp_path, workload, seed):
 
 
 @pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny",
-                                      "tinyfleet2.tiny"])
+                                      "tinyfleet2.tiny", SORTED])
 def test_sound_run_is_correct(tmp_path, workload):
     assert run(tiny.write(tmp_path), workload)["correct"] is True
 
 
 @pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny",
-                                      "tinyfleet2.tiny"])
+                                      "tinyfleet2.tiny", SORTED])
 def test_state_left_unchanged_is_not_correct(tmp_path, monkeypatch, workload):
     body = pipeline.Step.body
 
@@ -67,6 +72,25 @@ def test_half_the_fleet_left_out_is_not_correct(tmp_path, monkeypatch):
 
     monkeypatch.setattr(pipeline.Step, "body", half)
     result = run(tiny.write(tmp_path), "tinyfleet.tiny")
+    assert result["correct"] is False
+    assert result["checks"]["point_mismatch"]["value"] > 0.25
+
+
+def test_half_the_sorted_fleet_left_out_is_not_correct(tmp_path, monkeypatch):
+    vehicles = sharding.FleetStep._vehicles
+
+    def half(step, block, scan, scalars, center, center_lo):
+        # the block's second half of vehicles never stepped: state as it was, labels 0
+        keep = block.ground.shape[0] // 2
+        g, c = block.ground[keep:].clone(), block.groundpatch[keep:].clone()
+        out = vehicles(step, block, scan, scalars, center, center_lo)
+        block.ground[keep:], block.groundpatch[keep:] = g, c
+        labels = out.labels.clone()
+        labels[keep:] = 0
+        return out._replace(labels=labels)
+
+    monkeypatch.setattr(sharding.FleetStep, "_vehicles", staticmethod(half))
+    result = run(tiny.write(tmp_path), SORTED)
     assert result["correct"] is False
     assert result["checks"]["point_mismatch"]["value"] > 0.25
 
@@ -131,7 +155,8 @@ def test_exchange_between_cards_left_out_is_not_correct(tmp_path, monkeypatch):
     assert points["value"] <= points["limit"]
 
 
-@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny"])
+@pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny",
+                                      SORTED])
 def test_altered_answer_is_not_correct(tmp_path, monkeypatch, workload):
     classify = classifylib.classify
 

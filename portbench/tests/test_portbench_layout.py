@@ -13,7 +13,7 @@ KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
 
 @pytest.mark.parametrize("workload", ["tinylive.tiny", "tinyfleet.tiny", "tinyreplay.tiny",
-                                      "tinyfleet2.tiny"])
+                                      "tinyfleet2.tiny", "tinyfleet-sorted.tiny-sorted"])
 def test_throwaway_cell_runs_and_reports_its_metrics(tmp_path, workload):
     root = tiny.write(tmp_path)
     result = run_cell(root, workload, 2**31 + 7, 3.0, False, "cpu", log=lambda line: None)

@@ -16,8 +16,10 @@ from portbench.tests import tiny
 HOST = {"tinyfleet.tiny": ["fleet_scalars_host_ms.fleet"],
         "tinyfleet2.tiny": ["fleet_scalars_host_ms.fleet", "summary_wait_ms.cards"],
         "tinylive.tiny": ["prep_host_ms.live", "fetch_wait_ms.vehicle"],
-        "tinyreplay.tiny": ["fetch_wait_ms.vehicle"]}
-DEVICE = ["spiral_device_ms.vehicle", "spiral_device_ms.fleet", "raster_device_ms.fleet"]
+        "tinyreplay.tiny": ["fetch_wait_ms.vehicle"],
+        "tinyfleet-sorted.tiny-sorted": ["fleet_scalars_host_ms.fleet"]}
+DEVICE = ["spiral_device_ms.vehicle", "spiral_device_ms.fleet", "raster_device_ms.fleet",
+          "sort_device_ms.fleet"]
 
 
 @pytest.mark.parametrize("workload", sorted(HOST))

@@ -25,6 +25,7 @@ GROUNDGRID = {
     "use_pallas": None, "sorted_scans": False, "sorted_fallback_check": True,
     "wire_format": False, "fused_detect": False, "stale_pose_reuse": False,
 }
+SORTED = dict(GROUNDGRID, sorted_scans=True)
 SENSOR = {"model": "tiny", "beams": 16, "azimuths": 256, "elevation_max_deg": 2.0,
           "elevation_min_deg": -24.8, "max_range_m": 20.0, "range_noise_m": 0.01,
           "rate_hz": 10}
@@ -39,33 +40,44 @@ def write(root: Path, extra_metric: str | None = None) -> Path:
     """A tiny copy of the benchmark's layout under ``root``: the config
     ``tiny``, the traffic mixes ``tinyfleet`` (4 vehicles), ``tinyfleet2`` (4
     vehicles on two CPU "cards", 2 a card), ``tinylive`` and ``tinyreplay``,
-    one cell each, and the repository's metric readers (plus
-    ``extra_metric``'s reader source as ``tiny_metric``, if given)."""
+    one cell each; the sorted-scan config ``tiny-sorted`` under
+    ``tinyfleet-sorted`` (``tinyfleet``'s mix, its drives prepared); and the
+    repository's metric readers (plus ``extra_metric``'s reader source as
+    ``tiny_metric``, if given)."""
     root = Path(root)
     base = root / "portbench"
     for d in ("configs", "traffic", "checks", "metrics"):
         (base / d).mkdir(parents=True, exist_ok=True)
-    (base / "configs" / "tiny.json").write_text(json.dumps(
-        {"groundgrid": GROUNDGRID, "sensor": SENSOR, "reduced": []}))
-    mixes = {"tinyfleet": dict(TRAFFIC, loop="fleet", vehicles=4, phase_step=2),
-             "tinyfleet2": dict(TRAFFIC, loop="fleet", vehicles=4, phase_step=2, cards=2),
-             "tinylive": dict(TRAFFIC, loop="live"),
-             "tinyreplay": dict(TRAFFIC, loop="replay", pipeline_depth=2)}
-    for name, t in mixes.items():
+    for name, params in (("tiny", GROUNDGRID), ("tiny-sorted", SORTED)):
+        (base / "configs" / f"{name}.json").write_text(json.dumps(
+            {"groundgrid": params, "sensor": SENSOR, "reduced": []}))
+    fleet = dict(TRAFFIC, loop="fleet", vehicles=4, phase_step=2)
+    mixes = {"tinyfleet": ("tiny", fleet),
+             "tinyfleet2": ("tiny", dict(fleet, cards=2)),
+             "tinylive": ("tiny", dict(TRAFFIC, loop="live")),
+             "tinyreplay": ("tiny", dict(TRAFFIC, loop="replay", pipeline_depth=2)),
+             "tinyfleet-sorted": ("tiny-sorted", fleet)}
+    for name, (conf, t) in mixes.items():
         (base / "traffic" / f"{name}.json").write_text(json.dumps(t))
-        # the fleet over cards also holds its summary to the kept outputs
-        limits = dict(LIMITS, summary_off=0) if t.get("cards", 1) > 1 else LIMITS
-        (base / "checks" / f"{name}.tiny.json").write_text(json.dumps({"limits": limits}))
+        limits = dict(LIMITS)
+        if t.get("cards", 1) > 1:
+            # the fleet over cards also holds its summary to the kept outputs
+            limits["summary_off"] = 0
+        if conf == "tiny-sorted":
+            limits["fallbacks_off"] = 0
+        (base / "checks" / f"{name}.{conf}.json").write_text(json.dumps({"limits": limits}))
     for f in (REPO / "portbench" / "metrics").glob("*.py"):
         shutil.copy(f, base / "metrics" / f.name)
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     bench = copy.deepcopy(bench)
-    bench["configs"] = [{"name": "tiny", "source": "test", "file": "portbench/configs/tiny.json",
-                         "reduced": [], "why": "test"}]
-    bench["workloads"] = [{"name": f"{m}.tiny", "config": "tiny", "traffic": m,
-                           "chips": t.get("cards", 1), "why": "test"} for m, t in mixes.items()]
+    bench["configs"] = [{"name": name, "source": "test", "file": f"portbench/configs/{name}.json",
+                         "reduced": [], "why": "test"} for name in ("tiny", "tiny-sorted")]
+    bench["workloads"] = [{"name": f"{m}.{conf}", "config": conf, "traffic": m,
+                           "chips": t.get("cards", 1), "why": "test"}
+                          for m, (conf, t) in mixes.items()]
     rename = {"live.hdl64-1200": "tinylive.tiny", "fleet64.hdl64-364": "tinyfleet.tiny",
-              "replay.hdl64-1200": "tinyreplay.tiny", "fleet256x4.hdl64-364": "tinyfleet2.tiny"}
+              "replay.hdl64-1200": "tinyreplay.tiny", "fleet256x4.hdl64-364": "tinyfleet2.tiny",
+              "fleet64-sorted.hdl64-364-sorted": "tinyfleet-sorted.tiny-sorted"}
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
             m["workloads"] = [rename[w] for w in m["workloads"]]

@@ -10,6 +10,11 @@ all vehicles start fresh drives together: each drive is a fresh grid, and
 each (vehicle, drive) has its own map-frame rigid offset drawn from the
 seed (a yaw in [0, 2 pi) and a translation), so every drive bins, moves
 and interpolates differently over the same sensor-frame points.
+
+A schedule of ``sets`` K (the sorted-scan fleet, whose scans are prepared
+before the window: ``prepare.SETS``) has K distinct drives: drive d, the
+warm-up drive (-1) among them, steps drive d mod K's pool indices and
+offsets, so the warm-up steps the last of the K.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ class Schedule:
         self.pool = pool_poses.shape[0]
         self.pool_poses = np.asarray(pool_poses, np.float64)
         self.offset = traffic["offset"]
+        self.sets = 0  # K distinct drives, drive d stepping drive d mod K; 0: every drive its own
         self.seed = _seed_key(seed)
 
     def pool_index(self, vehicle: int, tick: int) -> int:
@@ -58,7 +64,10 @@ class Schedule:
 
     def drive_poses(self, drive: int) -> tuple[np.ndarray, np.ndarray]:
         """Every vehicle's pool indices and f64 sensor poses over drive
-        ``drive``: (D, V) ints and (D, V, 4, 4), one row a tick."""
+        ``drive``: (D, V) ints and (D, V, 4, 4), one row a tick; with
+        ``sets`` K, those of drive ``drive mod K``."""
+        if self.sets:
+            drive = drive % self.sets
         d = self.drive_scans
         ticks = drive * d + np.arange(d) if drive >= 0 else np.arange(d)
         idx = np.array([self.indices(int(t)) for t in ticks])
